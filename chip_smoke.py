@@ -25,8 +25,27 @@ public entry points, and checks it:
   6. the kernel's launch count over the main-path run equals its blocks;
   7. kernel and plain-version times (CUDA events) at 64x262144.
 
-Any failure exits non-zero before the last line; without a CUDA card the
-script fails.  The last line is ``{"ok": true, "device": {...}}``.
+Then the frame64 streaming receiver with in-stream Golay decode,
+``framesync64_stream_full``, at 128 channels x 32768-sample blocks:
+
+  8. frames from the port's framegen64 at random offsets on 120 channels
+     (some straddling block boundaries, one channel with the reference C
+     library's own frame from tests/golden/frame64_golden.npz, one with
+     CFO 0.008 rad/sample, gain 0.2 and 15 dB SNR), 8 noise-only
+     channels, noise everywhere; 3 carried blocks plus a flush block.
+     Every frame decodes exactly once, in order, with crc_ok, the bytes
+     sent and sample_index within 2 of the true start; nothing decodes
+     on a noise-only channel; the codebook_argmax kernel ran;
+  9. codebook_argmax: the kernel against its plain version on that run's
+     slot soft bits (153,600 rows x 24 x 4096): bit-equal indices, and
+     the first index on constant rows;
+ 10. fir_real: firfilt(h, backend="pallas") on the card against its
+     plain version over 3 carried 64x262144 blocks (< 1e-5 of rms), one
+     launch per block;
+ 11. times (CUDA events): the receiver step, and each kernel against its
+     plain version (plain, kernel, kernel, plain).
+
+The JSON line before the card's name lists all three kernels.
 """
 import json
 import os
@@ -42,6 +61,12 @@ DPHI = 0.125
 TOL_F32 = 2e-4     # the reference's own bound (tests/test_pallas_chain.py:49)
 TOL_BF16 = 3e-2    # bf16 quantization of input and output planes (:106)
 N_CHECK = 8192     # outputs per channel in the float64 check
+RX_B, RX_T = 128, 1 << 15   # receiver: channels x samples per block
+RX_NBLK = 3                 # carried receiver blocks (plus one flush block)
+RX_QUIET = 8                # noise-only channels (the last ones)
+RX_FRAMES = 8               # frames per channel with frames
+FIR_L = 144                 # fir_real taps (the headline chain's fused FIR)
+TOL_FIR = 1e-5              # fir_real kernel vs plain, max|err|/rms
 
 
 def fail(msg):
@@ -67,6 +92,87 @@ def complex_err(y, ref):
 def flat_stages(p):
     return ([s for c in p.stages for s in flat_stages(c)]
             if hasattr(p, "stages") else [p])
+
+
+def time_ms(fn, iters=20):
+    """Mean ms per call over `iters` calls, CUDA events, after 3 warm-ups."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def make_rx_stream(rng):
+    """The receiver's input [RX_B, (RX_NBLK+1)*RX_T] complex64 and, per
+    channel, the frames sent: [(start, header, payload), ...] in order."""
+    from liquid_dsp_tpu_torch.framing.frame64 import FRAME64_LEN, framegen64
+    n = (RX_NBLK + 1) * RX_T
+    x = np.zeros((RX_B, n), np.complex64)
+    sent = [[] for _ in range(RX_B)]
+    gold = dict(np.load(os.path.join(ROOT, "tests", "golden",
+                                     "frame64_golden.npz")))
+    usable = RX_NBLK * RX_T - FRAME64_LEN
+    for ch in range(RX_B - RX_QUIET):
+        # frames at least FRAME64_LEN + 60 apart, at random offsets; on
+        # every 4th channel one straddles a block boundary
+        starts = []
+        pos = int(rng.integers(0, 3000))
+        while len(starts) < RX_FRAMES and pos < usable:
+            starts.append(pos)
+            pos += FRAME64_LEN + int(rng.integers(60, 9000))
+        if ch % 4 == 0:
+            b = (ch // 4) % (RX_NBLK - 1) + 1
+            cut = b * RX_T - int(rng.integers(1, FRAME64_LEN))
+            starts = [s0 for s0 in starts
+                      if abs(s0 - cut) >= FRAME64_LEN + 60] + [cut]
+            starts = sorted(s0 for s0 in starts if s0 <= usable)
+        for k, s0 in enumerate(starts):
+            if ch == 1 and k == 0:
+                h, p, f = gold["header"], gold["payload"], gold["frame"]
+            else:
+                h = rng.integers(0, 256, 8).astype(np.uint8)
+                p = rng.integers(0, 256, 64).astype(np.uint8)
+                f = framegen64(h, p)
+            x[ch, s0:s0 + FRAME64_LEN] = f
+            sent[ch].append((s0, np.asarray(h, np.uint8),
+                             np.asarray(p, np.uint8)))
+    noise = 0.01
+    x += (noise * (rng.standard_normal(x.shape)
+                   + 1j * rng.standard_normal(x.shape))).astype(np.complex64)
+    # channel 2: CFO 0.008 rad/sample, phase 1.0, gain 0.2, 15 dB SNR
+    t = np.arange(n)
+    sig = np.zeros(n, np.complex64)
+    for s0, h, p in sent[2]:
+        sig[s0:s0 + FRAME64_LEN] = framegen64(h, p)
+    sigma = 0.2 * 10 ** (-15 / 20) / np.sqrt(2)
+    x[2] = (sig * 0.2 * np.exp(1j * (0.008 * t + 1.0)) + sigma * (
+        rng.standard_normal(n) + 1j * rng.standard_normal(n))
+        ).astype(np.complex64)
+    return x, sent
+
+
+def check_rx(got, sent):
+    """got/sent per channel; returns the number of frames checked."""
+    n = 0
+    for ch, (g, s) in enumerate(zip(got, sent)):
+        check(len(g) == len(s), f"receiver channel {ch}: {len(g)} frames "
+              f"decoded, {len(s)} sent")
+        for k, ((idx, ok, h, p), (s0, hs, ps)) in enumerate(zip(g, s)):
+            check(ok, f"receiver channel {ch} frame {k}: crc failed")
+            check(np.array_equal(h, hs) and np.array_equal(p, ps),
+                  f"receiver channel {ch} frame {k}: bytes differ")
+            check(abs(idx - s0) <= 2, f"receiver channel {ch} frame {k}: "
+                  f"sample_index {idx}, sent at {s0}")
+            n += 1
+    return n
 
 
 def main():
@@ -222,19 +328,6 @@ def main():
           flush=True)
 
     # 7. timing at the main path's shape
-    def time_ms(fn, iters=20):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(iters):
-            fn()
-        e1.record()
-        e1.synchronize()
-        return e0.elapsed_time(e1) / iters
-
     c0, x0 = carries[0], xs[0]
     xb0 = (x0[0].bfloat16(), x0[1].bfloat16())
 
@@ -265,16 +358,156 @@ def main():
           f"{B * T / kb / 1e3:.1f} Msamples/s; main-path step "
           f"{step:.4f} ms; {B}x{T} complex samples per block", flush=True)
 
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "mix_fir_decim", "route": "cuda",
         "source": "liquid_dsp_tpu_torch/csrc/mix_fir_decim.cu",
         "replaces": "liquid_dsp_tpu/ops/kernels/pallas_chain.py:154",
         "launches": launches, "max_abs_err": max_abs,
-        "ms": ms, "plain_ms": plain_ms}]}))
+        "ms": ms, "plain_ms": plain_ms}]
+    del xs, outs, carries, refs, xb0
+    torch.cuda.empty_cache()
+    kernels += receiver_phases(torch, dev, card)
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def receiver_phases(torch, dev, card):
+    """Phases 8-11: the frame64 receiver with in-stream Golay decode, the
+    codebook_argmax and fir_real kernels.  Returns their kernel entries."""
+    from liquid_dsp_tpu_torch.design.firdes import firdes_kaiser
+    from liquid_dsp_tpu_torch.framing.frame64 import framesync64_stream_full
+    from liquid_dsp_tpu_torch.ops.fir import firfilt
+    from liquid_dsp_tpu_torch.ops.kernels.codebook_argmax import (
+        codebook_argmax, codebook_argmax_reference)
+    from liquid_dsp_tpu_torch.ops.kernels.fir_real import (
+        fir_real, fir_real_reference)
+
+    # 8. the receiver at full width
+    t0 = time.perf_counter()
+    x_np, sent = make_rx_stream(np.random.default_rng(7))
+    x = torch.from_numpy(x_np).to(dev)
+    del x_np
+    n_frames = sum(len(s) for s in sent)
+    t_gen = time.perf_counter() - t0
+    proc = framesync64_stream_full(RX_T).to(dev)
+    carry = proc.init(batch_shape=(RX_B,), device=dev)
+    carries, outs = [carry], []
+    codebook_argmax.launches = 0
+    t0 = time.perf_counter()
+    for b in range(RX_NBLK + 1):
+        out, carry = proc(carry, x[:, b * RX_T:(b + 1) * RX_T])
+        outs.append(out)
+        carries.append(carry)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    cb_launches = codebook_argmax.launches
+    got = [[] for _ in range(RX_B)]
+    for out in outs:
+        o = {k: v.cpu().numpy() for k, v in out._asdict().items()}
+        for ch, p in zip(*np.nonzero(o["valid"])):
+            got[ch].append((int(o["sample_index"][ch, p]),
+                            bool(o["crc_ok"][ch, p]),
+                            o["hdr_bytes"][ch, p].astype(np.uint8),
+                            o["pay_bytes"][ch, p].astype(np.uint8)))
+    n_ok = check_rx(got, sent)
+    check(all(not got[ch] for ch in range(RX_B - RX_QUIET, RX_B)),
+          "a frame decoded on a noise-only channel")
+    check(cb_launches == RX_NBLK + 1, f"codebook_argmax launched "
+          f"{cb_launches} times in {RX_NBLK + 1} receiver blocks")
+    print(f"receiver: framesync64_stream_full at {RX_B}x{RX_T}, "
+          f"{RX_NBLK} carried blocks + 1 flush; {n_ok} of {n_frames} frames "
+          f"decoded once, in order, crc_ok, bytes equal, sample_index "
+          f"within 2 (incl. the reference C frame and the CFO 0.008 / gain "
+          f"0.2 / 15 dB channel); {RX_QUIET} noise-only channels: 0 frames; "
+          f"codebook_argmax launches {cb_launches}; stream made in "
+          f"{t_gen:.1f} s, first pass {t_run:.2f} s", flush=True)
+
+    # 9. codebook_argmax on the slot soft bits of block 1
+    sym = proc.core(carries[1], x[:, RX_T:2 * RX_T])[0].symbols
+    cw = proc.decode.soft_bits(sym).reshape(-1, 24).contiguous()
+    bip = proc.decode.bip
+    n0 = codebook_argmax.launches
+    idx_k = codebook_argmax(cw, bip)
+    idx_p = codebook_argmax_reference(cw, bip)
+    torch.cuda.synchronize()
+    check(codebook_argmax.launches == n0 + 1, "codebook_argmax: no launch")
+    check(torch.equal(idx_k, idx_p), f"codebook_argmax: "
+          f"{int((idx_k != idx_p).sum())} of {cw.shape[0]} indices differ")
+    ties = codebook_argmax(torch.zeros(4099, 24, device=dev), bip)
+    check(bool((ties == 0).all()), "codebook_argmax: ties must pick 0")
+    print(f"codebook_argmax: kernel = plain on all {cw.shape[0]} rows "
+          f"(n=24, K={bip.shape[1]}); constant rows pick index 0",
+          flush=True)
+
+    # 10. fir_real through firfilt(backend="pallas"), 3 carried blocks
+    h = firdes_kaiser(FIR_L, 0.2, 60.0)
+    fk, fp = (firfilt(h, backend=b).to(dev) for b in ("pallas", "xla"))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    blocks = [torch.complex(torch.randn(B, T, generator=gen, device=dev),
+                            torch.randn(B, T, generator=gen, device=dev))
+              for _ in range(3)]
+    ck = cp = fk.init(batch_shape=(B,), device=dev)
+    fir_real.launches = 0
+    worst_fir, abs_fir = 0.0, 0.0
+    for xb in blocks:
+        yk, ck = fk(ck, xb)
+        yp, cp = fp(cp, xb)
+        err, rel = complex_err((yk.real, yk.imag), (yp.real, yp.imag))
+        worst_fir, abs_fir = max(worst_fir, rel), max(abs_fir, err)
+    torch.cuda.synchronize()
+    fir_launches = fir_real.launches
+    check(worst_fir < TOL_FIR, f"fir_real vs plain: {worst_fir:.3e}")
+    check(fir_launches == len(blocks), f"fir_real launched {fir_launches} "
+          f"times in {len(blocks)} blocks")
+    print(f"fir_real: firfilt(backend='pallas') {FIR_L} taps, 3 carried "
+          f"blocks of {B}x{T} complex vs plain: max|err| {abs_fir:.3e}, "
+          f"max|err|/rms {worst_fir:.3e} (< {TOL_FIR}); launches "
+          f"{fir_launches}", flush=True)
+
+    # 11. timing: plain, kernel, kernel, plain on one card
+    c1, x1 = carries[1], x[:, RX_T:2 * RX_T]
+    rx1 = time_ms(lambda: proc(c1, x1), iters=10)
+    rx2 = time_ms(lambda: proc(c1, x1), iters=10)
+    rx_ms = (rx1 + rx2) / 2
+    cp1 = time_ms(lambda: codebook_argmax_reference(cw, bip), iters=3)
+    ck1 = time_ms(lambda: codebook_argmax(cw, bip))
+    ck2 = time_ms(lambda: codebook_argmax(cw, bip))
+    cp2 = time_ms(lambda: codebook_argmax_reference(cw, bip), iters=3)
+    rows = torch.cat([blocks[0].real, blocks[0].imag]).contiguous()
+    crow = torch.zeros(2 * B, FIR_L - 1, device=dev)
+    hk = fk.h
+    fp1 = time_ms(lambda: fir_real_reference(rows, crow, hk))
+    fk1 = time_ms(lambda: fir_real(rows, crow, hk))
+    fk2 = time_ms(lambda: fir_real(rows, crow, hk))
+    fp2 = time_ms(lambda: fir_real_reference(rows, crow, hk))
+    cb_ms, cb_plain = (ck1 + ck2) / 2, (cp1 + cp2) / 2
+    fr_ms, fr_plain = (fk1 + fk2) / 2, (fp1 + fp2) / 2
+    print(f"timing ({card}): receiver step {rx_ms:.4f} ms per {RX_B}x{RX_T} "
+          f"block = {RX_B * RX_T / rx_ms / 1e3:.1f} Msamples/s (runs "
+          f"{rx1:.4f}, {rx2:.4f})", flush=True)
+    print(f"timing ({card}): codebook_argmax kernel {cb_ms:.4f} ms (runs "
+          f"{ck1:.4f}, {ck2:.4f}) vs plain {cb_plain:.4f} ms (runs "
+          f"{cp1:.4f}, {cp2:.4f}) at {cw.shape[0]} x 24 x {bip.shape[1]}",
+          flush=True)
+    print(f"timing ({card}): fir_real kernel {fr_ms:.4f} ms (runs "
+          f"{fk1:.4f}, {fk2:.4f}) vs plain {fr_plain:.4f} ms (runs "
+          f"{fp1:.4f}, {fp2:.4f}) at {B}x{T} complex ({2 * B} rows), "
+          f"{FIR_L} taps", flush=True)
+    return [{
+        "name": "codebook_argmax", "route": "cuda",
+        "source": "liquid_dsp_tpu_torch/csrc/codebook_argmax.cu",
+        "replaces": "liquid_dsp_tpu/ops/kernels/pallas_codebook.py:40",
+        "launches": cb_launches,
+        "max_abs_err": float((idx_k - idx_p).abs().max()),
+        "ms": cb_ms, "plain_ms": cb_plain}, {
+        "name": "fir_real", "route": "cuda",
+        "source": "liquid_dsp_tpu_torch/csrc/fir_real.cu",
+        "replaces": "liquid_dsp_tpu/ops/kernels/pallas_fir.py:51",
+        "launches": fir_launches, "max_abs_err": abs_fir,
+        "ms": fr_ms, "plain_ms": fr_plain}]
 
 
 if __name__ == "__main__":

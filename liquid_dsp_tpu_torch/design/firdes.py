@@ -1,6 +1,7 @@
-"""Kaiser lowpass design and the Kaiser length estimate (host-side NumPy,
-float64), ported from `liquid_dsp_tpu.design.firdes`
-(reference src/filter/src/firdes.c:52-160, 244-281)."""
+"""Kaiser lowpass design, the Kaiser length estimates and the root-Kaiser
+family (host-side NumPy, float64), ported from
+`liquid_dsp_tpu.design.firdes` (reference src/filter/src/firdes.c:52-160,
+244-281; rkaiser.c)."""
 from __future__ import annotations
 
 import numpy as np
@@ -9,7 +10,111 @@ from .special import sinc
 from .windows import kaiser as kaiser_window
 from .windows import kaiser_beta_as
 
-__all__ = ["firdes_kaiser", "estimate_req_filter_len"]
+__all__ = ["firdes_kaiser", "estimate_req_filter_len",
+           "estimate_req_filter_as", "firdes_rkaiser", "firdes_arkaiser",
+           "filter_autocorr", "filter_isi"]
+
+
+def _len_kaiser(df: float, as_db: float) -> float:
+    return (as_db - 7.95) / (14.26 * df)
+
+
+def estimate_req_filter_as(df: float, n: int) -> float:
+    """Stop-band attenuation achievable with length n at transition df
+    (bisection inverse of the Kaiser length formula, firdes.c:80-115)."""
+    as0, as1 = 0.01, 200.0
+    as_hat = 0.0
+    for _ in range(20):
+        as_hat = 0.5 * (as0 + as1)
+        if _len_kaiser(df, as_hat) < float(n):
+            as0 = as_hat
+        else:
+            as1 = as_hat
+    return as_hat
+
+
+def filter_autocorr(h: np.ndarray, lag: int) -> float:
+    h = np.asarray(h, dtype=np.float64)
+    lag = abs(int(lag))
+    if lag >= len(h):
+        return 0.0
+    return float(np.dot(h[lag:], h[: len(h) - lag]))
+
+
+def filter_isi(h: np.ndarray, k: int, m: int):
+    """RMS / max inter-symbol interference of a root-Nyquist filter."""
+    rxx0 = filter_autocorr(h, 0)
+    e = np.array([abs(filter_autocorr(h, i * k) / rxx0)
+                  for i in range(1, 2 * m + 1)])
+    return float(np.sqrt(np.mean(e ** 2))), float(np.max(e))
+
+
+def _check_kmb(k, m, beta):
+    if k < 1 or m < 1:
+        raise ValueError("k and m must be >= 1")
+    if not (0.0 <= beta <= 1.0):
+        raise ValueError("beta must be in [0,1]")
+
+
+def _rkaiser_rho_approx(m: int, beta: float) -> float:
+    """Closed-form seed for the bandwidth-correction factor (the
+    reference's fit, rkaiser.c:82-128)."""
+    c0 = 0.762886 + 0.067663 * np.log(m)
+    c1 = 0.065515
+    c2 = np.log(max(1 - 0.088 * m ** -1.6, 1e-12))
+    lb = np.log(beta)
+    rho = c0 + c1 * lb + c2 * lb * lb
+    return float(np.clip(rho, 0.05, 0.95))
+
+
+def _rkaiser_taps(k: int, m: int, beta: float, dt: float,
+                  rho: float) -> np.ndarray:
+    n = 2 * k * m + 1
+    kf = float(k)
+    delta = beta * rho / kf
+    as_db = estimate_req_filter_as(delta, n)
+    fc = 0.5 * (1 + beta * (1.0 - rho)) / kf
+    return firdes_kaiser(n, fc, as_db, dt)
+
+
+def _rkaiser_isi(k: int, m: int, beta: float, dt: float, rho: float) -> float:
+    rms, _ = filter_isi(_rkaiser_taps(k, m, beta, dt, rho), k, m)
+    return rms
+
+
+def firdes_rkaiser(k: int, m: int, beta: float, dt: float = 0.0) -> np.ndarray:
+    """Root-Nyquist Kaiser filter via ternary search of ISI over rho
+    (the reference's rkaiser.c:219 search)."""
+    _check_kmb(k, m, beta)
+    rho_hat = _rkaiser_rho_approx(m, beta)
+    x0, x2 = 0.5 * rho_hat, 1.0
+    x1 = rho_hat
+    y0 = _rkaiser_isi(k, m, beta, dt, x0)
+    y1 = _rkaiser_isi(k, m, beta, dt, x1)
+    y2 = _rkaiser_isi(k, m, beta, dt, x2)
+    for _ in range(20):
+        xa, xb = 0.5 * (x0 + x1), 0.5 * (x1 + x2)
+        ya = _rkaiser_isi(k, m, beta, dt, xa)
+        yb = _rkaiser_isi(k, m, beta, dt, xb)
+        if y1 < ya and y1 < yb:
+            x0, y0, x2, y2 = xa, ya, xb, yb
+        elif ya < yb:
+            x2, y2, x1, y1 = x1, y1, xa, ya
+        else:
+            x0, y0, x1, y1 = x1, y1, xb, yb
+    h = _rkaiser_taps(k, m, beta, dt, x1)
+    return h * np.sqrt(k / np.sum(h * h))
+
+
+def firdes_arkaiser(k: int, m: int, beta: float, dt: float = 0.0) -> np.ndarray:
+    """Approximate root-Kaiser: closed-form rho estimate, no search
+    (rkaiser.c:82-148).  The frame64 pulse shape."""
+    _check_kmb(k, m, beta)
+    if k < 2:
+        raise ValueError("arkaiser requires k >= 2")
+    rho = _rkaiser_rho_approx(m, beta)
+    h = _rkaiser_taps(k, m, beta, dt, rho)
+    return h * np.sqrt(k / np.sum(h * h))
 
 
 def estimate_req_filter_len(df: float, as_db: float) -> int:

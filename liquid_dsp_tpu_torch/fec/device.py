@@ -1,0 +1,370 @@
+"""Device-resident soft block-FEC decode (`liquid_dsp_tpu/fec/device.py`).
+
+A streaming receiver that already holds corrected payload symbols on the
+card decodes them there:
+
+    symbols [..., nsym] complex
+      -> exact max-log LLRs (modem.demodulate_soft)
+      -> the bit-level deinterleave as one static-index gather (the
+         interleaver's swap cascade is a fixed bit permutation for a given
+         length, found once on the host by pushing an index ramp through
+         deinterleave_soft)
+      -> [..., ncw, n] x [n, 2^k] codebook correlation + argmax
+         (`_scores_argmax`: the hand-written `codebook_argmax` kernel for
+         codebooks of K >= 1024 words)
+      -> k-bit message indices [..., ncw] int32
+
+and `device_packet_finish` packs the message bits into bytes and checks
+the CRC on the card too.  The soft max-correlation decode is the
+reference's own soft criterion (fecsoft_* minimum soft distance).
+
+The decoders are ``nn.Module``s: their constants (codebook, permutation,
+constellation, byte-pack and CRC matrices) are buffers that follow
+``.to(device)``, and a call runs where its input lies.  The convolutional
+and two-stage decoders are ROADMAP queue 1 item 4.
+
+Reference analogs: src/fec/src/fec.c soft decode dispatch,
+qpacketmodem_decode_soft src/framing/src/qpacketmodem.c:297-316.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.kernels.codebook_argmax import codebook_argmax
+from .block import _GCOLS, _code_matrices
+from .crc import crc_generate_key, crc_sizeof_key, crc_validate_message
+from .dispatch import CONV_SCHEMES, fec_get_enc_msg_length
+from .interleave import deinterleave_soft
+from .packetizer import packetizer_compute_enc_msg_len
+
+__all__ = ["qpacket_soft_decoder", "packetizer_soft_decoder",
+           "block_codebook", "conv_soft_decoder", "conv_packet_soft_decoder",
+           "qpacket_conv_soft_decoder", "packetizer2_soft_decoder",
+           "device_packet_finish"]
+
+
+def _on(x, like: torch.Tensor) -> torch.Tensor:
+    """x as a tensor on `like`'s device: numpy is copied there, a tensor
+    elsewhere raises (the decoders never move data on their own)."""
+    if not torch.is_tensor(x):
+        return torch.as_tensor(np.asarray(x), device=like.device)
+    if x.device != like.device:
+        raise ValueError(f"input on {x.device}, decoder buffers on "
+                         f"{like.device}: move the decoder with .to()")
+    return x
+
+
+def _scores_argmax(cw: torch.Tensor, bip: torch.Tensor) -> torch.Tensor:
+    """argmax over the codebook-correlation scores, [..., n] -> [...] int32.
+
+    Codebooks of K >= 1024 words (golay2412, hamming1511) go through
+    `codebook_argmax`: its kernel on a CUDA tensor, its plain version on
+    the CPU.  Smaller ones take einsum + argmax, which the JAX package
+    also computes outside any Pallas kernel."""
+    if bip.shape[1] >= 1024:
+        return codebook_argmax(cw.contiguous(), bip)
+    scores = torch.einsum("...cn,nm->...cm", cw, bip)
+    return torch.argmax(scores, dim=-1).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=16)
+def block_codebook(scheme: str):
+    """(bipolar codebook [n, 2^k] float32, n, k) for a block scheme:
+    bip[:, m] = 2*G(m) - 1 where G(m) is message m's codeword."""
+    n, k, _ = _GCOLS[scheme]
+    G, _, _ = _code_matrices(scheme)
+    msgs = ((np.arange(1 << k)[:, None] >>
+             np.arange(k - 1, -1, -1)) & 1).astype(np.uint8)
+    C = (msgs @ G) % 2
+    return np.ascontiguousarray(2.0 * C.T - 1.0, np.float32), n, k
+
+
+@functools.lru_cache(maxsize=16)
+def _deint_perm(enc_len: int) -> np.ndarray:
+    """Bit-level deinterleave permutation for an enc_len-byte packet:
+    out_bit[i] = in_bit[perm[i]]."""
+    ramp = np.arange(8 * enc_len, dtype=np.float32)
+    return np.asarray(deinterleave_soft(ramp), np.float32).astype(np.int32)
+
+
+def _golay_pack(msgs: np.ndarray, dec_len: int) -> np.ndarray:
+    """Pack 12-bit message indices into bytes, two messages -> 3 bytes
+    (the golay byte layout of fec/block.py); msgs [..., ncw]."""
+    full, rem = divmod(dec_len, 3)
+    m0 = msgs[..., 0:2 * full:2]
+    m1 = msgs[..., 1:2 * full:2]
+    out = np.zeros(msgs.shape[:-1] + (dec_len,), np.uint8)
+    out[..., 0:3 * full:3] = (m0 >> 4) & 0xFF
+    out[..., 1:3 * full:3] = ((m0 & 0x0F) << 4) | ((m1 >> 8) & 0x0F)
+    out[..., 2:3 * full:3] = m1 & 0xFF
+    for i in range(rem):
+        out[..., 3 * full + i] = msgs[..., 2 * full + i] & 0xFF
+    return out
+
+
+def _pack_msgs(msgs: np.ndarray, fec1: str, k: int, ncw: int,
+               dec_len: int) -> np.ndarray:
+    """Host byte packing of decoded message indices (block-code path);
+    shared by the host finish and the bit-relabel discovery of
+    device_packet_finish."""
+    if fec1 == "golay2412":
+        return _golay_pack(msgs, dec_len)
+    bits = ((msgs[..., None] >>
+             np.arange(k - 1, -1, -1)) & 1).astype(np.uint8)
+    bits = bits.reshape(msgs.shape[:-1] + (ncw * k,))[..., :8 * dec_len]
+    return np.packbits(bits, axis=-1)[..., :dec_len]
+
+
+def _num_codewords(fec1: str, k: int, dec_len: int) -> int:
+    if fec1 == "golay2412":
+        return 2 * (dec_len // 3) + dec_len % 3
+    return -(-(8 * dec_len) // k)
+
+
+class _BlockSoftDecoder(nn.Module):
+    """llr [..., >= 8*enc_len] (positive = bit 1) -> msgs [..., ncw] int32;
+    with a constellation, symbols [..., nsym] complex -> msgs."""
+
+    def __init__(self, perm, bip, ncw: int, n: int, table=None):
+        super().__init__()
+        # copies: a buffer never aliases a cached numpy array
+        self.register_buffer(
+            "perm", torch.as_tensor(perm, dtype=torch.int64).clone())
+        self.register_buffer(
+            "bip", torch.as_tensor(bip, dtype=torch.float32).clone())
+        self.register_buffer("table", None if table is None else torch.tensor(
+            np.asarray(table, np.complex64)))
+        self.ncw, self.n = ncw, n
+
+    def forward(self, x):
+        return _scores_argmax(self.soft_bits(x), self.bip)
+
+    def soft_bits(self, x):
+        """The deinterleaved codeword soft bits [..., ncw, n] that the
+        codebook correlation scores."""
+        if self.table is not None:
+            from ..modem.linear import demodulate_soft
+            llr = demodulate_soft(self.table, _on(x, self.table))
+            x = llr.reshape(llr.shape[:-2] + (-1,))
+        flat = _on(x, self.perm).to(torch.float32)
+        need = self.perm.shape[0]
+        if flat.shape[-1] < need:
+            flat = torch.nn.functional.pad(flat, (0, need - flat.shape[-1]))
+        deint = flat[..., :need][..., self.perm]
+        # 8*enc_len may exceed ncw*n by the last byte's pad bits
+        return deint[..., :self.ncw * self.n].reshape(
+            deint.shape[:-1] + (self.ncw, self.n))
+
+
+def packetizer_soft_decoder(payload_len: int, crc: str = "crc24",
+                            fec0: str = "none", fec1: str = "golay2412"):
+    """(device_fn, finish) for a packetizer configuration whose outer code
+    is a block scheme and inner code is none.
+
+    device_fn(llr [..., >= 8*enc_len], positive = bit 1) -> msgs [..., ncw]
+      int32, a module that runs where its buffers are (``.to(device)``);
+    finish(msgs numpy [..., ncw]) -> (payload [..., payload_len] uint8,
+      crc_ok [...] bool): host byte packing + CRC.
+    """
+    if fec0 != "none":
+        raise ValueError("device decoder supports fec0='none' "
+                         "(frame64/flexframe default payload shape)")
+    if fec1 not in _GCOLS:
+        raise ValueError(f"outer scheme {fec1!r} is not a block code")
+    if _GCOLS[fec1][1] > 16:
+        raise ValueError(f"{fec1!r} codebook too large for the matmul "
+                         "decoder (k > 16)")
+    dec_len = payload_len + crc_sizeof_key(crc)
+    enc_len = fec_get_enc_msg_length(fec1, dec_len)
+    assert enc_len == packetizer_compute_enc_msg_len(
+        payload_len, crc, fec0, fec1)
+    bip, n, k = block_codebook(fec1)
+    ncw = _num_codewords(fec1, k, dec_len)
+    device_fn = _BlockSoftDecoder(_deint_perm(enc_len), bip, ncw, n)
+
+    def finish(msgs):
+        buf = _pack_msgs(np.asarray(msgs), fec1, k, ncw, dec_len)
+        nk = crc_sizeof_key(crc)
+        flat = buf.reshape(-1, dec_len)
+        ok = np.zeros(flat.shape[0], bool)
+        for r in range(flat.shape[0]):
+            key = 0
+            for b in flat[r, payload_len:payload_len + nk]:
+                key = (key << 8) | int(b)
+            ok[r] = crc_validate_message(crc, flat[r, :payload_len], key)
+        return buf[..., :payload_len], ok.reshape(buf.shape[:-1])
+
+    return device_fn, finish
+
+
+def qpacket_soft_decoder(payload_len: int, crc: str = "crc24",
+                         fec0: str = "none", fec1: str = "golay2412",
+                         ms: str = "qpsk"):
+    """(device_fn, finish) for a qpacketmodem configuration whose outer
+    code is a block scheme and inner code is none (the frame64 payload):
+    `packetizer_soft_decoder` with the modem's exact max-log soft
+    demodulator in front.  device_fn(symbols [..., nsym] complex) ->
+    msgs [..., ncw] int32."""
+    from ..modem.linear import constellation
+    llr_fn, finish = packetizer_soft_decoder(payload_len, crc, fec0, fec1)
+    device_fn = _BlockSoftDecoder(llr_fn.perm, llr_fn.bip, llr_fn.ncw,
+                                  llr_fn.n, table=constellation(ms))
+    return device_fn, finish
+
+
+def _unported(what: str):
+    raise NotImplementedError(
+        f"{what} is not ported yet (ROADMAP queue 1 item 4: the "
+        "convolutional and two-stage device decoders)")
+
+
+def conv_soft_decoder(scheme: str, dec_len: int):
+    _unported("conv_soft_decoder")
+
+
+def conv_packet_soft_decoder(payload_len: int, crc: str = "crc32",
+                             fec0: str = "v27", fec1: str = "none"):
+    _unported("conv_packet_soft_decoder")
+
+
+def qpacket_conv_soft_decoder(payload_len: int, crc: str = "crc32",
+                              fec0: str = "v27", fec1: str = "none",
+                              ms: str = "qpsk"):
+    _unported("qpacket_conv_soft_decoder")
+
+
+def packetizer2_soft_decoder(payload_len: int, crc: str = "crc32",
+                             fec0: str = "secded7264",
+                             fec1: str = "hamming84"):
+    _unported("packetizer2_soft_decoder")
+
+
+@functools.lru_cache(maxsize=32)
+def _crc_affine(scheme: str, payload_len: int):
+    """CRC keys are GF(2)-affine in the message bits for a fixed message
+    length: key_bits(m) = M^T bits(m) xor key_bits(0).  The columns come
+    from bit-impulse messages through the byte-exact host CRC.
+
+    Returns (M [8*payload_len, width] uint8, cbits [width] uint8)."""
+    width = 8 * crc_sizeof_key(scheme)
+
+    def keybits(msg):
+        kk = crc_generate_key(scheme, msg)
+        return np.array([(kk >> (width - 1 - w)) & 1
+                         for w in range(width)], np.uint8)
+
+    cbits = keybits(np.zeros(payload_len, np.uint8))
+    M = np.zeros((8 * payload_len, width), np.uint8)
+    for i in range(8 * payload_len):
+        msg = np.zeros(payload_len, np.uint8)
+        msg[i >> 3] = 0x80 >> (i & 7)
+        M[i] = keybits(msg) ^ cbits
+    return M, cbits
+
+
+class _PacketFinish(nn.Module):
+    """dec -> (payload [..., payload_len] int32 bytes, crc_ok [...] bool)
+    on the card: byte packing and the CRC parity are matmuls of 0/1 bits
+    in float64, so their integer sums are exact whatever the float32
+    matmul settings (TF32) are."""
+
+    def __init__(self, W, sumw, P, cbits, crc: str, k: int, nsrc: int):
+        super().__init__()
+        self.register_buffer("W", torch.from_numpy(W))
+        self.register_buffer("sumw", torch.from_numpy(sumw))
+        self.register_buffer("P", None if P is None else torch.from_numpy(P))
+        self.register_buffer("cbits", None if cbits is None
+                             else torch.from_numpy(cbits))
+        self.crc, self.k, self.nsrc = crc, k, nsrc
+
+    def forward(self, dec):
+        dec = _on(dec, self.W)
+        if self.k:
+            sh = torch.arange(self.k - 1, -1, -1, device=dec.device)
+            bits = (dec.to(torch.int64)[..., None] >> sh) & 1
+            src = bits.reshape(dec.shape[:-1] + (self.nsrc,))
+        else:
+            src = dec[..., :self.nsrc]
+        src = src.to(torch.float64)
+        payload = torch.matmul(src, self.W).round().to(torch.int32)
+        if self.crc == "none":
+            ok = torch.ones(dec.shape[:-1], dtype=torch.bool,
+                            device=dec.device)
+        elif self.crc == "checksum":
+            ok = torch.remainder(torch.matmul(src, self.sumw), 256.0) == 0
+        else:
+            par = torch.matmul(src, self.P) + self.cbits
+            ok = (torch.remainder(par, 2.0) == 0).all(dim=-1)
+        return payload, ok
+
+
+def device_packet_finish(payload_len: int, crc: str = "crc24",
+                         fec0: str = "none", fec1: str = "golay2412"):
+    """Byte pack + CRC validation of a decoded packet on the card: the
+    device counterpart of the host `finish` functions above.
+
+    Input follows the decoder family:
+      * block configs (fec0='none', fec1 a block code): msgs [..., ncw]
+        int32 as produced by packetizer_soft_decoder's device_fn;
+      * uncoded or conv configs (one conv stage + 'none'): bits
+        [..., 8*dec_len].
+
+    Returns a module finish_fn(dec) -> (payload [..., payload_len] int32
+    bytes, crc_ok [...] bool).  Byte packing is a 0/1-weight matmul (bit
+    -> byte place value) and the CRC its GF(2)-affine parity matmul
+    (_crc_affine) reduced mod 2; the 'checksum' scheme is integer-affine:
+    byte-sum + key must vanish mod 256.
+    """
+    if crc not in ("none", "checksum", "crc8", "crc16", "crc24", "crc32"):
+        raise ValueError(f"unknown crc scheme {crc!r}")
+    dec_len = payload_len + crc_sizeof_key(crc)
+    width = 8 * crc_sizeof_key(crc) if crc.startswith("crc") else 0
+    schemes = {fec0, fec1}
+    if fec0 == "none" and fec1 in _GCOLS:
+        if _GCOLS[fec1][1] > 16:
+            raise ValueError(f"{fec1!r} codebook too large (k > 16)")
+        _, n, k = block_codebook(fec1)
+        ncw = _num_codewords(fec1, k, dec_len)
+        nsrc = ncw * k
+        # impulse-response discovery: which buf bit each msg bit feeds
+        relabel = np.full(8 * dec_len, -1, np.int64)
+        for cpos in range(ncw):
+            for j in range(k):
+                m = np.zeros(ncw, np.int64)
+                m[cpos] = 1 << (k - 1 - j)
+                nz = np.nonzero(np.unpackbits(
+                    _pack_msgs(m, fec1, k, ncw, dec_len)))[0]
+                assert len(nz) <= 1, "byte packing must be a bit relabel"
+                if len(nz):
+                    relabel[nz[0]] = cpos * k + j
+    elif schemes == {"none"} or (
+            len(schemes) == 2 and "none" in schemes
+            and not schemes - {"none"} - set(CONV_SCHEMES)):
+        k = 0
+        nsrc = 8 * dec_len
+        relabel = np.arange(8 * dec_len, dtype=np.int64)
+    else:
+        raise ValueError(f"unsupported finish config ({fec0!r}, {fec1!r})")
+
+    Wall = np.zeros((nsrc, dec_len), np.float64)
+    for q in range(8 * dec_len):
+        if relabel[q] >= 0:
+            Wall[relabel[q], q >> 3] += float(0x80 >> (q & 7))
+    P = cbits = None
+    if width:
+        M, cb = _crc_affine(crc, payload_len)
+        Pb = np.zeros((nsrc, width), np.uint8)
+        for i in range(8 * payload_len):
+            if relabel[i] >= 0:
+                Pb[relabel[i]] ^= M[i]
+        for w in range(width):
+            s = relabel[8 * payload_len + w]
+            if s >= 0:
+                Pb[s, w] ^= 1
+        P, cbits = Pb.astype(np.float64), cb.astype(np.float64)
+    return _PacketFinish(np.ascontiguousarray(Wall[:, :payload_len]),
+                         Wall.sum(axis=1), P, cbits, crc, k, nsrc)

@@ -15,6 +15,8 @@ import torch
 from ..core import LTI, Proc, planar_per_plane
 from .dotprod import conv1d
 from .fftfilt import fftfilt_apply
+from .kernels.fir_real import LMAX as fir_real_lmax
+from .kernels.fir_real import fir_apply_pallas
 
 __all__ = ["firfilt", "FIRFilt", "fir_apply", "fir_apply_auto",
            "fir_apply_matmul", "banded_blocks_apply"]
@@ -142,8 +144,11 @@ class FIRFilt(Proc):
     Block length T in -> T out; carry: [..., L-1] input tail.
     backend: 'xla' (the conv form, `fir_apply`; the name is the JAX
     package's), 'matmul' (banded-tap matrix, `fir_apply_matmul`), 'fft'
-    (overlap-save `fftfilt` with the SAME carry), or 'auto' (the
-    `fir_apply_auto` pick per call: matmul on CUDA, conv on CPU).
+    (overlap-save `fftfilt` with the SAME carry), 'pallas' (the
+    hand-written CUDA kernel `ops/kernels/fir_real.py`, the port of the
+    JAX package's Pallas kernel: real taps, L <= 4096; on the CPU its
+    plain version), or 'auto' (the `fir_apply_auto` pick per call: matmul
+    on CUDA, conv on CPU).
     """
 
     param_spec = {"h": "h"}
@@ -154,10 +159,12 @@ class FIRFilt(Proc):
         h_np = _np_taps(h, scale)
         L = int(h_np.shape[-1])
         if backend == "pallas":
-            raise NotImplementedError(
-                "firfilt backend='pallas' needs the Hopper port of "
-                "fir_pallas_real (ROADMAP queue 2 #2)")
-        if backend not in ("auto", "xla", "matmul", "fft"):
+            if np.iscomplexobj(h_np):
+                raise ValueError("pallas firfilt backend supports real taps")
+            if L > fir_real_lmax:
+                raise ValueError(f"pallas firfilt backend takes up to "
+                                 f"{fir_real_lmax} taps, got {L}")
+        if backend not in ("auto", "xla", "matmul", "fft", "pallas"):
             raise ValueError(f"unknown firfilt backend {backend!r}")
         self.backend = backend
         self._buffer("h", h_np)
@@ -182,6 +189,8 @@ class FIRFilt(Proc):
             return fir_apply_matmul(h, carry, x)
         if self.backend == "xla":
             return fir_apply(h, carry, x)
+        if self.backend == "pallas":
+            return fir_apply_pallas(h, carry, x)
         return fir_apply_auto(h, carry, x)
 
     def _forward_karatsuba(self, carry, x):

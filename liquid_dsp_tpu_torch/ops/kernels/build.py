@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``liquid_dsp_tpu_torch/csrc/*.cu`` have plain C entry
-points (no PyTorch headers), so one nvcc call builds them in seconds:
+points (no PyTorch headers), so nvcc builds them in seconds: one nvcc per
+source, all started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o <lib>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <src>.o csrc/<src>.cu   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <lib>.so *.o
 
 The library lands in ``build/liquid_dsp_tpu_torch/`` at the repository
 root, named by a hash of the sources and flags, so an edited source is
@@ -28,14 +30,17 @@ __all__ = ["build", "load_library", "NVCC_FLAGS"]
 _PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "liquid_dsp_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                     "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of the entry points in csrc/ (argtypes, restype)
 _SIGNATURES = {
     "mix_fir_decim_launch": ([_P] * 11 + [_I] * 7 + [_P], _I),
+    "codebook_argmax_launch": ([_P] * 3 + [_I] * 3 + [_P], _I),
+    "fir_real_launch": ([_P] * 4 + [_I] * 3 + [_P], _I),
 }
 
 
@@ -59,7 +64,8 @@ def _sources():
 
 def build() -> pathlib.Path:
     """Compile csrc/*.cu into one shared library (once per source hash)
-    and return its path.  Raises with nvcc's output on failure."""
+    and return its path: one nvcc per source, all at once, then a link.
+    Raises with nvcc's output on failure."""
     srcs = _sources()
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(srcs + sorted(CSRC.glob("*.cuh"))):
@@ -69,18 +75,35 @@ def build() -> pathlib.Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name, then rename: a concurrent process never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    # objects and the library under temporary names, then a rename: a
+    # concurrent process never loads a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        jobs = []
+        for src in srcs:
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for cmd, _, job in jobs:
+            out, _ = job.communicate()
+            log.append(out)
+            if job.returncode != 0:
+                failed.append(f"nvcc failed ({job.returncode}): "
+                              f"{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = os.path.join(tmpdir, "lib.so")
+        cmd = [nvcc, *ARCH, "-shared", "-o", tmp, *(o for _, o, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        lib.with_suffix(".log").write_text("".join(log))
+        os.replace(tmp, lib)
     return lib
 
 

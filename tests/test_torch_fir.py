@@ -5,6 +5,7 @@ tests/test_fftfilt.py; 1e-5 sample-exact, tests/test_resample.py), and
 against the JAX package on the same inputs."""
 import pathlib
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -15,7 +16,11 @@ from liquid_dsp_tpu.ops import fir as jfir
 from liquid_dsp_tpu.ops import resample as jresample
 from liquid_dsp_tpu_torch.convert import (carry_from_numpy, carry_to_numpy,
                                           load_jax_params)
+from liquid_dsp_tpu.ops.kernels.pallas_fir import (
+    fir_apply_pallas as fir_apply_pallas_jax)
+from liquid_dsp_tpu_torch.design.firdes import firdes_kaiser
 from liquid_dsp_tpu_torch.ops import fir, resample
+from liquid_dsp_tpu_torch.ops.kernels import fir_real
 from liquid_dsp_tpu_torch.ops.fftfilt import fftfilt
 
 from test_fftfilt import CASES as FFTFILT_CASES
@@ -77,8 +82,75 @@ def test_firfilt_carry_hands_over_from_jax():
 
 
 def test_firfilt_pallas_backend_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 2 #2"):
-        fir.firfilt(np.ones(4, np.float32), backend="pallas")
+    # the port's pallas backend, like the JAX package's, takes real taps
+    # only (tests/test_pallas.py:45), and up to fir_real.LMAX of them
+    with pytest.raises(ValueError, match="real taps"):
+        fir.firfilt(np.ones(8, np.complex64), backend="pallas")
+    with pytest.raises(ValueError, match="taps"):
+        fir.firfilt(np.ones(fir_real.LMAX + 1, np.float32), backend="pallas")
+
+
+@pytest.mark.parametrize("L,T,B", [(64, 512, 3), (13, 256, 1), (129, 384, 2),
+                                   (257, 1000, 2), (1, 300, 2)])
+def test_fir_apply_pallas_matches_jax_interpret(L, T, B):
+    # the cases of tests/test_pallas.py:23-43 (and 257 taps, one tap, T
+    # not a multiple of a tile): the kernel's plain version against the
+    # JAX package's Pallas kernel in interpret mode, 1e-4
+    rng = np.random.default_rng(L)
+    h = firdes_kaiser(L, 0.2, 60.0).astype(np.float32) if L > 1 else \
+        np.array([0.7], np.float32)
+    x = tp.cnoise(rng, (B, T))
+    carry = tp.cnoise(rng, (B, L - 1))
+    yj, cj = fir_apply_pallas_jax(h, jnp.asarray(carry), jnp.asarray(x),
+                                  interpret=True)
+    y, c = fir_real.fir_apply_pallas(torch.from_numpy(h),
+                                     torch.from_numpy(carry),
+                                     torch.from_numpy(x))
+    assert_close(y.numpy(), np.asarray(yj), tol=1e-4)
+    np.testing.assert_array_equal(c.numpy(), np.asarray(cj))
+
+
+@pytest.mark.parametrize("case", [c for c in FIRFILT_CASES if "cccf" not in c])
+def test_firfilt_pallas_golden(golden, case):
+    # real-tap goldens (h13x32 is tests/test_pallas.py:39's), 1e-3
+    d = golden(case)
+    assert_close(_oneshot(fir.firfilt(d["h"], backend="pallas"), d["x"]),
+                 d["y"], tol=1e-3, msg=case)
+
+
+def test_firfilt_pallas_streaming_matches_jax():
+    # 3 carried blocks with real taps, as a complex stream and as float
+    # planes (planar.py), 1e-5 of rms
+    rng = np.random.default_rng(24)
+    h = rng.standard_normal(33)
+    blocks = [tp.cnoise(rng, (2, 300)) for _ in range(3)]
+    jp = jfir.firfilt(h, backend="xla")
+    p = fir.firfilt(h, backend="pallas")
+    yj, cj = tp.run_jax(jp, blocks, (2,))
+    yt, ct = tp.run_torch(p, blocks, (2,))
+    np.testing.assert_array_equal(carry_to_numpy(ct), np.asarray(cj))
+    assert tp.rel_err(yt, yj) < 1e-5
+    cp = p.init_planar(batch_shape=(2,))
+    ys = []
+    for xb in blocks:
+        (yr, yi), cp = p.forward_planar(cp, (torch.from_numpy(xb.real.copy()),
+                                             torch.from_numpy(xb.imag.copy())))
+        ys.append(yr.numpy() + 1j * yi.numpy())
+    assert tp.rel_err(np.concatenate(ys, axis=-1), yj) < 1e-5
+
+
+def test_fir_real_rejects_bad_input():
+    x, c, h = torch.ones(2, 10), torch.ones(2, 3), torch.ones(4)
+    with pytest.raises(ValueError, match="carry"):
+        fir_real.fir_real(x, torch.ones(2, 4), h)
+    with pytest.raises(ValueError, match="float32"):
+        fir_real.fir_real(x.double(), c, h)
+    with pytest.raises(ValueError, match="contiguous"):
+        fir_real.fir_real(torch.ones(10, 2).t(), c, h)
+    with pytest.raises(ValueError, match="device"):
+        fir_real.fir_real(x, c, h.to("meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        fir_real.fir_real(x.to("meta"), c.to("meta"), h.to("meta"))
 
 
 @pytest.fixture(scope="module")

@@ -19,7 +19,9 @@ mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
 import torch
+from liquid_dsp_tpu_torch.ops.kernels import build
 print(json.dumps({
+    "built": build.load_library.cache_info().currsize,
     "modules": mods,
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
     "reference": sorted(m for m in sys.modules if m == "liquid_dsp_tpu"
@@ -35,10 +37,16 @@ def test_port_never_imports_jax_or_the_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "liquid_dsp_tpu_torch.ops.kernels.mix_fir_decim" in got["modules"]
-    assert "liquid_dsp_tpu_torch.convert" in got["modules"]
+    for mod in ("ops.kernels.mix_fir_decim", "ops.kernels.codebook_argmax",
+                "ops.kernels.fir_real", "convert", "utils.sequence",
+                "design.firdes", "modem.linear", "fec.crc", "fec.interleave",
+                "fec.block", "fec.dispatch", "fec.packetizer", "fec.device",
+                "framing.qpacket", "framing.stream_rx", "framing.detector",
+                "framing.frame64"):
+        assert "liquid_dsp_tpu_torch." + mod in got["modules"], mod
     assert got["jax"] == [] and got["reference"] == []
     assert not got["triton"] and not got["cuda_initialized"]
+    assert got["built"] == 0          # no kernel library loaded
 
 
 def test_chip_smoke_imports_no_jax():
