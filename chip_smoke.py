@@ -45,7 +45,32 @@ Then the frame64 streaming receiver with in-stream Golay decode,
  11. times (CUDA events): the receiver step, and each kernel against its
      plain version (plain, kernel, kernel, plain).
 
-The JSON line before the card's name lists all three kernels.
+Then the timing-recovery family at 256 channels x 32768-sample blocks
+(QPSK at 2 samples/symbol, arkaiser pulses with a fractional delay per
+channel, made with numpy and scipy):
+
+ 12. symsync(k=2, m=5) over 3 carried blocks at 40 dB SNR: after the first
+     block T/2 +- 2 symbols per block on every channel, the tail symbols
+     against those sent (_tail_err < 5e-3, tests/test_symsync_misc.py)
+     on every channel, symsync_scan launched once per chunk and block;
+ 13. symtrack_stream(ms="qpsk") over 3 carried blocks, adding per-channel
+     gain, carrier phase and on a quarter of the channels a CFO up to
+     5e-4 rad/sample, at 20 dB SNR: over the third block's last 8192
+     symbols the decisions equal those sent up to a delay and a multiple
+     of 90 degrees (SER <= 1e-3) on every channel; agc_scan, symsync_scan
+     and pll_lms launched as the blocks and chunks say;
+ 14. each new kernel against its plain version on the same inputs and
+     states: symsync_scan bit-equal over 1024 steps x 256 channels,
+     agc_scan bit-equal (else max|err|/rms <= 1e-6) over 4096 samples,
+     pll_lms within 2e-4 with equal decisions over 3072 slots;
+ 15. 4 channels x 4096 samples through symtrack_stream on the card and on
+     the CPU (hoisted route with the kernels' plain versions): equal valid
+     masks and decisions, symbols within 2e-4;
+ 16. times (CUDA events): each new kernel against its plain version at
+     1024 steps / 3072 slots (plain, kernel, kernel, plain), each kernel
+     at full width, and the symsync and symtrack_stream block steps.
+
+The JSON line before the card's name lists all six kernels.
 """
 import json
 import os
@@ -61,6 +86,15 @@ DPHI = 0.125
 TOL_F32 = 2e-4     # the reference's own bound (tests/test_pallas_chain.py:49)
 TOL_BF16 = 3e-2    # bf16 quantization of input and output planes (:106)
 N_CHECK = 8192     # outputs per channel in the float64 check
+TR_B, TR_T, TR_NBLK = 256, 1 << 15, 3   # timing family: channels x samples
+TR_CMP = 1024      # steps (x3 slots for pll_lms) of the kernel-vs-plain runs
+TR_AGC = 4096      # samples of the agc_scan comparison
+TR_TAIL = 8192     # symtrack symbols checked in the last block
+TR_SMALL = (4, 4096)   # channels x samples of the card-vs-CPU run
+TOL_TAIL = 5e-3    # symsync tail error (tests/test_symsync_misc.py:45-56)
+TOL_STREAM = 2e-4  # symtrack stream tolerance (tests/test_framing_extras.py:56)
+TOL_AGC = 1e-6     # agc_scan vs plain, max|err|/rms, if not bit-equal
+MAX_SER = 1e-3     # symtrack symbol errors over the checked tail
 RX_B, RX_T = 128, 1 << 15   # receiver: channels x samples per block
 RX_NBLK = 3                 # carried receiver blocks (plus one flush block)
 RX_QUIET = 8                # noise-only channels (the last ones)
@@ -95,7 +129,8 @@ def flat_stages(p):
 
 
 def time_ms(fn, iters=20):
-    """Mean ms per call over `iters` calls, CUDA events, after 3 warm-ups."""
+    """Mean ms per call over `iters` calls, CUDA events, after 3 warm-up
+    calls."""
     import torch
     for _ in range(3):
         fn()
@@ -367,6 +402,8 @@ def main():
     del xs, outs, carries, refs, xb0
     torch.cuda.empty_cache()
     kernels += receiver_phases(torch, dev, card)
+    torch.cuda.empty_cache()
+    kernels += timing_phases(torch, dev, card)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -508,6 +545,334 @@ def receiver_phases(torch, dev, card):
         "replaces": "liquid_dsp_tpu/ops/kernels/pallas_fir.py:51",
         "launches": fir_launches, "max_abs_err": abs_fir,
         "ms": fr_ms, "plain_ms": fr_plain}]
+
+
+def time_once(fn):
+    """(ms, result) of one call, CUDA events."""
+    import torch
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1), out
+
+
+def make_timing_stream(rng, B, n, m, snr_db, carrier):
+    """QPSK at 2 samples/symbol through an arkaiser(2, m, 0.3) pulse with a
+    fractional delay in [-0.5, 0.5) samples per channel, white noise at
+    `snr_db`: x [B, n] complex64 and the symbol indices sent [B, n/2 + 2m].
+    With `carrier`, each channel also gets a gain in [0.3, 2] and a
+    carrier phase, and every 4th channel a CFO of 1e-4..5e-4 rad/sample."""
+    from scipy.signal import upfirdn
+    from liquid_dsp_tpu_torch.design.firdes import firdes_prototype
+    from liquid_dsp_tpu_torch.modem import constellation
+    table = constellation("qpsk").astype(np.complex64)
+    nsym = n // 2 + 2 * m
+    idx = rng.integers(0, 4, (B, nsym))
+    x = np.empty((B, n), np.complex64)
+    t = np.arange(n)
+    for ch in range(B):
+        h = firdes_prototype("arkaiser", 2, m, 0.3, rng.uniform(-0.5, 0.5))
+        s = upfirdn(h, table[idx[ch]], up=2)[:n]
+        gain = 1.0
+        if carrier:
+            gain = float(np.exp(rng.uniform(np.log(0.3), np.log(2.0))))
+            cfo = (rng.uniform(1e-4, 5e-4) * rng.choice([-1.0, 1.0])
+                   if ch % 4 == 0 else 0.0)
+            s = gain * s * np.exp(1j * (rng.uniform(0, 2 * np.pi) + cfo * t))
+        sigma = gain * 10 ** (-snr_db / 20) / np.sqrt(2)
+        x[ch] = s + sigma * (rng.standard_normal(n)
+                             + 1j * rng.standard_normal(n))
+    return x, idx
+
+
+def tail_err(y, syms, window=400, dmax=20):
+    """tests/test_symsync_misc.py's _tail_err: the least mean |y - sent|^2
+    over the last `window` outputs, for delays 0..dmax-1."""
+    best = np.inf
+    for d in range(dmax):
+        L = min(len(y) - d, len(syms))
+        if L <= window:
+            continue
+        best = min(best, float(np.mean(np.abs(
+            y[d + L - window:d + L] - syms[L - window:L]) ** 2)))
+    return best
+
+
+def qpsk_ser(rec, sent, rot, n, dmax=64, probe=512):
+    """Symbol error rate of the last `n` decisions of `rec` (all of a
+    channel's, in order) against the indices `sent`, at the delay d (rec[j]
+    is sent[j - d]) and the 90-degree rotation (`rot[r]` maps a sent
+    index) that fit their first `probe` symbols best."""
+    a = len(rec) - n
+    tail, best = rec[a:], (2.0, 0, 0)
+    for d in range(dmax):
+        for r in range(4):
+            s = rot[r][sent[a - d:a - d + probe]]
+            best = min(best, (float(np.mean(s != tail[:probe])), d, r))
+    _, d, r = best
+    return float(np.mean(rot[r][sent[a - d:a - d + n]] != tail))
+
+
+def timing_phases(torch, dev, card):
+    """Phases 12-16: symsync and symtrack_stream at full width, the
+    symsync_scan, agc_scan and pll_lms kernels.  Returns their kernel
+    entries."""
+    from unittest import mock
+    from liquid_dsp_tpu_torch.framing.symtrack import symtrack_stream
+    from liquid_dsp_tpu_torch.modem import constellation
+    from liquid_dsp_tpu_torch.ops import symsync as symsync_mod
+    from liquid_dsp_tpu_torch.ops.kernels.agc_scan import (
+        agc_scan, agc_scan_reference)
+    from liquid_dsp_tpu_torch.ops.kernels.pll_lms import (
+        pll_lms, pll_lms_reference)
+    from liquid_dsp_tpu_torch.ops.kernels.symsync_scan import (
+        symsync_scan, symsync_scan_reference)
+    from liquid_dsp_tpu_torch.ops.symsync import (
+        _chunks, branch_kernel, branch_outputs, loop_state, symsync)
+
+    B, T, NB = TR_B, TR_T, TR_NBLK
+    nch = len(_chunks(T, True))
+    table = constellation("qpsk").astype(np.complex64)
+    rot = [np.array([int(np.argmin(np.abs(table - p * 1j ** r)))
+                     for p in table]) for r in range(4)]
+
+    # 12. symsync at full width
+    rng = np.random.default_rng(11)
+    t0 = time.perf_counter()
+    x_np, idx = make_timing_stream(rng, B, NB * T, 5, 40.0, False)
+    x1 = torch.from_numpy(x_np).to(dev)
+    del x_np
+    t_gen = time.perf_counter() - t0
+    ss = symsync(k=2, m=5).to(dev)
+    c = ss.init(batch_shape=(B,), device=dev)
+    ss_carries, outs = [c], []
+    symsync_scan.launches = 0
+    for b in range(NB):
+        out, c = ss(c, x1[:, b * T:(b + 1) * T])
+        outs.append(out)
+        ss_carries.append(c)
+    torch.cuda.synchronize()
+    ss_launches = symsync_scan.launches
+    check(ss_launches == nch * NB, f"symsync_scan launched {ss_launches} "
+          f"times for {nch} chunks x {NB} blocks")
+    counts = torch.stack([v.sum(-1) for _, v in outs]).cpu().numpy()
+    check(np.abs(counts[1:] - T // 2).max() <= 2, f"symsync: symbols per "
+          f"block after lock {counts[1:].min()}..{counts[1:].max()}, "
+          f"want {T // 2} +- 2")
+    ys = torch.cat([y for y, _ in outs], -1).cpu().numpy()
+    vs = torch.cat([v for _, v in outs], -1).cpu().numpy()
+    check(np.isfinite(ys).all(), "symsync: non-finite output")
+    errs = [tail_err(ys[ch][vs[ch]], table[idx[ch]]) for ch in range(B)]
+    check(max(errs) < TOL_TAIL, f"symsync tail error {max(errs):.3e} "
+          f"(channel {int(np.argmax(errs))}) >= {TOL_TAIL}")
+    print(f"symsync: symsync(k=2, m=5) at {B}x{T}, {NB} carried blocks, "
+          f"40 dB SNR; symbols per block after lock {counts[1:].min()}.."
+          f"{counts[1:].max()} (T/2 = {T // 2}); tail error max "
+          f"{max(errs):.3e} (< {TOL_TAIL}) on all {B} channels; "
+          f"symsync_scan launches {ss_launches} ({nch} chunks x {NB} "
+          f"blocks); stream made in {t_gen:.1f} s", flush=True)
+
+    # 13. symtrack_stream at full width
+    t0 = time.perf_counter()
+    x_np, idx2 = make_timing_stream(rng, B, NB * T, 7, 20.0, True)
+    x2 = torch.from_numpy(x_np).to(dev)
+    del x_np
+    t_gen = time.perf_counter() - t0
+    st = symtrack_stream(ms="qpsk").to(dev)
+    c = st.init(batch_shape=(B,), device=dev)
+    st_carries, st_outs = [c], []
+    agc_scan.launches = symsync_scan.launches = pll_lms.launches = 0
+    t0 = time.perf_counter()
+    for b in range(NB):
+        out, c = st(c, x2[:, b * T:(b + 1) * T])
+        st_outs.append(out)
+        st_carries.append(c)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = {"agc_scan": agc_scan.launches,
+                "symsync_scan": symsync_scan.launches,
+                "pll_lms": pll_lms.launches}
+    want = {"agc_scan": NB, "symsync_scan": nch * NB, "pll_lms": NB}
+    check(launches == want, f"symtrack launches {launches}, want {want}")
+    for sy, dec, sv in st_outs:
+        check(sy.shape == (B, 3 * T) and dec.shape == (B, 3 * T),
+              f"symtrack output {tuple(sy.shape)} {tuple(dec.shape)}")
+        check(bool(torch.isfinite(torch.view_as_real(sy)).all()),
+              "symtrack: non-finite symbols")
+    dec_all = torch.cat([d for _, d, _ in st_outs], -1).cpu().numpy()
+    val_all = torch.cat([v for _, _, v in st_outs], -1).cpu().numpy()
+    last = st_outs[-1][2].sum(-1).cpu().numpy()
+    check(last.min() >= TR_TAIL, f"symtrack: {last.min()} symbols in the "
+          f"last block")
+    sers = [qpsk_ser(dec_all[ch][val_all[ch]], idx2[ch], rot, TR_TAIL)
+            for ch in range(B)]
+    check(max(sers) <= MAX_SER, f"symtrack SER {max(sers):.2e} (channel "
+          f"{int(np.argmax(sers))}) > {MAX_SER}")
+    print(f"symtrack: symtrack_stream(ms='qpsk') at {B}x{T}, {NB} carried "
+          f"blocks, gain 0.3-2, random phase, CFO up to 5e-4 rad/sample on "
+          f"{(B + 3) // 4} channels, 20 dB SNR; SER over the last "
+          f"{TR_TAIL} symbols max {max(sers):.2e} (<= {MAX_SER}), "
+          f"{sum(s > 0 for s in sers)} channels with any error; launches "
+          f"{launches}; stream made in {t_gen:.1f} s, first pass "
+          f"{t_run:.2f} s", flush=True)
+
+    # 14. each kernel against its plain version, same inputs and states
+    c1 = ss_carries[1]
+    kern = branch_kernel(ss.mf, ss.dmf, dev)
+    xp = torch.cat([c1["win"][..., 1:], x1[:, T:T + TR_CMP]], -1)
+    ma = branch_outputs(kern, torch.stack([xp.real, xp.imag]).contiguous())
+    fs, is_ = loop_state(c1, B)
+    kw = dict(npfb=32, max_out=3, k=2, k_out=1, bw=ss.bw, locked=False)
+    out_k = symsync_scan(ma, fs, is_, **kw)
+    ssp1, out_p = time_once(lambda: symsync_scan_reference(ma, fs, is_, **kw))
+    check(all(torch.equal(a, b) for a, b in zip(out_k, out_p)),
+          "symsync_scan: kernel and plain version differ")
+    ss_err = float((out_k[0] - out_p[0]).abs().max()
+                   + (out_k[1] - out_p[1]).abs().max())
+
+    xa = x2[:, T:T + TR_AGC]
+    p = (xa.real * xa.real + xa.imag * xa.imag).contiguous()
+    ca = st_carries[1]["agc"]
+    akw = dict(alpha=st.ag.alpha)
+    g_k = agc_scan(p, ca["g"], ca["y2_prime"], **akw)
+    agp1, g_p = time_once(lambda: agc_scan_reference(
+        p, ca["g"], ca["y2_prime"], **akw))
+    agc_equal = all(torch.equal(a, b) for a, b in zip(g_k, g_p))
+    agc_err = float((g_k[0] - g_p[0]).abs().max())
+    agc_rel = agc_err / float(g_p[0].square().mean().sqrt())
+    check(agc_equal or agc_rel <= TOL_AGC, f"agc_scan vs plain: "
+          f"{agc_rel:.3e} of rms")
+
+    c2 = st_carries[2]
+    ya, _ = st.ag(c2["agc"], x2[:, 2 * T:2 * T + TR_CMP])
+    (sy, sv), _ = st.ss(c2["ss"], ya)
+    sr, si = sy.real.contiguous(), sy.imag.contiguous()
+    pc = st.pll_state(c2, B)
+    pkw = st.pll_kwargs()
+    pl_k = pll_lms(sr, si, sv, pc, st.tab_re, st.tab_im, **pkw)
+    plp1, pl_p = time_once(lambda: pll_lms_reference(
+        sr, si, sv, pc, st.tab_re, st.tab_im, **pkw))
+    pll_err = max(float((pl_k[0] - pl_p[0]).abs().max()),
+                  float((pl_k[1] - pl_p[1]).abs().max()))
+    check(pll_err <= TOL_STREAM, f"pll_lms vs plain: {pll_err:.3e}")
+    check(torch.equal(pl_k[2], pl_p[2]), f"pll_lms: "
+          f"{int((pl_k[2] != pl_p[2]).sum())} decisions differ")
+    print(f"kernels vs plain: symsync_scan bit-equal (y, valid, state) over "
+          f"{TR_CMP} steps x {B} channels; agc_scan "
+          f"{'bit-equal' if agc_equal else f'{agc_rel:.3e} of rms'} over "
+          f"{TR_AGC} samples (max|err| {agc_err:.3e}); pll_lms max|err| "
+          f"{pll_err:.3e} (<= {TOL_STREAM}), decisions equal over "
+          f"{sr.shape[1]} slots", flush=True)
+
+    # 15. the card against the port on the CPU
+    nb, ns = TR_SMALL
+    xs = x2[:nb, :ns].contiguous()
+    card_st = symtrack_stream(ms="qpsk").to(dev)
+    (sy_g, dec_g, sv_g), _ = card_st(card_st.init(batch_shape=(nb,),
+                                                   device=dev), xs)
+    # the CPU forced to the card's route: the hoisted form, with the
+    # timing-loop kernel's plain version
+    cpu_st = symtrack_stream(ms="qpsk")
+    run = symsync_mod.symsync_run
+    with mock.patch.object(symsync_mod, "symsync_run",
+                           lambda *a, **kw: run(*a, **kw, hoist=True)), \
+            mock.patch.dict(os.environ, {"LIQUID_SYMSYNC_KERNEL": "1"}):
+        (sy_c, dec_c, sv_c), _ = cpu_st(cpu_st.init(batch_shape=(nb,)),
+                                        xs.cpu())
+    sv_g = sv_g.cpu()
+    check(torch.equal(sv_g, sv_c), "card vs CPU: valid masks differ")
+    cpu_err = float((sy_g.cpu()[sv_c] - sy_c[sv_c]).abs().max())
+    check(cpu_err <= TOL_STREAM, f"card vs CPU symbols: {cpu_err:.3e}")
+    check(torch.equal(dec_g.cpu()[sv_c], dec_c[sv_c]),
+          "card vs CPU: decisions differ")
+    print(f"card vs CPU: symtrack_stream at {nb}x{ns}, {int(sv_c.sum())} "
+          f"symbols: valid masks and decisions equal, symbols max|err| "
+          f"{cpu_err:.3e} (<= {TOL_STREAM})", flush=True)
+
+    # 16. times: plain, kernel, kernel, plain at the comparison shapes,
+    # then each kernel at full width and the block steps
+    ssk1 = time_ms(lambda: symsync_scan(ma, fs, is_, **kw), iters=5)
+    ssk2 = time_ms(lambda: symsync_scan(ma, fs, is_, **kw), iters=5)
+    ssp2 = time_once(lambda: symsync_scan_reference(ma, fs, is_, **kw))[0]
+    ak1 = time_ms(lambda: agc_scan(p, ca["g"], ca["y2_prime"], **akw))
+    ak2 = time_ms(lambda: agc_scan(p, ca["g"], ca["y2_prime"], **akw))
+    agp2 = time_once(lambda: agc_scan_reference(
+        p, ca["g"], ca["y2_prime"], **akw))[0]
+    plk1 = time_ms(lambda: pll_lms(sr, si, sv, pc, st.tab_re, st.tab_im,
+                                   **pkw), iters=5)
+    plk2 = time_ms(lambda: pll_lms(sr, si, sv, pc, st.tab_re, st.tab_im,
+                                   **pkw), iters=5)
+    plp2 = time_once(lambda: pll_lms_reference(
+        sr, si, sv, pc, st.tab_re, st.tab_im, **pkw))[0]
+    ss_ms, ss_plain = (ssk1 + ssk2) / 2, (ssp1 + ssp2) / 2
+    ag_ms, ag_plain = (ak1 + ak2) / 2, (agp1 + agp2) / 2
+    pl_ms, pl_plain = (plk1 + plk2) / 2, (plp1 + plp2) / 2
+    print(f"timing ({card}): symsync_scan kernel {ss_ms:.4f} ms (runs "
+          f"{ssk1:.4f}, {ssk2:.4f}) vs plain {ss_plain:.2f} ms (runs "
+          f"{ssp1:.2f}, {ssp2:.2f}) at {B} x {TR_CMP} steps = "
+          f"{ss_ms / TR_CMP * 1e3:.3f} vs {ss_plain / TR_CMP * 1e3:.1f} "
+          f"us per step", flush=True)
+    print(f"timing ({card}): agc_scan kernel {ag_ms:.4f} ms (runs "
+          f"{ak1:.4f}, {ak2:.4f}) vs plain {ag_plain:.2f} ms (runs "
+          f"{agp1:.2f}, {agp2:.2f}) at {B} x {TR_AGC} samples = "
+          f"{ag_ms / TR_AGC * 1e3:.3f} vs {ag_plain / TR_AGC * 1e3:.1f} "
+          f"us per step", flush=True)
+    print(f"timing ({card}): pll_lms kernel {pl_ms:.4f} ms (runs "
+          f"{plk1:.4f}, {plk2:.4f}) vs plain {pl_plain:.2f} ms (runs "
+          f"{plp1:.2f}, {plp2:.2f}) at {B} x {sr.shape[1]} slots = "
+          f"{pl_ms / sr.shape[1] * 1e3:.3f} vs "
+          f"{pl_plain / sr.shape[1] * 1e3:.1f} us per slot", flush=True)
+    del ma
+    xp = torch.cat([c1["win"][..., 1:], x1[:, T:2 * T]], -1)
+    ma_full = branch_outputs(kern, torch.stack(
+        [xp[:, :T // nch + kern.shape[-1] - 1].real,
+         xp[:, :T // nch + kern.shape[-1] - 1].imag]).contiguous())
+    ss_full = time_ms(lambda: symsync_scan(ma_full, fs, is_, **kw), iters=3)
+    del ma_full
+    xa = x2[:, T:2 * T]
+    p_full = (xa.real * xa.real + xa.imag * xa.imag).contiguous()
+    ag_full = time_ms(lambda: agc_scan(p_full, ca["g"], ca["y2_prime"],
+                                       **akw), iters=5)
+    (sy_b, sv_b), _ = st.ss(c2["ss"], st.ag(c2["agc"], x2[:, 2 * T:])[0])
+    sr_b, si_b = sy_b.real.contiguous(), sy_b.imag.contiguous()
+    pl_full = time_ms(lambda: pll_lms(sr_b, si_b, sv_b, pc, st.tab_re,
+                                      st.tab_im, **pkw), iters=3)
+    xb2 = x2[:, 2 * T:]
+    ss_step = time_ms(lambda: ss(ss_carries[2], x1[:, 2 * T:]), iters=3)
+    st1 = time_ms(lambda: st(c2, xb2), iters=3)
+    st2 = time_ms(lambda: st(c2, xb2), iters=3)
+    st_step = (st1 + st2) / 2
+    print(f"timing ({card}): at full width {B}x{T}: symsync_scan "
+          f"{ss_full:.4f} ms per {T // nch}-step chunk ({nch} per block); "
+          f"agc_scan {ag_full:.4f} ms per block; pll_lms {pl_full:.4f} ms "
+          f"per block ({sr_b.shape[1]} slots); symsync step {ss_step:.4f} "
+          f"ms = {B * T / ss_step / 1e3:.1f} Msamples/s; symtrack_stream "
+          f"step {st_step:.4f} ms (runs {st1:.4f}, {st2:.4f}) = "
+          f"{B * T / st_step / 1e3:.1f} Msamples/s", flush=True)
+    return [{
+        "name": "symsync_scan", "route": "cuda",
+        "source": "liquid_dsp_tpu_torch/csrc/symsync_scan.cu",
+        "replaces": "liquid_dsp_tpu/ops/kernels/pallas_symsync.py:132",
+        "launches": launches["symsync_scan"], "max_abs_err": ss_err,
+        "ms": ss_ms, "plain_ms": ss_plain, "steps": TR_CMP,
+        "full_chunk_ms": ss_full}, {
+        "name": "agc_scan", "route": "cuda",
+        "source": "liquid_dsp_tpu_torch/csrc/agc_scan.cu", "replaces": None,
+        "recurrence": "liquid_dsp_tpu/ops/agc.py:39-50 (lax.scan)",
+        "launches": launches["agc_scan"], "max_abs_err": agc_err,
+        "ms": ag_ms, "plain_ms": ag_plain, "steps": TR_AGC,
+        "full_block_ms": ag_full}, {
+        "name": "pll_lms", "route": "cuda",
+        "source": "liquid_dsp_tpu_torch/csrc/pll_lms.cu", "replaces": None,
+        "recurrence": "liquid_dsp_tpu/framing/symtrack.py:218-267,301-306 "
+                      "(lax.scan)",
+        "launches": launches["pll_lms"], "max_abs_err": pll_err,
+        "ms": pl_ms, "plain_ms": pl_plain, "steps": int(sr.shape[1]),
+        "full_block_ms": pl_full}]
 
 
 if __name__ == "__main__":

@@ -10,7 +10,8 @@ nvcc on first use.
 Package layout:
   core        — Proc / Chain / LTI
   design/     — host-side coefficient design (numpy float64)
-  ops/        — streaming ops (fir, fftfilt, resample, nco)
+  ops/        — streaming ops (fir, fftfilt, resample, nco, agc, symsync,
+                equalize)
   ops/kernels — CUDA kernels with their plain PyTorch versions
   fuse, planar — chain transforms; convert — state to and from JAX
 """

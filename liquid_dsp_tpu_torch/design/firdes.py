@@ -1,7 +1,8 @@
-"""Kaiser lowpass design, the Kaiser length estimates and the root-Kaiser
-family (host-side NumPy, float64), ported from
+"""Kaiser lowpass design, the Kaiser length estimates, the root-Kaiser
+family, the root-raised-cosine pulse and the (root-)Nyquist prototype
+dispatch (host-side NumPy, float64), ported from
 `liquid_dsp_tpu.design.firdes` (reference src/filter/src/firdes.c:52-160,
-244-281; rkaiser.c)."""
+244-375; rkaiser.c; rrcos.c)."""
 from __future__ import annotations
 
 import numpy as np
@@ -12,7 +13,8 @@ from .windows import kaiser_beta_as
 
 __all__ = ["firdes_kaiser", "estimate_req_filter_len",
            "estimate_req_filter_as", "firdes_rkaiser", "firdes_arkaiser",
-           "filter_autocorr", "filter_isi"]
+           "firdes_rrcos", "firdes_prototype", "filter_autocorr",
+           "filter_isi"]
 
 
 def _len_kaiser(df: float, as_db: float) -> float:
@@ -137,3 +139,48 @@ def firdes_kaiser(n: int, fc: float, as_db: float, mu: float = 0.0) -> np.ndarra
     i = np.arange(n, dtype=np.float64)
     t = i - (n - 1) / 2.0 + mu
     return (sinc(2.0 * fc * t) * kaiser_window(n, beta, mu)).astype(np.float64)
+
+
+def firdes_rrcos(k: int, m: int, beta: float, dt: float = 0.0) -> np.ndarray:
+    """Root-raised-cosine pulse, length 2km+1 (rrcos.c)."""
+    _check_kmb(k, m, beta)
+    n = np.arange(2 * k * m + 1, dtype=np.float64)
+    z = (n + dt) / k - m
+    t1 = np.cos((1 + beta) * np.pi * z)
+    t2 = np.sin((1 - beta) * np.pi * z)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t3 = 1.0 / (4.0 * beta * z)
+        g = (1.0 - 16.0 * beta * beta * z * z) ** 2
+        t4 = 4.0 * beta / (np.pi * (1.0 - 16.0 * beta * beta * z * z))
+        h = t4 * (t1 + t2 * t3)
+    # z == 0 singularity
+    h = np.where(np.abs(z) < 1e-5, 1.0 - beta + 4.0 * beta / np.pi, h)
+    # 16 b^2 z^2 == 1 singularity
+    g1 = 1.0 + 2.0 / np.pi
+    g2 = np.sin(0.25 * np.pi / beta) if beta > 0 else 0.0
+    g3 = 1.0 - 2.0 / np.pi
+    g4 = np.cos(0.25 * np.pi / beta) if beta > 0 else 0.0
+    hs = beta / np.sqrt(2.0) * (g1 * g2 + g3 * g4)
+    h = np.where((g < 1e-5) & (np.abs(z) >= 1e-5), hs, h)
+    return h
+
+
+_PROTOTYPES = {"arkaiser": firdes_arkaiser, "rkaiser": firdes_rkaiser,
+               "rrcos": firdes_rrcos, "rrc": firdes_rrcos}
+
+
+def firdes_prototype(ftype: str, k: int, m: int, beta: float,
+                     dt: float = 0.0) -> np.ndarray:
+    """(Root-)Nyquist prototype dispatch, length 2km+1 (firdes.c:290-375):
+    the Nyquist ``kaiser`` and the root-Nyquist ``arkaiser``, ``rkaiser``
+    and ``rrcos``/``rrc``.  The other prototypes of the reference are not
+    ported yet (ROADMAP queue 1 item 5) and raise NotImplementedError."""
+    ftype = ftype.lower()
+    if ftype == "kaiser":
+        n = 2 * k * m + 1
+        as_db = estimate_req_filter_as(beta / k, n)
+        return firdes_kaiser(n, 0.5 / k, as_db, dt)
+    if ftype not in _PROTOTYPES:
+        raise NotImplementedError(
+            f"prototype {ftype!r} is not ported yet (ROADMAP queue 1 item 5)")
+    return _PROTOTYPES[ftype](k, m, beta, dt)

@@ -1,6 +1,6 @@
 """Framing, ported from `liquid_dsp_tpu.framing`: packet modem and pilot
-sync, preamble detection, the frame64 PHY pair and the streaming
-preamble-sync receivers."""
+sync, preamble detection, the frame64 PHY pair, the streaming
+preamble-sync receivers and the symbol tracker."""
 from .qpacket import (  # noqa: F401
     qpacketmodem_frame_len, qpacketmodem_encode, qpacketmodem_decode,
     qpacketmodem_decode_soft, qpilot_pilots, qpilot_frame_len, qpilotgen,
@@ -12,3 +12,5 @@ from .frame64 import (  # noqa: F401
     framesync64_stream, framesync64_stream_full, Framesync64,
 )
 from .stream_rx import preamble_stream, detector_stream  # noqa: F401
+from .symtrack import symtrack, SymtrackResult  # noqa: F401
+from .symtrack import symtrack_stream, Symtrack  # noqa: F401

@@ -1,0 +1,273 @@
+"""symtrack: streaming symbol tracker (AGC -> symbol sync -> carrier PLL
+-> LMS equalizer -> decisions), ported from
+`liquid_dsp_tpu/framing/symtrack.py`.
+
+Reference analog: symtrack_cccf (src/framing/src/symtrack.c:42-124):
+agc_crcf -> symsync (2 samples/symbol, root-Nyquist) -> eqlms_cccf -> an
+NCO PLL driven by the demodulator's phase error -> symbol decisions.
+
+On the card a block runs through three hand-written kernels: the AGC's
+gain recurrence (`ops/kernels/agc_scan`), the symsync timing loop
+(`ops/kernels/symsync_scan`, after one conv1d per chunk) and the PLL +
+decision-directed LMS over the symsync slots (`ops/kernels/pll_lms`).
+That is the JAX package's sequential route; its fused route (the PLL +
+LMS step inside the timing loop) exists on the CPU only.
+"""
+from __future__ import annotations
+
+import os
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core import Proc
+from ..modem import constellation, demodulate
+from ..ops.agc import agc
+from ..ops.equalize import eqlms_lowpass_weights, eqlms_run
+from ..ops.kernels.pll_lms import pll_lms, pll_lms_step, slicer_config
+from ..ops.symsync import _hoist_chunk, _symsync_run_hoisted, symsync
+
+__all__ = ["SymtrackResult", "symtrack", "symtrack_stream", "SymtrackStream",
+           "Symtrack"]
+
+
+def _use_fused() -> bool:
+    """The fused route (PLL + LMS inside the timing loop) or the
+    sequential one (timing loop, then PLL + LMS over its slots).  The
+    default is sequential: on CUDA those are the two kernels, and the JAX
+    package's CPU default is the same.  LIQUID_SYMTRACK_FUSED=0/1
+    overrides, as in the JAX package; a fused route on CUDA raises in the
+    block step (no fused kernel yet)."""
+    return os.environ.get("LIQUID_SYMTRACK_FUSED") == "1"
+
+
+class SymtrackResult(NamedTuple):
+    symbols: np.ndarray    # recovered (equalized, derotated) symbols
+    decisions: np.ndarray  # hard decisions (indices)
+
+
+def _pll_scan(table, syms, bw: float):
+    """Carrier tracking loop over symbols (host tensors): mix, slice,
+    phase-error feedback with a 2nd-order loop (reference symtrack's
+    internal PLL).  Returns (mixed symbols, decisions) as numpy."""
+    alpha = bw
+    beta = 0.5 * bw * bw
+    tab = torch.from_numpy(np.asarray(table, np.complex64))
+    s = torch.from_numpy(np.asarray(syms, np.complex64))
+    theta = torch.zeros((), dtype=torch.float32)
+    dtheta = torch.zeros((), dtype=torch.float32)
+    vs, idxs = [], []
+    for t in range(s.shape[0]):
+        v = s[t] * torch.exp(-1j * theta)
+        idx = torch.argmin((v - tab).abs() ** 2)
+        e = torch.angle(v * torch.conj(tab[idx]))
+        dtheta = dtheta + beta * e
+        theta = theta + dtheta + alpha * e
+        vs.append(v)
+        idxs.append(idx)
+    if not vs:
+        return np.zeros(0, np.complex64), np.zeros(0, np.int64)
+    return torch.stack(vs).numpy(), torch.stack(idxs).numpy()
+
+
+def symtrack(x, ftype: str = "arkaiser", k: int = 2, m: int = 7,
+             beta: float = 0.3, ms: str = "qpsk", eq_len: int = 13,
+             eq_mu: float = 0.05, pll_bw: float = 0.05,
+             bandwidth: float = 0.9, device="cpu") -> SymtrackResult:
+    """Track a continuous stream of modulated samples and return the
+    recovered symbols (reference symtrack_cccf_execute_block).  The
+    symbol-rate PLL and LMS are per-symbol loops over the compacted
+    symbols with no kernel yet, so ``device`` must be the CPU; on the card
+    use `Symtrack` or `symtrack_stream`."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        raise NotImplementedError(
+            "the one-shot symtrack's PLL and LMS have no kernel on the card "
+            "(ROADMAP, later kernel work: recurrence kernels for the "
+            "one-shot symtrack and the equalizers); use Symtrack or "
+            "symtrack_stream on CUDA")
+    x = torch.from_numpy(np.asarray(x, np.complex64)).to(dev)
+    ag = agc(bandwidth=0.02)
+    y, _ = ag(ag.init(device=dev), x)
+    ss = symsync(ftype, k, m, beta, bw=0.02).to(dev)
+    (sy, sv), _ = ss(ss.init(device=dev), y)
+    syms = sy[sv].cpu().numpy()
+    if len(syms) == 0:
+        return SymtrackResult(np.zeros(0, np.complex64),
+                              np.zeros(0, np.int64))
+    table = constellation(ms)
+    v, _ = _pll_scan(table, syms.astype(np.complex64), pll_bw)
+    L = eq_len
+    # lowpass-initialized equalizer (reference symtrack.c:122
+    # eqlms_create_lowpass(eq_len, 0.45)); x2_sum and n primed at L
+    # (unit-power symbols after the AGC: the window counts as full)
+    carry = {"w": torch.from_numpy(eqlms_lowpass_weights(L)),
+             "buf": torch.zeros(L, dtype=torch.complex64),
+             "x2_sum": torch.tensor(float(L), dtype=torch.float32),
+             "n": torch.tensor(L, dtype=torch.int32)}
+    tab = torch.from_numpy(np.asarray(table, np.complex64))
+
+    def slicer(yv):
+        return tab[torch.argmin((yv[..., None] - tab).abs() ** 2, dim=-1)]
+
+    veq, _ = eqlms_run(None, eq_mu, carry, torch.from_numpy(v),
+                       slicer=slicer)
+    dec = demodulate(table, veq).numpy()
+    return SymtrackResult(veq.numpy(), dec)
+
+
+class SymtrackStream(Proc):
+    """Streaming symbol tracker (see `symtrack_stream`).  Buffers: the
+    constellation as ``tab_re``/``tab_im`` and the equalizer's initial
+    weights as ``w0_re``/``w0_im``; the AGC and symsync stages are
+    submodules."""
+
+    def __init__(self, ftype, k, m, beta, ms, eq_len, eq_mu, pll_bw, agc_bw,
+                 sync_bw, name):
+        super().__init__(name)
+        self.ag = agc(bandwidth=agc_bw)
+        self.ss = symsync(ftype, k, m, beta, bw=sync_bw)
+        self.k, self.sync_bw = int(k), float(sync_bw)
+        self.rate = (1, self.k)
+        table = np.asarray(constellation(ms)).astype(np.complex64)
+        self._buffer("tab_re", table.real.copy())
+        self._buffer("tab_im", table.imag.copy())
+        self.qpsk = slicer_config(table)
+        self.alpha = float(pll_bw)
+        self.beta2 = 0.5 * float(pll_bw) ** 2
+        self.L = int(eq_len)
+        self.mu = float(eq_mu)
+        w0 = eqlms_lowpass_weights(self.L).astype(np.complex64)
+        self._buffer("w0_re", w0.real.copy())
+        self._buffer("w0_im", w0.imag.copy())
+
+    def init(self, batch_shape=(), dtype=torch.complex64, device=None):
+        w = torch.complex(self.w0_re, self.w0_im).to(device=device,
+                                                      dtype=dtype)
+        L = self.L
+
+        def full(v, dt=torch.float32):
+            return torch.full(batch_shape, v, dtype=dt, device=device)
+
+        return {"agc": self.ag.init(batch_shape, dtype, device),
+                "ss": self.ss.init(batch_shape, dtype, device),
+                "theta": full(0.0), "dtheta": full(0.0),
+                "eq_w": w.expand(batch_shape + (L,)).clone(),
+                "eq_buf": torch.zeros(batch_shape + (L,), dtype=dtype,
+                                      device=device),
+                # x2_sum/n primed at L: the window counts as full
+                # (reference symtrack.c:122 eqlms_create_lowpass init)
+                "eq_x2": full(float(L)), "eq_n": full(L, torch.int32)}
+
+    def _post(self, pc, y_re, y_im, vm):
+        return pll_lms_step(pc, y_re, y_im, vm, self.tab_re, self.tab_im,
+                            **self.pll_kwargs())
+
+    def pll_state(self, carry, Bf: int):
+        """The carry's PLL + LMS state on planes, channels flattened to
+        [Bf] (the form `pll_lms` takes)."""
+        L = self.L
+        w, buf = carry["eq_w"], carry["eq_buf"]
+        return {"theta": carry["theta"].reshape(Bf),
+                "dtheta": carry["dtheta"].reshape(Bf),
+                "ew_re": w.real.reshape(Bf, L).contiguous(),
+                "ew_im": w.imag.reshape(Bf, L).contiguous(),
+                "eb_re": buf.real.reshape(Bf, L).contiguous(),
+                "eb_im": buf.imag.reshape(Bf, L).contiguous(),
+                "eq_x2": carry["eq_x2"].reshape(Bf),
+                "eq_n": carry["eq_n"].reshape(Bf)}
+
+    def pll_kwargs(self):
+        """`pll_lms`'s loop constants and slicer."""
+        return dict(alpha=self.alpha, beta2=self.beta2, mu=self.mu,
+                    qpsk=self.qpsk)
+
+    def forward(self, carry, x):
+        batch = tuple(x.shape[:-1])
+        Bf = int(np.prod(batch)) if batch else 1
+        L = self.L
+        y, agc_c = self.ag(carry["agc"], x)
+        pc = self.pll_state(carry, Bf)
+        if _use_fused() and _hoist_chunk(int(x.shape[-1])) <= 4096:
+            if x.device.type == "cuda":
+                raise NotImplementedError(
+                    "the fused symtrack route on CUDA needs the fused "
+                    "timing + PLL/LMS kernel (ROADMAP, later kernel work); "
+                    "unset LIQUID_SYMTRACK_FUSED for the sequential route")
+            _, sv, ss_c, (yr, yi, dt), pc = _symsync_run_hoisted(
+                self.ss.mf, self.ss.dmf, carry["ss"], y, self.k, 1,
+                self.sync_bw, post=self._post, post_carry=pc)
+        else:
+            (sy, sv), ss_c = self.ss(carry["ss"], y)
+            S = sy.shape[-1]
+            yr, yi, dt, pc = pll_lms(
+                sy.real.reshape(Bf, S).contiguous(),
+                sy.imag.reshape(Bf, S).contiguous(),
+                sv.reshape(Bf, S).contiguous(), pc, self.tab_re, self.tab_im,
+                **self.pll_kwargs())
+        S = sv.shape[-1]
+        out = (torch.complex(yr, yi).reshape(batch + (S,)),
+               dt.reshape(batch + (S,)), sv)
+        new = {"agc": agc_c, "ss": ss_c,
+               "theta": pc["theta"].reshape(batch),
+               "dtheta": pc["dtheta"].reshape(batch),
+               "eq_w": torch.complex(pc["ew_re"], pc["ew_im"]).reshape(
+                   batch + (L,)),
+               "eq_buf": torch.complex(pc["eb_re"], pc["eb_im"]).reshape(
+                   batch + (L,)),
+               "eq_x2": pc["eq_x2"].reshape(batch),
+               "eq_n": pc["eq_n"].reshape(batch)}
+        return out, new
+
+
+def symtrack_stream(ftype: str = "arkaiser", k: int = 2, m: int = 7,
+                    beta: float = 0.3, ms: str = "qpsk", eq_len: int = 13,
+                    eq_mu: float = 0.05, pll_bw: float = 0.05,
+                    agc_bw: float = 0.02, sync_bw: float = 0.02,
+                    name: str = "symtrack_stream") -> SymtrackStream:
+    """Streaming symbol tracker Proc.
+
+    proc(carry, x[..., T]) -> ((syms, decisions, valid), carry'): outputs
+    at the symsync slot rate with a validity mask (compact with the
+    mask); every stage's state persists in the carry, which has the JAX
+    package's keys, shapes and dtypes."""
+    return SymtrackStream(ftype, k, m, beta, ms, eq_len, eq_mu, pll_bw,
+                          agc_bw, sync_bw, name)
+
+
+class Symtrack:
+    """Persistent symbol-tracker object (the reference symtrack_cccf
+    create / execute / reset contract).  Feed sample arrays of any length;
+    execute returns (symbols, decisions) recovered in that call.  State
+    survives across calls; reset() re-arms everything.  device: where the
+    tracker runs ("cpu" unless given)."""
+
+    def __init__(self, ftype: str = "arkaiser", k: int = 2, m: int = 7,
+                 beta: float = 0.3, ms: str = "qpsk", eq_len: int = 13,
+                 eq_mu: float = 0.05, pll_bw: float = 0.05,
+                 block_len: int = 4096, device="cpu"):
+        self.device = torch.device(device)
+        self._proc = symtrack_stream(ftype, k, m, beta, ms, eq_len, eq_mu,
+                                     pll_bw).to(self.device)
+        self.block_len = int(block_len) // k * k
+        self.reset()
+
+    def reset(self):
+        self._carry = self._proc.init(device=self.device)
+        self._pending = np.zeros(0, np.complex64)
+
+    def execute(self, x):
+        self._pending = np.concatenate(
+            [self._pending, np.asarray(x, np.complex64)])
+        syms, decs = [], []
+        while len(self._pending) >= self.block_len:
+            blk = torch.from_numpy(self._pending[:self.block_len].copy())
+            self._pending = self._pending[self.block_len:]
+            (sy, dec, sv), self._carry = self._proc(self._carry,
+                                                    blk.to(self.device))
+            syms.append(sy[sv].cpu().numpy())
+            decs.append(dec[sv].cpu().numpy())
+        if syms:
+            return np.concatenate(syms), np.concatenate(decs)
+        return np.zeros(0, np.complex64), np.zeros(0, np.int64)

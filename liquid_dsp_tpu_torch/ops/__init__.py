@@ -1,1 +1,2 @@
-"""Streaming compute ops of the PyTorch port (fir, fftfilt, resample, nco)."""
+"""Streaming compute ops of the PyTorch port (fir, fftfilt, resample, nco,
+agc, symsync, equalize)."""

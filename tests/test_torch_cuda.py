@@ -10,7 +10,10 @@ Tolerances: 1e-5 of rms in f32 (the same float32 arithmetic, summed in
 another order); with bf16 output planes one bf16 step (2^-7 of the
 largest output), since both versions round their f32 sums to bf16.
 codebook_argmax: bit-equal indices (kernel and plain version sum the same
-exact terms in the same order).
+exact terms in the same order).  symsync_scan and agc_scan: bit-equal
+outputs and state (the same roundings, FMAs where both take them);
+pll_lms: 2e-4 with equal decisions (libm sincos/atan2 and the dot's
+order differ), the reference's stream tolerance.
 """
 import numpy as np
 import pytest
@@ -215,3 +218,170 @@ def test_receiver_on_the_card_matches_the_cpu(dev):
                                             if s[0] == 1]
     res = framesync64(x[0, :4000], device=dev)
     assert res.crc_ok and res.payload.tolist() == sent[0][2].tolist()
+
+
+# --- the timing-recovery family's kernels -------------------------------
+
+def _symsync_case(dev, P, B, Tc, seed):
+    from liquid_dsp_tpu_torch.ops.kernels import symsync_scan as sk
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ma = torch.randn(P, B, 64, Tc, generator=g, device=dev) * 0.7
+    fs = torch.zeros(6, B, device=dev)
+    fs[0] = torch.rand(B, generator=g, device=dev) * 1.2 - 0.3
+    fs[1] = fs[2] = 2.0
+    fs[4] = fs[0] * 32
+    is_ = torch.stack([torch.round(fs[4]).int(),
+                       torch.ones(B, dtype=torch.int32, device=dev)])
+    return sk, ma, fs, is_
+
+
+@pytest.mark.parametrize("P,B,Tc,k,k_out,locked", [
+    (2, 256, 1024, 2, 1, False), (1, 37, 300, 2, 1, False),
+    (2, 5, 513, 3, 2, False), (2, 40, 256, 2, 1, True)])
+def test_symsync_scan_bit_equal_to_plain(dev, P, B, Tc, k, k_out, locked):
+    sk, ma, fs, is_ = _symsync_case(dev, P, B, Tc, seed=B + Tc)
+    kw = dict(npfb=32, max_out=int(np.ceil(k / k_out)) + 1, k=k,
+              k_out=k_out, bw=0.02, locked=locked)
+    launches = sk.symsync_scan.launches
+    got = sk.symsync_scan(ma, fs, is_, **kw)
+    want = sk.symsync_scan_reference(ma, fs, is_, **kw)
+    torch.cuda.synchronize()
+    assert sk.symsync_scan.launches == launches + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_symsync_scan_rejects_misplaced_tensors(dev):
+    sk, ma, fs, is_ = _symsync_case(dev, 2, 8, 64, seed=0)
+    kw = dict(npfb=32, max_out=3, k=2, k_out=1, bw=0.02, locked=False)
+    with pytest.raises(ValueError, match="device"):
+        sk.symsync_scan(ma, fs.cpu(), is_, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.symsync_scan(ma.transpose(0, 1).contiguous().transpose(0, 1), fs,
+                        is_, **kw)
+
+
+@pytest.mark.parametrize("locked", [False, True])
+def test_agc_scan_bit_equal_to_plain(dev, locked):
+    from liquid_dsp_tpu_torch.ops.kernels import agc_scan as ak
+    g = torch.Generator(device=dev).manual_seed(5)
+    p = torch.rand(70, 2000, generator=g, device=dev) * torch.logspace(
+        -3, 1, 70, device=dev)[:, None]
+    g0 = torch.rand(70, generator=g, device=dev) + 0.5
+    y0 = torch.ones(70, device=dev)
+    launches = ak.agc_scan.launches
+    got = ak.agc_scan(p, g0, y0, alpha=0.02, locked=locked)
+    want = ak.agc_scan_reference(p, g0, y0, alpha=0.02, locked=locked)
+    torch.cuda.synchronize()
+    assert ak.agc_scan.launches == launches + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("ms,L", [("qpsk", 13), ("qam16", 13),
+                                  ("qpsk", 20), ("psk8", 32)])
+def test_pll_lms_matches_plain(dev, ms, L):
+    from liquid_dsp_tpu_torch.framing.symtrack import symtrack_stream
+    from liquid_dsp_tpu_torch.ops.kernels import pll_lms as pk
+    st = symtrack_stream(ms=ms, eq_len=L).to(dev)
+    B, S = 40, 1500
+    g = torch.Generator(device=dev).manual_seed(L)
+    idx = torch.randint(0, st.tab_re.shape[0], (B, S), generator=g,
+                        device=dev)
+    ph = torch.rand(B, 1, generator=g, device=dev) * 6.28
+    sr = st.tab_re[idx] * torch.cos(ph) - st.tab_im[idx] * torch.sin(ph)
+    si = st.tab_re[idx] * torch.sin(ph) + st.tab_im[idx] * torch.cos(ph)
+    sr = (sr + 0.03 * torch.randn(B, S, generator=g, device=dev)).contiguous()
+    si = (si + 0.03 * torch.randn(B, S, generator=g, device=dev)).contiguous()
+    valid = torch.rand(B, S, generator=g, device=dev) < 0.5
+    pc = st.pll_state(st.init(batch_shape=(B,), device=dev), B)
+    launches = pk.pll_lms.launches
+    got = pk.pll_lms(sr, si, valid, pc, st.tab_re, st.tab_im,
+                     **st.pll_kwargs())
+    want = pk.pll_lms_reference(sr, si, valid, pc, st.tab_re, st.tab_im,
+                                **st.pll_kwargs())
+    torch.cuda.synchronize()
+    assert pk.pll_lms.launches == launches + 1
+    assert float((got[0] - want[0]).abs().max()) <= 2e-4
+    assert float((got[1] - want[1]).abs().max()) <= 2e-4
+    assert torch.equal(got[2], want[2])
+    for key in pk.STATE_KEYS:
+        assert float((got[3][key].float() - want[3][key].float()).abs()
+                     .max()) <= 2e-4, key
+
+
+def test_pll_lms_rejects_long_equalizers(dev):
+    from liquid_dsp_tpu_torch.framing.symtrack import symtrack_stream
+    from liquid_dsp_tpu_torch.ops.kernels import pll_lms as pk
+    st = symtrack_stream(eq_len=pk.LMAX + 1).to(dev)
+    pc = st.pll_state(st.init(batch_shape=(2,), device=dev), 2)
+    s = torch.zeros(2, 8, device=dev)
+    with pytest.raises(ValueError, match="equalizer"):
+        pk.pll_lms(s, s, s > 0, pc, st.tab_re, st.tab_im, **st.pll_kwargs())
+
+
+def test_symtrack_on_the_card_matches_the_cpu(dev, monkeypatch):
+    # the card's route (agc_scan, conv1d + symsync_scan, pll_lms) against
+    # the port on the CPU forced to the same hoisted route
+    from liquid_dsp_tpu_torch.framing.symtrack import Symtrack, symtrack_stream
+    from liquid_dsp_tpu_torch.ops.kernels import agc_scan, pll_lms
+    from liquid_dsp_tpu_torch.ops import symsync as ss
+    from liquid_dsp_tpu_torch.ops.kernels import symsync_scan
+    # the conv must not follow the global flag
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    rng = np.random.default_rng(2)
+    x = (rng.standard_normal((3, 2048)) + 1j * rng.standard_normal(
+        (3, 2048))).astype(np.complex64) * 0.3
+    card = symtrack_stream().to(dev)
+    cpu = symtrack_stream()
+    n = (agc_scan.agc_scan.launches, symsync_scan.symsync_scan.launches,
+         pll_lms.pll_lms.launches)
+    (yg, dg, vg), _ = card(card.init(batch_shape=(3,), device=dev),
+                           torch.from_numpy(x).to(dev))
+    run = ss.symsync_run
+    monkeypatch.setattr(ss, "symsync_run",
+                        lambda *a, **kw: run(*a, **kw, hoist=True))
+    monkeypatch.setenv("LIQUID_SYMSYNC_KERNEL", "1")
+    (yc, dc, vc), _ = cpu(cpu.init(batch_shape=(3,)), torch.from_numpy(x))
+    assert (agc_scan.agc_scan.launches, symsync_scan.symsync_scan.launches,
+            pll_lms.pll_lms.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    assert torch.equal(vg.cpu(), vc)
+    assert float((yg.cpu()[vc] - yc[vc]).abs().max()) <= 2e-4
+    assert torch.equal(dg.cpu()[vc], dc[vc])
+    sy, dec = Symtrack(block_len=1024, device=dev).execute(x[0])
+    assert len(sy) == len(dec) > 900
+
+
+def test_fused_routes_raise_on_the_card(dev, monkeypatch):
+    from liquid_dsp_tpu_torch.framing.symtrack import symtrack_stream
+    from liquid_dsp_tpu_torch.ops import symsync as ss
+    monkeypatch.setenv("LIQUID_SYMTRACK_FUSED", "1")
+    st = symtrack_stream().to(dev)
+    x = torch.zeros(2, 1024, dtype=torch.complex64, device=dev)
+    with pytest.raises(NotImplementedError, match="fused timing"):
+        st(st.init(batch_shape=(2,), device=dev), x)
+    q = ss.symsync().to(dev)
+    with pytest.raises(NotImplementedError, match="fused timing"):
+        ss._symsync_run_hoisted(q.mf, q.dmf, q.init((2,), device=dev), x, 2,
+                                post=lambda *a: a, post_carry={})
+
+
+def test_per_step_loops_raise_on_the_card(dev):
+    # the CPU-only per-step loops refuse CUDA tensors instead of running
+    # one launch per op on the card
+    from liquid_dsp_tpu_torch.framing.symtrack import symtrack
+    from liquid_dsp_tpu_torch.ops import equalize as eq
+    from liquid_dsp_tpu_torch.ops import symsync as ss
+    x = torch.zeros(2, 512, dtype=torch.complex64, device=dev)
+    with pytest.raises(NotImplementedError, match="one-shot symtrack"):
+        symtrack(np.zeros(512, np.complex64), device=dev)
+    q = ss.symsync().to(dev)
+    with pytest.raises(ValueError, match="scan body"):
+        ss.symsync_run(q.mf, q.dmf, q.init((2,), device=dev), x, 2,
+                       hoist=False)
+    lms = eq.eqlms(5)
+    with pytest.raises(NotImplementedError, match="eqlms"):
+        lms(lms.init((2,), device=dev), x)
+    rls = eq.eqrls(5)
+    with pytest.raises(NotImplementedError, match="eqrls"):
+        rls(rls.init((2,), device=dev), (x, x))

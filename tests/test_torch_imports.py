@@ -42,7 +42,9 @@ def test_port_never_imports_jax_or_the_reference():
                 "design.firdes", "modem.linear", "fec.crc", "fec.interleave",
                 "fec.block", "fec.dispatch", "fec.packetizer", "fec.device",
                 "framing.qpacket", "framing.stream_rx", "framing.detector",
-                "framing.frame64"):
+                "framing.frame64", "ops.kernels.symsync_scan",
+                "ops.kernels.agc_scan", "ops.kernels.pll_lms", "ops.symsync",
+                "ops.agc", "ops.equalize", "framing.symtrack"):
         assert "liquid_dsp_tpu_torch." + mod in got["modules"], mod
     assert got["jax"] == [] and got["reference"] == []
     assert not got["triton"] and not got["cuda_initialized"]
