@@ -62,15 +62,29 @@ channel, made with numpy and scipy):
  14. each new kernel against its plain version on the same inputs and
      states: symsync_scan bit-equal over 1024 steps x 256 channels,
      agc_scan bit-equal (else max|err|/rms <= 1e-6) over 4096 samples,
-     pll_lms within 2e-4 with equal decisions over 3072 slots;
+     pll_lms within 2e-4 with equal decisions over 3072 slots; then the
+     two kernels' own structure under stress, 256 channels each:
+     symsync_scan bit-equal on a ragged chunk (509 steps), a real stream
+     (P = 1), locked=True, k = 3 with k_out = 2, and from the zero state
+     (acquisition: fast drift, negative branch indices); pll_lms within
+     2e-4 (outputs and state) with equal decisions where every 4th
+     channel has no valid slot (and invalid slots carry samples), where
+     all slots are valid, with the argmin slicer (qam16) and with L = 32;
  15. 4 channels x 4096 samples through symtrack_stream on the card and on
      the CPU (hoisted route with the kernels' plain versions): equal valid
      masks and decisions, symbols within 2e-4;
  16. times (CUDA events): each new kernel against its plain version at
      1024 steps / 3072 slots (plain, kernel, kernel, plain), each kernel
-     at full width, and the symsync and symtrack_stream block steps.
+     at full width, and the symsync and symtrack_stream block steps;
+ 17. torch.profiler over 3 symtrack_stream steps: device time by kernel,
+     device operations per step, busy share (a measurement, no check).
 
-The JSON line before the card's name lists all six kernels.
+The JSON line before the card's name lists all six kernels, each with its
+launches on its main path, its error against the plain version, its time,
+the plain version's, the time of one PyTorch call for the same function
+where there is one (F.conv1d for fir_real), and its bound: the larger of
+the bytes it must move over 3.35 TB/s and its float32 operations over
+67 TFLOP/s (a multiply-add counts 2), from this run's shapes and data.
 """
 import json
 import os
@@ -101,6 +115,10 @@ RX_QUIET = 8                # noise-only channels (the last ones)
 RX_FRAMES = 8               # frames per channel with frames
 FIR_L = 144                 # fir_real taps (the headline chain's fused FIR)
 TOL_FIR = 1e-5              # fir_real kernel vs plain, max|err|/rms
+TR_STRESS = 509             # steps of the symsync_scan stress cases (ragged)
+PLL_STRESS = 1536           # slots of the pll_lms stress cases
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
+F32_OPS_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores
 
 
 def fail(msg):
@@ -111,6 +129,16 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
+
+
+def bound(n_bytes, n_ops):
+    """{"bound_ms", "bound_by"}: the least time the card could take, the
+    larger of bytes moved once over the memory rate and float32 operations
+    over the peak rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def complex_err(y, ref):
@@ -393,12 +421,19 @@ def main():
           f"{B * T / kb / 1e3:.1f} Msamples/s; main-path step "
           f"{step:.4f} ms; {B}x{T} complex samples per block", flush=True)
 
+    n_taps = int(kern.taps.numel())
     kernels = [{
         "name": "mix_fir_decim", "route": "cuda",
         "source": "liquid_dsp_tpu_torch/csrc/mix_fir_decim.cu",
         "replaces": "liquid_dsp_tpu/ops/kernels/pallas_chain.py:154",
         "launches": launches, "max_abs_err": max_abs,
-        "ms": ms, "plain_ms": plain_ms}]
+        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        # planes in and out once; per output L taps x 2 planes, per input
+        # one complex rotation (6 operations)
+        **bound(2 * B * T * 4 + 2 * B * (T // kern.down) * 4,
+                B * (T // kern.down) * n_taps * 2 * 2 + B * T * 6)}]
+    print(f"bound: mix_fir_decim {kernels[0]['bound_ms']:.4f} ms by "
+          f"{kernels[0]['bound_by']} ({n_taps} taps)", flush=True)
     del xs, outs, carries, refs, xb0
     torch.cuda.empty_cache()
     kernels += receiver_phases(torch, dev, card)
@@ -520,6 +555,16 @@ def receiver_phases(torch, dev, card):
     fk1 = time_ms(lambda: fir_real(rows, crow, hk))
     fk2 = time_ms(lambda: fir_real(rows, crow, hk))
     fp2 = time_ms(lambda: fir_real_reference(rows, crow, hk))
+    # the one PyTorch call for the same function: conv1d (a
+    # cross-correlation, so the taps flipped) over [carry | rows]
+    import torch.nn.functional as F
+    xin = torch.cat([crow, rows], 1)[:, None, :]
+    wk = hk.flip(0)[None, None, :].contiguous()
+    lib_err = float((F.conv1d(xin, wk)[:, 0] - fir_real(rows, crow, hk))
+                    .abs().max() / rows.square().mean().sqrt())
+    check(lib_err < TOL_FIR, f"F.conv1d vs fir_real: {lib_err:.3e}")
+    fr_lib = time_ms(lambda: F.conv1d(xin, wk))
+    del xin
     cb_ms, cb_plain = (ck1 + ck2) / 2, (cp1 + cp2) / 2
     fr_ms, fr_plain = (fk1 + fk2) / 2, (fp1 + fp2) / 2
     print(f"timing ({card}): receiver step {rx_ms:.4f} ms per {RX_B}x{RX_T} "
@@ -531,20 +576,32 @@ def receiver_phases(torch, dev, card):
           flush=True)
     print(f"timing ({card}): fir_real kernel {fr_ms:.4f} ms (runs "
           f"{fk1:.4f}, {fk2:.4f}) vs plain {fr_plain:.4f} ms (runs "
-          f"{fp1:.4f}, {fp2:.4f}) at {B}x{T} complex ({2 * B} rows), "
-          f"{FIR_L} taps", flush=True)
+          f"{fp1:.4f}, {fp2:.4f}) and F.conv1d {fr_lib:.4f} ms at {B}x{T} "
+          f"complex ({2 * B} rows), {FIR_L} taps", flush=True)
+    N, n, K = cw.shape[0], cw.shape[1], bip.shape[1]
+    # soft bits in, indices out, the codebook once; one multiply-add per
+    # (row, bit, codeword)
+    cb_bound = bound(N * n * 4 + N * 4 + bip.numel() * bip.element_size(),
+                     2 * N * n * K)
+    # rows in and out once; one multiply-add per output and tap
+    fr_bound = bound(2 * rows.numel() * 4, 2 * rows.numel() * FIR_L)
+    print(f"bound: codebook_argmax {cb_bound['bound_ms']:.4f} ms by "
+          f"{cb_bound['bound_by']}; fir_real {fr_bound['bound_ms']:.4f} ms "
+          f"by {fr_bound['bound_by']}", flush=True)
     return [{
         "name": "codebook_argmax", "route": "cuda",
         "source": "liquid_dsp_tpu_torch/csrc/codebook_argmax.cu",
         "replaces": "liquid_dsp_tpu/ops/kernels/pallas_codebook.py:40",
         "launches": cb_launches,
         "max_abs_err": float((idx_k - idx_p).abs().max()),
-        "ms": cb_ms, "plain_ms": cb_plain}, {
+        "ms": cb_ms, "plain_ms": cb_plain, "library_ms": None,
+        **cb_bound}, {
         "name": "fir_real", "route": "cuda",
         "source": "liquid_dsp_tpu_torch/csrc/fir_real.cu",
         "replaces": "liquid_dsp_tpu/ops/kernels/pallas_fir.py:51",
         "launches": fir_launches, "max_abs_err": abs_fir,
-        "ms": fr_ms, "plain_ms": fr_plain}]
+        "ms": fr_ms, "plain_ms": fr_plain, "library_ms": fr_lib,
+        **fr_bound}]
 
 
 def time_once(fn):
@@ -615,6 +672,81 @@ def qpsk_ser(rec, sent, rot, n, dmax=64, probe=512):
             best = min(best, (float(np.mean(s != tail[:probe])), d, r))
     _, d, r = best
     return float(np.mean(rot[r][sent[a - d:a - d + n]] != tail))
+
+
+def profile_steps(torch, card, step, n, what):
+    """torch.profiler over n calls of `step`: prints the device time per
+    call by kernel (the 8 largest), the device operations per call and the
+    busy share (device time over the host clock of the window)."""
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            tot, cnt = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (tot + ev.time_range.elapsed_us() / 1e3,
+                                cnt + 1)
+    if not by_name:
+        print(f"profile ({card}): {what}: the profiler recorded no device "
+              f"event; host clock {wall / n:.2f} ms per call with it on",
+              flush=True)
+        return
+    dev_ms = sum(t for t, _ in by_name.values())
+    ops = sum(c for _, c in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    print(f"profile ({card}): {what}, {n} calls: device time "
+          f"{dev_ms / n:.3f} ms per call in {ops / n:.0f} device operations, "
+          f"host clock {wall / n:.3f} ms per call with the profiler on, busy "
+          f"share {dev_ms / wall:.3f}; by kernel, ms per call (launches per "
+          f"call): " + "; ".join(
+              f"{name[:48]} {t / n:.3f} ({c / n:.0f})"
+              for name, (t, c) in top), flush=True)
+
+
+def synth_slots(torch, dev, st, B, S, share, seed):
+    """Slots for `pll_lms` on the card from a seed: points of the tracker's
+    constellation under a carrier phase per channel, noise 0.03, a share of
+    them valid at random places (the others carry samples too);
+    (s_re, s_im, valid)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.randint(0, st.tab_re.shape[0], (B, S), generator=g,
+                        device=dev)
+    # within 0.3 rad of a multiple of 90 degrees: a decision-directed loop
+    # pulls in from there on any square constellation
+    ph = (torch.rand(B, 1, generator=g, device=dev) * 0.6 - 0.3
+          + torch.randint(0, 4, (B, 1), generator=g, device=dev) * (np.pi / 2))
+    sr = st.tab_re[idx] * torch.cos(ph) - st.tab_im[idx] * torch.sin(ph)
+    si = st.tab_re[idx] * torch.sin(ph) + st.tab_im[idx] * torch.cos(ph)
+    sr = sr + 0.03 * torch.randn(B, S, generator=g, device=dev)
+    si = si + 0.03 * torch.randn(B, S, generator=g, device=dev)
+    valid = torch.rand(B, S, generator=g, device=dev) < share
+    return sr.contiguous(), si.contiguous(), valid
+
+
+def symsync_bound(out, P, B, Tc, max_out):
+    """Bound of one `symsync_scan` call from its own output: 2P floats read
+    per active emit, 9 bytes written per slot, the state read and written;
+    about 12 float32 operations per active emit."""
+    active = int(out[2].sum())
+    return bound(active * 2 * P * 4 + B * Tc * max_out * 9 + 2 * 8 * B * 4,
+                 active * 12)
+
+
+def pll_bound(valid, L):
+    """Bound of one `pll_lms` call: 9 bytes read and 12 written per slot,
+    the state read and written; per valid slot the L-tap complex dot and
+    update (16 L operations) and about 60 for the PLL and the slicers."""
+    B, S = valid.shape
+    return bound(B * S * 21 + 2 * B * (4 * L + 4) * 4,
+                 int(valid.sum()) * (16 * L + 60))
 
 
 def timing_phases(torch, dev, card):
@@ -768,6 +900,85 @@ def timing_phases(torch, dev, card):
           f"{pll_err:.3e} (<= {TOL_STREAM}), decisions equal over "
           f"{sr.shape[1]} slots", flush=True)
 
+    ss_bound = symsync_bound(out_k, 2, B, TR_CMP, 3)
+    ag_bound = bound(2 * p.numel() * 4, p.numel() * 12)
+    pl_bound = pll_bound(sv, st.L)
+
+    # 14b. the two kernels' structure under stress
+    def hold_symsync(name, ma_, fs_, is__, **kws):
+        k_ = symsync_scan(ma_, fs_, is__, **kws)
+        p_ = symsync_scan_reference(ma_, fs_, is__, **kws)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(k_, p_)),
+              f"symsync_scan, {name}: kernel and plain version differ")
+        return int(k_[2].sum())
+
+    n_s = TR_STRESS
+    ma_s = ma[..., :n_s].contiguous()
+    xr = torch.cat([c1["win"][..., 1:].real, x1[:, T:T + n_s].real], -1)
+    ma_real = branch_outputs(kern, xr[None].contiguous())
+    c0 = ss_carries[0]
+    xp0 = torch.cat([c0["win"][..., 1:], x1[:, :n_s]], -1)
+    ma_acq = branch_outputs(kern, torch.stack([xp0.real, xp0.imag])
+                            .contiguous())
+    fs0, is0 = loop_state(c0, B)
+    stress = {
+        "ragged chunk": hold_symsync("ragged chunk", ma_s, fs, is_, **kw),
+        "real stream (P=1)": hold_symsync("P=1", ma_real, fs, is_, **kw),
+        "locked": hold_symsync("locked", ma_s, fs, is_,
+                               **dict(kw, locked=True)),
+        "k=3, k_out=2": hold_symsync("k=3, k_out=2", ma_s, fs, is_,
+                                     **dict(kw, k=3, k_out=2)),
+        "from the zero state": hold_symsync("zero state", ma_acq, fs0, is0,
+                                            **kw)}
+    del ma_s, ma_real, ma_acq
+
+    def hold_pll(name, trk, sr_, si_, sv_):
+        pc_ = trk.pll_state(trk.init(batch_shape=(B,), device=dev), B) \
+            if trk is not st else pc
+        args = (sr_, si_, sv_, pc_, trk.tab_re, trk.tab_im)
+        k_ = pll_lms(*args, **trk.pll_kwargs())
+        p_ = pll_lms_reference(*args, **trk.pll_kwargs())
+        torch.cuda.synchronize()
+        err = max(float((k_[j] - p_[j]).abs().max()) for j in (0, 1))
+        check(err <= TOL_STREAM, f"pll_lms, {name}: {err:.3e} vs plain")
+        check(torch.equal(k_[2], p_[2]) and torch.equal(
+            k_[3]["eq_n"], p_[3]["eq_n"]), f"pll_lms, {name}: "
+            f"{int((k_[2] != p_[2]).sum())} decisions differ")
+        # the state: eq_x2 is a running sum of L powers, held per tap
+        for key in p_[3]:
+            d = float((k_[3][key].float() - p_[3][key].float()).abs().max())
+            d = d / trk.L if key == "eq_x2" else d
+            check(d <= TOL_STREAM, f"pll_lms, {name}: state {key} {d:.3e}")
+        return err
+
+    n_p = PLL_STRESS
+    sv_gap = sv[:, :n_p].clone()
+    sv_gap[::4] = False          # no valid slot at all; the samples stay
+    n_all = int(sv.sum(-1).min()) // 32 * 32 - 7      # not a multiple of 32
+    order = torch.argsort((~sv).to(torch.uint8), dim=1, stable=True)[:, :n_all]
+    st16 = symtrack_stream(ms="qam16").to(dev)
+    st32 = symtrack_stream(ms="qpsk", eq_len=32).to(dev)
+    pll_stress = {
+        "no valid slot on every 4th channel": hold_pll(
+            "channels without a valid slot", st, sr[:, :n_p].contiguous(),
+            si[:, :n_p].contiguous(), sv_gap),
+        f"all {n_all} slots valid": hold_pll(
+            "all slots valid", st, sr.gather(1, order).contiguous(),
+            si.gather(1, order).contiguous(),
+            torch.ones(B, n_all, dtype=torch.bool, device=dev)),
+        "argmin slicer (qam16)": hold_pll(
+            "argmin slicer", st16, *synth_slots(torch, dev, st16, B, n_p,
+                                                0.3, 16)),
+        "L=32": hold_pll("L=32", st32, *synth_slots(torch, dev, st32, B, n_p,
+                                                    0.3, 32))}
+    print(f"kernels vs plain under stress, {B} channels: symsync_scan "
+          f"bit-equal over {n_s} steps on "
+          + "; ".join(f"{k_} ({v_} symbols)" for k_, v_ in stress.items())
+          + f"; pll_lms over {n_p} slots, decisions equal, max|err| "
+          + "; ".join(f"{k_} {v_:.3e}" for k_, v_ in pll_stress.items())
+          + f" (<= {TOL_STREAM})", flush=True)
+
     # 15. the card against the port on the CPU
     nb, ns = TR_SMALL
     xs = x2[:nb, :ns].contiguous()
@@ -832,6 +1043,8 @@ def timing_phases(torch, dev, card):
         [xp[:, :T // nch + kern.shape[-1] - 1].real,
          xp[:, :T // nch + kern.shape[-1] - 1].imag]).contiguous())
     ss_full = time_ms(lambda: symsync_scan(ma_full, fs, is_, **kw), iters=3)
+    ss_full_bound = symsync_bound(symsync_scan(ma_full, fs, is_, **kw), 2, B,
+                                  ma_full.shape[-1], 3)
     del ma_full
     xa = x2[:, T:2 * T]
     p_full = (xa.real * xa.real + xa.imag * xa.imag).contiguous()
@@ -853,26 +1066,44 @@ def timing_phases(torch, dev, card):
           f"ms = {B * T / ss_step / 1e3:.1f} Msamples/s; symtrack_stream "
           f"step {st_step:.4f} ms (runs {st1:.4f}, {st2:.4f}) = "
           f"{B * T / st_step / 1e3:.1f} Msamples/s", flush=True)
+    ag_full_bound = bound(2 * p_full.numel() * 4, p_full.numel() * 12)
+    pl_full_bound = pll_bound(sv_b, st.L)
+    print(f"bounds (bytes once over {HBM_BYTES_PER_S / 1e12} TB/s, float32 "
+          f"operations over {F32_OPS_PER_S / 1e12} TFLOP/s), ms at "
+          f"{TR_CMP} steps / full width: symsync_scan "
+          f"{ss_bound['bound_ms']:.5f} / {ss_full_bound['bound_ms']:.5f} per "
+          f"chunk by {ss_bound['bound_by']}; agc_scan "
+          f"{ag_bound['bound_ms']:.5f} / {ag_full_bound['bound_ms']:.5f} by "
+          f"{ag_bound['bound_by']}; pll_lms {pl_bound['bound_ms']:.5f} / "
+          f"{pl_full_bound['bound_ms']:.5f} by {pl_bound['bound_by']}",
+          flush=True)
+
+    # 17. where the tracker step's device time goes
+    profile_steps(torch, card, lambda: st(c2, xb2), 3,
+                  f"symtrack_stream step at {B}x{T}")
     return [{
         "name": "symsync_scan", "route": "cuda",
         "source": "liquid_dsp_tpu_torch/csrc/symsync_scan.cu",
         "replaces": "liquid_dsp_tpu/ops/kernels/pallas_symsync.py:132",
         "launches": launches["symsync_scan"], "max_abs_err": ss_err,
-        "ms": ss_ms, "plain_ms": ss_plain, "steps": TR_CMP,
-        "full_chunk_ms": ss_full}, {
+        "ms": ss_ms, "plain_ms": ss_plain, "library_ms": None, **ss_bound,
+        "steps": TR_CMP, "full_chunk_ms": ss_full,
+        "full_chunk_bound_ms": ss_full_bound["bound_ms"]}, {
         "name": "agc_scan", "route": "cuda",
         "source": "liquid_dsp_tpu_torch/csrc/agc_scan.cu", "replaces": None,
         "recurrence": "liquid_dsp_tpu/ops/agc.py:39-50 (lax.scan)",
         "launches": launches["agc_scan"], "max_abs_err": agc_err,
-        "ms": ag_ms, "plain_ms": ag_plain, "steps": TR_AGC,
-        "full_block_ms": ag_full}, {
+        "ms": ag_ms, "plain_ms": ag_plain, "library_ms": None, **ag_bound,
+        "steps": TR_AGC, "full_block_ms": ag_full,
+        "full_block_bound_ms": ag_full_bound["bound_ms"]}, {
         "name": "pll_lms", "route": "cuda",
         "source": "liquid_dsp_tpu_torch/csrc/pll_lms.cu", "replaces": None,
         "recurrence": "liquid_dsp_tpu/framing/symtrack.py:218-267,301-306 "
                       "(lax.scan)",
         "launches": launches["pll_lms"], "max_abs_err": pll_err,
-        "ms": pl_ms, "plain_ms": pl_plain, "steps": int(sr.shape[1]),
-        "full_block_ms": pl_full}]
+        "ms": pl_ms, "plain_ms": pl_plain, "library_ms": None, **pl_bound,
+        "steps": int(sr.shape[1]), "full_block_ms": pl_full,
+        "full_block_bound_ms": pl_full_bound["bound_ms"]}]
 
 
 if __name__ == "__main__":

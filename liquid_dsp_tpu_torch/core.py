@@ -13,9 +13,11 @@ step is::
 * ``x_block`` is ``[..., T]``: time is the LAST axis, leading axes are
   batch/channel axes.
 
-The device is never chosen here: buffers follow ``.to(device)``, carries
+A Proc never chooses a device: buffers follow ``.to(device)``, carries
 are made on the ``device`` given to ``init``, and each step runs where
-its input tensor lies.
+its input tensor lies.  The entry points that take host arrays
+(`framesync64`, `Framesync64`, `symtrack`, `Symtrack`) run on the card
+unless the caller passes ``device="cpu"``; `entry_device` is their check.
 """
 from __future__ import annotations
 
@@ -25,7 +27,21 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 from torch import nn
 
-__all__ = ["LTI", "Proc", "Chain", "chain", "planar_per_plane"]
+__all__ = ["LTI", "Proc", "Chain", "chain", "planar_per_plane",
+           "entry_device"]
+
+
+def entry_device(device="cuda") -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another.  Without a card a CUDA device raises here; nothing falls back
+    to the CPU on its own."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} needs a CUDA card and "
+            "torch.cuda.is_available() is false; pass device=\"cpu\" to "
+            "run on the CPU")
+    return dev
 
 
 @dataclasses.dataclass(frozen=True)

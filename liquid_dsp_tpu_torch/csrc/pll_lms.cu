@@ -16,39 +16,83 @@
 // written for every slot.  nearest: the quadrant sign slicer for a
 // QPSK-like table (qpsk = 1, k_ab the index at ((-1)^a s, (-1)^b s)),
 // else the first argmin of |v - t|^2 over the M points (the table read
-// through the read-only cache; all threads read the same entry).
+// through the read-only cache); the kernel is compiled for each of the two.
 //
-// Numerics: float32 with sincosf and atan2f (CUDA has atan2, which the
-// TPU's Mosaic lacked) and nvcc's default FMA contraction; the dot is
-// summed in index order.  So it agrees with the plain PyTorch version
-// (ops/kernels/pll_lms.py) to the stream tolerance (2e-4, decisions
-// equal), not bit for bit.
+// Bound on this card: the latency of one dependent chain per channel
+// (theta and w pass from valid slot to valid slot); the 21 bytes a slot
+// moves are far below it.  What the design does about it:
 //
-// Bound on this card: latency.  Each slot depends on the last through
-// theta and w, so one thread per channel walks its own slots with the
-// whole state in registers: w and the window as LM-entry arrays (LM = 16
-// or 32, the smallest that holds L), the live L entries at the top, the
-// rest zero, every loop over them unrolled so that no index is dynamic.
-// 32 threads per block spread the channels over SMs.
+// * One warp per channel, one block per warp: B channels spread over
+//   min(B, 132) SMs.  Lane j holds tap j of the weights and of the window
+//   (LM = 16 or 32 lanes hold the taps, the smallest that holds L; with
+//   LM = 16 both half-warps hold a copy), the scalar state is kept alike
+//   in every lane.
+// * The chain walks the valid slots only.  The state changes nowhere
+//   else, so per 32-slot group a ballot of the valid flags gives a mask
+//   and the warp steps from set bit to set bit.  At 2 samples per symbol
+//   one slot in six is valid.
+// * The window is kept shifted ahead (sb_j = buf_{j+1}), and with it the
+//   part of the dot that does not see the new sample, P = sum_{j<L-1}
+//   conj(w_j) sb_j.  A slot's output is then y = P + conj(w_{L-1}) v: two
+//   multiply-adds after v.
+// * No sum across lanes stands on the LMS chain.  With w' = w + g conj(e)
+//   nb (nb the window with v, g the gain, e = d - y) the next P is
+//       P' = sum conj(w'_j) nb_{j+1} = A + (g e) C,
+//       A = sum_{j<L-1} conj(w_j) nb_{j+1},  C = sum_{j<L-1} conj(nb_j) nb_{j+1}
+//   and A, C need only v and the old w: their butterflies of shuffles run
+//   beside the slicer, and after e two complex multiply-adds give P'.  So
+//   the LMS chain is y -> d -> e -> P', and it hides behind the PLL chain
+//   (theta -> sincosf -> v -> atan2 -> theta).  theta is never wrapped,
+//   so sincosf stays the accurate one.  Each lane still updates its own
+//   tap exactly; the newest tap w_{L-1}, which every output needs, is
+//   updated alike in every lane with the same rounded operations as its
+//   own lane's, so no broadcast is needed and the copies never drift.
+// * An invalid slot's output is the same expression with the state
+//   frozen at the last valid slot before it.  Each lane owns one slot of
+//   the group and latches (P, w_{L-1}, cos, sin) when the chain passes a
+//   valid slot below its own; after the group every lane computes its
+//   invalid slot off the chain.  Runs of invalid slots that cross groups
+//   or tiles carry over in the latched registers.
+// * Slots are staged: s_re and s_im of the next 256-slot tile come into
+//   shared memory by cp.async (a warp copies full 128-byte lines) while
+//   the chain works on the current tile; the next tile's valid bytes wait
+//   in registers and become ballot masks.  Each group's y_re, y_im and
+//   dec go out as one full-line store per warp, straight from the lanes'
+//   registers.
+//
+// Numerics: float32 with the accurate sincosf, an atan2 by polynomial
+// (7e-8 rad) and a fast division for the gain (2 ulp), and nvcc's default
+// FMA contraction.  The length-L
+// dot is summed as a tree across lanes with the newest tap added last,
+// and through A + (g e) C instead of from the updated taps: another order
+// and association than the plain PyTorch version's
+// (ops/kernels/pll_lms.py), so the two agree to the stream tolerance
+// (2e-4, decisions equal), not bit for bit.
 //
 // Built by liquid_dsp_tpu_torch/ops/kernels/build.py with nvcc for sm_90a,
 // bound with ctypes; the C entry returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
-constexpr int THREADS = 32;
+constexpr int THREADS = 32;          // one warp = one channel
+constexpr int TILE = 256;            // slots per staged tile
+constexpr int GROUPS = TILE / 32;    // 32-slot groups per tile
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Slicer {
   const float* tab_re;
   const float* tab_im;
-  int M, qpsk, k00, k01, k10, k11;
+  int M, k00, k01, k10, k11;
   float s2v;
 
+  template <bool QPSK>
   __device__ __forceinline__ int nearest(float v_re, float v_im, float* r_re,
                                          float* r_im) const {
-    if (qpsk) {
+    if (QPSK) {
       const bool a = v_re < 0.f, b = v_im < 0.f;
       *r_re = a ? -s2v : s2v;
       *r_im = b ? -s2v : s2v;
@@ -71,7 +115,38 @@ struct Slicer {
   }
 };
 
-template <int LM>
+// atan2(y, x) of finite arguments without a branch or a call, so that the
+// compiler can weave the PLL chain and the LMS work into one block: the
+// smaller magnitude over the larger (fast reciprocal, 2 ulp), an odd
+// polynomial for atan on [0, 1] (max error 7e-8 rad against float64), then
+// the octant by selects.  Zeros follow atan2f: the sign bit of x picks
+// 0 or pi, the sign of y the sign.
+__device__ __forceinline__ float atan2_poly(float y, float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float mx = fmaxf(ax, ay), mn = fminf(ax, ay);
+  const float a = mx > 0.f ? __fdividef(mn, mx) : 0.f;
+  const float s = a * a;
+  float r = 0.0027856871f;
+  r = r * s - 0.0158660002f;
+  r = r * s + 0.042472221f;
+  r = r * s - 0.0749753043f;
+  r = r * s + 0.106448799f;
+  r = r * s - 0.142070308f;
+  r = r * s + 0.199934542f;
+  r = r * s - 0.333331466f;
+  r = r * s * a + a;
+  r = ay > ax ? 1.57079637f - r : r;
+  r = __float_as_int(x) < 0 ? 3.14159274f - r : r;
+  return copysignf(r, y);
+}
+
+// What an output needs of the state: the dot over the shifted window, the
+// newest tap and the rotation.
+struct Frozen {
+  float p_re, p_im, wl_re, wl_im, cth, sth;
+};
+
+template <int LM, bool QPSK>
 __global__ void __launch_bounds__(THREADS)
 pll_lms_kernel(const float* __restrict__ s_re, const float* __restrict__ s_im,
                const unsigned char* __restrict__ valid,
@@ -82,93 +157,206 @@ pll_lms_kernel(const float* __restrict__ s_re, const float* __restrict__ s_im,
                Slicer sl, float* __restrict__ y_re_o,
                float* __restrict__ y_im_o, int* __restrict__ dec_o, int B,
                int S, int L, float alpha, float beta2, float mu) {
-  const int b = blockIdx.x * THREADS + threadIdx.x;
-  if (b >= B) return;
-  const int off = LM - L;     // live entries at [off, LM)
-  float w_re[LM], w_im[LM], q_re[LM], q_im[LM];
-#pragma unroll
-  for (int j = 0; j < LM; ++j) {
-    const bool live = j >= off;
-    const size_t src = static_cast<size_t>(b) * L + (j - off);
-    w_re[j] = live ? w_re_io[src] : 0.f;
-    w_im[j] = live ? w_im_io[src] : 0.f;
-    q_re[j] = live ? b_re_io[src] : 0.f;
-    q_im[j] = live ? b_im_io[src] : 0.f;
-  }
+  __shared__ float sh_re[2][TILE];
+  __shared__ float sh_im[2][TILE];
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int jt = lane & (LM - 1);      // this lane's tap
+  const bool newest = jt == L - 1;     // the tap that takes the new sample
+  const bool ahead = jt < L - 1;       // taps with a shifted-ahead sample
+
+  const size_t tap0 = static_cast<size_t>(b) * L;
+  float w_re = jt < L ? w_re_io[tap0 + jt] : 0.f;
+  float w_im = jt < L ? w_im_io[tap0 + jt] : 0.f;
+  float sb_re = ahead ? b_re_io[tap0 + jt + 1] : 0.f;
+  float sb_im = ahead ? b_im_io[tap0 + jt + 1] : 0.f;
+  float old_re = b_re_io[tap0], old_im = b_im_io[tap0];   // buf_0
   float theta = theta_io[b], dtheta = dtheta_io[b], x2s = x2_io[b];
   int n = n_io[b];
   const size_t row = static_cast<size_t>(b) * S;
+  const int ntiles = (S + TILE - 1) / TILE;
 
-  for (int s = 0; s < S; ++s) {
-    const float sr = s_re[row + s], si = s_im[row + s];
-    const bool vm = valid[row + s] != 0;
-    float sth, cth;
-    sincosf(theta, &sth, &cth);
-    const float v_re = sr * cth + si * sth;
-    const float v_im = si * cth - sr * sth;
-    float r_re, r_im;
-    sl.nearest(v_re, v_im, &r_re, &r_im);
-    const float e = atan2f(v_im * r_re - v_re * r_im,
-                           v_re * r_re + v_im * r_im);
-    const float dtheta_n = dtheta + beta2 * e;
-    const float theta_n = theta + dtheta_n + alpha * e;
-    // the oldest live entry, read with compile-time indices only
-    float o_re = 0.f, o_im = 0.f;
+  // a sum over the lanes' taps; the butterfly leaves the same bits in
+  // every lane (each level adds the same two numbers)
+  auto lanes_sum = [](float x) {
 #pragma unroll
-    for (int j = 0; j < LM; ++j)
-      if (j == off) {
-        o_re = q_re[j];
-        o_im = q_im[j];
+    for (int o = LM / 2; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
+    return x;
+  };
+  Frozen cur;
+  cur.p_re = lanes_sum(w_re * sb_re + w_im * sb_im);
+  cur.p_im = lanes_sum(w_re * sb_im - w_im * sb_re);
+  cur.wl_re = __shfl_sync(FULL, w_re, L - 1);
+  cur.wl_im = __shfl_sync(FULL, w_im, L - 1);
+  sincosf(theta, &cur.sth, &cur.cth);
+
+  // tile n's planes into buffer n & 1, a line per warp instruction
+  auto stage_tile = [&](int n_tile) {
+    const int s0 = n_tile * TILE;
+#pragma unroll
+    for (int g = 0; g < GROUPS; ++g) {
+      const int s = s0 + g * 32 + lane;
+      if (s < S) {
+        cp_async_f32(&sh_re[n_tile & 1][g * 32 + lane], s_re + row + s);
+        cp_async_f32(&sh_im[n_tile & 1][g * 32 + lane], s_im + row + s);
       }
-    // the shifted window (padding stays zero) and y = sum conj(w) buf
-    float nb_re[LM], nb_im[LM];
-    float y_re = 0.f, y_im = 0.f;
-#pragma unroll
-    for (int j = 0; j < LM; ++j) {
-      nb_re[j] = j == LM - 1 ? v_re : (j >= off ? q_re[j + 1 < LM ? j + 1 : j] : 0.f);
-      nb_im[j] = j == LM - 1 ? v_im : (j >= off ? q_im[j + 1 < LM ? j + 1 : j] : 0.f);
-      y_re += w_re[j] * nb_re[j] + w_im[j] * nb_im[j];
-      y_im += w_re[j] * nb_im[j] - w_im[j] * nb_re[j];
     }
-    const float x2n = x2s + (v_re * v_re + v_im * v_im)
-                      - (o_re * o_re + o_im * o_im);
-    float d_re, d_im;
-    const int dec = sl.nearest(y_re, y_im, &d_re, &d_im);
-    const float e_re = d_re - y_re, e_im = d_im - y_im;
-    const int nn = n + 1;
-    const float g = (nn >= L ? mu : 0.f) / fmaxf(x2n, 1e-12f);
-    if (vm) {
+    cp_async_commit();
+  };
+  // tile n's valid bytes, one per lane and group (0 past the end)
+  auto load_valid = [&](int n_tile, unsigned char (&vb)[GROUPS]) {
+    const int s0 = n_tile * TILE;
 #pragma unroll
-      for (int j = 0; j < LM; ++j) {
-        w_re[j] += g * (e_re * nb_re[j] + e_im * nb_im[j]);
-        w_im[j] += g * (e_re * nb_im[j] - e_im * nb_re[j]);
-        q_re[j] = nb_re[j];
-        q_im[j] = nb_im[j];
+    for (int g = 0; g < GROUPS; ++g) {
+      const int s = s0 + g * 32 + lane;
+      vb[g] = s < S ? valid[row + s] : 0;
+    }
+  };
+  // lane g keeps group g's ballot
+  auto to_masks = [&](const unsigned char (&vb)[GROUPS]) {
+    unsigned mine = 0;
+#pragma unroll
+    for (int g = 0; g < GROUPS; ++g) {
+      const unsigned m = __ballot_sync(FULL, vb[g] != 0);
+      if (lane == g) mine = m;
+    }
+    return mine;
+  };
+
+  unsigned char vb[GROUPS];
+  stage_tile(0);
+  load_valid(0, vb);
+  unsigned masks = to_masks(vb);
+
+  for (int nt = 0; nt < ntiles; ++nt) {
+    if (nt + 1 < ntiles) {
+      stage_tile(nt + 1);
+      load_valid(nt + 1, vb);
+    } else {
+      cp_async_commit();
+    }
+    cp_async_wait_all_but_newest();
+    __syncwarp();
+
+    const int s0 = nt * TILE;
+    for (int g = 0; g < GROUPS && s0 + g * 32 < S; ++g) {
+      const int s = s0 + g * 32 + lane;
+      const float my_re = s < S ? sh_re[nt & 1][g * 32 + lane] : 0.f;
+      const float my_im = s < S ? sh_im[nt & 1][g * 32 + lane] : 0.f;
+      unsigned mask = __shfl_sync(FULL, masks, g);
+      const bool my_valid = (mask >> lane) & 1u;
+      Frozen fz = cur;                 // the state this lane's slot sees
+      float oy_re = 0.f, oy_im = 0.f;
+      int od = 0;
+
+      // the first valid slot's sample, fetched one slot ahead of its use
+      int i = mask ? __ffs(mask) - 1 : 0;
+      float sr = __shfl_sync(FULL, my_re, i);
+      float si = __shfl_sync(FULL, my_im, i);
+      while (mask) {
+        mask &= mask - 1;
+        const int i_next = mask ? __ffs(mask) - 1 : 0;
+        const float sr_next = __shfl_sync(FULL, my_re, i_next);
+        const float si_next = __shfl_sync(FULL, my_im, i_next);
+
+        const float v_re = sr * cur.cth + si * cur.sth;
+        const float v_im = si * cur.cth - sr * cur.sth;
+        // PLL chain
+        float r_re, r_im;
+        sl.nearest<QPSK>(v_re, v_im, &r_re, &r_im);
+        const float e = atan2_poly(v_im * r_re - v_re * r_im,
+                                   v_re * r_re + v_im * r_im);
+        dtheta = dtheta + beta2 * e;
+        theta = theta + dtheta + alpha * e;
+        // the window with v and its shift, then the two sums that the
+        // next P needs and that do not wait for the decision
+        const float nb_re = newest ? v_re : sb_re;
+        const float nb_im = newest ? v_im : sb_im;
+        const float up_re = __shfl_down_sync(FULL, nb_re, 1);
+        const float up_im = __shfl_down_sync(FULL, nb_im, 1);
+        const float first_re = __shfl_sync(FULL, nb_re, 0);
+        const float first_im = __shfl_sync(FULL, nb_im, 0);
+        sb_re = ahead ? up_re : 0.f;    // lane j takes tap j+1's sample
+        sb_im = ahead ? up_im : 0.f;
+        const float a_re = lanes_sum(w_re * sb_re + w_im * sb_im);
+        const float a_im = lanes_sum(w_re * sb_im - w_im * sb_re);
+        const float c_re = lanes_sum(nb_re * sb_re + nb_im * sb_im);
+        const float c_im = lanes_sum(nb_re * sb_im - nb_im * sb_re);
+        x2s = x2s + (v_re * v_re + v_im * v_im)
+              - (old_re * old_re + old_im * old_im);
+        old_re = first_re;
+        old_im = first_im;
+        n = n + 1;
+        const float gain = __fdividef(n >= L ? mu : 0.f, fmaxf(x2s, 1e-12f));
+        // LMS chain: the output, the decision, the error, the next P
+        const float y_re = cur.p_re + (cur.wl_re * v_re + cur.wl_im * v_im);
+        const float y_im = cur.p_im + (cur.wl_re * v_im - cur.wl_im * v_re);
+        float d_re, d_im;
+        const int dec = sl.nearest<QPSK>(y_re, y_im, &d_re, &d_im);
+        const float e_re = d_re - y_re, e_im = d_im - y_im;
+        const float ge_re = gain * e_re, ge_im = gain * e_im;
+        cur.p_re = a_re + (ge_re * c_re - ge_im * c_im);
+        cur.p_im = a_im + (ge_re * c_im + ge_im * c_re);
+        // w += g conj(e) nb, in operations rounded one by one so that the
+        // newest tap's copy in every lane equals its own lane's
+        w_re = __fmaf_rn(gain, __fmaf_rn(e_re, nb_re, __fmul_rn(e_im, nb_im)),
+                         w_re);
+        w_im = __fmaf_rn(gain, __fmaf_rn(e_re, nb_im,
+                                         -__fmul_rn(e_im, nb_re)), w_im);
+        cur.wl_re = __fmaf_rn(gain, __fmaf_rn(e_re, v_re,
+                                              __fmul_rn(e_im, v_im)),
+                              cur.wl_re);
+        cur.wl_im = __fmaf_rn(gain, __fmaf_rn(e_re, v_im,
+                                              -__fmul_rn(e_im, v_re)),
+                              cur.wl_im);
+        sincosf(theta, &cur.sth, &cur.cth);
+
+        if (lane == i) {
+          oy_re = y_re;
+          oy_im = y_im;
+          od = dec;
+        }
+        if (lane > i) fz = cur;
+        i = i_next;
+        sr = sr_next;
+        si = si_next;
       }
-      theta = theta_n;
-      dtheta = dtheta_n;
-      x2s = x2n;
-      n = nn;
+
+      if (!my_valid) {
+        const float v_re = my_re * fz.cth + my_im * fz.sth;
+        const float v_im = my_im * fz.cth - my_re * fz.sth;
+        oy_re = fz.p_re + (fz.wl_re * v_re + fz.wl_im * v_im);
+        oy_im = fz.p_im + (fz.wl_re * v_im - fz.wl_im * v_re);
+        float d_re, d_im;
+        od = sl.nearest<QPSK>(oy_re, oy_im, &d_re, &d_im);
+      }
+      if (s < S) {
+        y_re_o[row + s] = oy_re;
+        y_im_o[row + s] = oy_im;
+        dec_o[row + s] = od;
+      }
     }
-    y_re_o[row + s] = y_re;
-    y_im_o[row + s] = y_im;
-    dec_o[row + s] = dec;
+    __syncwarp();
+    if (nt + 1 < ntiles) masks = to_masks(vb);
   }
 
-#pragma unroll
-  for (int j = 0; j < LM; ++j) {
-    if (j >= off) {
-      const size_t dst = static_cast<size_t>(b) * L + (j - off);
-      w_re_io[dst] = w_re[j];
-      w_im_io[dst] = w_im[j];
-      b_re_io[dst] = q_re[j];
-      b_im_io[dst] = q_im[j];
+  // the window back in its own order: buf_0 the oldest, buf_{j+1} = sb_j
+  if (lane < L) {
+    w_re_io[tap0 + lane] = w_re;
+    w_im_io[tap0 + lane] = w_im;
+    if (lane < L - 1) {
+      b_re_io[tap0 + lane + 1] = sb_re;
+      b_im_io[tap0 + lane + 1] = sb_im;
     }
   }
-  theta_io[b] = theta;
-  dtheta_io[b] = dtheta;
-  x2_io[b] = x2s;
-  n_io[b] = n;
+  if (lane == 0) {
+    b_re_io[tap0] = old_re;
+    b_im_io[tap0] = old_im;
+    theta_io[b] = theta;
+    dtheta_io[b] = dtheta;
+    x2_io[b] = x2s;
+    n_io[b] = n;
+  }
 }
 
 }  // namespace
@@ -188,9 +376,8 @@ extern "C" int pll_lms_launch(
   if (B < 1 || S < 1 || L < 1 || L > 32 || M < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Slicer sl{static_cast<const float*>(tab_re),
-                  static_cast<const float*>(tab_im), M, qpsk, k00, k01, k10,
-                  k11, s2v};
-  const dim3 grid((B + THREADS - 1) / THREADS);
+                  static_cast<const float*>(tab_im), M, k00, k01, k10, k11,
+                  s2v};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PLL_LMS_ARGS                                                       \
   static_cast<const float*>(s_re), static_cast<const float*>(s_im),        \
@@ -201,10 +388,14 @@ extern "C" int pll_lms_launch(
       static_cast<int*>(n), sl, static_cast<float*>(y_re),                 \
       static_cast<float*>(y_im), static_cast<int*>(dec), B, S, L, alpha,    \
       beta2, mu
-  if (L <= 16)
-    pll_lms_kernel<16><<<grid, THREADS, 0, st>>>(PLL_LMS_ARGS);
+  if (L <= 16 && qpsk)
+    pll_lms_kernel<16, true><<<B, THREADS, 0, st>>>(PLL_LMS_ARGS);
+  else if (L <= 16)
+    pll_lms_kernel<16, false><<<B, THREADS, 0, st>>>(PLL_LMS_ARGS);
+  else if (qpsk)
+    pll_lms_kernel<32, true><<<B, THREADS, 0, st>>>(PLL_LMS_ARGS);
   else
-    pll_lms_kernel<32><<<grid, THREADS, 0, st>>>(PLL_LMS_ARGS);
+    pll_lms_kernel<32, false><<<B, THREADS, 0, st>>>(PLL_LMS_ARGS);
 #undef PLL_LMS_ARGS
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,31 +22,64 @@
 // writes every other product and sum with __fmul_rn / __fadd_rn, which
 // nvcc never contracts, so its output equals the plain
 // PyTorch version (ops/kernels/symsync_scan.py, which computes the same
-// FMAs exactly in float64) bit for bit.  rintf rounds half to even.
+// FMAs exactly in float64) bit for bit.  The float-to-int conversion
+// rounds half to even, as rintf and torch.round do.
 //
 // Layout: ma [P, B, 2*npfb, Tc] float32 as conv1d leaves it (row
 // p*B + b, branch rows 0..npfb-1 the MF, npfb.. the dMF), so each channel
-// reads its own contiguous time axis.  The branch index moves slowly (a
-// fractional timing phase), so a thread's reads of steps t, t+1, ...
-// fall on the same four 128-byte lines: mostly L1 hits.
+// reads its own contiguous time axis.
 //
-// Bound on this card: latency, not bandwidth.  Each emit's branch read
-// depends on the previous emit's tau, so a channel is one chain of
-// dependent loads and float ops; at B = 256 only 256 threads run.  The
-// design is the simple one: one thread per channel, the state in
-// registers, a loop over time inside the thread (the TPU's sequential
-// 32-step grid is gone), 32 threads per block so the channels spread
-// over B/32 SMs.  Prefetching the next step's lines and more threads per
-// SM are later work.
+// Bound on this card: the latency of one dependent chain per channel, not
+// bandwidth (the loop needs 2P floats per active emit and writes 9 bytes
+// per slot).  What the design does about it:
+//
+// * One warp per channel, one block per warp, so B channels spread over
+//   min(B, 132) SMs.  Lane 0 carries the chain with the state in
+//   registers; the other lanes move data.
+// * The chain runs only the emits that do something.  An inactive emit
+//   (bi >= npfb) changes nothing but tau + 0, bf = tau*npfb and
+//   bi = rint(bf).  After an active emit those are the values just
+//   computed (tau > 0 there, so tau + 0 is tau), and after an inactive one
+//   tau + 0 is a fixed point: once bi >= npfb holds on a freshly computed
+//   bi, every later emit of the step is the same no-op and its slot stays
+//   zero.  Only a step that opens inactive needs one recompute, because
+//   its bi and bf come from the step decrement and not from tau; the
+//   recompute may move them by a rounding, even below npfb, and the state
+//   keeps what it gives.  At k = 2 that is one active emit and one
+//   recompute per two steps instead of six full emits, bit for bit.
+// * Branch rows are staged.  Per 32-step tile the warp copies, one tile
+//   ahead and with cp.async (one 128-byte line per row and instruction),
+//   WIN rows of the MF and of the dMF (re and im planes for P = 2) around
+//   the branch the chain stands on when the copy is started, wrapping at
+//   npfb.  The chain reads shared memory; a branch outside the staged
+//   rows (fast drift during acquisition) is read from global memory: a
+//   load is a load, the bits are the same.
+// * Outputs leave through shared memory: the chain writes the active
+//   emits into a zeroed tile, and after the tile all lanes write y_re,
+//   y_im and valid to global memory in full lines and zero the tile again.
 //
 // Built by liquid_dsp_tpu_torch/ops/kernels/build.py with nvcc for sm_90a,
 // bound with ctypes; the C entry returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
-constexpr int THREADS = 32;
+constexpr int THREADS = 32;   // one warp = one channel
+constexpr int TILE = 32;      // steps per staged tile (one line per row)
+constexpr int WIN = 8;        // branch rows staged around the current one
+constexpr int STAGE = 4 * WIN * TILE;   // floats per stage buffer (P = 2)
+
+// First staged row for a tile, from the chain's current branch index: the
+// window [r0, r0 + win) mod npfb is centred on where the next active emit
+// will read (bi mod npfb; a negative bi reads row 0).
+__device__ __forceinline__ int window_start(int bi, int npfb, int win) {
+  const int c = bi < 0 ? 0 : bi % npfb;
+  const int r0 = c - win / 2;
+  return r0 < 0 ? r0 + npfb : r0;
+}
 
 __global__ void __launch_bounds__(THREADS)
 symsync_scan_kernel(const float* __restrict__ ma, float* __restrict__ fstate,
@@ -55,8 +88,15 @@ symsync_scan_kernel(const float* __restrict__ ma, float* __restrict__ fstate,
                     unsigned char* __restrict__ valid, int B, int Tc,
                     int npfb, int P, int max_out, int k_out, int locked,
                     float inv_k, float c_q, float c_v, float c_r) {
-  const int b = blockIdx.x * THREADS + threadIdx.x;
-  if (b >= B) return;
+  extern __shared__ float smem[];
+  float* stage = smem;                       // [2][2*P][WIN][TILE]
+  float* o_re = smem + 2 * STAGE;            // [TILE*max_out]
+  float* o_im = o_re + TILE * max_out;
+  unsigned char* o_v = reinterpret_cast<unsigned char*>(o_im + TILE * max_out);
+
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x;
+  const unsigned FULL = 0xffffffffu;
   float tau = fstate[b], rate = fstate[B + b], dl = fstate[2 * B + b];
   float v0 = fstate[3 * B + b], bf = fstate[4 * B + b];
   float ran = fstate[5 * B + b];
@@ -67,57 +107,141 @@ symsync_scan_kernel(const float* __restrict__ ma, float* __restrict__ fstate,
   const float* mim = mre + static_cast<size_t>(B) * row;
   const size_t o0 = static_cast<size_t>(b) * Tc * max_out;
   const float fnpfb = static_cast<float>(npfb);
+  const int win = npfb < WIN ? npfb : WIN;
+  const int ntiles = (Tc + TILE - 1) / TILE;
 
-  for (int t = 0; t < Tc; ++t) {
-    for (int e = 0; e < max_out; ++e) {
-      const bool active = bi < npfb;
-      float mf_re = 0.f, dmf_re = 0.f, mf_im = 0.f, dmf_im = 0.f;
-      if (active) {
-        const int bc = bi < 0 ? 0 : bi;
-        mf_re = __ldg(mre + static_cast<size_t>(bc) * Tc + t);
-        dmf_re = __ldg(mre + static_cast<size_t>(npfb + bc) * Tc + t);
-        if (P == 2) {
-          mf_im = __ldg(mim + static_cast<size_t>(bc) * Tc + t);
-          dmf_im = __ldg(mim + static_cast<size_t>(npfb + bc) * Tc + t);
+  for (int i = lane; i < TILE * max_out; i += THREADS) {
+    o_re[i] = 0.f;
+    o_im[i] = 0.f;
+    o_v[i] = 0;
+  }
+
+  // Stage tile n (steps n*TILE ..) into buffer n & 1: segment
+  // (plane*2 + g)*WIN + j holds row (r0 + j) mod npfb of the MF (g = 0)
+  // or dMF (g = 1) of that plane; each lane copies its own step.
+  auto stage_tile = [&](int n, int r0) {
+    const int t0 = n * TILE;
+    if (t0 + lane < Tc) {
+      float* dst = stage + (n & 1) * STAGE + lane;
+      for (int pg = 0; pg < 2 * P; ++pg) {
+        const float* src = ((pg >> 1) ? mim : mre)
+            + static_cast<size_t>((pg & 1) * npfb) * Tc + t0 + lane;
+        for (int j = 0; j < win; ++j) {
+          const int r = r0 + j < npfb ? r0 + j : r0 + j - npfb;
+          cp_async_f32(dst + (pg * WIN + j) * TILE,
+                       src + static_cast<size_t>(r) * Tc);
         }
       }
-      const float q_raw = P == 2
-          ? __fmaf_rn(mf_re, dmf_re, __fmul_rn(mf_im, dmf_im))
-          : __fmul_rn(mf_re, dmf_re);
-      const bool run = decim == k_out && active && !locked;
-      // clip(q, -1, 1) as selects (a NaN passes, as in jnp.clip)
-      const float q = q_raw < -1.f ? -1.f : (q_raw > 1.f ? 1.f : q_raw);
-      const float q_hat = __fmaf_rn(c_q, q, v0);
-      const float v0n = __fmul_rn(c_v, q_hat);
-      const float rn = __fmaf_rn(c_r, q_hat, rate);
-      const float dn = __fadd_rn(rn, q_hat);
-      tau = __fadd_rn(tau, active ? dl : 0.f);
-      if (run) {
-        rate = rn;
-        dl = dn;
-        v0 = v0n;
-      }
-      ran = fmaxf(ran, run ? 1.f : 0.f);
-      if (active) decim = decim == k_out ? 1 : decim + 1;
-      bf = __fmul_rn(tau, fnpfb);
-      bi = static_cast<int>(rintf(bf));
-      const size_t o = o0 + static_cast<size_t>(t) * max_out + e;
-      y_re[o] = active ? __fmul_rn(mf_re, inv_k) : 0.f;
-      y_im[o] = active ? __fmul_rn(mf_im, inv_k) : 0.f;
-      valid[o] = active ? 1 : 0;
     }
-    tau = __fadd_rn(tau, -1.f);
-    bf = __fadd_rn(bf, -fnpfb);
-    bi -= npfb;
+    cp_async_commit();
+  };
+
+  int r0_cur = window_start(__shfl_sync(FULL, bi, 0), npfb, win);
+  stage_tile(0, r0_cur);
+
+  for (int n = 0; n < ntiles; ++n) {
+    const int r0_next = window_start(__shfl_sync(FULL, bi, 0), npfb, win);
+    if (n + 1 < ntiles)
+      stage_tile(n + 1, r0_next);
+    else
+      cp_async_commit();
+    cp_async_wait_all_but_newest();
+    __syncwarp();
+
+    const int t0 = n * TILE;
+    const int nt = Tc - t0 < TILE ? Tc - t0 : TILE;
+    if (lane == 0) {
+      const float* st = stage + (n & 1) * STAGE;
+      for (int tl = 0; tl < nt; ++tl) {
+        int e = 0;
+        if (bi >= npfb) {
+          // the step opens inactive on the bi and bf of the step
+          // decrement: the emit's tau + 0 and its recompute of bf, bi
+          tau = __fadd_rn(tau, 0.f);
+          ran = fmaxf(ran, 0.f);
+          bf = __fmul_rn(tau, fnpfb);
+          bi = __float2int_rn(bf);
+          e = 1;
+        }
+        // active emits; the first inactive emit after one, and every emit
+        // after an inactive one, would only repeat the recompute just made
+        for (; e < max_out && bi < npfb; ++e) {
+          const int bc = bi < 0 ? 0 : bi;
+          int j = bc - r0_cur;
+          if (j < 0) j += npfb;
+          float mf_re, dmf_re, mf_im = 0.f, dmf_im = 0.f;
+          if (j < win) {
+            const float* s = st + j * TILE + tl;
+            mf_re = s[0];
+            dmf_re = s[WIN * TILE];
+            if (P == 2) {
+              mf_im = s[2 * WIN * TILE];
+              dmf_im = s[3 * WIN * TILE];
+            }
+          } else {
+            const size_t t = static_cast<size_t>(t0 + tl);
+            mf_re = __ldg(mre + static_cast<size_t>(bc) * Tc + t);
+            dmf_re = __ldg(mre + static_cast<size_t>(npfb + bc) * Tc + t);
+            if (P == 2) {
+              mf_im = __ldg(mim + static_cast<size_t>(bc) * Tc + t);
+              dmf_im = __ldg(mim + static_cast<size_t>(npfb + bc) * Tc + t);
+            }
+          }
+          const float q_raw = P == 2
+              ? __fmaf_rn(mf_re, dmf_re, __fmul_rn(mf_im, dmf_im))
+              : __fmul_rn(mf_re, dmf_re);
+          const bool run = decim == k_out && !locked;
+          // clip(q, -1, 1) as selects (a NaN passes, as in jnp.clip)
+          const float q = q_raw < -1.f ? -1.f : (q_raw > 1.f ? 1.f : q_raw);
+          const float q_hat = __fmaf_rn(c_q, q, v0);
+          const float v0n = __fmul_rn(c_v, q_hat);
+          const float rn = __fmaf_rn(c_r, q_hat, rate);
+          const float dn = __fadd_rn(rn, q_hat);
+          tau = __fadd_rn(tau, dl);
+          bf = __fmul_rn(tau, fnpfb);
+          bi = __float2int_rn(bf);        // rounds half to even
+          if (run) {
+            rate = rn;
+            dl = dn;
+            v0 = v0n;
+          }
+          ran = fmaxf(ran, run ? 1.f : 0.f);
+          decim = decim == k_out ? 1 : decim + 1;
+          const int o = tl * max_out + e;
+          o_re[o] = __fmul_rn(mf_re, inv_k);
+          o_im[o] = __fmul_rn(mf_im, inv_k);
+          o_v[o] = 1;
+        }
+        tau = __fadd_rn(tau, -1.f);
+        bf = __fadd_rn(bf, -fnpfb);
+        bi -= npfb;
+      }
+    }
+    __syncwarp();
+
+    // the tile's slots to global memory in full lines; zero the tile again
+    const size_t ob = o0 + static_cast<size_t>(t0) * max_out;
+    for (int i = lane; i < nt * max_out; i += THREADS) {
+      y_re[ob + i] = o_re[i];
+      y_im[ob + i] = o_im[i];
+      valid[ob + i] = o_v[i];
+      o_re[i] = 0.f;
+      o_im[i] = 0.f;
+      o_v[i] = 0;
+    }
+    r0_cur = r0_next;
   }
-  fstate[b] = tau;
-  fstate[B + b] = rate;
-  fstate[2 * B + b] = dl;
-  fstate[3 * B + b] = v0;
-  fstate[4 * B + b] = bf;
-  fstate[5 * B + b] = ran;
-  istate[b] = bi;
-  istate[B + b] = decim;
+
+  if (lane == 0) {
+    fstate[b] = tau;
+    fstate[B + b] = rate;
+    fstate[2 * B + b] = dl;
+    fstate[3 * B + b] = v0;
+    fstate[4 * B + b] = bf;
+    fstate[5 * B + b] = ran;
+    istate[b] = bi;
+    istate[B + b] = decim;
+  }
 }
 
 }  // namespace
@@ -136,8 +260,16 @@ extern "C" int symsync_scan_launch(const void* ma, void* fstate, void* istate,
                                    float c_v, float c_r, void* stream) {
   if (B < 1 || Tc < 1 || npfb < 1 || max_out < 1 || (P != 1 && P != 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((B + THREADS - 1) / THREADS);
-  symsync_scan_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  // two stage buffers, then the output tile (two float planes and a byte)
+  const size_t shmem = 2 * STAGE * sizeof(float)
+      + static_cast<size_t>(TILE) * max_out * (2 * sizeof(float) + 1);
+  if (shmem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        symsync_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(shmem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  symsync_scan_kernel<<<B, THREADS, shmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(ma), static_cast<float*>(fstate),
       static_cast<int*>(istate), static_cast<float*>(y_re),
       static_cast<float*>(y_im), static_cast<unsigned char*>(valid), B, Tc,

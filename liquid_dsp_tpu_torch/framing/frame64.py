@@ -21,8 +21,9 @@ The transmitter is host numpy.  The receivers:
     block step;
   * `Framesync64`, the callback wrapper (the reference's
     create/execute/callback object).
-No receiver picks a CUDA device on its own: the caller moves the Proc
-with ``.to(device)`` or passes ``device``.
+The Procs run where the caller moves them (``.to(device)``);
+`framesync64` and `Framesync64`, which take host arrays, run on the card
+unless the caller passes ``device="cpu"``, and raise without a card.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core import Proc
+from ..core import Proc, entry_device
 from ..design.firdes import firdes_arkaiser
 from ..fec.device import device_packet_finish, qpacket_soft_decoder
 from ..modem.linear import constellation, demodulate, modulate
@@ -130,10 +131,12 @@ class Frame64Result(NamedTuple):
     sample_index: int
 
 
-def framesync64(x, threshold: float = 0.5, device="cpu") -> Frame64Result:
+def framesync64(x, threshold: float = 0.5, device="cuda") -> Frame64Result:
     """Recover one frame64 from a capture [T]: detect (FFTs on
-    ``device``) -> mix down -> polyphase matched filter at the estimated
-    timing phase, decimated 2:1 -> pilot sync -> packet decode."""
+    ``device``, the card unless given; the rest on the host) -> mix down
+    -> polyphase matched filter at the estimated timing phase, decimated
+    2:1 -> pilot sync -> packet decode."""
+    device = entry_device(device)
     x = np.asarray(x.cpu() if torch.is_tensor(x) else x, np.complex64)
     det = qdetector_detect(x, _detector_template(), threshold=threshold,
                            range_bins=2, device=device)
@@ -297,17 +300,18 @@ class Framesync64:
     of samples; the callback fires once per decoded frame with (header
     bytes, header_ok, payload bytes, payload_ok, stats dict).
 
-    device: where the receiver runs ("cpu" unless given).  device_fec:
+    device: where the receiver runs (the card unless given; without one
+    a CUDA device raises).  device_fec:
     the soft Golay decode, byte pack and CRC on that device over every
     candidate slot (the reference's soft criterion); False decodes each
     frame on the host by hard decisions."""
 
     def __init__(self, callback: Optional[Callable] = None,
                  block_len: int = 4096, threshold: float = 0.5,
-                 device_fec: bool = True, device="cpu"):
+                 device_fec: bool = True, device="cuda"):
         self.callback = callback
         self.block_len = int(block_len)
-        self.device = torch.device(device)
+        self.device = entry_device(device)
         self._proc = framesync64_stream(self.block_len, threshold).to(
             self.device)
         self._carry = self._proc.init(device=self.device)

@@ -11,7 +11,9 @@ gain recurrence (`ops/kernels/agc_scan`), the symsync timing loop
 (`ops/kernels/symsync_scan`, after one conv1d per chunk) and the PLL +
 decision-directed LMS over the symsync slots (`ops/kernels/pll_lms`).
 That is the JAX package's sequential route; its fused route (the PLL +
-LMS step inside the timing loop) exists on the CPU only.
+LMS step inside the timing loop) exists on the CPU only.  `symtrack` and
+`Symtrack`, which take host arrays, run on the card unless the caller
+passes ``device="cpu"``, and raise without a card.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core import Proc
+from ..core import Proc, entry_device
 from ..modem import constellation, demodulate
 from ..ops.agc import agc
 from ..ops.equalize import eqlms_lowpass_weights, eqlms_run
@@ -71,23 +73,36 @@ def _pll_scan(table, syms, bw: float):
     return torch.stack(vs).numpy(), torch.stack(idxs).numpy()
 
 
+def _symtrack_by_stream(x, ftype, k, m, beta, ms, eq_len, eq_mu, pll_bw):
+    """The one-shot tracker as one block of `symtrack_stream` where x
+    lies: the same AGC, symsync, PLL and LMS from the same initial state
+    (the PLL does not see the equalizer, so stepping both per slot equals
+    the PLL over all symbols followed by the LMS), through the three
+    kernels on a CUDA tensor.  Decisions by `demodulate`, as the one-shot
+    makes them."""
+    proc = symtrack_stream(ftype, k, m, beta, ms, eq_len, eq_mu,
+                           pll_bw).to(x.device)
+    (sy, _, sv), _ = proc(proc.init(device=x.device), x)
+    syms = sy[sv]
+    dec = demodulate(constellation(ms), syms)
+    return SymtrackResult(syms.cpu().numpy(), dec.cpu().numpy())
+
+
 def symtrack(x, ftype: str = "arkaiser", k: int = 2, m: int = 7,
              beta: float = 0.3, ms: str = "qpsk", eq_len: int = 13,
              eq_mu: float = 0.05, pll_bw: float = 0.05,
-             bandwidth: float = 0.9, device="cpu") -> SymtrackResult:
+             bandwidth: float = 0.9, device="cuda") -> SymtrackResult:
     """Track a continuous stream of modulated samples and return the
-    recovered symbols (reference symtrack_cccf_execute_block).  The
-    symbol-rate PLL and LMS are per-symbol loops over the compacted
-    symbols with no kernel yet, so ``device`` must be the CPU; on the card
-    use `Symtrack` or `symtrack_stream`."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        raise NotImplementedError(
-            "the one-shot symtrack's PLL and LMS have no kernel on the card "
-            "(ROADMAP, later kernel work: recurrence kernels for the "
-            "one-shot symtrack and the equalizers); use Symtrack or "
-            "symtrack_stream on CUDA")
+    recovered symbols (reference symtrack_cccf_execute_block).  ``device``
+    is the card unless given.  On the CPU the symbol-rate PLL and LMS are
+    per-symbol loops over the compacted symbols; on the card the capture
+    runs as one block of `symtrack_stream` through its kernels
+    (`_symtrack_by_stream`: the same values to the stream tolerance)."""
+    dev = entry_device(device)
     x = torch.from_numpy(np.asarray(x, np.complex64)).to(dev)
+    if dev.type == "cuda":
+        return _symtrack_by_stream(x, ftype, k, m, beta, ms, eq_len, eq_mu,
+                                   pll_bw)
     ag = agc(bandwidth=0.02)
     y, _ = ag(ag.init(device=dev), x)
     ss = symsync(ftype, k, m, beta, bw=0.02).to(dev)
@@ -241,13 +256,14 @@ class Symtrack:
     create / execute / reset contract).  Feed sample arrays of any length;
     execute returns (symbols, decisions) recovered in that call.  State
     survives across calls; reset() re-arms everything.  device: where the
-    tracker runs ("cpu" unless given)."""
+    tracker runs (the card unless given; without one a CUDA device
+    raises)."""
 
     def __init__(self, ftype: str = "arkaiser", k: int = 2, m: int = 7,
                  beta: float = 0.3, ms: str = "qpsk", eq_len: int = 13,
                  eq_mu: float = 0.05, pll_bw: float = 0.05,
-                 block_len: int = 4096, device="cpu"):
-        self.device = torch.device(device)
+                 block_len: int = 4096, device="cuda"):
+        self.device = entry_device(device)
         self._proc = symtrack_stream(ftype, k, m, beta, ms, eq_len, eq_mu,
                                      pll_bw).to(self.device)
         self.block_len = int(block_len) // k * k

@@ -54,7 +54,7 @@ def _host_only(x, name: str):
         raise NotImplementedError(
             f"{name} is a per-sample loop with no kernel on the card "
             "(ROADMAP, later kernel work: recurrence kernels for the "
-            "one-shot symtrack and the equalizers); run it on the CPU")
+            "equalizers); run it on the CPU")
 
 
 def eqlms_run(w0, mu: float, carry, x, d=None,

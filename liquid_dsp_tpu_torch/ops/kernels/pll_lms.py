@@ -21,10 +21,17 @@ the index of d) on every slot.  `nearest` is the JAX package's: the
 quadrant sign slicer for a QPSK-like table (`slicer_config`), else the
 first argmin of |v - t|^2 over the table.
 
-The two versions compute in float32 with libm's cos, sin and atan2 and
-sum the length-L dot in another order, so they agree to the stream
-tolerance of the reference's own tests (2e-4, decisions equal), not bit
-for bit.
+The kernel runs one warp per channel and walks the valid slots only (the
+state changes nowhere else); an invalid slot's output is the same dot
+with the state frozen at the last valid slot before it, computed off the
+chain.  tests/test_torch_kernel_identities.py shows both identities, and
+the kernel's way to the next partial dot, on this plain version.
+
+The two versions compute in float32, the plain one with libm's cos, sin
+and atan2, the kernel with sincosf, a polynomial atan2 (7e-8 rad) and a
+fast division for the gain, and they sum the length-L dot in another
+order and association; so they agree to the stream tolerance of the
+reference's own tests (2e-4, decisions equal), not bit for bit.
 """
 from __future__ import annotations
 

@@ -5,8 +5,13 @@ behind the hoisted symsync path (`ops/symsync._symsync_run_hoisted`).
 `symsync_scan` launches the CUDA kernel ``csrc/symsync_scan.cu`` on a
 CUDA tensor and runs `symsync_scan_reference`, the same loop in plain
 PyTorch, on a CPU tensor; any other device raises.  The kernel runs one
-thread per channel with the loop state in registers (see the source's
-note: the loop is bound by the latency of its dependent steps).
+warp per channel: lane 0 carries the loop with its state in registers and
+runs only the emits that do something (an inactive emit after a freshly
+computed bi >= npfb is a no-op; see the source's note and
+tests/test_torch_kernel_identities.py), the other lanes stage the branch
+rows around the current branch in shared memory one tile ahead and write
+the outputs in full lines.  The loop is bound by the latency of its
+dependent steps.
 
 Layout: the branch outputs come as conv1d leaves them, ``ma [P, B,
 2*npfb, Tc]`` (P = 1 plane for a real stream, 2 for re and im; rows

@@ -12,8 +12,8 @@ largest output), since both versions round their f32 sums to bf16.
 codebook_argmax: bit-equal indices (kernel and plain version sum the same
 exact terms in the same order).  symsync_scan and agc_scan: bit-equal
 outputs and state (the same roundings, FMAs where both take them);
-pll_lms: 2e-4 with equal decisions (libm sincos/atan2 and the dot's
-order differ), the reference's stream tolerance.
+pll_lms: 2e-4 with equal decisions (sincos, atan2 and the dot's order and
+association differ), the reference's stream tolerance.
 """
 import numpy as np
 import pytest
@@ -212,26 +212,37 @@ def test_receiver_on_the_card_matches_the_cpu(dev):
         n += int(oc.valid.sum())
         assert bool(oc.crc_ok[oc.valid].all())
     assert n == len(sent)
-    fs = Framesync64(block_len=T, device=dev)
+    fs = Framesync64(block_len=T)               # the card by default
+    assert fs.device.type == "cuda"
     got = fs.execute(x[1]) + fs.flush()
     assert [g[2].tolist() for g in got] == [s[2].tolist() for s in sent
                                             if s[0] == 1]
-    res = framesync64(x[0, :4000], device=dev)
+    res = framesync64(x[0, :4000])
     assert res.crc_ok and res.payload.tolist() == sent[0][2].tolist()
 
 
 # --- the timing-recovery family's kernels -------------------------------
 
-def _symsync_case(dev, P, B, Tc, seed):
+def _symsync_case(dev, P, B, Tc, seed, npfb=32, scale=0.7, stale=False):
+    """Noise as branch outputs (the loop drifts fast, so the branch leaves
+    the kernel's staged rows and wraps at 0 and npfb) and a loop state;
+    with `stale`, bi and bf off round(tau*npfb) as a step decrement may
+    leave them, and one tau on a rounding edge."""
     from liquid_dsp_tpu_torch.ops.kernels import symsync_scan as sk
     g = torch.Generator(device=dev).manual_seed(seed)
-    ma = torch.randn(P, B, 64, Tc, generator=g, device=dev) * 0.7
+    ma = torch.randn(P, B, 2 * npfb, Tc, generator=g, device=dev) * scale
     fs = torch.zeros(6, B, device=dev)
     fs[0] = torch.rand(B, generator=g, device=dev) * 1.2 - 0.3
     fs[1] = fs[2] = 2.0
-    fs[4] = fs[0] * 32
-    is_ = torch.stack([torch.round(fs[4]).int(),
-                       torch.ones(B, dtype=torch.int32, device=dev)])
+    fs[4] = fs[0] * npfb
+    bi = torch.round(fs[4]).int()
+    if stale:
+        fs[0, 0] = 15.5 / npfb
+        fs[4] = fs[0] * npfb * (1 + 2e-7) + 1e-6
+        bi = torch.round(fs[0] * npfb).int()
+        bi[1::2] += 1
+        bi[2::4] -= 2
+    is_ = torch.stack([bi, torch.ones(B, dtype=torch.int32, device=dev)])
     return sk, ma, fs, is_
 
 
@@ -247,6 +258,32 @@ def test_symsync_scan_bit_equal_to_plain(dev, P, B, Tc, k, k_out, locked):
     want = sk.symsync_scan_reference(ma, fs, is_, **kw)
     torch.cuda.synchronize()
     assert sk.symsync_scan.launches == launches + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("P,B,Tc,npfb,k,k_out,locked,bw,scale,stale", [
+    (2, 1, 4096, 32, 2, 1, False, 0.02, 0.7, False),    # one channel
+    (2, 3, 1000, 32, 2, 1, False, 0.02, 0.05, True),    # slow drift, stale
+    (1, 7, 31, 32, 2, 1, False, 0.02, 0.7, True),       # less than a tile
+    (2, 9, 33, 32, 2, 1, True, 0.02, 0.7, True),        # a tile and a step
+    (2, 6, 200, 24, 2, 1, False, 0.05, 0.3, True),      # npfb not 2^n
+    (1, 5, 200, 4, 2, 1, False, 0.05, 0.3, False),      # fewer rows than WIN
+    (2, 4, 300, 32, 3, 1, False, 0.3, 0.7, True),       # max_out = 4
+    (2, 4, 300, 32, 4, 3, False, 0.3, 0.7, False),      # k_out = 3
+    (2, 130, 509, 32, 2, 1, False, 0.02, 0.2, True)])   # ragged, B > SMs
+def test_symsync_scan_structure_cases(dev, P, B, Tc, npfb, k, k_out, locked,
+                                      bw, scale, stale):
+    sk, ma, fs, is_ = _symsync_case(dev, P, B, Tc, seed=B + Tc, npfb=npfb,
+                                    scale=scale, stale=stale)
+    kw = dict(npfb=npfb, max_out=int(np.ceil(k / k_out)) + 1, k=k,
+              k_out=k_out, bw=bw, locked=locked)
+    launches = sk.symsync_scan.launches
+    got = sk.symsync_scan(ma, fs, is_, **kw)
+    want = sk.symsync_scan_reference(ma, fs, is_, **kw)
+    torch.cuda.synchronize()
+    assert sk.symsync_scan.launches == launches + 1
+    assert int(want[2].sum()) > 0
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
@@ -310,6 +347,92 @@ def test_pll_lms_matches_plain(dev, ms, L):
                      .max()) <= 2e-4, key
 
 
+def _pll_slots(dev, st, B, S, seed):
+    """Noisy points of the tracker's constellation within 0.3 rad of a
+    multiple of 90 degrees, on every slot."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.randint(0, st.tab_re.shape[0], (B, S), generator=g,
+                        device=dev)
+    ph = (torch.rand(B, 1, generator=g, device=dev) * 0.6 - 0.3
+          + torch.randint(0, 4, (B, 1), generator=g, device=dev) * (np.pi / 2))
+    sr = st.tab_re[idx] * torch.cos(ph) - st.tab_im[idx] * torch.sin(ph)
+    si = st.tab_re[idx] * torch.sin(ph) + st.tab_im[idx] * torch.cos(ph)
+    sr = sr + 0.03 * torch.randn(B, S, generator=g, device=dev)
+    si = si + 0.03 * torch.randn(B, S, generator=g, device=dev)
+    return sr.contiguous(), si.contiguous(), g
+
+
+@pytest.mark.parametrize("case,ms,L,B,S", [
+    ("gaps", "qpsk", 13, 12, 1500), ("all_valid", "qpsk", 13, 9, 700),
+    ("none_valid", "qpsk", 13, 3, 300), ("sixth", "qpsk", 13, 1, 3072),
+    ("sixth", "qam16", 13, 3, 777), ("sixth", "qpsk", 32, 5, 600),
+    ("sixth", "psk8", 16, 2, 600), ("sixth", "qpsk", 17, 2, 600),
+    ("all_valid", "qpsk", 1, 2, 100), ("sixth", "qpsk", 13, 4, 7),
+    ("zeros", "qpsk", 13, 3, 400), ("sixth", "qpsk", 13, 300, 520)])
+def test_pll_lms_structure_cases(dev, case, ms, L, B, S):
+    from liquid_dsp_tpu_torch.framing.symtrack import symtrack_stream
+    from liquid_dsp_tpu_torch.ops.kernels import pll_lms as pk
+    st = symtrack_stream(ms=ms, eq_len=L).to(dev)
+    sr, si, g = _pll_slots(dev, st, B, S, seed=L + B + S)
+    if case == "gaps":
+        # channels with no valid slot, with valid slots only at the two
+        # ends (a run of invalid slots over many tiles), and dense ones
+        valid = torch.rand(B, S, generator=g, device=dev) < 0.4
+        valid[::3] = False
+        valid[1::3, 11:S - 9] = False
+    elif case == "all_valid":
+        valid = torch.ones(B, S, dtype=torch.bool, device=dev)
+    elif case == "none_valid":
+        valid = torch.zeros(B, S, dtype=torch.bool, device=dev)
+    else:
+        valid = torch.rand(B, S, generator=g, device=dev) < 1 / 6
+    if case == "zeros":
+        # invalid slots at zero, as symsync leaves them, and a valid zero
+        sr, si = sr * valid, si * valid
+        sr[:, 5], si[:, 5], valid[:, 5] = 0.0, 0.0, True
+    pc = st.pll_state(st.init(batch_shape=(B,), device=dev), B)
+    if case == "sixth" and L == 13:
+        pc["eq_n"] = torch.zeros_like(pc["eq_n"])     # the window not full
+    args = (sr, si, valid, pc, st.tab_re, st.tab_im)
+    launches = pk.pll_lms.launches
+    got = pk.pll_lms(*args, **st.pll_kwargs())
+    want = pk.pll_lms_reference(*args, **st.pll_kwargs())
+    torch.cuda.synchronize()
+    assert pk.pll_lms.launches == launches + 1
+    assert float((got[0] - want[0]).abs().max()) <= 2e-4
+    assert float((got[1] - want[1]).abs().max()) <= 2e-4
+    assert torch.equal(got[2], want[2])
+    assert torch.equal(got[3]["eq_n"], want[3]["eq_n"])
+    for key in pk.STATE_KEYS:
+        assert float((got[3][key].float() - want[3][key].float()).abs()
+                     .max()) <= 2e-4, key
+
+
+def test_oneshot_symtrack_on_the_card_matches_the_cpu(dev):
+    # symtrack() runs on the card by default, as one block of
+    # symtrack_stream through the three kernels
+    from liquid_dsp_tpu_torch.framing.symtrack import symtrack
+    from liquid_dsp_tpu_torch.ops.kernels import pll_lms as pk
+    from liquid_dsp_tpu_torch.design.firdes import firdes_prototype
+    rng = np.random.default_rng(3)
+    up = np.zeros(1400, np.complex64)
+    up[::2] = np.exp(1j * (np.pi / 4 + np.pi / 2 * rng.integers(0, 4, 700)))
+    h = firdes_prototype("arkaiser", 2, 7, 0.3)
+    x = 0.4 * np.exp(0.5j) * np.convolve(up, h)[:1400]
+    x = (x + 0.004 * (rng.standard_normal(1400)
+                      + 1j * rng.standard_normal(1400))).astype(np.complex64)
+    launches = pk.pll_lms.launches
+    got = symtrack(x)
+    assert pk.pll_lms.launches == launches + 1
+    ref = symtrack(x, device="cpu")
+    assert len(got.symbols) == len(ref.symbols) > 600
+    np.testing.assert_allclose(got.symbols, ref.symbols, rtol=0, atol=2e-4)
+    clear = np.minimum(np.abs(ref.symbols.real),
+                       np.abs(ref.symbols.imag)) > 4e-4
+    assert clear.sum() >= 0.9 * len(clear)
+    np.testing.assert_array_equal(got.decisions[clear], ref.decisions[clear])
+
+
 def test_pll_lms_rejects_long_equalizers(dev):
     from liquid_dsp_tpu_torch.framing.symtrack import symtrack_stream
     from liquid_dsp_tpu_torch.ops.kernels import pll_lms as pk
@@ -348,7 +471,9 @@ def test_symtrack_on_the_card_matches_the_cpu(dev, monkeypatch):
     assert torch.equal(vg.cpu(), vc)
     assert float((yg.cpu()[vc] - yc[vc]).abs().max()) <= 2e-4
     assert torch.equal(dg.cpu()[vc], dc[vc])
-    sy, dec = Symtrack(block_len=1024, device=dev).execute(x[0])
+    tracker = Symtrack(block_len=1024)          # the card by default
+    assert tracker.device.type == "cuda"
+    sy, dec = tracker.execute(x[0])
     assert len(sy) == len(dec) > 900
 
 
@@ -369,12 +494,9 @@ def test_fused_routes_raise_on_the_card(dev, monkeypatch):
 def test_per_step_loops_raise_on_the_card(dev):
     # the CPU-only per-step loops refuse CUDA tensors instead of running
     # one launch per op on the card
-    from liquid_dsp_tpu_torch.framing.symtrack import symtrack
     from liquid_dsp_tpu_torch.ops import equalize as eq
     from liquid_dsp_tpu_torch.ops import symsync as ss
     x = torch.zeros(2, 512, dtype=torch.complex64, device=dev)
-    with pytest.raises(NotImplementedError, match="one-shot symtrack"):
-        symtrack(np.zeros(512, np.complex64), device=dev)
     q = ss.symsync().to(dev)
     with pytest.raises(ValueError, match="scan body"):
         ss.symsync_run(q.mf, q.dmf, q.init((2,), device=dev), x, 2,

@@ -57,7 +57,7 @@ def _stream(rng, frames, gaps, tail=2000, noise=0.005):
 
 
 def _run(x, block_len=T, **kw):
-    fs = Framesync64(block_len=block_len, **kw)
+    fs = Framesync64(block_len=block_len, device="cpu", **kw)
     return fs.execute(x) + fs.flush()
 
 
@@ -347,7 +347,7 @@ def test_interop_reference_frame():
     assert hok
     np.testing.assert_array_equal(gh, fg["header"])
     np.testing.assert_array_equal(gp, fg["payload"])
-    res = framesync64(x)
+    res = framesync64(x, device="cpu")
     assert res.detected and res.crc_ok
     np.testing.assert_array_equal(res.header, fg["header"])
     np.testing.assert_array_equal(res.payload, fg["payload"])
@@ -367,7 +367,7 @@ def test_no_false_frames_on_noise():
     rng = np.random.default_rng(5)
     x = (0.3 * tp.cnoise(rng, 20000)).astype(np.complex64)
     assert len(_run(x)) == 0
-    assert not framesync64(x[:6000]).detected
+    assert not framesync64(x[:6000], device="cpu").detected
 
 
 def test_two_channels_and_callback():
@@ -392,7 +392,8 @@ def test_two_channels_and_callback():
         np.testing.assert_array_equal(by[:8], h)
         np.testing.assert_array_equal(by[8:], p)
     calls = []
-    fs = Framesync64(callback=lambda *a: calls.append(a), block_len=T)
+    fs = Framesync64(callback=lambda *a: calls.append(a), block_len=T,
+                     device="cpu")
     fs.execute(x[1])
     fs.flush()
     assert len(calls) == 1 and fs.num_frames_detected == 1
@@ -409,7 +410,7 @@ def test_framesync64_oneshot_matches_jax():
     t = np.arange(len(x))
     x = (x * 0.5 * np.exp(1j * (0.004 * t + 0.4)) + 0.01 * tp.cnoise(
         rng, len(x))).astype(np.complex64)
-    r, rj = framesync64(x), jf.framesync64(x)
+    r, rj = framesync64(x, device="cpu"), jf.framesync64(x)
     assert r.detected and r.crc_ok and rj.crc_ok
     np.testing.assert_array_equal(r.header, h)
     np.testing.assert_array_equal(r.payload, p)
@@ -422,3 +423,15 @@ def test_framesync64_oneshot_matches_jax():
         .qdetector_detect(x, jf._detector_template())
     assert d.detected and d.sample_index == dj.sample_index
     assert abs(d.gamma_hat - dj.gamma_hat) <= 1e-4 * dj.gamma_hat
+
+
+def test_entry_points_default_to_the_card_and_raise_without_one():
+    # no card here: the defaults must raise, not fall back to the CPU
+    assert not torch.cuda.is_available()
+    x = np.zeros(4000, np.complex64)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        framesync64(x)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        Framesync64(block_len=T)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        Framesync64(block_len=T, device="cuda:0")

@@ -51,7 +51,7 @@ def test_exports():
 
 def test_oneshot_matches_jax():
     _, x = _stream(800, gain=0.3, phase=0.8, noise=0.004, seed=3)
-    rj, rp = jst.symtrack(x), pst.symtrack(x)
+    rj, rp = jst.symtrack(x), pst.symtrack(x, device="cpu")
     assert len(rp.symbols) == len(rj.symbols) > 700
     np.testing.assert_allclose(rp.symbols, rj.symbols, rtol=0, atol=TOL)
     np.testing.assert_array_equal(rp.decisions, rj.decisions)
@@ -161,8 +161,8 @@ def test_pll_lms_wrapper_checks():
 
 def test_object_matches_oneshot():
     _, x = _stream(560, gain=0.3, phase=0.8, noise=0.004, seed=3)
-    ref = pst.symtrack(x)
-    st = pst.Symtrack(block_len=512)
+    ref = pst.symtrack(x, device="cpu")
+    st = pst.Symtrack(block_len=512, device="cpu")
     n_use = len(x) // 512 * 512
     sy, dec = st.execute(x[:n_use])
     n = min(len(sy), len(ref.symbols))
@@ -182,7 +182,7 @@ def test_object_block_size_invariance():
     _, x = _stream(512, gain=0.5, phase=-0.4, noise=0.01, seed=4)
     outs = []
     for bl in (256, 1024):
-        sy, dec = pst.Symtrack(block_len=bl).execute(x)
+        sy, dec = pst.Symtrack(block_len=bl, device="cpu").execute(x)
         outs.append((sy, dec))
     n = min(len(outs[0][0]), len(outs[1][0]))
     assert n > 480
@@ -194,9 +194,9 @@ def test_object_block_size_invariance():
 def test_object_state_survives_calls():
     _, x = _stream(512, gain=0.4, phase=0.2, noise=0.01, seed=5)
     n_use = len(x) // 256 * 256
-    st1 = pst.Symtrack(block_len=256)
+    st1 = pst.Symtrack(block_len=256, device="cpu")
     sy1, _ = st1.execute(x[:n_use])
-    st2 = pst.Symtrack(block_len=256)
+    st2 = pst.Symtrack(block_len=256, device="cpu")
     chunks = [s for s, _ in (st2.execute(x[i:i + 300])
                              for i in range(0, n_use, 300)) if len(s)]
     sy2 = np.concatenate(chunks)
@@ -205,3 +205,36 @@ def test_object_state_survives_calls():
     st2.reset()
     sy3, _ = st2.execute(x[:n_use])
     np.testing.assert_array_equal(sy3, sy1)
+
+
+def test_entry_points_default_to_the_card_and_raise_without_one():
+    # no card here: the defaults must raise, not fall back to the CPU
+    assert not torch.cuda.is_available()
+    _, x = _stream(64)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        pst.symtrack(x)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        pst.Symtrack()
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        pst.Symtrack(device="cuda:0")
+
+
+@pytest.mark.parametrize("ms", ["qpsk", "qam16"])
+def test_oneshot_by_stream_matches_the_cpu_route(ms):
+    # the card's route for the one-shot tracker (one block of
+    # symtrack_stream, here with the kernels' plain versions) against the
+    # CPU's per-symbol PLL and LMS loops
+    _, x = _stream(500, ms=ms, gain=0.3, phase=0.8, noise=0.004, seed=3)
+    ref = pst.symtrack(x, ms=ms, device="cpu")
+    got = pst._symtrack_by_stream(torch.from_numpy(x), "arkaiser", 2, 7, 0.3,
+                                  ms, 13, 0.05, 0.05)
+    assert len(got.symbols) == len(ref.symbols) > 450
+    np.testing.assert_allclose(got.symbols, ref.symbols, rtol=0, atol=TOL)
+    # decisions equal but where a symbol lies within the tolerance of a
+    # decision boundary (outputs near 0 while the equalizer's window fills)
+    table = np.asarray(constellation(ms)).astype(np.complex64)
+    d = np.sort(np.abs(ref.symbols[:, None] - table[None]), axis=-1)
+    clear = d[:, 1] - d[:, 0] > 2 * TOL
+    assert clear.sum() >= 0.95 * len(clear)
+    np.testing.assert_array_equal(got.decisions[clear], ref.decisions[clear])
+    assert got.decisions.dtype == ref.decisions.dtype
