@@ -677,7 +677,9 @@ def qpsk_ser(rec, sent, rot, n, dmax=64, probe=512):
 def profile_steps(torch, card, step, n, what):
     """torch.profiler over n calls of `step`: prints the device time per
     call by kernel (the 8 largest), the device operations per call and the
-    busy share (device time over the host clock of the window)."""
+    busy share (device time over the host clock of the window, taken with
+    the profiler on: its own host work counts as idle).  Fails when the
+    profiler records no device event."""
     from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
@@ -695,18 +697,15 @@ def profile_steps(torch, card, step, n, what):
             by_name[ev.name] = (tot + ev.time_range.elapsed_us() / 1e3,
                                 cnt + 1)
     if not by_name:
-        print(f"profile ({card}): {what}: the profiler recorded no device "
-              f"event; host clock {wall / n:.2f} ms per call with it on",
-              flush=True)
-        return
+        fail(f"profile: {what}: the profiler recorded no device event")
     dev_ms = sum(t for t, _ in by_name.values())
     ops = sum(c for _, c in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     print(f"profile ({card}): {what}, {n} calls: device time "
           f"{dev_ms / n:.3f} ms per call in {ops / n:.0f} device operations, "
-          f"host clock {wall / n:.3f} ms per call with the profiler on, busy "
-          f"share {dev_ms / wall:.3f}; by kernel, ms per call (launches per "
-          f"call): " + "; ".join(
+          f"host clock {wall / n:.3f} ms per call and busy share "
+          f"{dev_ms / wall:.3f}, both with the profiler on; by kernel, ms "
+          f"per call (launches per call): " + "; ".join(
               f"{name[:48]} {t / n:.3f} ({c / n:.0f})"
               for name, (t, c) in top), flush=True)
 
@@ -945,10 +944,9 @@ def timing_phases(torch, dev, card):
         check(torch.equal(k_[2], p_[2]) and torch.equal(
             k_[3]["eq_n"], p_[3]["eq_n"]), f"pll_lms, {name}: "
             f"{int((k_[2] != p_[2]).sum())} decisions differ")
-        # the state: eq_x2 is a running sum of L powers, held per tap
+        # the state, at the card tests' limit
         for key in p_[3]:
             d = float((k_[3][key].float() - p_[3][key].float()).abs().max())
-            d = d / trk.L if key == "eq_x2" else d
             check(d <= TOL_STREAM, f"pll_lms, {name}: state {key} {d:.3e}")
         return err
 

@@ -16,8 +16,9 @@ step is::
 A Proc never chooses a device: buffers follow ``.to(device)``, carries
 are made on the ``device`` given to ``init``, and each step runs where
 its input tensor lies.  The entry points that take host arrays
-(`framesync64`, `Framesync64`, `symtrack`, `Symtrack`) run on the card
-unless the caller passes ``device="cpu"``; `entry_device` is their check.
+(`framesync64`, `Framesync64`, `qdetector_detect`, `symtrack`,
+`Symtrack`) run on the card unless the caller passes ``device="cpu"``;
+`entry_device` is their check.
 """
 from __future__ import annotations
 

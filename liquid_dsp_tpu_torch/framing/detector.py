@@ -17,6 +17,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core import entry_device
+
 __all__ = ["DetectorResult", "make_template", "qdetector_detect"]
 
 
@@ -42,13 +44,15 @@ def make_template(sequence, interp_proc=None) -> np.ndarray:
 
 
 def qdetector_detect(x, s, threshold: float = 0.5, range_bins: int = 2,
-                     device=None) -> DetectorResult:
+                     device="cuda") -> DetectorResult:
     """Detect template s in capture x; returns DetectorResult (the
     block-native form of reference qdetector_cccf_execute_seek :373-441
-    + execute_align).  The FFT correlation runs on ``device`` (a tensor
-    x keeps its own device; numpy goes to the CPU by default)."""
+    + execute_align).  The FFT correlation runs where a tensor x lies; a
+    host array goes to ``device``, the card unless given (without one a
+    CUDA device raises)."""
     if not torch.is_tensor(x):
-        x = torch.as_tensor(np.asarray(x, np.complex64), device=device)
+        x = torch.from_numpy(np.asarray(x, np.complex64)).to(
+            entry_device(device))
     x = x.to(torch.complex64)
     s = np.asarray(s, np.complex64)
     s_len = len(s)

@@ -26,7 +26,7 @@ import torch
 from ..core import Proc, entry_device
 from ..modem import constellation, demodulate
 from ..ops.agc import agc
-from ..ops.equalize import eqlms_lowpass_weights, eqlms_run
+from ..ops.equalize import eqlms_lowpass_weights
 from ..ops.kernels.pll_lms import pll_lms, pll_lms_step, slicer_config
 from ..ops.symsync import _hoist_chunk, _symsync_run_hoisted, symsync
 
@@ -49,87 +49,26 @@ class SymtrackResult(NamedTuple):
     decisions: np.ndarray  # hard decisions (indices)
 
 
-def _pll_scan(table, syms, bw: float):
-    """Carrier tracking loop over symbols (host tensors): mix, slice,
-    phase-error feedback with a 2nd-order loop (reference symtrack's
-    internal PLL).  Returns (mixed symbols, decisions) as numpy."""
-    alpha = bw
-    beta = 0.5 * bw * bw
-    tab = torch.from_numpy(np.asarray(table, np.complex64))
-    s = torch.from_numpy(np.asarray(syms, np.complex64))
-    theta = torch.zeros((), dtype=torch.float32)
-    dtheta = torch.zeros((), dtype=torch.float32)
-    vs, idxs = [], []
-    for t in range(s.shape[0]):
-        v = s[t] * torch.exp(-1j * theta)
-        idx = torch.argmin((v - tab).abs() ** 2)
-        e = torch.angle(v * torch.conj(tab[idx]))
-        dtheta = dtheta + beta * e
-        theta = theta + dtheta + alpha * e
-        vs.append(v)
-        idxs.append(idx)
-    if not vs:
-        return np.zeros(0, np.complex64), np.zeros(0, np.int64)
-    return torch.stack(vs).numpy(), torch.stack(idxs).numpy()
-
-
-def _symtrack_by_stream(x, ftype, k, m, beta, ms, eq_len, eq_mu, pll_bw):
-    """The one-shot tracker as one block of `symtrack_stream` where x
-    lies: the same AGC, symsync, PLL and LMS from the same initial state
-    (the PLL does not see the equalizer, so stepping both per slot equals
-    the PLL over all symbols followed by the LMS), through the three
-    kernels on a CUDA tensor.  Decisions by `demodulate`, as the one-shot
-    makes them."""
-    proc = symtrack_stream(ftype, k, m, beta, ms, eq_len, eq_mu,
-                           pll_bw).to(x.device)
-    (sy, _, sv), _ = proc(proc.init(device=x.device), x)
-    syms = sy[sv]
-    dec = demodulate(constellation(ms), syms)
-    return SymtrackResult(syms.cpu().numpy(), dec.cpu().numpy())
-
-
 def symtrack(x, ftype: str = "arkaiser", k: int = 2, m: int = 7,
              beta: float = 0.3, ms: str = "qpsk", eq_len: int = 13,
              eq_mu: float = 0.05, pll_bw: float = 0.05,
              bandwidth: float = 0.9, device="cuda") -> SymtrackResult:
     """Track a continuous stream of modulated samples and return the
     recovered symbols (reference symtrack_cccf_execute_block).  ``device``
-    is the card unless given.  On the CPU the symbol-rate PLL and LMS are
-    per-symbol loops over the compacted symbols; on the card the capture
-    runs as one block of `symtrack_stream` through its kernels
-    (`_symtrack_by_stream`: the same values to the stream tolerance)."""
+    is the card unless given.  The capture runs as one block of
+    `symtrack_stream` from its initial state: the same AGC, symsync, PLL
+    and LMS as the JAX package's one-shot (its PLL does not see the
+    equalizer, so stepping both per slot equals the PLL over all symbols
+    followed by the LMS), through the three kernels on the card.
+    Decisions by `demodulate` on the compacted symbols."""
     dev = entry_device(device)
     x = torch.from_numpy(np.asarray(x, np.complex64)).to(dev)
-    if dev.type == "cuda":
-        return _symtrack_by_stream(x, ftype, k, m, beta, ms, eq_len, eq_mu,
-                                   pll_bw)
-    ag = agc(bandwidth=0.02)
-    y, _ = ag(ag.init(device=dev), x)
-    ss = symsync(ftype, k, m, beta, bw=0.02).to(dev)
-    (sy, sv), _ = ss(ss.init(device=dev), y)
-    syms = sy[sv].cpu().numpy()
-    if len(syms) == 0:
-        return SymtrackResult(np.zeros(0, np.complex64),
-                              np.zeros(0, np.int64))
-    table = constellation(ms)
-    v, _ = _pll_scan(table, syms.astype(np.complex64), pll_bw)
-    L = eq_len
-    # lowpass-initialized equalizer (reference symtrack.c:122
-    # eqlms_create_lowpass(eq_len, 0.45)); x2_sum and n primed at L
-    # (unit-power symbols after the AGC: the window counts as full)
-    carry = {"w": torch.from_numpy(eqlms_lowpass_weights(L)),
-             "buf": torch.zeros(L, dtype=torch.complex64),
-             "x2_sum": torch.tensor(float(L), dtype=torch.float32),
-             "n": torch.tensor(L, dtype=torch.int32)}
-    tab = torch.from_numpy(np.asarray(table, np.complex64))
-
-    def slicer(yv):
-        return tab[torch.argmin((yv[..., None] - tab).abs() ** 2, dim=-1)]
-
-    veq, _ = eqlms_run(None, eq_mu, carry, torch.from_numpy(v),
-                       slicer=slicer)
-    dec = demodulate(table, veq).numpy()
-    return SymtrackResult(veq.numpy(), dec)
+    proc = symtrack_stream(ftype, k, m, beta, ms, eq_len, eq_mu,
+                           pll_bw).to(dev)
+    (sy, _, sv), _ = proc(proc.init(device=dev), x)
+    syms = sy[sv]
+    dec = demodulate(constellation(ms), syms)
+    return SymtrackResult(syms.cpu().numpy(), dec.cpu().numpy())
 
 
 class SymtrackStream(Proc):

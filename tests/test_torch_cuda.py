@@ -219,6 +219,15 @@ def test_receiver_on_the_card_matches_the_cpu(dev):
                                             if s[0] == 1]
     res = framesync64(x[0, :4000])
     assert res.crc_ok and res.payload.tolist() == sent[0][2].tolist()
+    # the detector alone: a host capture goes to the card by default
+    from liquid_dsp_tpu_torch.framing import frame64
+    from liquid_dsp_tpu_torch.framing.detector import qdetector_detect
+    tmpl = frame64._detector_template()
+    det = qdetector_detect(x[0, :4000], tmpl)
+    on_cpu = qdetector_detect(x[0, :4000], tmpl, device="cpu")
+    assert det.detected and det.sample_index == on_cpu.sample_index \
+        == res.sample_index
+    assert abs(det.rxy - on_cpu.rxy) <= 1e-4
 
 
 # --- the timing-recovery family's kernels -------------------------------

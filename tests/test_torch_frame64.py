@@ -418,7 +418,8 @@ def test_framesync64_oneshot_matches_jax():
     assert abs(r.cfo - rj.cfo) <= 1e-4 * BIN
     assert abs(r.evm_db - rj.evm_db) <= 1e-3 and abs(r.rssi_db -
                                                      rj.rssi_db) <= 1e-3
-    d, dj = detector.qdetector_detect(x, jf._detector_template()), \
+    d, dj = detector.qdetector_detect(x, jf._detector_template(),
+                                      device="cpu"), \
         __import__("liquid_dsp_tpu.framing.detector", fromlist=["x"]) \
         .qdetector_detect(x, jf._detector_template())
     assert d.detected and d.sample_index == dj.sample_index
@@ -431,6 +432,8 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
     x = np.zeros(4000, np.complex64)
     with pytest.raises(RuntimeError, match="CUDA card"):
         framesync64(x)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        detector.qdetector_detect(x, jf._detector_template())
     with pytest.raises(RuntimeError, match="CUDA card"):
         Framesync64(block_len=T)
     with pytest.raises(RuntimeError, match="CUDA card"):
