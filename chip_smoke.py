@@ -38,12 +38,19 @@ Then the frame64 streaming receiver with in-stream Golay decode,
      on a noise-only channel; the codebook_argmax kernel ran;
   9. codebook_argmax: the kernel against its plain version on that run's
      slot soft bits (153,600 rows x 24 x 4096): bit-equal indices, and
-     the first index on constant rows;
+     the first index on constant rows; then bit-equal indices for
+     hamming1511 (n = 15, K = 2048), a ragged number of rows, golay2412
+     with its columns handed over sorted by mask (the wrapper sorts them
+     anyway, so that neighbouring columns share leading positions and the
+     kernel sums those once), a random +-1 codebook with n = 32 and
+     K = 1000 (too little shared, K not a multiple of a pass), and
+     rows whose best score is tied between far-apart duplicate columns;
  10. fir_real: firfilt(h, backend="pallas") on the card against its
      plain version over 3 carried 64x262144 blocks (< 1e-5 of rms), one
      launch per block;
  11. times (CUDA events): the receiver step, and each kernel against its
-     plain version (plain, kernel, kernel, plain).
+     plain version (plain, kernel, kernel, plain); torch.profiler over 3
+     receiver steps (device time by kernel; a measurement, no check).
 
 Then the timing-recovery family at 256 channels x 32768-sample blocks
 (QPSK at 2 samples/symbol, arkaiser pulses with a fractional delay per
@@ -61,9 +68,13 @@ channel, made with numpy and scipy):
      and pll_lms launched as the blocks and chunks say;
  14. each new kernel against its plain version on the same inputs and
      states: symsync_scan bit-equal over 1024 steps x 256 channels,
-     agc_scan bit-equal (else max|err|/rms <= 1e-6) over 4096 samples,
-     pll_lms within 2e-4 with equal decisions over 3072 slots; then the
-     two kernels' own structure under stress, 256 channels each:
+     agc_scan bit-equal (else max|err|/rms <= 1e-6) over 1024 samples,
+     pll_lms within 2e-4 with equal decisions over 3072 slots; agc_scan
+     bit-equal again with locked=True, at a ragged T (1021) with B = 70
+     (a ragged last block) and alpha = 1e-3, at alpha = 0.5 with power
+     from 1e-8 to 1e4 and level steps (below the guard and up to the
+     clamp), from a carry with g at the clamp, and on less than one tile;
+     then two kernels' own structure under stress, 256 channels each:
      symsync_scan bit-equal on a ragged chunk (509 steps), a real stream
      (P = 1), locked=True, k = 3 with k_out = 2, and from the zero state
      (acquisition: fast drift, negative branch indices); pll_lms within
@@ -102,7 +113,7 @@ TOL_BF16 = 3e-2    # bf16 quantization of input and output planes (:106)
 N_CHECK = 8192     # outputs per channel in the float64 check
 TR_B, TR_T, TR_NBLK = 256, 1 << 15, 3   # timing family: channels x samples
 TR_CMP = 1024      # steps (x3 slots for pll_lms) of the kernel-vs-plain runs
-TR_AGC = 4096      # samples of the agc_scan comparison
+TR_AGC = 1024      # samples of the agc_scan comparison (its plain loop is slow)
 TR_TAIL = 8192     # symtrack symbols checked in the last block
 TR_SMALL = (4, 4096)   # channels x samples of the card-vs-CPU run
 TOL_TAIL = 5e-3    # symsync tail error (tests/test_symsync_misc.py:45-56)
@@ -117,6 +128,7 @@ FIR_L = 144                 # fir_real taps (the headline chain's fused FIR)
 TOL_FIR = 1e-5              # fir_real kernel vs plain, max|err|/rms
 TR_STRESS = 509             # steps of the symsync_scan stress cases (ragged)
 PLL_STRESS = 1536           # slots of the pll_lms stress cases
+AGC_STRESS = 1024           # samples of the longest agc_scan stress cases
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores
 
@@ -450,10 +462,11 @@ def receiver_phases(torch, dev, card):
     """Phases 8-11: the frame64 receiver with in-stream Golay decode, the
     codebook_argmax and fir_real kernels.  Returns their kernel entries."""
     from liquid_dsp_tpu_torch.design.firdes import firdes_kaiser
+    from liquid_dsp_tpu_torch.fec.device import block_codebook
     from liquid_dsp_tpu_torch.framing.frame64 import framesync64_stream_full
     from liquid_dsp_tpu_torch.ops.fir import firfilt
     from liquid_dsp_tpu_torch.ops.kernels.codebook_argmax import (
-        codebook_argmax, codebook_argmax_reference)
+        codebook_argmax, codebook_argmax_reference, pack_codebook)
     from liquid_dsp_tpu_torch.ops.kernels.fir_real import (
         fir_real, fir_real_reference)
 
@@ -512,6 +525,45 @@ def receiver_phases(torch, dev, card):
     check(bool((ties == 0).all()), "codebook_argmax: ties must pick 0")
     print(f"codebook_argmax: kernel = plain on all {cw.shape[0]} rows "
           f"(n=24, K={bip.shape[1]}); constant rows pick index 0",
+          flush=True)
+
+    def hold_codebook(name, cw_, bip_):
+        got_ = codebook_argmax(cw_, bip_)
+        want_ = codebook_argmax_reference(cw_, bip_)
+        torch.cuda.synchronize()
+        check(torch.equal(got_, want_), f"codebook_argmax, {name}: "
+              f"{int((got_ != want_).sum())} of {cw_.shape[0]} indices "
+              f"differ")
+        return f"{name} ({cw_.shape[0]} x {bip_.shape[0]} x {bip_.shape[1]})"
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    ham = torch.from_numpy(block_codebook("hamming1511")[0]).to(dev)
+    order = torch.from_numpy(np.argsort(
+        pack_codebook(bip).cpu().numpy().view(np.uint32), kind="stable")).to(dev)
+    rnd = torch.where(torch.rand(32, 1000, generator=gen, device=dev) < 0.5,
+                      -1.0, 1.0)
+    dup = rnd.clone()
+    dup[:, 900] = dup[:, 3]           # far-apart duplicate columns
+    dup[:, 517] = dup[:, 516]
+    dup[:, 999] = dup[:, 640]
+    # rows that score highest on a duplicated column: its own signs, scaled
+    mag = torch.rand(6000, 32, generator=gen, device=dev) + 0.5
+    col = torch.tensor([3, 516, 640], device=dev)[
+        torch.randint(0, 3, (6000,), generator=gen, device=dev)]
+    tied = (mag * dup[:, col].t()).contiguous()
+    idx_t = codebook_argmax(tied, dup)
+    check(torch.equal(idx_t.long(), col), "codebook_argmax: a tie between "
+          "duplicate columns must pick the first")
+    held = [
+        hold_codebook("hamming1511", torch.randn(
+            20000, 15, generator=gen, device=dev), ham),
+        hold_codebook("ragged rows", cw[:4099].contiguous(), bip),
+        hold_codebook("columns sorted by mask", cw[:20011].contiguous(),
+                      bip[:, order].contiguous()),
+        hold_codebook("random codebook", torch.randn(
+            10007, 32, generator=gen, device=dev), rnd),
+        hold_codebook("tied duplicate columns", tied, dup)]
+    print("codebook_argmax: kernel = plain also on " + "; ".join(held),
           flush=True)
 
     # 10. fir_real through firfilt(backend="pallas"), 3 carried blocks
@@ -578,6 +630,8 @@ def receiver_phases(torch, dev, card):
           f"{fk1:.4f}, {fk2:.4f}) vs plain {fr_plain:.4f} ms (runs "
           f"{fp1:.4f}, {fp2:.4f}) and F.conv1d {fr_lib:.4f} ms at {B}x{T} "
           f"complex ({2 * B} rows), {FIR_L} taps", flush=True)
+    profile_steps(torch, card, lambda: proc(c1, x1), 3,
+                  f"framesync64_stream_full step at {RX_B}x{RX_T}")
     N, n, K = cw.shape[0], cw.shape[1], bip.shape[1]
     # soft bits in, indices out, the codebook once; one multiply-add per
     # (row, bit, codeword)
@@ -677,14 +731,22 @@ def qpsk_ser(rec, sent, rot, n, dmax=64, probe=512):
 def profile_steps(torch, card, step, n, what):
     """torch.profiler over n calls of `step`: prints the device time per
     call by kernel (the 8 largest), the device operations per call and the
-    busy share (device time over the host clock of the window, taken with
-    the profiler on: its own host work counts as idle).  Fails when the
+    busy share (device time over the host clock of the n calls, taken with
+    the profiler on: its own host work counts as idle).  One call before
+    them is the profiler's warm-up cycle, traced and thrown away: a
+    profiler's first device events can be lost while the tracing starts.
+    (Host and device time stamps differ by up to a millisecond, so a
+    window on the host's clock cannot pick the events.)  Fails when the
     profiler records no device event."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        step()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         for _ in range(n):
             step()
@@ -692,7 +754,10 @@ def profile_steps(torch, card, step, n, what):
         wall = (time.perf_counter() - t0) * 1e3
     by_name = {}
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        # the profiler mirrors its cycle on the device as an annotation
+        # "ProfilerStep#k", which is no kernel
+        if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                not ev.name.startswith("ProfilerStep"):
             tot, cnt = by_name.get(ev.name, (0.0, 0))
             by_name[ev.name] = (tot + ev.time_range.elapsed_us() / 1e3,
                                 cnt + 1)
@@ -701,8 +766,11 @@ def profile_steps(torch, card, step, n, what):
     dev_ms = sum(t for t, _ in by_name.values())
     ops = sum(c for _, c in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    whole = "" if ops % n == 0 else \
+        f" (INCOMPLETE: {ops} events are no multiple of the calls)"
     print(f"profile ({card}): {what}, {n} calls: device time "
-          f"{dev_ms / n:.3f} ms per call in {ops / n:.0f} device operations, "
+          f"{dev_ms / n:.3f} ms per call in {ops / n:.0f} device "
+          f"operations{whole}, "
           f"host clock {wall / n:.3f} ms per call and busy share "
           f"{dev_ms / wall:.3f}, both with the profiler on; by kernel, ms "
           f"per call (launches per call): " + "; ".join(
@@ -976,6 +1044,48 @@ def timing_phases(torch, dev, card):
           + f"; pll_lms over {n_p} slots, decisions equal, max|err| "
           + "; ".join(f"{k_} {v_:.3e}" for k_, v_ in pll_stress.items())
           + f" (<= {TOL_STREAM})", flush=True)
+
+    # 14c. agc_scan's structure under stress: bit-equal each time
+    def hold_agc(name, p_, g_, y_, **kws):
+        k_ = agc_scan(p_, g_, y_, **kws)
+        r_ = agc_scan_reference(p_, g_, y_, **kws)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(k_, r_)),
+              f"agc_scan, {name}: kernel and plain version differ, max|err| "
+              f"{float((k_[0] - r_[0]).abs().max()):.3e}")
+        return (f"{name} ({p_.shape[0]} x {p_.shape[1]}; gains "
+                f"{float(r_[0].min()):.3g}..{float(r_[0].max()):.3g}, y2p "
+                f"{float(r_[2].min()):.3g}..{float(r_[2].max()):.3g})")
+
+    def stress_power(nb_, nt_, seed):
+        # power from 1e-8 to 1e4 across the channels; in mid-block a step
+        # down by 1e6, a step up by 1e4, or silence (y2p falls below the
+        # guard) on a channel in three each
+        g_ = torch.Generator(device=dev).manual_seed(seed)
+        p_ = torch.rand(nb_, nt_, generator=g_, device=dev) * torch.logspace(
+            -8, 4, nb_, device=dev)[:, None]
+        p_[::3, nt_ // 2:] *= 1e-6
+        p_[1::3, nt_ // 3:] *= 1e4
+        p_[2::3, nt_ // 2:] = 0.0
+        return p_.contiguous()
+
+    def ones(n_, v=1.0):
+        return torch.full((n_,), v, device=dev)
+
+    agc_stress = [
+        hold_agc("locked", p[:, :AGC_STRESS].contiguous(), ca["g"],
+                 ca["y2_prime"], alpha=st.ag.alpha, locked=True),
+        hold_agc("ragged T and B, alpha 1e-3", stress_power(70, 1021, 1),
+                 ones(70), ones(70), alpha=1e-3),
+        hold_agc("alpha 0.5, power 1e-8..1e4 with steps",
+                 stress_power(B, AGC_STRESS // 2, 2), ones(B), ones(B),
+                 alpha=0.5),
+        hold_agc("from g at the clamp", stress_power(B, AGC_STRESS // 2, 3),
+                 ones(B, 1e6), ones(B), alpha=st.ag.alpha),
+        hold_agc("less than a tile", stress_power(33, 7, 4), ones(33),
+                 ones(33), alpha=0.1)]
+    print(f"agc_scan vs plain under stress, bit-equal (gains, g, y2p): "
+          + "; ".join(agc_stress), flush=True)
 
     # 15. the card against the port on the CPU
     nb, ns = TR_SMALL

@@ -59,6 +59,41 @@ def test_pack_codebook():
     assert ((masks & 0xFF) == 0).all()
 
 
+def test_sort_codebook():
+    bip = block_codebook("golay2412")[0].copy()
+    bip[:, 900] = bip[:, 3]                      # equal masks: own order kept
+    masks, order = cba.sort_codebook(torch.from_numpy(bip))
+    assert masks.dtype == torch.int32 and order.dtype == torch.int32
+    m = masks.numpy().view(np.uint32)
+    o = order.numpy()
+    assert (np.diff(m.astype(np.int64)) >= 0).all()
+    assert sorted(o.tolist()) == list(range(bip.shape[1]))
+    np.testing.assert_array_equal(
+        m, cba.pack_codebook(torch.from_numpy(bip)).numpy().view(np.uint32)[o])
+    at = int(np.flatnonzero(o == 3)[0])
+    assert o[at + 1] == 900
+    # aligned groups of 4 sorted columns share 10 leading positions
+    g = cba.sort_codebook(torch.from_numpy(block_codebook("golay2412")[0]))[
+        0].numpy().view(np.uint32).reshape(-1, 4)
+    assert ((np.bitwise_or.reduce(g ^ g[:, :1], axis=1) >> 22) == 0).all()
+
+
+def test_sorted_masks_are_kept_per_codebook_tensor():
+    bip = torch.from_numpy(block_codebook("hamming1511")[0].copy())
+    first = cba.sorted_masks(bip)
+    assert cba.sorted_masks(bip) is first
+    assert all(torch.equal(a, b) for a, b in zip(first, cba.sort_codebook(bip)))
+    bip[0, 5] = -bip[0, 5]                       # written in place: sorted anew
+    again = cba.sorted_masks(bip)
+    assert again is not first
+    assert all(torch.equal(a, b) for a, b in zip(again, cba.sort_codebook(bip)))
+    other = bip.clone()                          # another tensor, its own entry
+    assert cba.sorted_masks(other) is not again
+    n = len(cba._SORTED)
+    del bip, other
+    assert len(cba._SORTED) == n - 2             # dropped with their tensors
+
+
 @pytest.mark.parametrize("scheme", ["hamming74", "hamming128", "golay2412"])
 def test_scores_argmax_matches_jax(scheme):
     # K < 1024 takes einsum + argmax, K >= 1024 the kernel's plain version

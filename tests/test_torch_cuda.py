@@ -10,8 +10,10 @@ Tolerances: 1e-5 of rms in f32 (the same float32 arithmetic, summed in
 another order); with bf16 output planes one bf16 step (2^-7 of the
 largest output), since both versions round their f32 sums to bf16.
 codebook_argmax: bit-equal indices (kernel and plain version sum the same
-exact terms in the same order).  symsync_scan and agc_scan: bit-equal
-outputs and state (the same roundings, FMAs where both take them);
+exact terms in the same order; a multiply-add by +-1 is the rounded add).
+symsync_scan and agc_scan: bit-equal outputs and state (the same
+roundings, FMAs where both take them; agc_scan's log and exp are the
+module's own in both);
 pll_lms: 2e-4 with equal decisions (sincos, atan2 and the dot's order and
 association differ), the reference's stream tolerance.
 """
@@ -128,6 +130,53 @@ def test_codebook_argmax_ties_pick_first(dev, K):
     assert (cba.codebook_argmax(cw, bip) == 0).all()
     cw = torch.ones(3, 8, device=dev)         # columns 0, 2, 4, ... tie
     assert (cba.codebook_argmax(cw, bip) == 0).all()
+
+
+def _sorted_golay(dev):
+    bip = torch.from_numpy(block_codebook("golay2412")[0])
+    masks = cba.pack_codebook(bip).numpy().view(np.uint32)
+    return bip[:, torch.from_numpy(np.argsort(masks, kind="stable"))] \
+        .contiguous().to(dev)
+
+
+@pytest.mark.parametrize("case,n,K,M", [
+    ("sorted", 24, 4096, 5003),      # neighbours share leading positions
+    ("random", 32, 1000, 10007),     # nothing shared, K off a pass
+    ("random", 32, 100, 777),        # less than one pass
+    ("random", 8, 1024, 300),        # the narrowest padded row
+    ("random", 9, 2048, 65),         # padded from 9 to 16 positions
+    ("random", 17, 4100, 1),         # one row, a ragged last pass
+    ("duplicates", 32, 1000, 6000),  # exact ties between far-apart columns
+    ("half_shared", 24, 1024, 999)]) # one warp votes shared, the others not
+def test_codebook_argmax_structure_cases(dev, case, n, K, M):
+    g = torch.Generator(device=dev).manual_seed(n + K + M)
+    if case == "sorted":
+        bip = _sorted_golay(dev)
+    else:
+        bip = torch.where(torch.rand(n, K, generator=g, device=dev) < 0.5,
+                          -1.0, 1.0)
+    cw = torch.randn(M, n, generator=g, device=dev)
+    if case == "half_shared":
+        # the first 128 columns in groups of 4 that agree on 8 positions
+        bip[:8, :128] = bip[:8, :128:4].repeat_interleave(4, dim=1)
+    if case == "duplicates":
+        bip[:, 900] = bip[:, 3]
+        bip[:, 517] = bip[:, 516]
+        bip[:, 999] = bip[:, 640]
+        col = torch.tensor([3, 516, 640], device=dev)[
+            torch.randint(0, 3, (M,), generator=g, device=dev)]
+        cw = ((torch.rand(M, n, generator=g, device=dev) + 0.5)
+              * bip[:, col].t()).contiguous()
+    cw[0] = 0.0                       # a constant row: every score tied
+    launches = cba.codebook_argmax.launches
+    got = cba.codebook_argmax(cw, bip)
+    want = cba.codebook_argmax_reference(cw, bip)
+    torch.cuda.synchronize()
+    assert cba.codebook_argmax.launches == launches + 1
+    assert torch.equal(got, want)
+    assert int(got[0]) == 0 and int(got.max()) < K
+    if case == "duplicates":
+        assert torch.equal(got[1:].long(), col[1:])
 
 
 def test_codebook_argmax_rejects_misplaced_tensors(dev):
@@ -322,6 +371,53 @@ def test_agc_scan_bit_equal_to_plain(dev, locked):
     assert ak.agc_scan.launches == launches + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _agc_power(dev, B, T, seed):
+    """Power from 1e-8 to 1e4 across the channels; in mid-block a step
+    down by 1e6, a step up by 1e4, or silence on a channel in three each."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = torch.rand(B, T, generator=g, device=dev) * torch.logspace(
+        -8, 4, B, device=dev)[:, None]
+    p[::3, T // 2:] *= 1e-6
+    p[1::3, T // 3:] *= 1e4
+    p[2::3, T // 2:] = 0.0
+    return p.contiguous()
+
+
+@pytest.mark.parametrize("B,T,alpha,locked,g0", [
+    (256, 512, 0.5, False, 1.0),      # below the guard and up to the clamp
+    (70, 1021, 1e-3, False, 1.0),     # ragged last block and last tile
+    (256, 512, 0.02, False, 1e6),     # from a carry with g at the clamp
+    (40, 700, 0.02, True, 0.7),       # locked
+    (33, 7, 0.1, False, 1.0),         # less than one tile
+    (1, 33, 1.0, False, 1.0),         # one channel, a tile and a sample
+    (5, 64, 0.3, False, 1e-3),        # whole tiles only
+    (300, 100, 0.05, False, 2.0)])    # more blocks than a wave of 8
+def test_agc_scan_structure_cases(dev, B, T, alpha, locked, g0):
+    from liquid_dsp_tpu_torch.ops.kernels import agc_scan as ak
+    p = _agc_power(dev, B, T, seed=B + T)
+    g = torch.full((B,), g0, device=dev)
+    y = torch.ones(B, device=dev)
+    launches = ak.agc_scan.launches
+    got = ak.agc_scan(p, g, y, alpha=alpha, locked=locked)
+    want = ak.agc_scan_reference(p, g, y, alpha=alpha, locked=locked)
+    torch.cuda.synchronize()
+    assert ak.agc_scan.launches == launches + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert float(want[0].max()) <= 1e6
+    assert torch.equal(g, torch.full((B,), g0, device=dev))   # carry kept
+
+
+def test_agc_log_and_exp_on_the_card_equal_the_cpu(dev):
+    # the plain version's arithmetic does not depend on the device
+    from liquid_dsp_tpu_torch.ops.kernels import agc_scan as ak
+    g = torch.Generator().manual_seed(0)
+    y = torch.exp(torch.rand(100_000, generator=g) * 100 - 13.8)
+    x = torch.rand(100_000, generator=g) * 88 - 44
+    assert torch.equal(ak.agc_log(y.to(dev)).cpu(), ak.agc_log(y))
+    assert torch.equal(ak.agc_exp(x.to(dev)).cpu(), ak.agc_exp(x))
 
 
 @pytest.mark.parametrize("ms,L", [("qpsk", 13), ("qam16", 13),
