@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Times of the port's `agc_scan` and `codebook_argmax` kernels on one CUDA
-card, and of the two steps they serve, for a checkout given by --root:
+"""Times of the port's two FIR kernels, `mix_fir_decim` and `fir_real`, on
+one CUDA card, and of the steps of the three paths, for a checkout given
+by --root:
 
     python3 chip_kernel_bench.py [--root DIR] [--tag NAME] [--no-steps] [--sass DIR]
     python3 chip_kernel_bench.py --ffma-rate
+    python3 chip_kernel_bench.py --mma-probe
 
 With two checkouts (this one and, say, `git archive` of its parent unpacked
 into a directory that .gitignore lists) run it in turns, one after the other,
@@ -11,25 +13,30 @@ on one card: parent, change, change, parent.  It uses only what both
 checkouts have: the two wrappers with their plain versions, and the stream
 makers, the timer and the profiler table of that checkout's chip_smoke.py.
 
-  * codebook_argmax at the receiver's shape, 153,600 x 24 x 4096 (golay2412;
-    normal soft bits from a seed), indices against the plain version; the
-    same with the codebook's columns sorted by their masks, where aligned
-    groups of 4 columns share their first 10 positions (a wrapper that
-    sorts them itself takes the same time for both);
-  * agc_scan at the tracker's shape, 256 x 32768 (alpha 0.02), unlocked
-    and locked, and against the plain version over 256 samples;
+  * ptxas's registers and spills for every instance of the two kernels;
+  * mix_fir_decim at the headline shape, 64 x 262144 with the chain's 144
+    fused taps and down 2, f32 and bf16 planes, against the plain version
+    (max|err|/rms), and at down 1, 4 and 8 with the same taps;
+  * fir_real at 128 rows x 262144 with 144 taps against the plain version,
+    and at 13 and 1024 taps;
+  * the headline step planar(kernel_fuse(fuse(chain))) at 64 x 262144;
   * unless --no-steps: the symtrack_stream step at 256 x 32768 and the
-    framesync64_stream_full step at 128 x 32768, each timed (CUDA events)
-    and under torch.profiler (device time by kernel);
-  * with --sass DIR: cuobjdump's SASS of the two kernels into
-    DIR/sass_<tag>.txt.
+    framesync64_stream_full step at 128 x 32768 (neither launches these
+    kernels), each timed (CUDA events) and under torch.profiler;
+  * with --sass DIR: cuobjdump's SASS of the headline instances of the two
+    kernels into DIR/sass_<tag>.txt.
 
-With --ffma-rate it measures instead what the float32 bound of
-codebook_argmax rests on: the card's rate of float32 multiply-adds per
+With --ffma-rate it measures instead what the float32 bound of these
+kernels rests on: the card's rate of float32 multiply-adds per
 clock and SM sub-partition (the data sheet's 67 TFLOP/s is 1.0 at
 1.98 GHz) in a loop of independent `acc[k] = fma(a, b, acc[k])` where two,
 one or none of the three register operands repeat from the instruction
 before, at 4 to 32 warps per SM.
+
+With --mma-probe it builds fir_real's function as a product on the tensor
+cores (mma.sync in TF32, each operand split in two, three products) and
+prints its error and its time beside the port's kernel: the measurement
+behind the choice of the ordinary cores for the two FIR kernels.
 
 Every line names the card and its power limit.
 """
@@ -84,6 +91,127 @@ extern "C" int ffma_rate_launch(const void* in, void* out, int blocks,
   return (int)cudaGetLastError();
 }
 """
+MMA_PROBE_SRC = r"""
+// fir_real as a product on the tensor cores, for --mma-probe: per warp
+// Y[m][n] = sum_k A[m][k] B[k][n] with A[m][k] = w[16 m + k] read straight
+// from the padded shared window (rows overlap, nothing is materialised),
+// B[k][n] = g[k - n] (the taps as a band), Y[m][n] = output 16 m + n;
+// mma.sync.m16n8k8 in TF32 with w and g split into hi = tf32(v) and
+// lo = tf32(v - hi) and the three products lo.hi + hi.lo + hi.hi.  By
+// default each k-step's products start from zero and are added to float32
+// sums; with -DCHAIN_ACC they accumulate in the tensor core.
+#include <cuda_runtime.h>
+#include <cstdint>
+namespace {
+constexpr int THREADS = 128, TILE = 2048, G = 16, PAD = 4, LMAX = 4096;
+__host__ __device__ __forceinline__ int padded(int k) { return k + k / G * PAD; }
+struct Layout {
+  int S, Wn, Ws, Gz;
+  __host__ __device__ explicit Layout(int L) {
+    S = (L + 15 + 7) / 8;                  // k-steps
+    Wn = (TILE - 16 + 8 * S + 15) / 16 * 16;   // window entries
+    Ws = Wn / G * (G + PAD);
+    Gz = 8 + 8 * S + 8;
+  }
+  __host__ __device__ size_t words() const { return 2 * (size_t)Ws + 2 * Gz; }
+};
+__device__ __forceinline__ uint32_t tf32(float v) {
+  uint32_t u; asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(u) : "f"(v)); return u;
+}
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2], const float (&c)[4]) {
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+__global__ void __launch_bounds__(THREADS)
+fir_mma_kernel(const float* __restrict__ x, const float* __restrict__ carry, const float* __restrict__ h,
+               float* __restrict__ y, int T, int L, int ntiles) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  const Layout lay(L);
+  uint32_t* wh = sm; uint32_t* wl = wh + lay.Ws; uint32_t* gh = wl + lay.Ws; uint32_t* gl = gh + lay.Gz;
+  const int r = blockIdx.x / ntiles, t = blockIdx.x - r * ntiles;
+  const long long xrow = (long long)r * T, crow = (long long)r * (L - 1);
+  for (int i = threadIdx.x; i < lay.Gz; i += THREADS) {
+    const int a = i - 8;
+    const float v = (a >= 0 && a < L) ? h[L - 1 - a] : 0.f;
+    const uint32_t hi = tf32(v);
+    gh[i] = hi; gl[i] = tf32(v - __uint_as_float(hi));
+  }
+  for (int q = threadIdx.x; q < lay.Wn; q += THREADS) {
+    const int n = t * TILE + q;
+    float v = 0.f;
+    if (n < L - 1) v = carry[crow + n];
+    else if (n - (L - 1) < T) v = x[xrow + n - (L - 1)];
+    const uint32_t hi = tf32(v);
+    wh[padded(q)] = hi; wl[padded(q)] = tf32(v - __uint_as_float(hi));
+  }
+  __syncthreads();
+  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tt = lane & 3;
+  float acc[2][2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[j][n][c] = 0.f;
+  uint32_t bhp[2] = {0u, 0u}, blp[2] = {0u, 0u};
+  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+  const int abase = (32 * wid + g) * (G + PAD) + tt;
+  const int gbase = 8 + tt - g;
+  for (int s = 0; s < lay.S; ++s) {
+    const int kp = padded(8 * s);
+    uint32_t bh[2], bl[2];
+    bh[0] = gh[gbase + 8 * s]; bh[1] = gh[gbase + 8 * s + 4];
+    bl[0] = gl[gbase + 8 * s]; bl[1] = gl[gbase + 8 * s + 4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int a0 = abase + j * 16 * (G + PAD) + kp;
+      uint32_t ah[4], al[4];
+      ah[0] = wh[a0]; ah[1] = wh[a0 + 8 * (G + PAD)]; ah[2] = wh[a0 + 4]; ah[3] = wh[a0 + 8 * (G + PAD) + 4];
+      al[0] = wl[a0]; al[1] = wl[a0 + 8 * (G + PAD)]; al[2] = wl[a0 + 4]; al[3] = wl[a0 + 8 * (G + PAD) + 4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const uint32_t (&Bh)[2] = n ? bhp : bh;
+        const uint32_t (&Bl)[2] = n ? blp : bl;
+#ifdef CHAIN_ACC
+        mma(acc[j][n], al, Bh, acc[j][n]);
+        mma(acc[j][n], ah, Bl, acc[j][n]);
+        mma(acc[j][n], ah, Bh, acc[j][n]);
+#else
+        float d[4];
+        mma(d, al, Bh, zero);
+        mma(d, ah, Bl, d);
+        mma(d, ah, Bh, d);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[j][n][c] += d[c];
+#endif
+      }
+    }
+    bhp[0] = bh[0]; bhp[1] = bh[1]; blp[0] = bl[0]; blp[1] = bl[1];
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int o = t * TILE + 16 * (32 * wid + 16 * j + g + 8 * hh) + 8 * n + 2 * tt;
+        float* yp = y + xrow + o;
+        if ((T & 1) == 0 && o + 2 <= T) *reinterpret_cast<float2*>(yp) = make_float2(acc[j][n][2 * hh], acc[j][n][2 * hh + 1]);
+        else { if (o < T) yp[0] = acc[j][n][2 * hh]; if (o + 1 < T) yp[1] = acc[j][n][2 * hh + 1]; }
+      }
+}
+}
+extern "C" int fir_mma_launch(const void* x, const void* carry, const void* h, void* y, int rows, int T, int L, void* stream) {
+  if (L < 1 || L > LMAX) return (int)cudaErrorInvalidValue;
+  const int ntiles = (T + TILE - 1) / TILE;
+  const size_t smem = 4 * Layout(L).words();
+  if (smem > 48 * 1024) { cudaError_t e = cudaFuncSetAttribute(fir_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem); if (e != cudaSuccess) return (int)e; }
+  fir_mma_kernel<<<ntiles * rows, THREADS, smem, (cudaStream_t)stream>>>((const float*)x, (const float*)carry, (const float*)h, (float*)y, T, L, ntiles);
+  return (int)cudaGetLastError();
+}
+"""
 SM_CLOCK_HZ = 1.98e9     # H100 SXM boost clock: 67 TFLOP/s = 132*128*2*1.98e9
 SUBPARTITIONS = 132 * 4
 
@@ -127,6 +255,73 @@ def ffma_rate(torch, cs, build, tag):
               + "; ".join(rates), flush=True)
 
 
+def mma_probe(torch, cs, build, tag):
+    """fir_real's function on the tensor cores (see MMA_PROBE_SRC): its
+    error against the plain version and float64, and its time beside the
+    port's kernel, for both ways of accumulating."""
+    import ctypes
+    from liquid_dsp_tpu_torch.ops.kernels.fir_real import (
+        fir_real, fir_real_reference)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = build.BUILD_DIR / "fir_mma.cu"
+    src.write_text(MMA_PROBE_SRC)
+    fns = {}
+    for name, flags in (("sums in float32", []),
+                        ("sums in the tensor core", ["-DCHAIN_ACC"])):
+        so = build.BUILD_DIR / f"fir_mma_{len(fns)}.so"
+        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, *flags, "-shared",
+                        "-o", str(so), str(src)], check=True,
+                       capture_output=True, text=True)
+        fn = ctypes.CDLL(str(so)).fir_mma_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def call(fn, x, c, h, y):
+        rc = fn(x.data_ptr(), c.data_ptr(), h.data_ptr(), y.data_ptr(),
+                x.shape[0], x.shape[1], h.shape[0],
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"fir_mma launch failed: {rc}")
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.square().mean().sqrt())
+
+    for rows, T, L in ((6, 1000, 1), (6, 4096, 13), (6, 4096, 144),
+                       (6, 2053, 257), (2, 3000, 4096)):
+        x = torch.randn(rows, T, generator=gen, device=dev)
+        c = torch.randn(rows, L - 1, generator=gen, device=dev)
+        h = torch.randn(L, generator=gen, device=dev) / L ** 0.5
+        ref = fir_real_reference(x, c, h)
+        ref64 = torch.nn.functional.conv1d(
+            torch.cat([c, x], 1).double()[:, None],
+            h.double().flip(0)[None, None])[:, 0]
+        out = [f"plain version against float64 {rel(ref, ref64):.3e}"]
+        for name, fn in fns.items():
+            y = torch.full_like(x, float("nan"))
+            call(fn, x, c, h, y)
+            torch.cuda.synchronize()
+            out.append(f"{name}: {rel(y, ref):.3e} against the plain "
+                       f"version, {rel(y, ref64):.3e} against float64")
+        print(f"{tag} tensor-core fir_real, {rows} x {T}, {L} taps, "
+              f"max|err|/rms: " + "; ".join(out), flush=True)
+    rows, T = 128, 1 << 18
+    x = torch.randn(rows, T, generator=gen, device=dev)
+    y = torch.empty_like(x)
+    for L in (144, 13, 1024):
+        h = torch.randn(L, generator=gen, device=dev) / L ** 0.5
+        c = torch.randn(rows, L - 1, generator=gen, device=dev)
+        out = [f"{name} {cs.time_ms(lambda: call(fn, x, c, h, y)):.4f} ms"
+               for name, fn in fns.items()]
+        out.append(f"the port's fir_real "
+                   f"{cs.time_ms(lambda: fir_real(x, c, h)):.4f} ms")
+        print(f"{tag} tensor-core fir_real, {rows} x {T}, {L} taps: "
+              + "; ".join(out), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
@@ -134,6 +329,7 @@ def main():
     ap.add_argument("--no-steps", action="store_true")
     ap.add_argument("--sass", metavar="DIR")
     ap.add_argument("--ffma-rate", action="store_true")
+    ap.add_argument("--mma-probe", action="store_true")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -141,12 +337,16 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_kernel_bench: needs one CUDA card")
     import chip_smoke as cs
-    from liquid_dsp_tpu_torch.fec.device import block_codebook
+    from liquid_dsp_tpu_torch import chain, fuse, kernel_fuse, planar
+    from liquid_dsp_tpu_torch.design.firdes import firdes_kaiser
+    from liquid_dsp_tpu_torch.ops.fir import firfilt
     from liquid_dsp_tpu_torch.ops.kernels import build
-    from liquid_dsp_tpu_torch.ops.kernels.agc_scan import (
-        agc_scan, agc_scan_reference)
-    from liquid_dsp_tpu_torch.ops.kernels.codebook_argmax import (
-        codebook_argmax, codebook_argmax_reference, pack_codebook)
+    from liquid_dsp_tpu_torch.ops.kernels.fir_real import (
+        fir_real, fir_real_reference)
+    from liquid_dsp_tpu_torch.ops.kernels.mix_fir_decim import (
+        SUB, mix_fir_decim, mix_fir_decim_reference)
+    from liquid_dsp_tpu_torch.ops.nco import nco
+    from liquid_dsp_tpu_torch.ops.resample import msresamp
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -158,6 +358,9 @@ def main():
     if args.ffma_rate:
         ffma_rate(torch, cs, build, tag)
         return
+    if args.mma_probe:
+        mma_probe(torch, cs, build, tag)
+        return
     t0 = time.perf_counter()
     lib = build.build()
     build.load_library()
@@ -165,57 +368,78 @@ def main():
     print(f"{tag} built {root} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for k, ln in enumerate(log):
-        if "Compiling entry" in ln and ("agc_scan" in ln or "codebook" in ln):
+        if "Compiling entry" in ln and ("mix_fir" in ln or "fir_real" in ln):
             used = [u.strip() for u in log[k + 1:k + 4]
                     if "registers" in u or "spill" in u]
             print(f"{tag} ptxas {ln.split('function')[-1].strip()}: "
                   f"{' | '.join(used)}", flush=True)
 
-    # codebook_argmax at the receiver's shape
-    bip_np, n, _ = block_codebook("golay2412")
-    bip = torch.from_numpy(bip_np).to(dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    cw = torch.randn(153600, n, generator=gen, device=dev)
-    want = codebook_argmax_reference(cw, bip)
-    got = codebook_argmax(cw, bip)
-    torch.cuda.synchronize()
-    same = bool(torch.equal(got, want))
-    k1 = cs.time_ms(lambda: codebook_argmax(cw, bip))
-    k2 = cs.time_ms(lambda: codebook_argmax(cw, bip))
-    print(f"{tag} codebook_argmax {cw.shape[0]} x {n} x {bip.shape[1]}: "
-          f"{k1:.4f}, {k2:.4f} ms; indices equal to the plain version: {same}",
-          flush=True)
-    masks = pack_codebook(bip).cpu().numpy().view(np.uint32)
-    order = torch.from_numpy(np.argsort(masks, kind="stable")).to(dev)
-    bip_s = bip[:, order].contiguous()
-    got_s = codebook_argmax(cw, bip_s)
-    same_s = bool(torch.equal(got_s, codebook_argmax_reference(cw, bip_s)))
-    s1 = cs.time_ms(lambda: codebook_argmax(cw, bip_s))
-    s2 = cs.time_ms(lambda: codebook_argmax(cw, bip_s))
-    print(f"{tag} codebook_argmax, columns sorted by mask: {s1:.4f}, "
-          f"{s2:.4f} ms; indices equal to the plain version: {same_s}",
-          flush=True)
+    def rel(y, ref):
+        d = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(y, ref))
+        rms = torch.stack([r.float() for r in ref]).square().mean().sqrt()
+        return d / float(rms)
 
-    # agc_scan at the tracker's shape
-    B, T = 256, 1 << 15
-    x = torch.randn(B, T, generator=gen, device=dev) * torch.logspace(
-        -1.5, 0.5, B, device=dev)[:, None]
-    p = (x * x).contiguous()
-    g0 = torch.ones(B, device=dev)
-    y0 = torch.ones(B, device=dev)
-    a = agc_scan(p[:, :256].contiguous(), g0, y0, alpha=0.02)
-    b = agc_scan_reference(p[:, :256].contiguous(), g0, y0, alpha=0.02)
-    torch.cuda.synchronize()
-    equal = all(torch.equal(u, v) for u, v in zip(a, b))
-    err = float((a[0] - b[0]).abs().max() / b[0].square().mean().sqrt())
-    a1 = cs.time_ms(lambda: agc_scan(p, g0, y0, alpha=0.02), iters=5)
-    a2 = cs.time_ms(lambda: agc_scan(p, g0, y0, alpha=0.02), iters=5)
-    al = cs.time_ms(lambda: agc_scan(p, g0, y0, alpha=0.02, locked=True),
-                    iters=5)
-    print(f"{tag} agc_scan {B} x {T}: {a1:.4f}, {a2:.4f} ms "
-          f"({a1 * 1e6 / T:.1f} ns per sample); locked {al:.4f} ms; "
-          f"256 samples against the plain version: bit-equal {equal}, "
-          f"max|err|/rms {err:.3e}", flush=True)
+    # mix_fir_decim at the headline shape: the chain's own fused taps
+    B, T = 64, 1 << 18
+    stages = chain(nco(dphi=cs.DPHI, direction="down"),
+                   firfilt(firdes_kaiser(64, 0.2, 60.0)),
+                   firfilt(firdes_kaiser(57, 0.3, 60.0)),
+                   msresamp(0.5, 60.0))
+    proc = planar(kernel_fuse(fuse(stages))).to(dev)
+    kern = proc.inner
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xr = torch.randn(B, T, generator=gen, device=dev)
+    xi = torch.randn(B, T, generator=gen, device=dev)
+    cr = torch.randn(B, SUB, generator=gen, device=dev)
+    ci = torch.randn(B, SUB, generator=gen, device=dev)
+    theta = torch.tensor(2.9, device=dev)
+
+    def mfd(fn, a, b, down, out_dtype=torch.float32):
+        return fn(a, b, cr, ci, theta, kern.ramp_c, kern.ramp_s, kern.taps,
+                  down=down, sgn=kern.sgn, dphi=kern.dphi,
+                  out_dtype=out_dtype)
+
+    err = rel(mfd(mix_fir_decim, xr, xi, 2),
+              mfd(mix_fir_decim_reference, xr, xi, 2))
+    # 100 launches a reading: the wrappers' host work (tens of
+    # microseconds a call) must stay under the kernels' time
+    k1 = cs.time_ms(lambda: mfd(mix_fir_decim, xr, xi, 2), iters=100)
+    k2 = cs.time_ms(lambda: mfd(mix_fir_decim, xr, xi, 2), iters=100)
+    xb = (xr.bfloat16(), xi.bfloat16())
+    kb = cs.time_ms(lambda: mfd(mix_fir_decim, xb[0], xb[1], 2,
+                                torch.bfloat16), iters=100)
+    L = int(kern.taps.numel())
+    print(f"{tag} mix_fir_decim {B} x {T}, {L} taps, down 2: {k1:.4f}, "
+          f"{k2:.4f} ms; bf16 planes {kb:.4f} ms; max|err|/rms against the "
+          f"plain version {err:.3e}", flush=True)
+    other = []
+    for down in (1, 4, 8):
+        ms = cs.time_ms(lambda: mfd(mix_fir_decim, xr, xi, down), iters=100)
+        other.append(f"down {down}: {ms:.4f} ms")
+    print(f"{tag} mix_fir_decim {B} x {T}, {L} taps, " + "; ".join(other),
+          flush=True)
+    c0 = proc.init(batch_shape=(B,), device=dev)
+    s1 = cs.time_ms(lambda: proc(c0, (xr, xi)), iters=100)
+    s2 = cs.time_ms(lambda: proc(c0, (xr, xi)), iters=100)
+    print(f"{tag} headline step {B} x {T}: {s1:.4f}, {s2:.4f} ms", flush=True)
+    del xb
+
+    # fir_real at 128 rows (64 complex channels as planes)
+    rows = torch.cat([xr, xi]).contiguous()
+    for taps_n in (144, 13, 1024):
+        h = torch.from_numpy(np.asarray(
+            firdes_kaiser(taps_n, 0.2, 60.0), np.float32)).to(dev)
+        crow = torch.randn(rows.shape[0], taps_n - 1, generator=gen,
+                           device=dev)
+        e = rel([fir_real(rows[:8], crow[:8], h)],
+                [fir_real_reference(rows[:8], crow[:8], h)])
+        f1 = cs.time_ms(lambda: fir_real(rows, crow, h), iters=100)
+        f2 = cs.time_ms(lambda: fir_real(rows, crow, h), iters=100)
+        print(f"{tag} fir_real {rows.shape[0]} x {T}, {taps_n} taps: "
+              f"{f1:.4f}, {f2:.4f} ms; max|err|/rms against the plain "
+              f"version (8 rows) {e:.3e}", flush=True)
+    del rows, xr, xi
 
     if args.sass:
         out = os.path.abspath(args.sass)
@@ -224,23 +448,32 @@ def main():
         sass = subprocess.run([os.path.join(nvcc_dir, "cuobjdump"), "-sass",
                                str(lib)], capture_output=True, text=True,
                               timeout=600).stdout
-        keep, on = [], False
+        keep, on, seen = [], False, set()
         for ln in sass.splitlines():
             if "Function :" in ln:
-                on = "agc_scan" in ln or ("codebook" in ln and "Li24E" in ln)
+                # fir_real, and mix_fir_decim's instance for float planes
+                # (at down 2 where the factor is a template parameter)
+                name = "fir_real" if "fir_real" in ln else (
+                    "mix_fir_decim" if "mix_fir_decim" in ln and (
+                        "ILi2ELi16EffE" in ln or "kernelIffE" in ln)
+                    else None)
+                on = name is not None and name not in seen
+                if on:
+                    seen.add(name)
             if on:
                 keep.append(ln)
         path = os.path.join(out, f"sass_{args.tag}.txt")
         with open(path, "w") as f:
             f.write("\n".join(keep))
-        print(f"{tag} SASS of agc_scan and codebook_argmax<24>: {path} "
-              f"({len(keep)} lines)", flush=True)
+        print(f"{tag} SASS of fir_real and mix_fir_decim (f32, down 2): "
+              f"{path} ({len(keep)} lines)", flush=True)
 
     if args.no_steps:
         return
     from liquid_dsp_tpu_torch.framing.frame64 import framesync64_stream_full
     from liquid_dsp_tpu_torch.framing.symtrack import symtrack_stream
     # the tracker step
+    B, T = 256, 1 << 15
     xt, _ = cs.make_timing_stream(np.random.default_rng(11), B, 2 * T, 7,
                                   20.0, True)
     xt = torch.from_numpy(xt).to(dev)

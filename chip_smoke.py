@@ -23,7 +23,11 @@ public entry points, and checks it:
      port's unfused and fused (no kernel) chains on the card against the
      kernel chain;
   6. the kernel's launch count over the main-path run equals its blocks;
-  7. kernel and plain-version times (CUDA events) at 64x262144.
+  7. kernel and plain-version times (CUDA events) at 64x262144; then the
+     kernel against its plain version (< 1e-5 of rms, both mixer signs)
+     at the shapes that exercise its structure: (B, T, L, down) =
+     (16, 6144, 41, 4), (8, 4096, 257, 1), (8, 2048, 257, 256),
+     (8, 2048, 1, 1), (24, 8192, 100, 8).
 
 Then the frame64 streaming receiver with in-stream Golay decode,
 ``framesync64_stream_full``, at 128 channels x 32768-sample blocks:
@@ -47,7 +51,8 @@ Then the frame64 streaming receiver with in-stream Golay decode,
      rows whose best score is tied between far-apart duplicate columns;
  10. fir_real: firfilt(h, backend="pallas") on the card against its
      plain version over 3 carried 64x262144 blocks (< 1e-5 of rms), one
-     launch per block;
+     launch per block; then fir_real itself at 1, 13, 257 and 4096 taps
+     and at a ragged T (2053);
  11. times (CUDA events): the receiver step, and each kernel against its
      plain version (plain, kernel, kernel, plain); torch.profiler over 3
      receiver steps (device time by kernel; a measurement, no check).
@@ -126,6 +131,13 @@ RX_QUIET = 8                # noise-only channels (the last ones)
 RX_FRAMES = 8               # frames per channel with frames
 FIR_L = 144                 # fir_real taps (the headline chain's fused FIR)
 TOL_FIR = 1e-5              # fir_real kernel vs plain, max|err|/rms
+TOL_SHAPES = 1e-5           # mix_fir_decim vs plain at the structure's shapes
+# (B, T, L, down): a template instance each, the run-time down (256: 8
+# outputs per tile, 2 taps per component), one tap, a tail of 4-tap steps
+MIX_SHAPES = ((16, 6144, 41, 4), (8, 4096, 257, 1), (8, 2048, 257, 256),
+              (8, 2048, 1, 1), (24, 8192, 100, 8))
+FIR_SHAPES = ((6, 4096, 1), (6, 4096, 13), (6, 4096, 257), (2, 3000, 4096),
+              (6, 2053, 144))   # (rows, T, L): a ragged T stores past no row
 TR_STRESS = 509             # steps of the symsync_scan stress cases (ragged)
 PLL_STRESS = 1536           # slots of the pll_lms stress cases
 AGC_STRESS = 1024           # samples of the longest agc_scan stress cases
@@ -433,6 +445,32 @@ def main():
           f"{B * T / kb / 1e3:.1f} Msamples/s; main-path step "
           f"{step:.4f} ms; {B}x{T} complex samples per block", flush=True)
 
+    # the kernel's structure at other shapes, both mixer signs: a block
+    # that walks 1, 2 or 3 tiles, each template instance, the run-time down
+    from liquid_dsp_tpu_torch.ops.kernels.mix_fir_decim import SUB, make_ramp
+    held = []
+    for Bs, Ts, Ls, ds in MIX_SHAPES:
+        worst_s = 0.0
+        for sg in (-1.0, 1.0):
+            g = torch.Generator(device=dev).manual_seed(Ls + ds)
+            args = [torch.randn(Bs, Ts, generator=g, device=dev),
+                    torch.randn(Bs, Ts, generator=g, device=dev),
+                    torch.randn(Bs, SUB, generator=g, device=dev),
+                    torch.randn(Bs, SUB, generator=g, device=dev),
+                    torch.tensor(2.9, device=dev)]
+            args += [torch.from_numpy(r).to(dev) for r in make_ramp(Ls, 0.31)]
+            args.append(torch.randn(Ls, generator=g, device=dev) / Ls ** 0.5)
+            kw = dict(down=ds, sgn=sg, dphi=0.31)
+            worst_s = max(worst_s, complex_err(
+                mix_fir_decim(*args, **kw),
+                mix_fir_decim_reference(*args, **kw))[1])
+        torch.cuda.synchronize()
+        check(worst_s < TOL_SHAPES, f"mix_fir_decim at B={Bs} T={Ts} L={Ls} "
+              f"down={ds}: {worst_s:.3e}")
+        held.append(f"{Bs}x{Ts} L={Ls} down={ds}: {worst_s:.2e}")
+    print(f"mix_fir_decim vs plain at other shapes, both signs (< "
+          f"{TOL_SHAPES}): " + "; ".join(held), flush=True)
+
     n_taps = int(kern.taps.numel())
     kernels = [{
         "name": "mix_fir_decim", "route": "cuda",
@@ -590,6 +628,22 @@ def receiver_phases(torch, dev, card):
           f"blocks of {B}x{T} complex vs plain: max|err| {abs_fir:.3e}, "
           f"max|err|/rms {worst_fir:.3e} (< {TOL_FIR}); launches "
           f"{fir_launches}", flush=True)
+
+    held = []
+    for rows_, T_, L_ in FIR_SHAPES:
+        g_ = torch.Generator(device=dev).manual_seed(L_ + T_)
+        x_ = torch.randn(rows_, T_, generator=g_, device=dev)
+        c_ = torch.randn(rows_, L_ - 1, generator=g_, device=dev)
+        h_ = torch.randn(L_, generator=g_, device=dev) / L_ ** 0.5
+        y_ = fir_real(x_, c_, h_)
+        ref_ = fir_real_reference(x_, c_, h_)
+        torch.cuda.synchronize()
+        e_ = float((y_ - ref_).abs().max() / ref_.square().mean().sqrt())
+        check(y_.shape == x_.shape and e_ < TOL_FIR,
+              f"fir_real at {rows_}x{T_}, {L_} taps: {e_:.3e}")
+        held.append(f"{rows_}x{T_} L={L_}: {e_:.2e}")
+    print(f"fir_real vs plain at other shapes (< {TOL_FIR}): "
+          + "; ".join(held), flush=True)
 
     # 11. timing: plain, kernel, kernel, plain on one card
     c1, x1 = carries[1], x[:, RX_T:2 * RX_T]

@@ -18,6 +18,15 @@ __device__ __forceinline__ void cp_async_f32(float* smem_dst,
                :: "r"(dst), "l"(gmem_src) : "memory");
 }
 
+// 16 bytes at once (both addresses 16-byte aligned), past the L1 cache.
+__device__ __forceinline__ void cp_async_16(void* smem_dst,
+                                            const void* gmem_src) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(dst), "l"(gmem_src) : "memory");
+}
+
 // Close the copies started so far into one group.
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -26,4 +35,9 @@ __device__ __forceinline__ void cp_async_commit() {
 // Wait until all but the newest group of this thread have landed.
 __device__ __forceinline__ void cp_async_wait_all_but_newest() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Wait until every copy this thread has started has landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }

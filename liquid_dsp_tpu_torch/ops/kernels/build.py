@@ -39,7 +39,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points in csrc/ (argtypes, restype)
 _SIGNATURES = {
-    "mix_fir_decim_launch": ([_P] * 11 + [_I] * 7 + [_P], _I),
+    "mix_fir_decim_launch": ([_P] * 10 + [_I] * 7 + [_F, _P], _I),
     "codebook_argmax_launch": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "fir_real_launch": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "symsync_scan_launch": ([_P] * 6 + [_I] * 7 + [_F] * 4 + [_P], _I),

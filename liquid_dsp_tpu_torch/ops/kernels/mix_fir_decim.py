@@ -4,10 +4,10 @@
 `mix_fir_decim` launches the CUDA kernel ``csrc/mix_fir_decim.cu`` on a
 CUDA tensor and runs `mix_fir_decim_reference`, the same computation in
 plain PyTorch, on a CPU tensor; any other device raises.  On the card the
-kernel is bound by device-memory bytes, about 12 B per complex input
-sample at f32 (8 read, 4 written at down=2), and by the FIR's float32
-FMAs: it reads each input once plus an (L-1)-sample halo per tile and
-keeps the mixed window in shared memory (see the source's note).
+kernel is bound by the FIR's float32 multiply-adds, not by device-memory
+bytes (bf16 planes take the same time as f32): a block walks a few tiles
+of a channel, the next tile's raw window in flight while this tile's FIR
+runs out of shared memory (see the source's note).
 
 Both versions cut a block into tiles of TILE input samples.  Tile t's
 window is the (L-1) samples before it plus its own TILE samples (the
@@ -26,7 +26,8 @@ import torch
 
 from ..dotprod import conv1d_real
 
-__all__ = ["SUB", "TILE", "fold_offset", "make_ramp", "tile_phases",
+__all__ = ["SUB", "TILE", "fold_offset", "make_ramp", "tile_step",
+           "tile_phases",
            "mix_fir_decim", "mix_fir_decim_reference"]
 
 SUB = 256     # carry: raw pre-mix samples kept per channel; taps L <= SUB + 1
@@ -48,10 +49,17 @@ def make_ramp(h_len: int, dphi: float):
     return np.cos(ramp).astype(np.float32), np.sin(ramp).astype(np.float32)
 
 
+def tile_step(dphi: float) -> float:
+    """The phase step from tile to tile, dphi * TILE wrapped, as a float32
+    value."""
+    return float(np.float32(np.mod(dphi * TILE, 2 * np.pi)))
+
+
 def tile_phases(theta, dphi: float, T: int):
     """(cos, sin) of each tile's starting phase, wrapped in f32 exactly as
-    the TPU kernel's wrapper does (pallas_chain.py:183-187)."""
-    step = float(np.float32(np.mod(dphi * TILE, 2 * np.pi)))
+    the TPU kernel's wrapper does (pallas_chain.py:183-187).  The CUDA
+    kernel forms the same phases itself, with the same roundings."""
+    step = tile_step(dphi)
     ph = theta + step * torch.arange(T // TILE, dtype=torch.float32,
                                      device=theta.device)
     ph = torch.remainder(ph + math.pi, 2 * math.pi) - math.pi
@@ -125,6 +133,9 @@ def _check(xr, xi, carry_r, carry_i, theta, ramp_c, ramp_s, taps, down,
                          f"got {sorted({str(t.device) for t in tensors})}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("mix_fir_decim takes contiguous tensors")
+    if xr.data_ptr() % 16 or xi.data_ptr() % 16:
+        raise ValueError("mix_fir_decim takes input planes that start on a "
+                         "16-byte boundary")
 
 
 def mix_fir_decim(xr, xi, carry_r, carry_i, theta, ramp_c, ramp_s, taps, *,
@@ -154,17 +165,16 @@ def mix_fir_decim(xr, xi, carry_r, carry_i, theta, ramp_c, ramp_s, taps, *,
     from .build import load_library
     lib = load_library()
     B, T = xr.shape
-    tile_c, tile_s = tile_phases(theta, dphi, T)
     yr = torch.empty((B, T // down), dtype=out_dtype, device=xr.device)
     yi = torch.empty_like(yr)
     with torch.cuda.device(xr.device):
         rc = lib.mix_fir_decim_launch(
             xr.data_ptr(), xi.data_ptr(), carry_r.data_ptr(),
-            carry_i.data_ptr(), tile_c.data_ptr(), tile_s.data_ptr(),
-            ramp_c.data_ptr(), ramp_s.data_ptr(), taps.data_ptr(),
-            yr.data_ptr(), yi.data_ptr(), B, T, int(taps.shape[-1]), down,
+            carry_i.data_ptr(), theta.data_ptr(), ramp_c.data_ptr(),
+            ramp_s.data_ptr(), taps.data_ptr(), yr.data_ptr(),
+            yi.data_ptr(), B, T, int(taps.shape[-1]), down,
             -1 if sgn < 0 else 1, int(xr.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16), tile_step(dphi),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mix_fir_decim kernel launch failed: CUDA error "

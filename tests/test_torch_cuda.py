@@ -92,6 +92,23 @@ def test_kernel_dtypes(dev, in_dtype, out_dtype):
         assert float((y[1].float() - ref[1].float()).abs().max()) <= top * 2.0 ** -7
 
 
+@pytest.mark.parametrize("B,T,L,down", [
+    (88, 65536, 144, 2),     # blocks of 2 tiles
+    (440, 10240, 57, 2),     # 5 tiles a channel: blocks of 2, 2 and 1
+    (448, 6144, 144, 1),     # one tile a block, 3 a channel
+    (96, 131072, 33, 4)])    # blocks of 4 tiles, 8 outputs per unit
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+def test_kernel_walks_tiles(dev, B, T, L, down, in_dtype):
+    # every tile its own phase, tile 0 its halo from the carry, the raw
+    # window from an aligned base (bf16: 8 samples a piece)
+    a = _case(dev, B, T, L, down, in_dtype, seed=L)
+    kw = dict(down=down, sgn=-1.0, dphi=0.3 + 0.01 * L)
+    y = mfd.mix_fir_decim(**a, **kw)
+    ref = mfd.mix_fir_decim_reference(*a.values(), **kw)
+    torch.cuda.synchronize()
+    assert _err(y, ref) < 1e-5
+
+
 def test_kernel_rejects_misplaced_tensors(dev):
     a = _case(dev, 8, 2048, 144, 2, torch.float32, seed=0)
     a["taps"] = a["taps"].cpu()
@@ -201,6 +218,20 @@ def test_fir_real_matches_plain(dev, L, T):
     torch.cuda.synchronize()
     assert fr.fir_real.launches == launches + 1
     assert y.shape == (6, T)
+    assert float((y - ref).abs().max() / ref.square().mean().sqrt()) < 1e-5
+
+
+@pytest.mark.parametrize("rows,T,L", [
+    (3, 5 * 2048 + 77, 144),     # inner tiles, a first and a ragged last one
+    (5, 3 * 2048 + 2, 9),        # T off a multiple of 4: scalar stores
+    (700, 4096, 31)])            # many rows
+def test_fir_real_tiles(dev, rows, T, L):
+    g = torch.Generator(device=dev).manual_seed(L + T)
+    x = torch.randn(rows, T, generator=g, device=dev)
+    carry = torch.randn(rows, L - 1, generator=g, device=dev)
+    h = torch.randn(L, generator=g, device=dev) / L ** 0.5
+    y = fr.fir_real(x, carry, h)
+    ref = fr.fir_real_reference(x, carry, h)
     assert float((y - ref).abs().max() / ref.square().mean().sqrt()) < 1e-5
 
 

@@ -188,3 +188,21 @@ def test_resample_streaming_matches_jax(make):
 def test_unported_resamplers_raise(call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call()
+
+
+def test_fir_real_never_falls_back_off_cpu(monkeypatch):
+    # a device mismatch raises, and a non-CPU tensor never reaches the
+    # plain version (here "meta" stands in for a device with no kernel)
+    def plain(*a, **k):
+        raise AssertionError("plain version reached")
+
+    x, c, h = torch.ones(2, 64), torch.ones(2, 4), torch.ones(5)
+    monkeypatch.setattr(fir_real, "fir_real_reference", plain)
+    for bad in ((x.to("meta"), c.to("meta"), h.to("meta")),
+                (x.to("meta"), c, h), (x, c, h.to("meta"))):
+        with pytest.raises(ValueError, match="device"):
+            fir_real.fir_real(*bad)
+    launches = fir_real.fir_real.launches
+    with pytest.raises(AssertionError, match="plain version reached"):
+        fir_real.fir_real(x, c, h)        # CPU tensors take the plain path
+    assert fir_real.fir_real.launches == launches

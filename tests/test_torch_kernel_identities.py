@@ -14,6 +14,24 @@ tests hold to the JAX package):
   inactive, then active emits only), written out with the plain version's
   arithmetic, gives bit-equal outputs and state.
 
+* fir_real and mix_fir_decim (csrc/fir_window.cuh and the two sources):
+  the padded shared-memory map is a bijection that keeps every group of R
+  words whole and 16-byte aligned, and puts the 8 lanes of a quarter warp
+  on distinct banks; the circular register window with its 4-tap steps and
+  guarded tail, walked in numpy, is the direct correlation; the strided FIR
+  is the sum of `down` unit-stride correlations of the polyphase
+  components (held to the plain version); the constant address steps of
+  the mix pass and of fir_real's inner tiles equal the general map; a
+  block's walk over several tiles, with the raw window copied in 16-byte
+  pieces from an aligned base, reproduces each tile's window and tile 0's
+  halo from the carry; and the kernel's per-tile phase, formed with the
+  plain version's float32 roundings, equals `tile_phases` bit for bit;
+* the tensor-core form that `chip_kernel_bench.py --mma-probe` measures:
+  the product with overlapped rows A[m][k] = w[16 m + k] and the banded
+  taps B[k][n] = g[k - n] is the direct strided FIR, and the three-product
+  TF32 split (TF32 rounding emulated on the mantissa bits) stays under
+  1e-6 of rms at 144 taps where one TF32 product alone does not.
+
 Inputs are seeded numpy; T <= 1024.
 """
 import numpy as np
@@ -21,6 +39,7 @@ import pytest
 import torch
 
 from liquid_dsp_tpu_torch.modem import constellation
+from liquid_dsp_tpu_torch.ops.kernels import mix_fir_decim as mfd
 from liquid_dsp_tpu_torch.ops.kernels import pll_lms as pk
 from liquid_dsp_tpu_torch.ops.kernels import symsync_scan as sk
 
@@ -337,3 +356,269 @@ def test_symsync_valid_mask_falls_within_a_step(P, k, k_out):
                                       locked=False)[2]
     v = valid.reshape(B, Tc, max_out).to(torch.int8)
     assert bool((v[..., 1:] <= v[..., :-1]).all())
+
+
+# --- fir_real and mix_fir_decim: the shared window loop and its layouts ---
+
+PAD = 4            # csrc/fir_window.cuh
+THREADS = 128      # both kernels
+DOWN_R = {1: 16, 2: 16, 4: 8, 8: 8}   # mix_fir_decim.cu's launch_down
+
+
+def padded(k, R):
+    return k + k // R * PAD
+
+
+def layout(L, down, R):
+    """mix_fir_decim.cu's Layout: (no, A4, Ap, K, Ks)."""
+    no = mfd.TILE // down
+    A = -(-L // down)
+    Ap = -(-A // R) * R
+    K = no + Ap
+    return no, -(-A // 4) * 4, Ap, K, K // R * (R + PAD)
+
+
+@pytest.mark.parametrize("R", [8, 16])
+def test_padded_map_is_a_bijection_that_keeps_groups_whole(R):
+    k = np.arange(4096)
+    at = padded(k, R)
+    assert (np.diff(at) >= 1).all()                     # injective, ordered
+    assert at[-1] < (len(k) // R) * (R + PAD)           # inside Ks words
+    starts = at[::R]
+    assert (starts % 4 == 0).all()                      # 16-byte aligned
+    assert (at.reshape(-1, R) == starts[:, None] + np.arange(R)).all()
+
+
+@pytest.mark.parametrize("R", [8, 16])
+@pytest.mark.parametrize("offset", [0, 4, 8, 12, 20, 36])
+def test_quarter_warp_loads_hit_distinct_banks(R, offset):
+    # lane l reads 16 bytes at word l*(R+PAD) + offset; the hardware serves
+    # a 16-byte load a quarter warp (8 lanes) at a time
+    lanes = np.arange(32)
+    words = (lanes * (R + PAD) + offset)[:, None] + np.arange(4)
+    banks = words % 32
+    for quarter in banks.reshape(4, 8 * 4):
+        assert len(set(quarter.tolist())) == 32
+    # the tensor-core form's fragment loads: lane (g, t) reads one word at
+    # g*(16+PAD) + t + offset, all 32 lanes at once
+    if R == 16:
+        g, t = lanes // 4, lanes % 4
+        assert len(set(((g * (R + PAD) + t + offset) % 32).tolist())) == 32
+
+
+def correlate_walk(w_padded, g, A4, o0, R):
+    """fir_window.cuh's `correlate`: whole groups of R taps, then guarded
+    4-tap steps; the window of R registers with its static indices."""
+    acc = np.zeros(R)
+    at = padded(o0, R)
+    xw = w_padded[at:at + R].copy()
+
+    def step4(a0, c):
+        nxt = w_padded[at + 4 * c:at + 4 * c + 4]
+        for s in range(4):
+            j = 4 * c + s
+            for k in range(R):
+                acc[k] += g[a0 + j] * xw[(j + k) % R]
+            xw[j] = nxt[s]
+
+    a0 = 0
+    while a0 + R <= A4:
+        at += R + PAD
+        for c in range(R // 4):
+            step4(a0, c)
+        a0 += R
+    at += R + PAD
+    for c in range(R // 4 - 1):
+        if a0 + 4 * c < A4:
+            step4(a0, c)
+    return acc
+
+
+@pytest.mark.parametrize("R", [8, 16])
+@pytest.mark.parametrize("A", [1, 4, 13, 41, 72, 144, 257])
+def test_register_window_walk_is_the_direct_correlation(R, A):
+    rng = np.random.default_rng(A + R)
+    A4, Ap = -(-A // 4) * 4, -(-A // R) * R
+    n_out = 4 * R
+    K = n_out + Ap
+    w = rng.standard_normal(K)
+    g = np.zeros(Ap)
+    g[:A] = rng.standard_normal(A)
+    wp = np.full(K // R * (R + PAD), np.nan)    # pad words are never read
+    wp[padded(np.arange(K), R)] = w
+    for o0 in range(0, n_out, R):
+        got = correlate_walk(wp, g, A4, o0, R)
+        want = [np.dot(g[:A], w[o0 + k:o0 + k + A]) for k in range(R)]
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("down", [1, 2, 4, 8, 256])
+@pytest.mark.parametrize("L", [1, 41, 144, 257])
+def test_strided_fir_is_a_sum_of_polyphase_correlations(down, L):
+    # y[o] = sum_j h[j] m[down o + L-1 - j] = sum_p sum_a g_p[a] m_p[o + a],
+    # m_p[k] = m[down k + p], g_p[a] = h[L-1 - down a - p]: the kernel's
+    # layout of taps and window, against the plain version's conv1d
+    rng = np.random.default_rng(down + L)
+    R = DOWN_R.get(down, 8)
+    no, A4, Ap, K, _ = layout(L, down, R)
+    h = rng.standard_normal(L)
+    m = np.zeros(down * K)
+    W = mfd.TILE + L - 1
+    m[:W] = rng.standard_normal(W)
+    i = np.arange(down * Ap)
+    j = L - 1 - (down * (i % Ap) + i // Ap)
+    g = np.where(j >= 0, h[np.clip(j, 0, L - 1)], 0.0).reshape(down, Ap)
+    assert (g[:, A4:] == 0).all()               # the loop stops at A4
+    mp = m.reshape(K, down).T                   # [down, K] components
+    y = np.zeros(no)
+    for p in range(down):
+        for a in range(A4):
+            y += g[p, a] * mp[p, a:a + no]
+    from liquid_dsp_tpu_torch.ops.dotprod import conv1d_real
+    want = conv1d_real(torch.from_numpy(m[:W]), torch.from_numpy(h),
+                       stride=down).numpy()
+    assert want.shape == (no,)
+    np.testing.assert_allclose(y, want, rtol=0, atol=1e-11)
+
+
+@pytest.mark.parametrize("down", [1, 2, 4, 8])
+@pytest.mark.parametrize("L", [1, 144, 257])
+def test_mix_pass_address_steps_equal_the_general_map(down, L):
+    # sample q = tid + THREADS i: component tid % down, entry
+    # tid // down + (THREADS // down) i, whole groups further on per step
+    R = DOWN_R[down]
+    _, _, _, K, Ks = layout(L, down, R)
+    step = THREADS // down // R * (R + PAD)
+    W = mfd.TILE + L - 1
+    tid = np.arange(THREADS)
+    at0 = (tid % down) * Ks + padded(tid // down, R)
+    seen = set()
+    for i in range(-(-W // THREADS)):
+        q = tid + THREADS * i
+        general = (q % down) * Ks + padded(q // down, R)
+        assert (at0 + step * i == general).all()
+        seen.update(general[q < W].tolist())
+    assert len(seen) == W                       # every sample its own word
+
+
+def test_fir_real_inner_tile_address_steps_equal_the_general_map():
+    R = 16
+    tid = np.arange(THREADS)
+    for i in range(R):
+        assert (padded(tid, R) + i * (THREADS // R * (R + PAD))
+                == padded(tid + THREADS * i, R)).all()
+
+
+@pytest.mark.parametrize("L", [1, 2, 41, 144, 257])
+@pytest.mark.parametrize("vec", [4, 8])     # f32 and bf16 planes
+@pytest.mark.parametrize("tiles,nt", [(1, 1), (2, 2), (3, 2), (8, 4)])
+def test_tile_walk_reproduces_each_window_and_halo(L, vec, tiles, nt):
+    # a block walks tiles [x nt, min((x+1) nt, tiles)); tile t's raw window
+    # is copied in pieces of `vec` samples from the piece that holds sample
+    # max(start, 0), start = t TILE - (L-1); tile 0 takes its halo from
+    # the carry.  Against the plain version's windows of [carry | x].
+    rng = np.random.default_rng(L + vec + tiles)
+    TILE, SUB = mfd.TILE, mfd.SUB
+    T = tiles * TILE
+    x = rng.standard_normal(T)
+    carry = rng.standard_normal(SUB)
+    W = TILE + L - 1
+    xp = np.concatenate([carry[SUB - (L - 1):], x])
+    done = []
+    for bx in range(-(-tiles // nt)):
+        for t in range(bx * nt, min((bx + 1) * nt, tiles)):
+            start = t * TILE - (L - 1)
+            first = max(start, 0)
+            e0 = first - first % vec
+            pieces = -(-(t * TILE + TILE - e0) // vec)
+            assert e0 % vec == 0 and e0 + pieces * vec <= T   # inside the row
+            assert pieces * vec <= (TILE + L + 5) // 4 * 4 * (vec // 4)
+            raw = x[e0:e0 + pieces * vec]
+            halo = max(-start, 0)
+            assert halo == (L - 1 if t == 0 else 0)
+            win = np.empty(W)
+            q = np.arange(W)
+            win[:halo] = carry[SUB + start + q[:halo]]
+            win[halo:] = raw[start - e0 + q[halo:]]
+            np.testing.assert_array_equal(win, xp[t * TILE:t * TILE + W])
+            done.append(t)
+    assert done == list(range(tiles))
+
+
+def kernel_tile_phase(theta, step, t):
+    """csrc/mix_fir_decim.cu's tile_phase in numpy float32: separately
+    rounded product and sums, fmodf, then the sign fix of a remainder."""
+    f = np.float32
+    a = f(f(f(theta) + f(f(step) * f(t))) + f(np.pi))
+    r = f(np.fmod(a, f(2 * np.pi)))
+    if r < 0:
+        r = f(r + f(2 * np.pi))
+    return f(r - f(np.pi))
+
+
+@pytest.mark.parametrize("theta", [0.0, 2.9, -3.1, 3.1415925])
+@pytest.mark.parametrize("dphi", [0.125, 0.31, -0.7, 2.0, 1e-4])
+def test_kernel_tile_phase_equals_tile_phases(theta, dphi):
+    T = 128 * mfd.TILE
+    step = mfd.tile_step(dphi)
+    assert step == float(np.float32(step)) and 0 <= step < 2 * np.pi
+    c, s = mfd.tile_phases(torch.tensor(theta, dtype=torch.float32), dphi, T)
+    ph = torch.tensor([kernel_tile_phase(theta, step, t)
+                       for t in range(T // mfd.TILE)])
+    assert torch.equal(torch.cos(ph), c) and torch.equal(torch.sin(ph), s)
+
+
+# --- the tensor-core form of chip_kernel_bench.py --mma-probe ---
+
+def tf32(v):
+    """cvt.rna.tf32.f32 on float32 values: 10 mantissa bits kept, ties
+    away from zero."""
+    u = np.asarray(v, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x1000) & 0xFFFFE000
+    return u.astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("down", [1, 2, 4, 8, 256])
+@pytest.mark.parametrize("L", [1, 41, 144, 257])
+def test_overlapped_row_product_is_the_strided_fir(down, L):
+    # per polyphase component: Y[m][n] = sum_k A[m][k] B[k][n] with
+    # A[m][k] = w[16 m + k] (rows overlap) and B[k][n] = g[k - n]; then
+    # Y[m][n] is output 16 m + n of the unit-stride correlation
+    rng = np.random.default_rng(3 * down + L)
+    A = -(-L // down)
+    h = rng.standard_normal(L)
+    n_out = 64
+    m = rng.standard_normal(down * (n_out + A))
+    want = np.array([sum(h[j] * m[down * o + L - 1 - j] for j in range(L))
+                     for o in range(n_out)])
+    Kb = -(-(A + 15) // 8) * 8                          # k-steps of 8
+    y = np.zeros((n_out // 16, 16))
+    for p in range(down):
+        idx = L - 1 - down * np.arange(A) - p
+        g = np.where(idx >= 0, h[np.clip(idx, 0, L - 1)], 0.0)
+        w = np.concatenate([m[p::down], np.zeros(Kb)])
+        Am = np.stack([w[16 * r:16 * r + Kb] for r in range(n_out // 16)])
+        k, n = np.arange(Kb)[:, None], np.arange(16)[None, :]
+        Bm = np.where((k - n >= 0) & (k - n < A),
+                      g[np.clip(k - n, 0, A - 1)], 0.0)
+        y += Am @ Bm
+    np.testing.assert_allclose(y.reshape(-1), want, rtol=0, atol=1e-11)
+
+
+def test_three_tf32_products_hold_1e_6_where_one_does_not():
+    rng = np.random.default_rng(144)
+    L, n_out = 144, 4096
+    g = (rng.standard_normal(L) / L ** 0.5).astype(np.float32)
+    w = rng.standard_normal(n_out + L).astype(np.float32)
+    win = np.lib.stride_tricks.sliding_window_view(w, L)[:n_out]
+    exact = win.astype(np.float64) @ g.astype(np.float64)
+    rms = np.sqrt(np.mean(exact ** 2))
+    gh, wh = tf32(g), tf32(win)
+    gl, wl = tf32(g - gh), tf32(win - wh)
+    assert np.abs(gl).max() < 2.0 ** -10 and np.abs(wl).max() < 2.0 ** -8
+    d = np.float64
+    one = wh.astype(d) @ gh.astype(d)
+    three = (wl.astype(d) @ gh.astype(d) + wh.astype(d) @ gl.astype(d)
+             + wh.astype(d) @ gh.astype(d))
+    assert np.abs(three - exact).max() / rms < 1e-6
+    assert np.abs(one - exact).max() / rms > 1e-4

@@ -172,6 +172,24 @@ def test_wrapper_never_falls_back_off_cpu(monkeypatch):
     assert mfd.mix_fir_decim.launches == launches
 
 
+def test_wrapper_rejects_planes_off_a_16_byte_boundary():
+    # the kernel copies the raw window in 16-byte pieces
+    args = _args()
+    B, T = args[0].shape
+    flat = torch.zeros(B * T + 1)
+    args[0] = flat[1:].view(B, T)
+    assert args[0].is_contiguous() and args[0].data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        _call(args)
+
+
+def test_tile_step_is_the_wrapped_float32_step():
+    for dphi in (0.125, -0.7, 2.0, 1e-4):
+        step = mfd.tile_step(dphi)
+        assert step == float(np.float32(np.mod(dphi * mfd.TILE, 2 * np.pi)))
+        assert 0.0 <= step < 2 * np.pi
+
+
 def test_build_raises_with_nvcc_output(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(build, "_nvcc", lambda: "false")
