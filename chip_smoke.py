@@ -95,8 +95,48 @@ channel, made with numpy and scipy):
  17. torch.profiler over 3 symtrack_stream steps: device time by kernel,
      device operations per step, busy share (a measurement, no check).
 
+Then the channelizer family, the 64-channel wideband scanner and the
+flexframe receiver on block codes:
+
+ 18. the four channelizer Procs (firpfbch and firpfbch2, analyzer and
+     synthesizer) on the card against the reference C library's goldens
+     (tests/golden/channelizer_golden.npz, atol 2e-4);
+ 19. at 16 x 65536 wideband samples (tools/bench_channelizer.py's shape):
+     the M = 64 analyzer against float64 numpy "mix down by c/M, filter,
+     decimate by M" on 2 channels (|gain| and max|err|/rms < 1e-3), the
+     firpfbch2 loopback within 2e-3 after its delay at M = 64 and at
+     M = 1024, the four Procs at M = 1024 (branch filter + cuFFT) against
+     their fused matrices (< 1e-4 of rms); block times in Msamples/s;
+ 20. the wideband scanner: firpfbch2_synthesizer(64) builds 2 wideband
+     streams of 3 blocks + a flush x 1,048,576 samples on the card from
+     64 channels x 32768 samples per block (frame64 frames on the even
+     channels, noise 0.002, a tone on channel 11);
+     firpfbch2_analyzer(64) feeds framesync64_stream_full(32768) over the
+     128 channel streams, carries handed from block to block.  Every
+     frame decodes once on its own channel, in order, crc_ok, with the
+     bytes sent and sample_index within 2 of its start plus the bank's
+     delay (15 channel samples); nothing on an odd channel;
+     codebook_argmax launched once per block and bit-equal to its plain
+     version on block 1's slot soft bits;
+ 21. times (CUDA events) of the analyzer, receiver and whole scanner
+     steps; torch.profiler over 3 scanner steps;
+ 22. flexframe_rx_stream(32768, 64) (crc32 / none / golay2412 / qpsk) at
+     128 channels, 3 carried blocks + a flush: frames from the port's
+     flexframegen at random offsets (some across block boundaries), the
+     reference's ffg_a on channel 1, CFO 0.002 rad/sample at 20 dB SNR on
+     channel 2, a qam16 frame on channel 3 (must come back hdr_ok False),
+     8 noise-only channels.  Every frame decodes once with hdr_ok, pay_ok,
+     the header and payload bytes and sample_index within 2;
+     codebook_argmax launched once per block and bit-equal to its plain
+     version on the payload soft bits; the step's time and profile;
+ 23. FlexFrameSync and flexframesync on the card (their default) decode
+     the reference frames ffg_a, ffg_b and ffg_c; ffg_b and ffg_c take
+     the host decode.
+
 The JSON line before the card's name lists all six kernels, each with its
-launches on its main path, its error against the plain version, its time,
+launches on its main path (codebook_argmax also per path, in
+"launches_by_path": frame64 receiver, scanner, flexframe receiver, each
+counted from 0 over its own run), its error against the plain version, its time,
 the plain version's, the time of one PyTorch call for the same function
 where there is one (F.conv1d for fir_real), and its bound: the larger of
 the bytes it must move over 3.35 TB/s and its float32 operations over
@@ -141,6 +181,24 @@ FIR_SHAPES = ((6, 4096, 1), (6, 4096, 13), (6, 4096, 257), (2, 3000, 4096),
 TR_STRESS = 509             # steps of the symsync_scan stress cases (ragged)
 PLL_STRESS = 1536           # slots of the pll_lms stress cases
 AGC_STRESS = 1024           # samples of the longest agc_scan stress cases
+CH_M, CH_B, CH_T = 64, 16, 1 << 16   # channelizers: tools/bench_channelizer.py
+CH_BIG_M = 1024             # a bank in the branch-filter + cuFFT regime
+CH_ITERS, CH_PROF = 100, 5  # channelizer calls timed by events, profiled
+TOL_GOLDEN = 2e-4           # channelizer goldens (tests/test_channelizer.py)
+TOL_LOOP = 2e-3             # firpfbch2 loopback after its delay (same file)
+TOL_EQUIV = 1e-3            # analyzer vs mix, filter, decimate (same file)
+TOL_REGIME = 1e-4           # FFT regime vs fused matrices, max|err|/rms
+SC_M, SC_S, SC_T = 64, 2, 1 << 15   # scanner: channels, wideband streams,
+SC_NBLK = 3                 # channel samples per block; carried blocks
+SC_TONE = 11                # the interferer's (odd) channel
+# synthesis -> analysis delay in channel samples: the reference autotest's
+# wideband delay 2Mm - M/2 + 1 (tests/test_channelizer.py:61-76) over the
+# hop M/2, rounded: 4m - 1 = 15 at m = 4
+SC_DELAY = round((2 * SC_M * 4 - SC_M // 2 + 1) / (SC_M // 2))
+FF_B, FF_T, FF_NBLK = 128, 1 << 15, 3   # flexframe receiver
+FF_PL, FF_MAX = 64, 8       # payload bytes; candidate slots per block
+FF_QUIET = 8                # noise-only channels (the last ones)
+FF_GOLD, FF_CFO, FF_FOREIGN = 1, 2, 3   # channels with ffg_a, CFO, another
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores
 
@@ -266,6 +324,16 @@ def main():
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs one CUDA card")
+    t_phase = time.perf_counter()
+
+    def took(what):
+        """Prints the host seconds since the last call; frees the cache."""
+        nonlocal t_phase
+        now = time.perf_counter()
+        print(f"elapsed: {what} {now - t_phase:.1f} s", flush=True)
+        t_phase = now
+        torch.cuda.empty_cache()
+
     sys.path.insert(0, ROOT)
     from liquid_dsp_tpu_torch import chain, fuse, kernel_fuse, planar
     from liquid_dsp_tpu_torch.design.firdes import firdes_kaiser
@@ -485,10 +553,23 @@ def main():
     print(f"bound: mix_fir_decim {kernels[0]['bound_ms']:.4f} ms by "
           f"{kernels[0]['bound_by']} ({n_taps} taps)", flush=True)
     del xs, outs, carries, refs, xb0
-    torch.cuda.empty_cache()
+    took("phases 1-8 (the build included)")
     kernels += receiver_phases(torch, dev, card)
-    torch.cuda.empty_cache()
+    took("phases 9-11")
     kernels += timing_phases(torch, dev, card)
+    took("phases 12-17")
+    channelizer_phases(torch, dev, card)
+    took("phases 18-19")
+    sc_launches, sc_err = scanner_phases(torch, dev, card)
+    took("phases 20-21")
+    ff_launches, ff_err = flexframe_phases(torch, dev, card)
+    took("phases 22-23")
+    cb = next(k for k in kernels if k["name"] == "codebook_argmax")
+    # each path's run, its counts set to 0 just before it
+    cb["launches_by_path"] = {"framesync64_stream_full": cb["launches"],
+                              "wideband_scanner": sc_launches,
+                              "flexframe_rx_stream": ff_launches}
+    cb["max_abs_err"] = max(cb["max_abs_err"], sc_err, ff_err)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -792,6 +873,26 @@ def profile_steps(torch, card, step, n, what):
     (Host and device time stamps differ by up to a millisecond, so a
     window on the host's clock cannot pick the events.)  Fails when the
     profiler records no device event."""
+    by_name, wall = device_profile(torch, step, n, what)
+    dev_ms = sum(t for t, _ in by_name.values())
+    ops = sum(c for _, c in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    whole = "" if ops % n == 0 else \
+        f" (INCOMPLETE: {ops} events are no multiple of the calls)"
+    print(f"profile ({card}): {what}, {n} calls: device time "
+          f"{dev_ms / n:.3f} ms per call in {ops / n:.0f} device "
+          f"operations{whole}, "
+          f"host clock {wall / n:.3f} ms per call and busy share "
+          f"{dev_ms / wall:.3f}, both with the profiler on; by kernel, ms "
+          f"per call (launches per call): " + "; ".join(
+              f"{name[:48]} {t / n:.3f} ({c / n:.0f})"
+              for name, (t, c) in top), flush=True)
+
+
+def device_profile(torch, step, n, what):
+    """({kernel name: (device ms, launches)} over n calls of `step`,
+    host ms of the n calls), torch.profiler after its warm-up cycle (see
+    `profile_steps`)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     step()
     torch.cuda.synchronize()
@@ -817,19 +918,7 @@ def profile_steps(torch, card, step, n, what):
                                 cnt + 1)
     if not by_name:
         fail(f"profile: {what}: the profiler recorded no device event")
-    dev_ms = sum(t for t, _ in by_name.values())
-    ops = sum(c for _, c in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    whole = "" if ops % n == 0 else \
-        f" (INCOMPLETE: {ops} events are no multiple of the calls)"
-    print(f"profile ({card}): {what}, {n} calls: device time "
-          f"{dev_ms / n:.3f} ms per call in {ops / n:.0f} device "
-          f"operations{whole}, "
-          f"host clock {wall / n:.3f} ms per call and busy share "
-          f"{dev_ms / wall:.3f}, both with the profiler on; by kernel, ms "
-          f"per call (launches per call): " + "; ".join(
-              f"{name[:48]} {t / n:.3f} ({c / n:.0f})"
-              for name, (t, c) in top), flush=True)
+    return by_name, wall
 
 
 def synth_slots(torch, dev, st, B, S, share, seed):
@@ -1266,6 +1355,488 @@ def timing_phases(torch, dev, card):
         "ms": pl_ms, "plain_ms": pl_plain, "library_ms": None, **pl_bound,
         "steps": int(sr.shape[1]), "full_block_ms": pl_full,
         "full_block_bound_ms": pl_full_bound["bound_ms"]}]
+
+
+CH_KINDS = ("firpfbch_analyzer", "firpfbch_synthesizer",
+            "firpfbch2_analyzer", "firpfbch2_synthesizer")
+
+
+def ch_input(torch, dev, kind, M, B, T, seed):
+    """Unit-power complex noise on the card: [B, T] for an analyzer,
+    [B, M, frames] for a synthesizer (the frames that make T outputs)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if "analyzer" in kind:
+        shape = (B, T)
+    else:
+        shape = (B, M, (2 if "2" in kind else 1) * T // M)
+    return torch.complex(torch.randn(shape, generator=g, device=dev),
+                         torch.randn(shape, generator=g, device=dev)) / 2 ** .5
+
+
+def channelizer_phases(torch, dev, card):
+    """Phases 18-19: the four channelizer Procs on the card."""
+    from liquid_dsp_tpu_torch.multichannel import channelizer as ch
+
+    # 18. against the reference C library's goldens
+    gold = dict(np.load(os.path.join(ROOT, "tests", "golden",
+                                     "channelizer_golden.npz")))
+    keys = {"firpfbch_analyzer": ("x", "Z1"),
+            "firpfbch_synthesizer": ("Z1", "z1"),
+            "firpfbch2_analyzer": ("x", "Y2"),
+            "firpfbch2_synthesizer": ("Y2", "y2")}
+    worst = 0.0
+    for M, m in ((8, 4), (16, 5), (64, 3)):
+        for kind in CH_KINDS:
+            ink, outk = keys[kind]
+            x = gold[f"{ink}_{M}_{m}"]
+            if ink != "x":
+                x = x.reshape(-1, M).T.copy()          # [M, frames]
+            p = getattr(ch, kind)(M, m, 60.0).to(dev)
+            y = p(p.init(device=dev), torch.from_numpy(x).to(dev))[0]
+            y = y.cpu().numpy()
+            got = y.T.reshape(-1) if "analyzer" in kind else y
+            e = float(np.abs(got - gold[f"{outk}_{M}_{m}"]).max())
+            check(e < TOL_GOLDEN, f"{kind}({M}, {m}) vs golden: {e:.3e}")
+            worst = max(worst, e)
+    print(f"channelizers: the four Procs at (M, m) = (8, 4), (16, 5), (64, 3) "
+          f"on the card vs the reference goldens: max|err| {worst:.3e} (< "
+          f"{TOL_GOLDEN})", flush=True)
+
+    # 19. full width: the analyzer's equivalence, the firpfbch2 loopback,
+    # the FFT regime at M = 1024 against the fused matrices, and times
+    a = ch.firpfbch_analyzer(CH_M).to(dev)
+    x = ch_input(torch, dev, "firpfbch_analyzer", CH_M, CH_B, CH_T, 18)
+    Y = a(a.init(batch_shape=(CH_B,), device=dev), x)[0]
+    check(tuple(Y.shape) == (CH_B, CH_M, CH_T // CH_M),
+          f"firpfbch_analyzer output {tuple(Y.shape)}")
+    h = ch.firpfbch_kaiser_taps(CH_M).astype(np.float64)
+    xs = x[0].cpu().numpy().astype(np.complex128)
+    t = np.arange(CH_T)
+    eq = []
+    for c in (1, 37):
+        # channel c = x mixed down by c/M, filtered, decimated by M, up to
+        # a constant unit phase per channel (firpfbch_crcf autotest)
+        d = np.convolve(xs * np.exp(-2j * np.pi * c * t / CH_M),
+                        h[:8 * CH_M])[:CH_T][CH_M - 1::CH_M][8:]
+        yc = Y[0, c].cpu().numpy().astype(np.complex128)[8:]
+        g = np.vdot(d, yc) / np.vdot(d, d)
+        e = float(np.abs(yc - g * d).max() / np.sqrt(np.mean(np.abs(d) ** 2)))
+        check(abs(abs(g) - 1) < TOL_EQUIV and e < TOL_EQUIV,
+              f"firpfbch_analyzer channel {c} vs mix/filter/decimate: "
+              f"|gain| {abs(g):.6f}, max|err|/rms {e:.3e}")
+        eq.append(f"channel {c}: |gain| {abs(g):.6f}, max|err|/rms {e:.2e}")
+    del Y
+
+    def loopback(M, m=5):
+        an, sy = ch.firpfbch2_analyzer(M, m).to(dev), \
+            ch.firpfbch2_synthesizer(M, m).to(dev)
+        xl = 0.5 * ch_input(torch, dev, "firpfbch2_analyzer", M, CH_B, CH_T,
+                            M)
+        Yl, _ = an(an.init(batch_shape=(CH_B,), device=dev), xl)
+        yl, _ = sy(sy.init(batch_shape=(CH_B,), device=dev), Yl)
+        d = 2 * M * m - M // 2 + 1
+        e = float((yl[:, d:] - xl[:, :CH_T - d]).abs().max())
+        check(e < TOL_LOOP, f"firpfbch2 loopback at M={M}: {e:.3e}")
+        return f"M={M} m={m} (fused: {an.fused}) delay {d}: {e:.2e}"
+
+    loops = [loopback(CH_M), loopback(CH_BIG_M)]
+    regime = []
+    for kind in CH_KINDS:
+        p = getattr(ch, kind)(CH_BIG_M).to(dev)
+        check(not p.fused, f"{kind}({CH_BIG_M}) is not in the FFT regime")
+        old = ch._FUSED_MAX_M
+        ch._FUSED_MAX_M = CH_BIG_M
+        try:
+            q = getattr(ch, kind)(CH_BIG_M).to(dev)
+        finally:
+            ch._FUSED_MAX_M = old
+        xb = ch_input(torch, dev, kind, CH_BIG_M, 4, CH_T, 19)
+        y1 = p(p.init(batch_shape=(4,), device=dev), xb)[0]
+        y2 = q(q.init(batch_shape=(4,), device=dev), xb)[0]
+        e = float((y1 - y2).abs().max() / y2.abs().square().mean().sqrt())
+        check(e < TOL_REGIME, f"{kind}({CH_BIG_M}): FFT regime vs fused "
+              f"matrices {e:.3e}")
+        regime.append(f"{kind} {e:.2e}")
+        del q, y1, y2
+    print(f"channelizers at full width ({CH_B}x{CH_T}): firpfbch_analyzer "
+          f"({CH_M}) vs float64 mix/filter/decimate on stream 0, "
+          + "; ".join(eq) + f" (< {TOL_EQUIV}); firpfbch2 loopback (< "
+          f"{TOL_LOOP}): " + "; ".join(loops) + f"; M={CH_BIG_M} FFT regime "
+          f"vs fused matrices (< {TOL_REGIME} of rms): " + "; ".join(regime),
+          flush=True)
+
+    # CUDA events over CH_ITERS calls, and the device time per call from
+    # the profiler (what the card spends, whatever the host's rate)
+    rates = []
+    for M in (CH_M, CH_BIG_M):
+        for kind in CH_KINDS:
+            p = getattr(ch, kind)(M).to(dev)
+            xb = ch_input(torch, dev, kind, M, CH_B, CH_T, 20)
+            c0 = p.init(batch_shape=(CH_B,), device=dev)
+            ms = time_ms(lambda: p(c0, xb), iters=CH_ITERS)
+            by_name, _ = device_profile(torch, lambda: p(c0, xb), CH_PROF,
+                                        kind)
+            d_ms = sum(t for t, _ in by_name.values()) / CH_PROF
+            n_ops = sum(c for _, c in by_name.values()) / CH_PROF
+            b = ""
+            if p.fused:
+                y = p(c0, xb)[0]
+                bd = ch_bound(p, xb, y)
+                b = f", bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})"
+                del y
+            rates.append(f"{kind}({M}) {ms:.4f} ms = "
+                         f"{CH_B * CH_T / ms / 1e3:.0f}; device {d_ms:.4f} "
+                         f"ms in {n_ops:.0f} operations = "
+                         f"{CH_B * CH_T / d_ms / 1e3:.0f}{b}")
+            del xb
+    print(f"timing ({card}): channelizer block steps at {CH_B}x{CH_T} "
+          f"wideband samples, ms (CUDA events over {CH_ITERS} calls) and "
+          f"Msamples/s; device ms per call (torch.profiler over {CH_PROF} "
+          f"calls) and Msamples/s: " + "; ".join(rates), flush=True)
+    torch.cuda.empty_cache()
+
+
+def ch_bound(p, x, y):
+    """Bound of one fused channelizer block: input and output once and the
+    dense matrices read once; each complex product on (re, im) planes is
+    four real matmuls over the block's T/M frame windows (a multiply-add
+    counts 2)."""
+    mats = [b for name, b in p.named_buffers() if name.endswith("r")
+            and b.dim() == 2 and b.is_floating_point()]
+    frames = x.numel() // p.M
+    if p.rate == (1, 2):
+        frames //= 2        # the firpfbch2 synthesizer: two hops per window
+    n_ops = sum(8 * frames * a.shape[0] * a.shape[1] for a in mats)
+    n_bytes = 8 * (x.numel() + y.numel()) + sum(8 * a.numel() for a in mats)
+    return bound(n_bytes, n_ops)
+
+
+def make_scanner_channels(rng):
+    """The scanner's channel-domain streams [SC_S, SC_M, (SC_NBLK+1)*SC_T]
+    (examples/wideband_scanner_example.py at full width: noise 0.002
+    everywhere, frame64 frames on the even channels, an interferer tone
+    on channel SC_TONE) and the frames sent per (stream, channel)."""
+    from liquid_dsp_tpu_torch.framing.frame64 import FRAME64_LEN, framegen64
+    n = (SC_NBLK + 1) * SC_T
+    x = np.empty((SC_S, SC_M, n), np.complex64)
+    x.real = rng.standard_normal(x.shape, np.float32)
+    x.imag = rng.standard_normal(x.shape, np.float32)
+    x *= 0.002
+    x[:, SC_TONE] += 0.5 * np.exp(2j * np.pi * 0.05 * np.arange(n))
+    sent = {}
+    usable = SC_NBLK * SC_T - FRAME64_LEN - SC_DELAY - 8
+    for s in range(SC_S):
+        for c in range(0, SC_M, 2):
+            starts, pos = [], int(rng.integers(100, 3000))
+            while pos < usable:
+                starts.append(pos)
+                pos += FRAME64_LEN + int(rng.integers(300, 9000))
+            if c % 8 == 0:      # one frame across a block boundary
+                b = (c // 8) % (SC_NBLK - 1) + 1
+                cut = b * SC_T - int(rng.integers(1, FRAME64_LEN))
+                starts = sorted([s0 for s0 in starts
+                                 if abs(s0 - cut) >= FRAME64_LEN + 60] + [cut])
+            for s0 in starts:
+                h = rng.integers(0, 256, 8).astype(np.uint8)
+                p = rng.integers(0, 256, 64).astype(np.uint8)
+                x[s, c, s0:s0 + FRAME64_LEN] += framegen64(h, p)
+                sent.setdefault((s, c), []).append((s0 + SC_DELAY, h, p))
+    return x, sent
+
+
+def check_decodes(got, sent, what):
+    """got/sent: {(stream, channel): [(sample_index, ..., bytes...)]} with
+    the decodes in order; every frame once, on its own channel, within 2
+    samples.  Returns the number of frames checked."""
+    n = 0
+    for key in sorted(set(got) | set(sent)):
+        g, s = got.get(key, []), sent.get(key, [])
+        check(len(g) == len(s), f"{what} {key}: {len(g)} frames decoded "
+              f"{[d[0] for d in g]}, {len(s)} sent {[d[0] for d in s]}")
+        for k, (d, w) in enumerate(zip(g, s)):
+            check(abs(d[0] - w[0]) <= 2, f"{what} {key} frame {k}: "
+                  f"sample_index {d[0]}, expected {w[0]}")
+            check(all(d[1:-2]), f"{what} {key} frame {k}: a CRC failed")
+            check(np.array_equal(d[-2], w[1]) and np.array_equal(d[-1], w[2]),
+                  f"{what} {key} frame {k}: bytes differ")
+            n += 1
+    return n
+
+
+def hold_payload_codebook(torch, cw, bip):
+    """codebook_argmax against its plain version on a path's soft bits;
+    returns the max index difference (0: bit-equal)."""
+    from liquid_dsp_tpu_torch.ops.kernels.codebook_argmax import (
+        codebook_argmax, codebook_argmax_reference)
+    k = codebook_argmax(cw, bip)
+    p = codebook_argmax_reference(cw, bip)
+    torch.cuda.synchronize()
+    check(torch.equal(k, p), f"codebook_argmax: {int((k != p).sum())} of "
+          f"{cw.shape[0]} indices differ")
+    return float((k - p).abs().max())
+
+
+def scanner_phases(torch, dev, card):
+    """Phases 20-21: the 64-channel wideband scanner.  Returns
+    codebook_argmax's launches on its run."""
+    from liquid_dsp_tpu_torch.framing.frame64 import framesync64_stream_full
+    from liquid_dsp_tpu_torch.multichannel import (firpfbch2_analyzer,
+                                                   firpfbch2_synthesizer)
+    from liquid_dsp_tpu_torch.ops.kernels.codebook_argmax import (
+        codebook_argmax)
+
+    # 20. the capture, synthesized on the card, then the scanner over it
+    t0 = time.perf_counter()
+    chans, sent = make_scanner_channels(np.random.default_rng(20))
+    n_frames = sum(len(v) for v in sent.values())
+    syn = firpfbch2_synthesizer(SC_M).to(dev)
+    cs = syn.init(batch_shape=(SC_S,), device=dev)
+    wide = []
+    for b in range(SC_NBLK + 1):
+        blk = torch.from_numpy(chans[..., b * SC_T:(b + 1) * SC_T]).to(dev)
+        w, cs = syn(cs, blk)
+        wide.append(w)
+    del chans, blk
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    Tw = wide[0].shape[-1]
+    check(Tw == SC_T * SC_M // 2, f"synthesizer block {Tw}")
+    ana = firpfbch2_analyzer(SC_M).to(dev)
+    rx = framesync64_stream_full(SC_T).to(dev)
+
+    def scan(ca, cr, w):
+        streams, ca = ana(ca, w)                       # [S, M, SC_T]
+        out, cr = rx(cr, streams.reshape(SC_S * SC_M, SC_T))
+        return out, ca, cr, streams
+
+    ca = ana.init(batch_shape=(SC_S,), device=dev)
+    cr = rx.init(batch_shape=(SC_S * SC_M,), device=dev)
+    states, outs = [], []
+    codebook_argmax.launches = 0
+    t0 = time.perf_counter()
+    for w in wide:
+        states.append((ca, cr))
+        out, ca, cr, streams = scan(ca, cr, w)
+        outs.append(out)
+        if len(states) == 2:
+            streams1 = streams
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = codebook_argmax.launches
+    got = {}
+    for out in outs:
+        o = {k: v.cpu().numpy() for k, v in out._asdict().items()}
+        for r, p in zip(*np.nonzero(o["valid"])):
+            got.setdefault((int(r) // SC_M, int(r) % SC_M), []).append((
+                int(o["sample_index"][r, p]), bool(o["crc_ok"][r, p]),
+                o["hdr_bytes"][r, p].astype(np.uint8),
+                o["pay_bytes"][r, p].astype(np.uint8)))
+    odd = {k: [d[0] for d in v] for k, v in got.items() if k[1] % 2}
+    check(not odd, f"scanner: frames decoded on odd channels (stream, "
+          f"channel): sample_index {odd}")
+    n_ok = check_decodes(got, sent, "scanner (stream, channel)")
+    check(launches == SC_NBLK + 1, f"codebook_argmax launched {launches} "
+          f"times in {SC_NBLK + 1} scanner blocks")
+    print(f"scanner: firpfbch2_synthesizer({SC_M}) made {SC_S} wideband "
+          f"streams of {SC_NBLK} blocks + 1 flush x {Tw} samples on the card "
+          f"(frame64 on the even channels, noise 0.002, a tone on channel "
+          f"{SC_TONE}); firpfbch2_analyzer({SC_M}) -> "
+          f"framesync64_stream_full({SC_T}) over {SC_S * SC_M} channel "
+          f"streams, carried: {n_ok} of {n_frames} frames decoded once on "
+          f"their own channel, in order, crc_ok, bytes equal, sample_index "
+          f"within 2 of the start + {SC_DELAY} (the bank's delay); 0 on the "
+          f"odd channels; codebook_argmax launches {launches}; capture made "
+          f"in {t_gen:.1f} s, first pass {t_run:.2f} s", flush=True)
+
+    # the kernel against its plain version on block 1's slot soft bits
+    sym = rx.core(states[1][1], streams1.reshape(SC_S * SC_M, SC_T))[0].symbols
+    cw = rx.decode.soft_bits(sym).reshape(-1, 24).contiguous()
+    err = hold_payload_codebook(torch, cw, rx.decode.bip)
+    print(f"codebook_argmax: kernel = plain on the scanner's {cw.shape[0]} "
+          f"rows (n=24, K={rx.decode.bip.shape[1]})", flush=True)
+
+    # 21. times and the profile of the scanner step
+    (ca1, cr1), w1 = states[1], wide[1]
+    st1 = streams1.reshape(SC_S * SC_M, SC_T)
+    a_ms = time_ms(lambda: ana(ca1, w1), iters=CH_ITERS)
+    r_ms = time_ms(lambda: rx(cr1, st1), iters=10)
+    s_ms = time_ms(lambda: scan(ca1, cr1, w1), iters=20)
+    print(f"timing ({card}): scanner step {s_ms:.4f} ms (20 calls) per "
+          f"{SC_S}x{Tw} wideband block = "
+          f"{SC_S * Tw / s_ms / 1e3:.1f} Msamples/s wideband; analyzer "
+          f"{a_ms:.4f} ms ({CH_ITERS} calls), receiver {r_ms:.4f} ms "
+          f"({SC_S * SC_M}x{SC_T}, 10 calls)",
+          flush=True)
+    profile_steps(torch, card, lambda: scan(ca1, cr1, w1), 3,
+                  f"wideband scanner step at {SC_S}x{Tw}")
+    return launches, err
+
+
+def make_flex_stream(rng):
+    """The flexframe receiver's input [FF_B, (FF_NBLK+1)*FF_T] and, per
+    channel, the frames sent [(start, header, payload)]: frames of the
+    receiver's config (crc32, none, golay2412, qpsk) at random offsets,
+    the reference C library's ffg_a first on channel FF_GOLD, CFO 0.002
+    rad/sample at about 20 dB SNR on channel FF_CFO, one frame of another
+    config (qam16) alone on channel FF_FOREIGN, FF_QUIET noise-only
+    channels, noise 0.005 elsewhere.  Returns (x, sent, foreign start)."""
+    from liquid_dsp_tpu_torch.framing.flexframe import flexframegen
+    lcg_bytes = golden_frames().lcg_bytes
+    n = (FF_NBLK + 1) * FF_T
+    x = np.zeros((FF_B, n), np.complex64)
+    sent = {}
+    gold = dict(np.load(os.path.join(ROOT, "tests", "golden",
+                                     "flexframe_golden.npz")))
+    ffg_a = gold["ffg_a"]
+    flen = len(ffg_a)
+    usable = FF_NBLK * FF_T - flen - 8
+    for c in range(FF_B - FF_QUIET):
+        if c == FF_FOREIGN:
+            continue
+        starts, pos = [], int(rng.integers(0, 3000))
+        while pos < usable:
+            starts.append(pos)
+            pos += flen + int(rng.integers(3000, 9000))
+        if c % 4 == 0:          # one frame across a block boundary
+            b = (c // 4) % (FF_NBLK - 1) + 1
+            cut = b * FF_T - int(rng.integers(1, flen))
+            starts = sorted([s0 for s0 in starts
+                             if abs(s0 - cut) >= flen + 3000] + [cut])
+        for k, s0 in enumerate(starts):
+            if c == FF_GOLD and k == 0:
+                h, p, f = lcg_bytes(14, 21), lcg_bytes(FF_PL, 22), ffg_a
+            else:
+                h = rng.integers(0, 256, 14).astype(np.uint8)
+                p = rng.integers(0, 256, FF_PL).astype(np.uint8)
+                f = flexframegen(h, p)
+            if c == FF_CFO:
+                f = f * np.exp(1j * (0.002 * np.arange(s0, s0 + flen) + 0.7))
+            x[c, s0:s0 + flen] = f
+            sent.setdefault((0, c), []).append((s0, h, p))
+    h = rng.integers(0, 256, 14).astype(np.uint8)
+    p = rng.integers(0, 256, FF_PL).astype(np.uint8)
+    f = flexframegen(h, p, ms="qam16")
+    x[FF_FOREIGN, 5000:5000 + len(f)] = f
+    noise = np.full((FF_B, 1), 0.005, np.float32)
+    noise[FF_CFO] = 0.01
+    x += noise * (rng.standard_normal(x.shape, np.float32)
+                  + 1j * rng.standard_normal(x.shape, np.float32))
+    return x, sent, 5000
+
+
+def golden_frames():
+    """tests/_golden_frames.py (numpy only): the flexframe goldens and
+    the bytes their generator filled them with."""
+    if os.path.join(ROOT, "tests") not in sys.path:
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _golden_frames
+    return _golden_frames
+
+
+def flexframe_phases(torch, dev, card):
+    """Phases 22-23: the flexframe full receiver and the host-loop entry
+    points.  Returns codebook_argmax's launches on the receiver's run."""
+    from liquid_dsp_tpu_torch.framing.flexframe import (
+        FLEXFRAME_H_USER, FlexFrameSync, flexframe_rx_stream, flexframesync)
+    from liquid_dsp_tpu_torch.ops.kernels.codebook_argmax import (
+        codebook_argmax)
+
+    # 22. flexframe_rx_stream at full width
+    t0 = time.perf_counter()
+    x_np, sent, foreign_at = make_flex_stream(np.random.default_rng(22))
+    x = torch.from_numpy(x_np).to(dev)
+    del x_np
+    n_frames = sum(len(v) for v in sent.values())
+    t_gen = time.perf_counter() - t0
+    proc = flexframe_rx_stream(FF_T, FF_PL, max_frames=FF_MAX).to(dev)
+    carry = proc.init(batch_shape=(FF_B,), device=dev)
+    carries, outs = [], []
+    codebook_argmax.launches = 0
+    t0 = time.perf_counter()
+    for b in range(FF_NBLK + 1):
+        carries.append(carry)
+        out, carry = proc(carry, x[:, b * FF_T:(b + 1) * FF_T])
+        outs.append(out)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = codebook_argmax.launches
+    got, foreign = {}, []
+    for out in outs:
+        o = {k: v.cpu().numpy() for k, v in out._asdict().items()}
+        for c, p in zip(*np.nonzero(o["valid"])):
+            d = (int(o["sample_index"][c, p]), bool(o["hdr_ok"][c, p]),
+                 bool(o["pay_ok"][c, p]),
+                 o["hdr_bytes"][c, p, :FLEXFRAME_H_USER].astype(np.uint8),
+                 o["pay_bytes"][c, p].astype(np.uint8))
+            if c == FF_FOREIGN:
+                foreign.append(d)
+            else:
+                got.setdefault((0, int(c)), []).append(d)
+    check(foreign and abs(foreign[0][0] - foreign_at) <= 2
+          and not any(d[1] for d in foreign),
+          f"flexframe: the qam16 frame must come back hdr_ok False: "
+          f"{[(d[0], d[1]) for d in foreign]}")
+    quiet = [k for k in got if k[1] >= FF_B - FF_QUIET]
+    check(not quiet, f"flexframe: frames on noise-only channels {quiet}")
+    n_ok = check_decodes(got, sent, "flexframe channel")
+    check(launches == FF_NBLK + 1, f"codebook_argmax launched {launches} "
+          f"times in {FF_NBLK + 1} flexframe blocks")
+    print(f"flexframe: flexframe_rx_stream({FF_T}, {FF_PL}) crc32/none/"
+          f"golay2412/qpsk at {FF_B}x{FF_T}, {FF_NBLK} carried blocks + 1 "
+          f"flush, {FF_MAX} slots: {n_ok} of {n_frames} frames decoded once, "
+          f"in order, hdr_ok and pay_ok, header and payload bytes equal, "
+          f"sample_index within 2 (incl. the reference C frame ffg_a and the "
+          f"CFO 0.002 / 20 dB channel); the qam16 frame hdr_ok False; "
+          f"{FF_QUIET} noise-only channels: 0 frames; codebook_argmax "
+          f"launches {launches}; stream made in {t_gen:.1f} s, first pass "
+          f"{t_run:.2f} s", flush=True)
+
+    o1 = proc.core(carries[1], x[:, FF_T:2 * FF_T])[0]
+    cw = proc.pay_dec.soft_bits(o1.region_syms[..., proc.h_sym_len:])
+    cw = cw.reshape(-1, 24).contiguous()
+    err = hold_payload_codebook(torch, cw, proc.pay_dec.bip)
+    print(f"codebook_argmax: kernel = plain on the flexframe payloads' "
+          f"{cw.shape[0]} rows (n=24, K={proc.pay_dec.bip.shape[1]})",
+          flush=True)
+    c1, x1 = carries[1], x[:, FF_T:2 * FF_T]
+    r_ms = time_ms(lambda: proc(c1, x1), iters=20)
+    print(f"timing ({card}): flexframe receiver step {r_ms:.4f} ms per "
+          f"{FF_B}x{FF_T} block = {FF_B * FF_T / r_ms / 1e3:.1f} "
+          f"Msamples/s (20 calls)", flush=True)
+    profile_steps(torch, card, lambda: proc(c1, x1), 3,
+                  f"flexframe_rx_stream step at {FF_B}x{FF_T}")
+    del x, outs, carries, o1, cw
+    torch.cuda.empty_cache()
+
+    # 23. the host-loop entry points on the card over the three reference
+    # frames (mixed schemes): ffg_b and ffg_c decode on the host
+    gold = dict(np.load(os.path.join(ROOT, "tests", "golden",
+                                     "flexframe_golden.npz")))
+    gf = golden_frames()
+    cases = gf.FLEX_GOLDEN
+    parts = []
+    for tag, _, _ in cases:
+        parts += [np.zeros(700, np.complex64), gold[tag]]
+    fs = FlexFrameSync()
+    check(fs.device.type == "cuda", f"FlexFrameSync on {fs.device}")
+    res = fs.execute(np.concatenate(parts + [np.zeros(500, np.complex64)]))
+    res += fs.flush()
+    check(len(res) == 3, f"FlexFrameSync: {len(res)} frames of 3")
+    host = [k[4] for k, v in fs._dev_fec_cache.items() if v is None]
+    for (tag, n, seed), (gh, hok, gp, pok, st) in zip(cases, res):
+        check(hok and pok and np.array_equal(gh, gf.lcg_bytes(14, seed))
+              and np.array_equal(gp, gf.lcg_bytes(n, seed + 1)),
+              f"FlexFrameSync: {tag} not decoded")
+        r = flexframesync(np.concatenate([np.zeros(50, np.complex64),
+                                          gold[tag]]))
+        check(r.crc_ok and np.array_equal(r.payload,
+                                          gf.lcg_bytes(n, seed + 1)),
+              f"flexframesync: {tag} not decoded")
+    check(host == ["qam16", "psk8"], f"host decodes for {host}")
+    print(f"flexframe: FlexFrameSync and flexframesync on the card decode "
+          f"ffg_a (device decoder), ffg_b and ffg_c (host decode after the "
+          f"conv decoders' ValueError) with the golden's bytes", flush=True)
+    return launches, err
 
 
 if __name__ == "__main__":

@@ -20,8 +20,13 @@ reference's own soft criterion (fecsoft_* minimum soft distance).
 
 The decoders are ``nn.Module``s: their constants (codebook, permutation,
 constellation, byte-pack and CRC matrices) are buffers that follow
-``.to(device)``, and a call runs where its input lies.  The convolutional
-and two-stage decoders are ROADMAP queue 1 item 4.
+``.to(device)``, and a call runs where its input lies.
+`packetizer2_soft_decoder` decodes the two-stage flexframe header (a
+hamming84 codebook, then SECDED syndromes) the same way.  The
+convolutional decoders are ROADMAP queue 1 item 4b: they check their
+configuration as the JAX package does (ValueError, which the flexframe
+receivers take as "not a conv config") and raise NotImplementedError
+for a real convolutional one.
 
 Reference analogs: src/fec/src/fec.c soft decode dispatch,
 qpacketmodem_decode_soft src/framing/src/qpacketmodem.c:297-316.
@@ -35,11 +40,11 @@ import torch
 from torch import nn
 
 from ..ops.kernels.codebook_argmax import codebook_argmax
-from .block import _GCOLS, _code_matrices
+from .block import _GCOLS, _SECDED, _code_matrices, _secded_cols
 from .crc import crc_generate_key, crc_sizeof_key, crc_validate_message
 from .dispatch import CONV_SCHEMES, fec_get_enc_msg_length
 from .interleave import deinterleave_soft
-from .packetizer import packetizer_compute_enc_msg_len
+from .packetizer import _plan, packetizer_compute_enc_msg_len
 
 __all__ = ["qpacket_soft_decoder", "packetizer_soft_decoder",
            "block_codebook", "conv_soft_decoder", "conv_packet_soft_decoder",
@@ -216,31 +221,169 @@ def qpacket_soft_decoder(payload_len: int, crc: str = "crc24",
     return device_fn, finish
 
 
-def _unported(what: str):
+def _conv_unported(what: str):
     raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1 item 4: the "
-        "convolutional and two-stage device decoders)")
+        f"{what} is not ported yet (ROADMAP queue 1 item 4b: the "
+        "convolutional codes and their device Viterbi decoder)")
+
+
+def _conv_scheme(fec0: str, fec1: str) -> str:
+    """The one convolutional stage of a (fec0, fec1) pair whose other
+    stage is 'none'; ValueError otherwise, as the JAX package's check
+    (`liquid_dsp_tpu/fec/device.py:284-289`), which the flexframe
+    receivers take as "not a conv config"."""
+    schemes = {fec0, fec1}
+    conv = [s for s in schemes if s in CONV_SCHEMES]
+    if len(conv) != 1 or (schemes - set(conv)) != {"none"}:
+        raise ValueError("conv packet decoder needs exactly one conv "
+                         f"stage and one 'none', got ({fec0!r}, {fec1!r})")
+    return conv[0]
 
 
 def conv_soft_decoder(scheme: str, dec_len: int):
-    _unported("conv_soft_decoder")
+    """Batched soft Viterbi decoder of one convolutional scheme: not
+    ported yet.  Raises ValueError where the JAX package does (an unknown
+    scheme; v615, whose 2^14 states per step stay a host decode) and
+    NotImplementedError naming queue-1 item 4b otherwise."""
+    if scheme.lower() not in CONV_SCHEMES:
+        raise ValueError(f"unknown convolutional scheme {scheme!r}")
+    if scheme.lower().startswith("v615"):
+        raise ValueError(f"{scheme!r}: 2^14 = 16384 states per ACS step "
+                         "is host-only territory (see API_PARITY.md)")
+    _conv_unported("conv_soft_decoder")
 
 
 def conv_packet_soft_decoder(payload_len: int, crc: str = "crc32",
                              fec0: str = "v27", fec1: str = "none"):
-    _unported("conv_packet_soft_decoder")
+    """(device_fn, finish) for one convolutional stage plus 'none': the
+    configuration is checked as in the JAX package (ValueError), then the
+    decoder raises NotImplementedError (queue-1 item 4b)."""
+    conv_soft_decoder(_conv_scheme(fec0, fec1),
+                      payload_len + crc_sizeof_key(crc))
 
 
 def qpacket_conv_soft_decoder(payload_len: int, crc: str = "crc32",
                               fec0: str = "v27", fec1: str = "none",
                               ms: str = "qpsk"):
-    _unported("qpacket_conv_soft_decoder")
+    """conv_packet_soft_decoder with the modem's soft demodulator in
+    front: ValueError for a configuration that is not one conv stage
+    plus 'none', NotImplementedError (item 4b) for one that is."""
+    conv_packet_soft_decoder(payload_len, crc, fec0, fec1)
+
+
+class _Packetizer2SoftDecoder(nn.Module):
+    """llr [..., >= 8*enc_len] (positive = bit 1) -> (buf bytes
+    [..., payload_len] int32, crc_ok [...] bool); see
+    `packetizer2_soft_decoder`."""
+
+    def __init__(self, payload_len, crc, fec0, fec1):
+        super().__init__()
+        _, stages = _plan(payload_len, crc, fec0, fec1)
+        (fs0, d0, e0, _), (fs1, d1, e1, _) = stages
+        assert fs0 == fec0 and fs1 == fec1 and d1 == e0
+        bip, n1, k1 = block_codebook(fec1)
+        self.ncw, self.n1, self.k1, self.d1 = -(-(8 * d1) // k1), n1, k1, d1
+        p, m, _ = _SECDED[fec0]
+        cols, table_pos = _secded_cols(fec0)
+        nbytes = m // 8
+        nblk = -(-d0 // nbytes)
+        self.p, self.m, self.nblk = p, m, nblk
+        # static layout: deinterleaved stage-0 bit index for each block's
+        # parity byte and data bytes (-1 = zero pad in the final block).
+        # The parity byte carries p <= 8 syndrome bits in its LOW bits
+        # (fec_secded2216.c packs v[0] & 0x3f), i.e. byte bits (8-p)..7.
+        lay_par = np.zeros((nblk, 8), np.int64)
+        lay_dat = np.full((nblk, m), -1, np.int64)
+        pos_e = pos_d = 0
+        sel = []
+        for b in range(nblk):
+            take = min(nbytes, d0 - pos_d)
+            lay_par[b] = 8 * pos_e + np.arange(8)
+            for j in range(take):
+                lay_dat[b, 8 * j: 8 * j + 8] = \
+                    8 * (pos_e + 1 + j) + np.arange(8)
+            # corrected data bits -> buf bits, skipping final-block pads
+            sel.extend(range(b * m, b * m + 8 * take))
+            pos_e += 1 + take
+            pos_d += take
+        flip = np.zeros((1 << p, m), np.float32)
+        for s in range(1, 1 << p):
+            if 0 <= table_pos[s] < m:
+                flip[s, table_pos[s]] = 1.0
+        consts = {
+            "perm_out": _deint_perm(e1), "perm_in": _deint_perm(e0),
+            "bip": bip,
+            # gather maps into the deinterleaved bit vector; index 8*e0
+            # is an appended zero slot for the pads
+            "gp": np.where(lay_par >= 0, lay_par, 8 * e0)[:, 8 - p:],
+            "gd": np.where(lay_dat >= 0, lay_dat, 8 * e0),
+            "cols": ((cols[:, None] >> (p - 1 - np.arange(p))[None, :]) & 1
+                     ).astype(np.float32),                       # [m, p]
+            "flip": flip,
+            "pow2": (1 << (p - 1 - np.arange(p))).astype(np.float32),
+            "sel": np.asarray(sel, np.int64),
+            "shifts": np.arange(k1 - 1, -1, -1, dtype=np.int64)}
+        for key, v in consts.items():
+            v = np.asarray(v)
+            self.register_buffer(key, torch.from_numpy(np.ascontiguousarray(
+                v, np.int64 if v.dtype.kind in "iu" else np.float32)))
+        self.finish = device_packet_finish(payload_len, crc, "none", "none")
+
+    def forward(self, llr):
+        flat = _on(llr, self.bip).to(torch.float32)
+        need = self.perm_out.shape[0]
+        if flat.shape[-1] < need:
+            flat = torch.nn.functional.pad(flat, (0, need - flat.shape[-1]))
+        # outer stage: bit deinterleave, codebook correlation + argmax
+        deint = flat[..., :need][..., self.perm_out]
+        cw = deint[..., :self.ncw * self.n1].reshape(
+            deint.shape[:-1] + (self.ncw, self.n1))
+        msgs = _scores_argmax(cw, self.bip)
+        bits = (msgs.to(torch.int64)[..., None] >> self.shifts) & 1
+        bits = bits.reshape(msgs.shape[:-1] + (self.ncw * self.k1,))
+        bits = bits[..., :8 * self.d1].to(torch.float32)
+        # inner stage: byte deinterleave (a bit relabel) + zero pad slot,
+        # then per block the SECDED syndrome as a GF(2) matmul (sums of at
+        # most m 0/1 terms: exact in float32), its value, the one-hot
+        # flip row and the mod-2 correction
+        deint0 = torch.nn.functional.pad(bits[..., self.perm_in], (0, 1))
+        par_bits = deint0[..., self.gp]                  # [.., nblk, p]
+        dat_bits = deint0[..., self.gd]                  # [.., nblk, m]
+        synd = torch.remainder(torch.einsum(
+            "...bm,mp->...bp", dat_bits, self.cols) + par_bits, 2.0)
+        sval = torch.einsum("...bp,p->...b", synd, self.pow2).to(torch.int32)
+        onehot = (sval[..., None] == torch.arange(
+            1 << self.p, device=sval.device)).to(torch.float32)
+        flip = torch.einsum("...bs,sm->...bm", onehot, self.flip)
+        fixed = torch.remainder(dat_bits + flip, 2.0)
+        buf_bits = fixed.reshape(fixed.shape[:-2] + (self.nblk * self.m,))
+        return self.finish(buf_bits[..., self.sel].to(torch.int32))
 
 
 def packetizer2_soft_decoder(payload_len: int, crc: str = "crc32",
                              fec0: str = "secded7264",
                              fec1: str = "hamming84"):
-    _unported("packetizer2_soft_decoder")
+    """TWO-stage block packetizer decode on the device: the flexframe
+    HEADER configuration (crc32, secded7264, hamming84; reference
+    flexframegen.c header encoder).  Returns a module
+    decode_fn(llr [..., >= 8*enc_len], positive = bit 1) ->
+    (buf_bytes [..., payload_len] int32, crc_ok [...] bool) whose tables
+    are buffers (``.to(device)``):
+
+      * outer stage (fec1): bit deinterleave (a static gather) + soft
+        codebook correlation and argmax (`_scores_argmax`; the
+        einsum for hamming84's 16 words, first index on ties);
+      * inner stage (fec0 SECDED): byte deinterleave, per 72-bit block
+        the syndrome by a GF(2) parity matmul of the data bits against
+        the column matrix plus the received parity bits mod 2, the error
+        position a one-hot row of a [2^p, m] flip table, the correction a
+        mod-2 add (reference fec_secded7264.c decodes byte by byte);
+      * byte pack + CRC: `device_packet_finish`."""
+    if fec0 not in _SECDED:
+        raise ValueError(f"fec0 {fec0!r} is not a SECDED scheme")
+    if fec1 not in _GCOLS or _GCOLS[fec1][1] > 16:
+        raise ValueError(f"fec1 {fec1!r} needs a small block codebook")
+    return _Packetizer2SoftDecoder(payload_len, crc, fec0, fec1)
 
 
 @functools.lru_cache(maxsize=32)

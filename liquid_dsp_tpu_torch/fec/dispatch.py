@@ -2,8 +2,8 @@
 reference src/fec/src/fec.c fec_create/encode/decode dispatch).
 
 The port has the block family (`block.py`).  Convolutional codes and
-Reed-Solomon raise NotImplementedError: they are ROADMAP queue 1 items 4
-(`fec/conv.py`) and 5 (`fec/rs.py`).  Their scheme names are known, so
+Reed-Solomon raise NotImplementedError: they are ROADMAP queue 1 items 4b
+(`fec/conv.py`) and 5c (`fec/rs.py`).  Their scheme names are known, so
 every length query on them says so too.
 """
 from __future__ import annotations
@@ -27,11 +27,11 @@ def _unported(scheme: str):
     if scheme in CONV_SCHEMES:
         return NotImplementedError(
             f"{scheme!r}: convolutional codes are not ported yet "
-            "(ROADMAP queue 1 item 4, fec/conv.py)")
+            "(ROADMAP queue 1 item 4b, fec/conv.py)")
     if scheme == "rs8":
         return NotImplementedError(
             "'rs8': Reed-Solomon is not ported yet (ROADMAP queue 1 "
-            "item 5, fec/rs.py)")
+            "item 5c, fec/rs.py)")
     return None
 
 

@@ -1,6 +1,7 @@
 """Framing, ported from `liquid_dsp_tpu.framing`: packet modem and pilot
-sync, preamble detection, the frame64 PHY pair, the streaming
-preamble-sync receivers and the symbol tracker."""
+sync, preamble detection, the frame64 and flexframe PHY pairs with their
+streaming receivers, the reference's header wire format and the symbol
+tracker."""
 from .qpacket import (  # noqa: F401
     qpacketmodem_frame_len, qpacketmodem_encode, qpacketmodem_decode,
     qpacketmodem_decode_soft, qpilot_pilots, qpilot_frame_len, qpilotgen,
@@ -14,3 +15,12 @@ from .frame64 import (  # noqa: F401
 from .stream_rx import preamble_stream, detector_stream  # noqa: F401
 from .symtrack import symtrack, SymtrackResult  # noqa: F401
 from .symtrack import symtrack_stream, Symtrack  # noqa: F401
+from .flexframe import (  # noqa: F401
+    FLEXFRAME_H_USER, flexframegen, flexframesync, FlexFrameResult,
+    flexframesync_stream, flexframe_rx_stream, flexframe_rx_stream_multi,
+    FlexStreamBlock, FlexMultiStreamBlock, FlexFrameSync,
+)
+from .wire import (  # noqa: F401
+    crc_to_wire, fec_to_wire, modem_to_wire, crc_from_wire, fec_from_wire,
+    modem_from_wire,
+)

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from _golden_frames import FLEX_GOLDEN, lcg_bytes
 from liquid_dsp_tpu_torch.fec.device import block_codebook
 from liquid_dsp_tpu_torch.ops.kernels import codebook_argmax as cba
 from liquid_dsp_tpu_torch.ops.kernels import fir_real as fr
@@ -643,3 +644,134 @@ def test_per_step_loops_raise_on_the_card(dev):
     rls = eq.eqrls(5)
     with pytest.raises(NotImplementedError, match="eqrls"):
         rls(rls.init((2,), device=dev), (x, x))
+
+
+# --- the channelizers and the flexframe receivers -----------------------
+
+@pytest.mark.parametrize("M", [64, 1024])
+@pytest.mark.parametrize("kind", ["firpfbch_analyzer", "firpfbch_synthesizer",
+                                  "firpfbch2_analyzer",
+                                  "firpfbch2_synthesizer"])
+def test_channelizer_on_the_card_matches_the_cpu(dev, kind, M):
+    # M = 64: the fused matmul regime; M = 1024: branch filter + cuFFT.
+    # cuBLAS and cuFFT sum in other orders than the CPU: 2e-5 of the
+    # rms, outputs and carries (the large-M synthesizers carry IFFT-domain
+    # frames, M times the input's scale), two blocks with the carry
+    # between them
+    from liquid_dsp_tpu_torch.multichannel import channelizer as ch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(M)
+    frames = 8
+    shape = (3, frames * M) if "analyzer" in kind else (3, M, frames)
+    cpu = getattr(ch, kind)(M)
+    card = getattr(ch, kind)(M).to(dev)
+    assert card.fused == (M <= ch._FUSED_MAX_M)
+    cc, cg = cpu.init(batch_shape=(3,)), card.init(batch_shape=(3,),
+                                                   device=dev)
+    for _ in range(2):
+        x = torch.from_numpy((rng.standard_normal(shape) + 1j *
+                              rng.standard_normal(shape)).astype(np.complex64))
+        yc, cc = cpu(cc, x)
+        yg, cg = card(cg, x.to(dev))
+        rms = yc.abs().square().mean().sqrt()
+        assert float((yg.cpu() - yc).abs().max() / rms) < 2e-5
+    for a, g in zip(*(c.values() if isinstance(c, dict) else [c]
+                      for c in (cc, cg))):
+        rms = a.abs().square().mean().sqrt()
+        assert float((g.cpu() - a).abs().max() / rms) < 2e-5
+
+
+def test_flexframe_rx_stream_on_the_card_matches_the_cpu(dev):
+    # the full flexframe receiver (detection, sync, header decode, the
+    # codebook kernel for the Golay payload, finish) against the same
+    # module on the CPU: valid, sample_index, bytes and both CRCs equal
+    from liquid_dsp_tpu_torch.framing.flexframe import (
+        FLEXFRAME_H_USER, flexframe_rx_stream, flexframegen)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(5)
+    T, PL = 4096, 64
+    x = np.zeros((2, 4 * T), np.complex64)
+    sent = []
+    for chn, s0, ms in ((0, 700, "qpsk"), (0, 6000, "qpsk"),
+                        (1, 4000, "qpsk"), (1, 9000, "qam16")):
+        h = rng.integers(0, 256, FLEXFRAME_H_USER).astype(np.uint8)
+        p = rng.integers(0, 256, PL).astype(np.uint8)
+        f = flexframegen(h, p, ms=ms)
+        x[chn, s0:s0 + len(f)] = f
+        sent.append((chn, s0, ms == "qpsk"))
+    x += (0.01 * (rng.standard_normal(x.shape)
+                  + 1j * rng.standard_normal(x.shape))).astype(np.complex64)
+    cpu = flexframe_rx_stream(T, PL)
+    card = flexframe_rx_stream(T, PL).to(dev)
+    cc, cg = cpu.init(batch_shape=(2,)), card.init(batch_shape=(2,),
+                                                   device=dev)
+    n = 0
+    n_launch = cba.codebook_argmax.launches
+    for b in range(4):
+        blk = torch.from_numpy(x[:, b * T:(b + 1) * T].copy())
+        oc, cc = cpu(cc, blk)
+        og, cg = card(cg, blk.to(dev))
+        v = oc.valid
+        for key in ("valid", "sample_index", "hdr_bytes", "hdr_ok",
+                    "pay_bytes", "pay_ok"):
+            a, g = getattr(oc, key), getattr(og, key).cpu()
+            if key != "valid" and key != "sample_index":
+                a, g = a[v], g[v]
+            assert torch.equal(a, g), (b, key)
+        n += int(v.sum())
+        assert int((oc.hdr_ok & oc.pay_ok & v).sum()) == int(
+            (oc.hdr_ok & v).sum())
+    assert n == len(sent)
+    assert cba.codebook_argmax.launches == n_launch + 4
+
+
+def test_flexframe_sync_on_the_card_decodes_the_reference_frames(dev):
+    # FlexFrameSync and flexframesync on the card by default; ffg_b and
+    # ffg_c take the host decode
+    import pathlib
+    from liquid_dsp_tpu_torch.framing.flexframe import (FlexFrameSync,
+                                                        flexframesync)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fg = dict(np.load(pathlib.Path(__file__).parent
+                      / "golden/flexframe_golden.npz"))
+    parts = []
+    for tag, _, _ in FLEX_GOLDEN:
+        parts += [np.zeros(700, np.complex64), fg[tag]]
+    fs = FlexFrameSync()
+    assert fs.device.type == "cuda"
+    got = fs.execute(np.concatenate(parts)) + fs.flush()
+    assert len(got) == 3
+    for (tag, n, seed), (gh, hok, gp, pok, st) in zip(FLEX_GOLDEN, got):
+        assert hok and pok
+        np.testing.assert_array_equal(gh, lcg_bytes(14, seed))
+        np.testing.assert_array_equal(gp, lcg_bytes(n, seed + 1))
+        r = flexframesync(np.concatenate([np.zeros(50, np.complex64),
+                                          fg[tag]]))
+        assert r.crc_ok
+        np.testing.assert_array_equal(r.payload, lcg_bytes(n, seed + 1))
+
+
+@pytest.mark.parametrize("n", [64, 1021])
+def test_fft_entry_points_take_host_arrays_to_the_card(dev, n):
+    # host arrays go to the card by default; the result agrees with the
+    # CPU run within 1e-5*sqrt(n) of the spectrum's peak (cuFFT and
+    # pocketfft sum in other orders)
+    from liquid_dsp_tpu_torch.ops import fft
+    rng = np.random.default_rng(n)
+    x = (rng.standard_normal((3, n)) + 1j * rng.standard_normal((3, n))
+         ).astype(np.complex64)
+    for f in (fft.fft, fft.ifft):
+        y = f(x)
+        assert y.device.type == "cuda"
+        want = f(x, device="cpu")
+        assert float((y.cpu() - want).abs().max() / want.abs().max()) \
+            < 1e-5 * np.sqrt(n)
+    d = fft.dct(x.real)
+    assert d.device.type == "cuda"
+    want = fft.dct(x.real, device="cpu")
+    assert float((d.cpu() - want).abs().max() / want.abs().max()) \
+        < 1e-5 * np.sqrt(n)
+    psd = fft.spgram_psd_oneshot(x, 2 * n)
+    assert psd.device.type == "cuda"
+    assert float((psd.cpu() - fft.spgram_psd_oneshot(
+        x, 2 * n, device="cpu")).abs().max()) < 1e-3

@@ -173,11 +173,68 @@ def test_conv_and_rs_not_ported():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fec_encode(scheme, ref_msg(4))
     for make in (lambda: device.conv_soft_decoder("v27", 8),
-                 lambda: device.packetizer2_soft_decoder(8),
                  lambda: device.conv_packet_soft_decoder(8),
-                 lambda: device.qpacket_conv_soft_decoder(8)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+                 lambda: device.qpacket_conv_soft_decoder(8),
+                 lambda: device.qpacket_conv_soft_decoder(8, "crc16", "none",
+                                                          "v29p34", "qam16")):
+        with pytest.raises(NotImplementedError, match="queue 1 item 4b"):
             make()
+
+
+@pytest.mark.parametrize("args", [
+    (40, "crc16", "hamming128", "none", "qam16"),     # ffg_b's payload
+    (100, "crc32", "secded7264", "hamming84", "psk8"),  # ffg_c's payload
+    (64, "crc32", "none", "golay2412", "qpsk"),
+    (20, "crc32", "none", "none", "qpsk"),
+    (20, "crc32", "v27", "v29", "qpsk")])
+def test_conv_decoders_reject_non_conv_configs_like_jax(args):
+    # the flexframe receivers fall back on this ValueError (a config that
+    # is not one conv stage plus 'none'); the port raised
+    # NotImplementedError before its check
+    with pytest.raises(ValueError) as want:
+        jdevice.qpacket_conv_soft_decoder(*args)
+    with pytest.raises(ValueError) as got:
+        device.qpacket_conv_soft_decoder(*args)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError):
+        device.conv_packet_soft_decoder(*args[:4])
+    for scheme in ("v615", "nope"):
+        with pytest.raises(ValueError):
+            jdevice.conv_soft_decoder(scheme, 8)
+        with pytest.raises(ValueError):
+            device.conv_soft_decoder(scheme, 8)
+
+
+def test_packetizer2_soft_decoder_matches_jax():
+    # the flexframe header code (crc32, secded7264, hamming84) on clean,
+    # noisy and bit-flipped LLRs, batched: equal bytes and CRC verdicts
+    rng = np.random.default_rng(20)
+    msgs = rng.integers(0, 256, (3, 4, 20), dtype=np.uint8)
+    bits = np.stack([[np.unpackbits(packetizer_encode(
+        m, "crc32", "secded7264", "hamming84")) for m in row] for row in msgs])
+    clean = 2.0 * bits.astype(np.float32) - 1.0
+    noisy = clean + 0.8 * rng.standard_normal(clean.shape).astype(np.float32)
+    flipped = clean.copy()
+    for r in range(3):
+        for c in range(4):
+            # 1 flip: corrected by hamming84; 3 in one codeword: not
+            n_flip = (0, 1, 2, 3)[c]
+            pos = rng.choice(bits.shape[-1], n_flip, replace=False)
+            flipped[r, c, pos] *= -0.7
+    dec = device.packetizer2_soft_decoder(20)
+    jdec = jdevice.packetizer2_soft_decoder(20)
+    for llr in (clean, noisy, flipped, clean[0, 0, :300]):
+        b, ok = dec(torch.from_numpy(np.ascontiguousarray(llr)))
+        jb, jok = jdec(jnp.asarray(llr))
+        np.testing.assert_array_equal(b.numpy(), np.asarray(jb))
+        np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
+        assert b.dtype == torch.int32 and ok.dtype == torch.bool
+    b, ok = dec(torch.from_numpy(clean))
+    assert ok.all() and (b.numpy() == msgs).all()
+    for bad in (("secded2216x", "hamming84"), ("secded7264", "golay2412x"),
+                ("secded7264", "hamming3126")):
+        with pytest.raises(ValueError):
+            device.packetizer2_soft_decoder(20, "crc32", *bad)
 
 
 def test_deint_perm_and_crc_affine_match_jax():
