@@ -133,10 +133,44 @@ flexframe receiver on block codes:
      the reference frames ffg_a, ffg_b and ffg_c; ffg_b and ffg_c take
      the host decode.
 
-The JSON line before the card's name lists all six kernels, each with its
-launches on its main path (codebook_argmax also per path, in
-"launches_by_path": frame64 receiver, scanner, flexframe receiver, each
-counted from 0 over its own run), its error against the plain version, its time,
+Then the convolutional codes and the GMSK frame family:
+
+ 24. viterbi_acs against its plain version on the card, bits and packed
+     decisions bit-equal: v27, v29, v39 at 512 codewords x 68 bytes (the
+     GMSK receiver's shape) at noise 0.8 / 1.0 and at zero noise (which
+     must decode to the bytes sent), v27p23, v27p78, v29p34, v29p78, one
+     codeword and 37 of one byte, v29 at 2000 bytes (decisions in device
+     memory), all-zero metrics; times at the receiver's shape and at
+     tools/bench_viterbi.py's (256 x 64 bytes, v27 and v29) over 200
+     launches, in decoded kbit/s, beside the bound and the chain's floor
+     (T steps at one step's latency, from a lone codeword at two lengths);
+ 25. gmskframe_rx_stream(32768, 64) (crc32 / none / golay2412) at 128
+     channels, 3 carried blocks + a flush: the frames' bits from the
+     port's host packetizer, modulated in one batched gmsk_modulator call
+     on the card (one frame held to gmskframegen within 1e-4), 3 frames
+     per channel and block on 120 channels, 8 of them at CFO 0.0015
+     rad/sample and phase 0.3, one frame of another configuration (must
+     come back hdr_ok False), 8 noise-only channels, noise 0.005.  Every
+     frame decodes once, in order, hdr_ok and pay_ok, header and payload
+     bytes equal, sample_index within 2; codebook_argmax launched once per
+     block and bit-equal to its plain version on the path's own soft
+     metrics; the step's time and profile;
+ 26. the same receiver with fec0="v27", fec1="none" (138 encoded payload
+     bytes, as the Golay one): the same checks, viterbi_acs launched once
+     per block and bit-equal to its plain version on the path's LLRs;
+ 27. flexframe_rx_stream with a v27 payload (crc32 / v27 / none / qpsk,
+     64 bytes) at 16 x 32768: every frame once with the bytes sent,
+     viterbi_acs once per block; gmskframesync on the card decodes the
+     reference frames gmsk_a and gmsk_b; GMSKFrameSync on the card
+     decodes three frames of three configurations.
+
+The JSON line before the card's name lists all seven kernels, each with
+its launches on its main path (codebook_argmax also per path, in
+"launches_by_path": frame64 receiver, scanner, flexframe receiver, GMSK
+receiver; viterbi_acs on the GMSK receiver with v27 payloads and on the
+flexframe receiver; each counted from 0 over its own run), its error
+against the plain version (for viterbi_acs the count of decoded bits that
+differ), its time,
 the plain version's, the time of one PyTorch call for the same function
 where there is one (F.conv1d for fir_real), and its bound: the larger of
 the bytes it must move over 3.35 TB/s and its float32 operations over
@@ -199,6 +233,15 @@ FF_B, FF_T, FF_NBLK = 128, 1 << 15, 3   # flexframe receiver
 FF_PL, FF_MAX = 64, 8       # payload bytes; candidate slots per block
 FF_QUIET = 8                # noise-only channels (the last ones)
 FF_GOLD, FF_CFO, FF_FOREIGN = 1, 2, 3   # channels with ffg_a, CFO, another
+VT_N, VT_DEC = 512, 68      # viterbi_acs at the GMSK receiver's shape
+VT_BENCH = 256, 64          # tools/bench_viterbi.py's largest batch x dec_len
+VT_ITERS = 200              # launches per viterbi_acs timing
+GM_B, GM_T, GM_NBLK = 128, 1 << 15, 3   # the GMSK stream receiver
+GM_PL, GM_QUIET = 64, 8     # payload bytes; noise-only channels (the last)
+GM_PER_BLOCK = 3            # frames per channel and block
+GM_CFO = tuple(range(1, 9))  # CFO 0.0015 rad/sample, phase 0.3
+GM_FOREIGN = 9              # also carries a frame of another config
+CV_B, CV_T, CV_NBLK = 16, 1 << 15, 3    # flexframe with a v27 payload
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores
 
@@ -564,12 +607,24 @@ def main():
     took("phases 20-21")
     ff_launches, ff_err = flexframe_phases(torch, dev, card)
     took("phases 22-23")
+    vt = viterbi_phase(torch, dev, card)
+    took("phase 24")
+    gm_cb, gm_cb_err, gm_vt, gm_vt_err = gmsk_phases(torch, dev, card)
+    took("phases 25-26")
+    cv_launches = conv_phases(torch, dev, card)
+    took("phase 27")
     cb = next(k for k in kernels if k["name"] == "codebook_argmax")
     # each path's run, its counts set to 0 just before it
     cb["launches_by_path"] = {"framesync64_stream_full": cb["launches"],
                               "wideband_scanner": sc_launches,
-                              "flexframe_rx_stream": ff_launches}
-    cb["max_abs_err"] = max(cb["max_abs_err"], sc_err, ff_err)
+                              "flexframe_rx_stream": ff_launches,
+                              "gmskframe_rx_stream": gm_cb}
+    cb["max_abs_err"] = max(cb["max_abs_err"], sc_err, ff_err, gm_cb_err)
+    vt["launches"] = gm_vt
+    vt["launches_by_path"] = {"gmskframe_rx_stream": gm_vt,
+                              "flexframe_rx_stream": cv_launches}
+    vt["max_abs_err"] = max(vt["max_abs_err"], gm_vt_err)
+    kernels.append(vt)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1837,6 +1892,394 @@ def flexframe_phases(torch, dev, card):
           f"ffg_a (device decoder), ffg_b and ffg_c (host decode after the "
           f"conv decoders' ValueError) with the golden's bytes", flush=True)
     return launches, err
+
+
+def viterbi_case(torch, dev, scheme, N, dec_len, sigma, seed):
+    """(decoder, depunctured metrics [N, T, r] on the card, the bytes
+    sent): N codewords of random bytes, +-4 metrics with noise of std
+    `sigma` (None: all zero)."""
+    from liquid_dsp_tpu_torch.fec.conv import conv_encode
+    from liquid_dsp_tpu_torch.fec.device import conv_soft_decoder
+    rng = np.random.default_rng(seed)
+    fn, _ = conv_soft_decoder(scheme, dec_len)
+    fn = fn.to(dev)
+    msgs = rng.integers(0, 256, (N, dec_len)).astype(np.uint8)
+    bits = np.stack([np.unpackbits(conv_encode(scheme, m)) for m in msgs])
+    llr = np.zeros(bits.shape, np.float32) if sigma is None else (
+        (2.0 * bits - 1.0) * 4 + sigma * rng.standard_normal(bits.shape)
+    ).astype(np.float32)
+    return fn, fn.obs(torch.from_numpy(llr).to(dev)), msgs
+
+
+def vt_bound(obs, exp, nout):
+    """viterbi_acs's bound: metrics in, the trellis table and the bits out
+    once; the float32 operations the recurrence needs, not the kernel's
+    count: per step and codeword the 2^r distinct branch metrics (r-1
+    sums each; a product by +-1 is a sign flip), and per state two sums,
+    the compare-select, its share of the max over states and one
+    subtraction of that max."""
+    N, T, r = obs.shape
+    ns = exp.shape[0]
+    return bound(obs.numel() * 4 + exp.numel() * 4 + N * nout * 4,
+                 N * T * (ns * 5 + (1 << r) * (r - 1)))
+
+
+def hold_viterbi(torch, fn, obs, what):
+    """viterbi_acs against its plain version on these metrics: bits and
+    packed decisions bit-equal.  Returns the kernel's bits and the count
+    of its bits that differ from the plain version's."""
+    from liquid_dsp_tpu_torch.ops.kernels.viterbi_acs import (
+        viterbi_acs, viterbi_acs_reference)
+    kb, kd = viterbi_acs(obs, fn.exp, fn.nout, decisions=True)
+    bits = viterbi_acs(obs, fn.exp, fn.nout)
+    pb, pd = viterbi_acs_reference(obs, fn.exp, fn.nout, decisions=True)
+    torch.cuda.synchronize()
+    n_diff = max(int((kb != pb).sum()), int((bits != pb).sum()))
+    check(n_diff == 0, f"viterbi_acs, {what}: {n_diff} bits differ")
+    check(torch.equal(kd, pd), f"viterbi_acs, {what}: "
+          f"{int((kd != pd).sum())} decision words differ")
+    return bits, n_diff
+
+
+def viterbi_phase(torch, dev, card):
+    """Phase 24: viterbi_acs against its plain version at the slice's
+    cases, then its times.  Returns its kernel entry (launches filled in
+    by the GMSK receiver's run)."""
+    from liquid_dsp_tpu_torch.ops.kernels.viterbi_acs import (
+        dec_smem_max, viterbi_acs, viterbi_acs_reference)
+    held, err = [], 0
+    # (scheme, N, dec_len, noise): the receiver's shape at the JAX tests'
+    # noise levels (tests/test_fec_device.py: 0.8, 1.0) and at zero, the
+    # puncturings, one and a ragged number of codewords, decisions that
+    # do not fit shared memory, all-zero metrics (every early step a tie)
+    cases = [("v27", VT_N, VT_DEC, 0.8), ("v29", VT_N, VT_DEC, 1.0),
+             ("v39", VT_N, VT_DEC, 1.0), ("v27", VT_N, VT_DEC, 0.0),
+             ("v29", VT_N, VT_DEC, 0.0), ("v27p23", 128, VT_DEC, 0.8),
+             ("v27p78", 128, VT_DEC, 0.5), ("v29p34", 128, VT_DEC, 0.8),
+             ("v29p78", 128, VT_DEC, 0.5), ("v27", 1, 1, 1.0),
+             ("v29", 37, 1, 1.0), ("v29", 8, 2000, 1.0),
+             ("v27", 64, VT_DEC, None), ("v29", 64, VT_DEC, None)]
+    for k, (scheme, N, dec_len, sigma) in enumerate(cases):
+        fn, obs, msgs = viterbi_case(torch, dev, scheme, N, dec_len, sigma,
+                                     100 + k)
+        if dec_len == 2000:
+            check(obs.shape[1] * fn.exp.shape[0] // 8 > dec_smem_max(),
+                  "the long case must leave shared memory")
+        bits, n_diff = hold_viterbi(torch, fn, obs, f"{scheme} N={N} "
+                                    f"dec_len={dec_len} noise={sigma}")
+        err = max(err, n_diff)
+        if sigma == 0.0:
+            got = np.packbits(bits.cpu().numpy().astype(np.uint8), axis=-1)
+            check(np.array_equal(got, msgs), f"viterbi_acs {scheme}: the "
+                  f"noiseless codewords do not decode to the bytes sent")
+        held.append(f"{scheme} {N}x{dec_len} "
+                    f"{'zeros' if sigma is None else sigma}")
+    print(f"viterbi_acs: kernel = plain version (bits and packed "
+          f"decisions) at " + "; ".join(held) + "; the noiseless ones "
+          f"decode to the bytes sent", flush=True)
+
+    # times: the receiver's shape, plain, kernel, kernel, plain
+    fn, obs, _ = viterbi_case(torch, dev, "v27", VT_N, VT_DEC, 0.8, 7)
+    exp, nout = fn.exp, fn.nout
+    p1, _ = time_once(lambda: viterbi_acs_reference(obs, exp, nout))
+    k1 = time_ms(lambda: viterbi_acs(obs, exp, nout), iters=VT_ITERS)
+    k2 = time_ms(lambda: viterbi_acs(obs, exp, nout), iters=VT_ITERS)
+    p2, _ = time_once(lambda: viterbi_acs_reference(obs, exp, nout))
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    vb = vt_bound(obs, exp, nout)
+    # the chain's floor: T dependent steps at one step's latency, from a
+    # lone codeword at two lengths
+    one = {}
+    for d in (8, VT_DEC):
+        f1, o1, _ = viterbi_case(torch, dev, "v27", 1, d, 0.8, 8)
+        one[d] = (o1.shape[1], time_ms(lambda: viterbi_acs(
+            o1, f1.exp, f1.nout), iters=VT_ITERS))
+    step_us = (one[VT_DEC][1] - one[8][1]) / (one[VT_DEC][0] - one[8][0]) \
+        * 1e3
+    floor_ms = obs.shape[1] * step_us / 1e3
+    print(f"timing ({card}): viterbi_acs v27 {VT_N}x{VT_DEC} bytes (T = "
+          f"{obs.shape[1]}) {ms:.4f} ms = {VT_N * nout / ms:.1f} kbit/s "
+          f"decoded (runs {k1:.4f}, {k2:.4f}; {VT_ITERS} launches each); "
+          f"plain version {plain_ms:.2f} ms (runs {p1:.2f}, {p2:.2f}); bound "
+          f"{vb['bound_ms']:.5f} ms by {vb['bound_by']}; one step's latency "
+          f"{step_us:.4f} us (one codeword at T = {one[8][0]} and "
+          f"{one[VT_DEC][0]}: {one[8][1]:.4f}, {one[VT_DEC][1]:.4f} ms), so "
+          f"the chain's floor is {floor_ms:.4f} ms", flush=True)
+    bench = []
+    for scheme in ("v27", "v29"):
+        fb, ob, _ = viterbi_case(torch, dev, scheme, VT_BENCH[0],
+                                 VT_BENCH[1], 0.8, 9)
+        tb = time_ms(lambda: viterbi_acs(ob, fb.exp, fb.nout),
+                     iters=VT_ITERS)
+        bb = vt_bound(ob, fb.exp, fb.nout)
+        bench.append(f"{scheme} {VT_BENCH[0]}x{VT_BENCH[1]} {tb:.4f} ms = "
+                     f"{VT_BENCH[0] * fb.nout / tb:.1f} kbit/s (bound "
+                     f"{bb['bound_ms']:.5f} ms by {bb['bound_by']})")
+    print(f"timing ({card}): viterbi_acs at tools/bench_viterbi.py's "
+          f"shapes: " + "; ".join(bench), flush=True)
+    return {"name": "viterbi_acs", "route": "cuda",
+            "source": "liquid_dsp_tpu_torch/csrc/viterbi_acs.cu",
+            "replaces": None,
+            "recurrence": "liquid_dsp_tpu/fec/device.py:171-271 (lax.scan)",
+            "launches": 0, "max_abs_err": float(err), "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, **vb,
+            "chain_floor_ms": floor_ms, "step_latency_us": step_us}
+
+
+def make_gmsk_stream(torch, dev, rng, cfg):
+    """The GMSK receiver's input on the card [GM_B, (GM_NBLK+1)*GM_T] and
+    the frames sent {(0, channel): [(start, header, payload)]}: the
+    frames' bits from the port's host packetizer, modulated in one batched
+    gmsk_modulator call on the card and placed GM_PER_BLOCK per channel
+    and block at random spacings longer than a frame; CFO 0.0015
+    rad/sample and phase 0.3 on the GM_CFO channels; one uncoded frame
+    (another config) on GM_FOREIGN; GM_QUIET noise-only channels; noise
+    0.005 everywhere (tests/test_gmskframe_stream.py:117-146).  Returns
+    (x, sent, foreign start, one host frame for the modulator check)."""
+    from liquid_dsp_tpu_torch.framing import gmskframe as gf
+    from liquid_dsp_tpu_torch.modem.cpm import gmsk_modulator
+    k, m = 2, 3
+    n = (GM_NBLK + 1) * GM_T
+    h0 = rng.integers(0, 256, 8).astype(np.uint8)
+    flen = len(gf._frame_bits(h0, np.zeros(GM_PL, np.uint8), m, **cfg)) * k
+    gap = GM_T // GM_PER_BLOCK - flen       # the mean gap between frames
+    frames, where, sent, fpos = [], [], {}, None
+    for c in range(GM_B - GM_QUIET):
+        pos = int(rng.integers(0, 2000))
+        while pos + flen < GM_NBLK * GM_T - 8:
+            if c == GM_FOREIGN and fpos is None and pos > GM_T:
+                fpos = pos                      # the foreign frame's slot
+            else:
+                h = rng.integers(0, 256, 8).astype(np.uint8)
+                p = rng.integers(0, 256, GM_PL).astype(np.uint8)
+                frames.append(gf._frame_bits(h, p, m, **cfg))
+                where.append((c, pos))
+                sent.setdefault((0, c), []).append((pos, h, p))
+            pos += flen + int(rng.integers(gap - 2000, gap + 2000))
+    hf = rng.integers(0, 256, 8).astype(np.uint8)
+    foreign = gf._frame_bits(hf, rng.integers(0, 256, 40).astype(np.uint8),
+                             m)
+    mod = gmsk_modulator(k, m, 0.5).to(dev)
+    bits = torch.from_numpy(np.stack(frames).astype(np.int32)).to(dev)
+    y, _ = mod(mod.init(batch_shape=(len(frames),), device=dev), bits)
+    w = torch.from_numpy(gf._ramp(k, m)).to(dev)
+    y[:, :m * k] *= w[:m * k]
+    y[:, -m * k:] *= w[m * k:]
+    x = torch.zeros(GM_B, n, dtype=torch.complex64, device=dev)
+    rows = torch.tensor([c for c, _ in where], device=dev)
+    cols = torch.tensor([s0 for _, s0 in where], device=dev)
+    idx = cols[:, None] + torch.arange(flen, device=dev)
+    x[rows[:, None], idx] = y
+    yf, _ = mod(mod.init(device=dev), torch.from_numpy(
+        foreign.astype(np.int32)).to(dev))
+    yf[:m * k] *= w[:m * k]
+    yf[-m * k:] *= w[m * k:]
+    x[GM_FOREIGN, fpos:fpos + len(yf)] = yf
+    t = torch.arange(n, dtype=torch.float32, device=dev)
+    ph = 0.0015 * t + 0.3
+    rot = torch.complex(torch.cos(ph), torch.sin(ph))
+    cfo = torch.tensor(GM_CFO, device=dev)
+    x[cfo] = x[cfo] * rot
+    g = torch.Generator(device=dev).manual_seed(25)
+    x += 0.005 * torch.complex(
+        torch.randn(x.shape, generator=g, device=dev),
+        torch.randn(x.shape, generator=g, device=dev))
+    h, p = sent[(0, where[0][0])][0][1:]
+    host = (gf.gmskframegen(h, p, **cfg), y[0].cpu().numpy())
+    return x, sent, fpos, host
+
+
+def gmsk_run(torch, dev, card, cfg, tag):
+    """Phases 25 and 26: the GMSK stream receiver at GM_B x GM_T for one
+    payload configuration.  Returns (the payload kernel's launches on the
+    run, the receiver, a carry and block for the hold and the times)."""
+    from liquid_dsp_tpu_torch.framing.gmskframe import (GMSKFRAME_H_USER,
+                                                        gmskframe_rx_stream)
+    from liquid_dsp_tpu_torch.ops.kernels.codebook_argmax import (
+        codebook_argmax)
+    from liquid_dsp_tpu_torch.ops.kernels.viterbi_acs import viterbi_acs
+    t0 = time.perf_counter()
+    x, sent, foreign_at, (fh, fd) = make_gmsk_stream(
+        torch, dev, np.random.default_rng(25), cfg)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    check(np.abs(fh - fd).max() < 1e-4, f"gmsk {tag}: the batched card "
+          f"modulator differs from gmskframegen by {np.abs(fh - fd).max()}")
+    n_frames = sum(len(v) for v in sent.values())
+    proc = gmskframe_rx_stream(GM_T, GM_PL, crc="crc32", **cfg).to(dev)
+    carry = proc.init(batch_shape=(GM_B,), device=dev)
+    counter = viterbi_acs if "fec0" in cfg else codebook_argmax
+    carries, outs = [], []
+    counter.launches = 0
+    t0 = time.perf_counter()
+    for b in range(GM_NBLK + 1):
+        carries.append(carry)
+        out, carry = proc(carry, x[:, b * GM_T:(b + 1) * GM_T])
+        outs.append(out)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = counter.launches
+    got, foreign = {}, []
+    for out in outs:
+        o = {k: v.cpu().numpy() for k, v in out._asdict().items()}
+        for c, p in zip(*np.nonzero(o["valid"])):
+            d = (int(o["sample_index"][c, p]), bool(o["hdr_ok"][c, p]),
+                 bool(o["pay_ok"][c, p]),
+                 o["hdr_bytes"][c, p, :GMSKFRAME_H_USER].astype(np.uint8),
+                 o["pay_bytes"][c, p].astype(np.uint8))
+            if c == GM_FOREIGN and abs(d[0] - foreign_at) <= 2:
+                foreign.append(d)
+            else:
+                got.setdefault((0, int(c)), []).append(d)
+    check(len(foreign) == 1 and not foreign[0][1],
+          f"gmsk {tag}: the foreign frame must come back once, hdr_ok "
+          f"False: {[(d[0], d[1]) for d in foreign]}")
+    quiet = [k for k in got if k[1] >= GM_B - GM_QUIET]
+    check(not quiet, f"gmsk {tag}: frames on noise-only channels {quiet}")
+    n_ok = check_decodes(got, sent, f"gmsk {tag} channel")
+    check(launches == GM_NBLK + 1, f"gmsk {tag}: {counter.__name__} "
+          f"launched {launches} times in {GM_NBLK + 1} blocks")
+    print(f"gmsk: gmskframe_rx_stream({GM_T}, {GM_PL}) crc32/{tag} at "
+          f"{GM_B}x{GM_T}, {GM_NBLK} carried blocks + 1 flush: {n_ok} of "
+          f"{n_frames} frames decoded once, in order, hdr_ok and pay_ok, "
+          f"header and payload bytes equal, sample_index within 2 (incl. "
+          f"{len(GM_CFO)} channels at CFO 0.0015 rad/sample); the foreign "
+          f"frame hdr_ok False; {GM_QUIET} noise-only channels: 0 frames; "
+          f"{counter.__name__} launches {launches}; the frames modulated "
+          f"in one call on the card (= gmskframegen within 1e-4), stream "
+          f"made in {t_gen:.1f} s, first pass {t_run:.2f} s", flush=True)
+    c1, x1 = carries[1], x[:, GM_T:2 * GM_T]
+    del outs, carries, x
+    return launches, proc, c1, x1
+
+
+def gmsk_times(torch, card, proc, c1, x1, tag):
+    r_ms = time_ms(lambda: proc(c1, x1), iters=10)
+    print(f"timing ({card}): gmsk {tag} receiver step {r_ms:.4f} ms per "
+          f"{GM_B}x{GM_T} block = {GM_B * GM_T / r_ms / 1e3:.1f} Msamples/s "
+          f"(10 calls)", flush=True)
+    profile_steps(torch, card, lambda: proc(c1, x1), 3,
+                  f"gmskframe_rx_stream ({tag}) step at {GM_B}x{GM_T}")
+
+
+def gmsk_phases(torch, dev, card):
+    """Phases 25-26: the GMSK stream receiver on golay2412 payloads
+    (codebook_argmax) and on v27 payloads (viterbi_acs), each kernel held
+    to its plain version on the path's own soft metrics.  Returns
+    (codebook_argmax launches, its max error, viterbi_acs launches, its
+    max error)."""
+    # 25. golay2412: the JAX tool's configuration
+    cb_launches, proc, c1, x1 = gmsk_run(torch, dev, card,
+                                         {"fec1": "golay2412"},
+                                         "none/golay2412")
+    soft = proc.soft_metrics(c1, x1)[1]
+    cw = proc.pay_dec.soft_bits(soft[..., 63 + proc.h_bits:])
+    cw = cw.reshape(-1, 24).contiguous()
+    cb_err = hold_payload_codebook(torch, cw, proc.pay_dec.bip)
+    print(f"codebook_argmax: kernel = plain on the GMSK payloads' "
+          f"{cw.shape[0]} rows (n=24, K={proc.pay_dec.bip.shape[1]})",
+          flush=True)
+    gmsk_times(torch, card, proc, c1, x1, "golay2412")
+    del proc, c1, x1, soft, cw
+    torch.cuda.empty_cache()
+
+    # 26. v27 with the same frame size (138 encoded payload bytes)
+    vt_launches, proc, c1, x1 = gmsk_run(torch, dev, card,
+                                         {"fec0": "v27", "fec1": "none"},
+                                         "v27/none")
+    soft = proc.soft_metrics(c1, x1)[1]
+    vit = proc.pay_dec.vit
+    obs = vit.obs(proc.pay_dec.llr(soft[..., 63 + proc.h_bits:]))
+    vt_err = hold_viterbi(torch, vit, obs, "the GMSK receiver's LLRs")[1]
+    print(f"viterbi_acs: kernel = plain (bits and decisions) on the GMSK "
+          f"payloads' {obs.shape[0]} codewords of T = {obs.shape[1]}",
+          flush=True)
+    gmsk_times(torch, card, proc, c1, x1, "v27")
+    del proc, c1, x1, soft, obs
+    torch.cuda.empty_cache()
+    return cb_launches, cb_err, vt_launches, float(vt_err)
+
+
+def conv_phases(torch, dev, card):
+    """Phase 27: convolutional payloads outside the GMSK receiver, and the
+    GMSK host-loop entry points on the card.  Returns viterbi_acs's
+    launches on the flexframe run."""
+    from liquid_dsp_tpu_torch.framing import gmskframe as gf
+    from liquid_dsp_tpu_torch.framing.flexframe import (
+        FLEXFRAME_H_USER, flexframe_rx_stream, flexframegen)
+    from liquid_dsp_tpu_torch.ops.kernels.viterbi_acs import viterbi_acs
+    rng = np.random.default_rng(27)
+    cfg = dict(crc="crc32", fec0="v27", fec1="none", ms="qpsk")
+    n = (CV_NBLK + 1) * CV_T
+    x = np.zeros((CV_B, n), np.complex64)
+    sent = {}
+    flen = len(flexframegen(np.zeros(14, np.uint8), np.zeros(64, np.uint8),
+                            **cfg))
+    for c in range(CV_B):
+        pos = int(rng.integers(0, 3000))
+        while pos + flen < CV_NBLK * CV_T - 8:
+            h = rng.integers(0, 256, 14).astype(np.uint8)
+            p = rng.integers(0, 256, 64).astype(np.uint8)
+            x[c, pos:pos + flen] = flexframegen(h, p, **cfg)
+            sent.setdefault((0, c), []).append((pos, h, p))
+            pos += flen + int(rng.integers(3000, 9000))
+    x += 0.005 * (rng.standard_normal(x.shape, np.float32)
+                  + 1j * rng.standard_normal(x.shape, np.float32))
+    xd = torch.from_numpy(x).to(dev)
+    proc = flexframe_rx_stream(CV_T, 64, max_frames=FF_MAX, **cfg).to(dev)
+    carry = proc.init(batch_shape=(CV_B,), device=dev)
+    viterbi_acs.launches = 0
+    got = {}
+    for b in range(CV_NBLK + 1):
+        out, carry = proc(carry, xd[:, b * CV_T:(b + 1) * CV_T])
+        o = {k: v.cpu().numpy() for k, v in out._asdict().items()}
+        for c, p in zip(*np.nonzero(o["valid"])):
+            got.setdefault((0, int(c)), []).append((
+                int(o["sample_index"][c, p]), bool(o["hdr_ok"][c, p]),
+                bool(o["pay_ok"][c, p]),
+                o["hdr_bytes"][c, p, :FLEXFRAME_H_USER].astype(np.uint8),
+                o["pay_bytes"][c, p].astype(np.uint8)))
+    launches = viterbi_acs.launches
+    n_ok = check_decodes(got, sent, "flexframe v27 channel")
+    check(launches == CV_NBLK + 1, f"viterbi_acs launched {launches} times "
+          f"in {CV_NBLK + 1} flexframe blocks")
+    print(f"conv: flexframe_rx_stream({CV_T}, 64) crc32/v27/none/qpsk at "
+          f"{CV_B}x{CV_T}: {n_ok} of {sum(len(v) for v in sent.values())} "
+          f"frames decoded once with the bytes sent; viterbi_acs launches "
+          f"{launches}", flush=True)
+    del xd, proc, carry
+
+    # gmskframesync on the goldens, GMSKFrameSync on mixed configs
+    gfr = golden_frames()
+    gold = dict(np.load(os.path.join(ROOT, "tests", "golden",
+                                     "flexframe_golden.npz")))
+    for tag, nb, seed in (("gmsk_a", 40, 77), ("gmsk_b", 64, 91)):
+        rl = int(gold[tag + "_len"][0])
+        r = gf.gmskframesync(np.concatenate([
+            np.zeros(40, np.complex64), gold[tag][:rl],
+            np.zeros(40, np.complex64)]))
+        check(r.crc_ok and np.array_equal(r.header, gfr.lcg_bytes(8, seed))
+              and np.array_equal(r.payload, gfr.lcg_bytes(nb, seed + 1)),
+              f"gmskframesync: {tag} not decoded")
+    parts, want = [], []
+    for n_p, f0, f1 in ((40, "none", "none"), (60, "none", "golay2412"),
+                        (25, "v27", "none")):
+        h = rng.integers(0, 256, 8).astype(np.uint8)
+        p = rng.integers(0, 256, n_p).astype(np.uint8)
+        parts += [np.zeros(900, np.complex64),
+                  gf.gmskframegen(h, p, fec0=f0, fec1=f1)]
+        want.append((h, p))
+    fs = gf.GMSKFrameSync()
+    check(fs.device.type == "cuda", f"GMSKFrameSync on {fs.device}")
+    res = fs.execute(np.concatenate(parts)) + fs.flush()
+    check(len(res) == 3 and all(
+        r[1] and r[3] and np.array_equal(r[0], h) and np.array_equal(r[2], p)
+        for r, (h, p) in zip(res, want)), "GMSKFrameSync: mixed configs")
+    print("gmsk: gmskframesync on the card decodes the reference frames "
+          "gmsk_a and gmsk_b; GMSKFrameSync on the card decodes 3 frames "
+          "of 3 configs (uncoded, golay2412 on the device decoder, v27 on "
+          "the host)", flush=True)
+    return launches
 
 
 if __name__ == "__main__":

@@ -1,19 +1,20 @@
 """Kaiser lowpass design, the Kaiser length estimates, the root-Kaiser
 family, the root-raised-cosine pulse and the (root-)Nyquist prototype
-dispatch (host-side NumPy, float64), ported from
-`liquid_dsp_tpu.design.firdes` (reference src/filter/src/firdes.c:52-160,
-244-375; rkaiser.c; rrcos.c)."""
+dispatch (host-side NumPy, float64) and the GMSK transmit and receive
+pulses, ported from `liquid_dsp_tpu.design.firdes` (reference
+src/filter/src/firdes.c:52-160, 244-375; rkaiser.c; rrcos.c; gmsk.c)."""
 from __future__ import annotations
 
 import numpy as np
 
-from .special import sinc
+from .special import qfunction, sinc
 from .windows import kaiser as kaiser_window
 from .windows import kaiser_beta_as
 
 __all__ = ["firdes_kaiser", "estimate_req_filter_len",
            "estimate_req_filter_as", "firdes_rkaiser", "firdes_arkaiser",
-           "firdes_rrcos", "firdes_prototype", "filter_autocorr",
+           "firdes_rrcos", "firdes_gmsktx", "firdes_gmskrx",
+           "firdes_prototype", "filter_autocorr",
            "filter_isi"]
 
 
@@ -165,15 +166,50 @@ def firdes_rrcos(k: int, m: int, beta: float, dt: float = 0.0) -> np.ndarray:
     return h
 
 
+def firdes_gmsktx(k: int, m: int, beta: float, dt: float = 0.0) -> np.ndarray:
+    """Gaussian transmit pulse (gmsk.c:40-81): a difference of Q
+    functions, normalized so that the integral is (pi/2) * k."""
+    _check_kmb(k, m, beta)
+    n = 2 * k * m + 1
+    t = np.arange(n, dtype=np.float64) / k - m + dt
+    c0 = 1.0 / np.sqrt(np.log(2.0))
+    h = qfunction(2 * np.pi * beta * (t - 0.5) * c0) - \
+        qfunction(2 * np.pi * beta * (t + 0.5) * c0)
+    h *= np.pi / (2.0 * np.sum(h))
+    return h * k
+
+
+def firdes_gmskrx(k: int, m: int, beta: float, dt: float = 0.0) -> np.ndarray:
+    """GMSK receive filter (gmsk.c:89-193): the frequency-domain
+    deconvolution of the transmit pulse against a Kaiser Nyquist
+    prototype, with extra stop-band shaping."""
+    _check_kmb(k, m, beta)
+    n = 2 * k * m + 1
+    delta = 1e-3
+    ht = firdes_gmsktx(k, m, beta, 0.0)
+    h_prime = firdes_prototype("kaiser", k, m, beta, 0.0)
+    g_prime = firdes_kaiser(n, (0.7 + 0.1 * beta) / k, 60.0, 0.0)
+
+    def spectrum(v):
+        return np.real(np.fft.fft(np.roll(v, -(k * m))))
+
+    H_tx, H_p, G_p = spectrum(ht), spectrum(h_prime), spectrum(g_prime)
+    H_hat = (H_p - H_p.min() + delta) / (H_tx - H_tx.min() + delta)
+    H_hat *= (G_p - G_p.min()) / G_p[0]
+    h_hat = np.fft.ifft(H_hat) * n   # the reference's unnormalized inverse
+    return np.real(np.roll(h_hat, -(k * m + 1))) / (k * n) * k * k
+
+
 _PROTOTYPES = {"arkaiser": firdes_arkaiser, "rkaiser": firdes_rkaiser,
-               "rrcos": firdes_rrcos, "rrc": firdes_rrcos}
+               "rrcos": firdes_rrcos, "rrc": firdes_rrcos,
+               "gmsktx": firdes_gmsktx, "gmskrx": firdes_gmskrx}
 
 
 def firdes_prototype(ftype: str, k: int, m: int, beta: float,
                      dt: float = 0.0) -> np.ndarray:
     """(Root-)Nyquist prototype dispatch, length 2km+1 (firdes.c:290-375):
-    the Nyquist ``kaiser`` and the root-Nyquist ``arkaiser``, ``rkaiser``
-    and ``rrcos``/``rrc``.  The other prototypes of the reference are not
+    the Nyquist ``kaiser`` and the root-Nyquist ``arkaiser``, ``rkaiser``,
+    ``rrcos``/``rrc``, ``gmsktx`` and ``gmskrx``.  The other prototypes of the reference are not
     ported yet (ROADMAP queue 1 item 5) and raise NotImplementedError."""
     ftype = ftype.lower()
     if ftype == "kaiser":

@@ -23,10 +23,12 @@ constellation, byte-pack and CRC matrices) are buffers that follow
 ``.to(device)``, and a call runs where its input lies.
 `packetizer2_soft_decoder` decodes the two-stage flexframe header (a
 hamming84 codebook, then SECDED syndromes) the same way.  The
-convolutional decoders are ROADMAP queue 1 item 4b: they check their
-configuration as the JAX package does (ValueError, which the flexframe
-receivers take as "not a conv config") and raise NotImplementedError
-for a real convolutional one.
+convolutional decoders (`conv_soft_decoder`, `conv_packet_soft_decoder`,
+`qpacket_conv_soft_decoder`) depuncture by a static scatter and run the
+hand-written `viterbi_acs` kernel on the card; they raise ValueError for
+a configuration that is not one conv stage plus 'none' (the flexframe
+and GMSK receivers take it as "not a conv config") and for v615, which
+stays a host decode.
 
 Reference analogs: src/fec/src/fec.c soft decode dispatch,
 qpacketmodem_decode_soft src/framing/src/qpacketmodem.c:297-316.
@@ -40,7 +42,10 @@ import torch
 from torch import nn
 
 from ..ops.kernels.codebook_argmax import codebook_argmax
+from ..ops.kernels.viterbi_acs import viterbi_acs
 from .block import _GCOLS, _SECDED, _code_matrices, _secded_cols
+from .conv import (_parse, _trellis, conv_depuncture_index,
+                   conv_get_enc_msg_length)
 from .crc import crc_generate_key, crc_sizeof_key, crc_validate_message
 from .dispatch import CONV_SCHEMES, fec_get_enc_msg_length
 from .interleave import deinterleave_soft
@@ -192,16 +197,8 @@ def packetizer_soft_decoder(payload_len: int, crc: str = "crc24",
     device_fn = _BlockSoftDecoder(_deint_perm(enc_len), bip, ncw, n)
 
     def finish(msgs):
-        buf = _pack_msgs(np.asarray(msgs), fec1, k, ncw, dec_len)
-        nk = crc_sizeof_key(crc)
-        flat = buf.reshape(-1, dec_len)
-        ok = np.zeros(flat.shape[0], bool)
-        for r in range(flat.shape[0]):
-            key = 0
-            for b in flat[r, payload_len:payload_len + nk]:
-                key = (key << 8) | int(b)
-            ok[r] = crc_validate_message(crc, flat[r, :payload_len], key)
-        return buf[..., :payload_len], ok.reshape(buf.shape[:-1])
+        return _crc_rows(_pack_msgs(np.asarray(msgs), fec1, k, ncw, dec_len),
+                         payload_len, crc)
 
     return device_fn, finish
 
@@ -221,17 +218,11 @@ def qpacket_soft_decoder(payload_len: int, crc: str = "crc24",
     return device_fn, finish
 
 
-def _conv_unported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1 item 4b: the "
-        "convolutional codes and their device Viterbi decoder)")
-
-
 def _conv_scheme(fec0: str, fec1: str) -> str:
     """The one convolutional stage of a (fec0, fec1) pair whose other
     stage is 'none'; ValueError otherwise, as the JAX package's check
-    (`liquid_dsp_tpu/fec/device.py:284-289`), which the flexframe
-    receivers take as "not a conv config"."""
+    (`liquid_dsp_tpu/fec/device.py:284-289`), which the flexframe and
+    GMSK receivers take as "not a conv config"."""
     schemes = {fec0, fec1}
     conv = [s for s in schemes if s in CONV_SCHEMES]
     if len(conv) != 1 or (schemes - set(conv)) != {"none"}:
@@ -240,35 +231,140 @@ def _conv_scheme(fec0: str, fec1: str) -> str:
     return conv[0]
 
 
+class _ConvSoftDecoder(nn.Module):
+    """llr [..., >= n_kept] (positive = bit 1) -> bits [..., 8*dec_len]
+    int32: the static depuncture scatter (erasures = zero metric), then
+    the ACS recurrence and traceback of `viterbi_acs` (its kernel on a
+    CUDA tensor, its plain version on the CPU)."""
+
+    def __init__(self, scheme: str, dec_len: int):
+        super().__init__()
+        K, polys, _ = _parse(scheme)
+        out, _ = _trellis(K, tuple(polys))
+        self.r = len(polys)
+        self.nbits_in = 8 * dec_len + K - 1
+        self.nout = 8 * dec_len
+        keep = conv_depuncture_index(scheme, dec_len)
+        self.register_buffer("keep_idx", torch.from_numpy(keep))
+        self.register_buffer("exp", torch.from_numpy(
+            2.0 * out.astype(np.float32) - 1.0))              # [ns, 2, r]
+
+    def obs(self, llr):
+        """The depunctured metrics [M, T, r] (leading axes flattened) that
+        `viterbi_acs` decodes."""
+        llr = _on(llr, self.exp).to(torch.float32)
+        n_kept = self.keep_idx.shape[0]
+        flat = torch.zeros(llr.shape[:-1] + (self.nbits_in * self.r,),
+                           dtype=torch.float32, device=llr.device)
+        flat[..., self.keep_idx] = llr[..., :n_kept]
+        return flat.reshape(-1, self.nbits_in, self.r)
+
+    def forward(self, llr):
+        bits = viterbi_acs(self.obs(llr), self.exp, self.nout)
+        return bits.reshape(llr.shape[:-1] + (self.nout,))
+
+
 def conv_soft_decoder(scheme: str, dec_len: int):
-    """Batched soft Viterbi decoder of one convolutional scheme: not
-    ported yet.  Raises ValueError where the JAX package does (an unknown
-    scheme; v615, whose 2^14 states per step stay a host decode) and
-    NotImplementedError naming queue-1 item 4b otherwise."""
-    if scheme.lower() not in CONV_SCHEMES:
-        raise ValueError(f"unknown convolutional scheme {scheme!r}")
-    if scheme.lower().startswith("v615"):
-        raise ValueError(f"{scheme!r}: 2^14 = 16384 states per ACS step "
-                         "is host-only territory (see API_PARITY.md)")
-    _conv_unported("conv_soft_decoder")
+    """Batched soft Viterbi for a convolutional scheme: returns
+    (device_fn, enc_len) with device_fn(llr [..., >= 8*enc_len] float,
+    positive = bit 1) -> bits [..., 8*dec_len] int32, a module that runs
+    where its buffers are (``.to(device)``).
+
+    The depuncture is a static scatter (erasures are zero metrics); the
+    add-compare-select steps and the traceback are the `viterbi_acs`
+    kernel on the card (one thread block per codeword), its plain version
+    on the CPU; both keep the JAX package's device rules (the -1e9 start,
+    the strict compare, the max subtracted each step).  v615 raises
+    ValueError: its 16384 states per step stay a host decode
+    (`fec/conv.py:conv_decode`), as in the JAX package.  Reference
+    analog: fec_conv.c:225-266 (libfec's Viterbi)."""
+    K, _, _ = _parse(scheme)
+    if K > 9:
+        raise ValueError(
+            f"{scheme!r}: 2^{K - 1} = {1 << (K - 1)} states per ACS step "
+            "is host-only territory (see API_PARITY.md)")
+    return (_ConvSoftDecoder(scheme, dec_len),
+            conv_get_enc_msg_length(scheme, dec_len))
+
+
+def _crc_rows(buf: np.ndarray, payload_len: int, crc: str):
+    """(payload [..., payload_len], crc_ok [...]) of decoded packets
+    buf [..., dec_len] uint8: the host CRC check per row."""
+    nk = crc_sizeof_key(crc)
+    flat = buf.reshape(-1, buf.shape[-1])
+    ok = np.zeros(flat.shape[0], bool)
+    for r in range(flat.shape[0]):
+        key = 0
+        for b in flat[r, payload_len:payload_len + nk]:
+            key = (key << 8) | int(b)
+        ok[r] = crc_validate_message(crc, flat[r, :payload_len], key)
+    return buf[..., :payload_len], ok.reshape(buf.shape[:-1])
+
+
+class _ConvPacketDecoder(nn.Module):
+    """llr [..., >= 8*enc_len] -> bits [..., 8*dec_len] int32; with a
+    constellation, symbols [..., nsym] complex -> bits."""
+
+    def __init__(self, scheme: str, dec_len: int, enc_len: int, table=None):
+        super().__init__()
+        self.vit, vit_enc = conv_soft_decoder(scheme, dec_len)
+        assert vit_enc == enc_len
+        self.register_buffer("perm", torch.from_numpy(
+            _deint_perm(enc_len).astype(np.int64)))
+        self.register_buffer("table", None if table is None else torch.tensor(
+            np.asarray(table, np.complex64)))
+
+    def llr(self, x):
+        """The deinterleaved encoded-bit metrics [..., 8*enc_len]."""
+        if self.table is not None:
+            from ..modem.linear import demodulate_soft
+            llr = demodulate_soft(self.table, _on(x, self.table))
+            x = llr.reshape(llr.shape[:-2] + (-1,))
+        flat = _on(x, self.perm).to(torch.float32)
+        need = self.perm.shape[0]
+        if flat.shape[-1] < need:
+            flat = torch.nn.functional.pad(flat, (0, need - flat.shape[-1]))
+        return flat[..., :need][..., self.perm]
+
+    def forward(self, x):
+        return self.vit(self.llr(x))
+
+
+def _conv_packet(payload_len, crc, fec0, fec1, table=None):
+    scheme = _conv_scheme(fec0, fec1)
+    dec_len = payload_len + crc_sizeof_key(crc)
+    enc_len = packetizer_compute_enc_msg_len(payload_len, crc, fec0, fec1)
+    device_fn = _ConvPacketDecoder(scheme, dec_len, enc_len, table)
+
+    def finish(bits):
+        buf = np.packbits(np.asarray(bits, np.uint8), axis=-1)[..., :dec_len]
+        return _crc_rows(buf, payload_len, crc)
+
+    return device_fn, finish
 
 
 def conv_packet_soft_decoder(payload_len: int, crc: str = "crc32",
                              fec0: str = "v27", fec1: str = "none"):
-    """(device_fn, finish) for one convolutional stage plus 'none': the
-    configuration is checked as in the JAX package (ValueError), then the
-    decoder raises NotImplementedError (queue-1 item 4b)."""
-    conv_soft_decoder(_conv_scheme(fec0, fec1),
-                      payload_len + crc_sizeof_key(crc))
+    """(device_fn, finish) for a packetizer configuration whose coding is
+    ONE convolutional stage (the other 'none'): encode reduces to
+    interleave4(conv_encode(buf)) either way, so the device path is the
+    static deinterleave gather and the batched soft Viterbi.
+
+    device_fn(llr [..., >= 8*enc_len]) -> bits [..., 8*dec_len] int32, a
+      module (``.to(device)``);
+    finish(bits numpy) -> (payload [..., payload_len] uint8, crc_ok).
+    ValueError for any other configuration, and for v615."""
+    return _conv_packet(payload_len, crc, fec0, fec1)
 
 
 def qpacket_conv_soft_decoder(payload_len: int, crc: str = "crc32",
                               fec0: str = "v27", fec1: str = "none",
                               ms: str = "qpsk"):
-    """conv_packet_soft_decoder with the modem's soft demodulator in
-    front: ValueError for a configuration that is not one conv stage
-    plus 'none', NotImplementedError (item 4b) for one that is."""
-    conv_packet_soft_decoder(payload_len, crc, fec0, fec1)
+    """`conv_packet_soft_decoder` with the modem's exact max-log soft
+    demodulator in front: device_fn(symbols [..., nsym] complex) ->
+    bits [..., 8*dec_len] int32."""
+    from ..modem.linear import constellation
+    return _conv_packet(payload_len, crc, fec0, fec1, constellation(ms))
 
 
 class _Packetizer2SoftDecoder(nn.Module):

@@ -5,8 +5,9 @@ Reference analog: src/fec/src/packetizer.c:39-80 (lengths),
 packetizer_encode: msg -> append CRC -> fec0 encode -> interleave ->
 fec1 encode -> interleave; decode runs the plan in reverse.  The
 interleaver depth is 0 (pass-through) for a 'none' stage
-(packetizer.c:132-133).  The port's FEC dispatch has the block schemes
-(fec/dispatch.py); a convolutional or Reed-Solomon stage raises there.
+(packetizer.c:132-133).  The port's FEC dispatch has the block and
+convolutional schemes (fec/dispatch.py); a Reed-Solomon stage raises
+there.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Framing, ported from `liquid_dsp_tpu.framing`: packet modem and pilot
-sync, preamble detection, the frame64 and flexframe PHY pairs with their
-streaming receivers, the reference's header wire format and the symbol
-tracker."""
+sync, preamble detection, the frame64, flexframe and GMSK PHY pairs with
+their streaming receivers, byte packets (bpacket), the reference's header
+wire format and the symbol tracker."""
 from .qpacket import (  # noqa: F401
     qpacketmodem_frame_len, qpacketmodem_encode, qpacketmodem_decode,
     qpacketmodem_decode_soft, qpilot_pilots, qpilot_frame_len, qpilotgen,
@@ -23,4 +23,12 @@ from .flexframe import (  # noqa: F401
 from .wire import (  # noqa: F401
     crc_to_wire, fec_to_wire, modem_to_wire, crc_from_wire, fec_from_wire,
     modem_from_wire,
+)
+from .gmskframe import (  # noqa: F401
+    GMSKFRAME_H_USER, gmskframegen, gmskframesync, GMSKFrameResult,
+    GMSKFrameSync, gmskframe_rx_stream, GMSKStreamBlock,
+)
+from .bpacket import (  # noqa: F401
+    bpacketgen, bpacketsync, BPacketResult, bsync_correlate,
+    bpresync_detect, detector_cccf_detect,
 )

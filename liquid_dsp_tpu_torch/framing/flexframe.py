@@ -17,15 +17,15 @@ The transmitter is host numpy.  The receivers:
   * `flexframe_rx_stream`, the FULL receiver for one payload
     configuration in one block step: detect, sync, the two-stage header
     decode (`packetizer2_soft_decoder`), the payload decode (soft Golay
-    through the `codebook_argmax` kernel for golay2412), byte pack and
-    both CRCs; `flexframe_rx_stream_multi` for a registered set;
+    through the `codebook_argmax` kernel for golay2412, a convolutional
+    payload through the `viterbi_acs` kernel), byte pack and both CRCs;
+    `flexframe_rx_stream_multi` for a registered set;
   * `FlexFrameSync`, the callback wrapper (the reference's
     create/execute/callback object) with header-dependent payload
     geometry resolved on the host.
 The Procs run where the caller moves them (``.to(device)``);
 `flexframesync` and `FlexFrameSync`, which take host arrays, run on the
-card unless the caller passes ``device="cpu"``.  A payload that needs a
-convolutional code raises NotImplementedError (ROADMAP queue 1 item 4b).
+card unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -171,8 +171,7 @@ def _evm_db(p_rx, ms) -> float:
 def _payload_geometry(hdr):
     """(n_payload, ms, crc, fec0, fec1, p_sym_len) from a decoded header's
     control bytes; ValueError or KeyError for a wire value with no scheme
-    (a failed header, as in the reference).  A convolutional scheme
-    raises NotImplementedError (queue-1 item 4b)."""
+    (a failed header, as in the reference)."""
     ku = FLEXFRAME_H_USER
     n_payload = (int(hdr[ku + 1]) << 8) | int(hdr[ku + 2])
     ms = modem_from_wire(int(hdr[ku + 3]))
@@ -285,8 +284,7 @@ def _exp_header_fields(pl: int, crc: str, fec0: str, fec1: str, ms: str):
 def _payload_decoder(pl, crc, fec0, fec1, ms):
     """(symbols -> message indices or bits, -> (bytes, crc_ok)) modules
     for one payload config: the block decoder, else the conv decoder (a
-    ValueError from both means the config has no device decoder; a conv
-    config raises NotImplementedError, queue-1 item 4b)."""
+    ValueError from both means the config has no device decoder)."""
     try:
         dec, _ = qpacket_soft_decoder(pl, crc, fec0, fec1, ms)
     except ValueError:
@@ -404,8 +402,8 @@ def flexframe_rx_stream(block_len: int, payload_len: int,
     (FlexStreamBlock, carry'): detect-everywhere, refine, mix +
     polyphase MF, pilot sync, the TWO-stage header decode (hamming84
     codebook + SECDED syndrome matmuls, `packetizer2_soft_decoder`), the
-    payload soft decode (the `codebook_argmax` kernel for golay2412 on
-    the card), byte pack and CRC.  A frame announcing another config
+    payload soft decode (the `codebook_argmax` kernel for golay2412, the
+    `viterbi_acs` kernel for a convolutional code), byte pack and CRC.  A frame announcing another config
     comes back ``hdr_ok`` False.  The sync region covers header +
     payload: the header pilots' carrier correction extends across the
     payload as a linear phase ramp.  Reference analog: flexframesync.c
@@ -490,9 +488,9 @@ class FlexFrameSync:
     CUDA device raises).  Per block the header stage runs there; per
     frame the header decodes on the host, the payload symbols are
     gathered on the device from the raw samples this object keeps, and a
-    payload config with a device decoder (an outer block code, inner
-    'none') decodes there too, soft; others decode on the host by hard
-    decisions."""
+    payload config with a device decoder (an outer block code with inner
+    'none', or one convolutional stage up to K = 9) decodes there too,
+    soft; others decode on the host by hard decisions."""
 
     _PAD = 64   # raw-window margin around the MF gather (>= Lb)
 
@@ -521,10 +519,10 @@ class FlexFrameSync:
         self._dev_fec_cache: dict = {}
 
     def _device_decoder(self, n_payload, crc, fec0, fec1, ms):
-        """Cached device soft decoder for a payload config whose outer
-        code is a block scheme and inner code 'none' (symbols -> bytes,
-        crc_ok); None for other configs (a conv config raises
-        NotImplementedError, queue-1 item 4b)."""
+        """Cached device soft decoder (symbols -> bytes, crc_ok) for a
+        payload config whose outer code is a block scheme and inner code
+        'none', or whose one stage is a convolutional code up to K = 9
+        (the `viterbi_acs` kernel); None for other configs."""
         key = (n_payload, crc, fec0, fec1, ms)
         if key not in self._dev_fec_cache:
             try:

@@ -10,8 +10,10 @@ nearest-point search, soft demodulation exact max-log LLRs over the
 table.  The APSK, SQAM and arbitrary tables are read from the JAX
 package's data file ``liquid_dsp_tpu/modem/_tables.npz`` by path.
 
-The streaming Proc wrappers (`modem_modulator`, `modem_demodulator`) and
-DPSK are ROADMAP queue 1 item 4.
+The streaming Procs: `modem_modulator` and `modem_demodulator` (hard or
+soft) around a table, and differential PSK (`dpsk_modulator` with an
+integer phase accumulator, so that blocked streaming equals one shot;
+`dpsk_demodulator` on the phase difference of consecutive samples).
 """
 from __future__ import annotations
 
@@ -21,9 +23,13 @@ import pathlib
 import numpy as np
 import torch
 
+from ..core import Proc
+
 __all__ = ["MODEM_SCHEMES", "constellation", "bits_per_symbol",
            "gray_encode", "gray_decode", "modulate", "demodulate",
-           "demodulate_soft", "soft_to_hard"]
+           "demodulate_soft", "soft_to_hard", "phase_error",
+           "modem_modulator", "modem_demodulator", "dpsk_modulator",
+           "dpsk_demodulator"]
 
 _TABLES_NPZ = (pathlib.Path(__file__).resolve().parents[2]
                / "liquid_dsp_tpu" / "modem" / "_tables.npz")
@@ -210,3 +216,116 @@ def soft_to_hard(llrs: torch.Tensor) -> torch.Tensor:
     w = torch.tensor([1 << (m - 1 - i) for i in range(m)], dtype=torch.int32,
                      device=llrs.device)
     return ((llrs > 0).to(torch.int32) * w).sum(dim=-1, dtype=torch.int32)
+
+
+def phase_error(table, y: torch.Tensor, syms: torch.Tensor) -> torch.Tensor:
+    """The residual phase of y against its decided constellation point
+    (what a PLL tracks; reference demod_phase_error)."""
+    return torch.angle(y * modulate(table, syms).conj() + 1e-12)
+
+
+class ModemModulator(Proc):
+    """See `modem_modulator`."""
+
+    param_spec = {"table": "table"}
+
+    def __init__(self, table, name):
+        super().__init__(name)
+        self._buffer("table", np.asarray(table, np.complex64))
+
+    def init(self, batch_shape=(), dtype=torch.complex64, device=None):
+        return ()
+
+    def forward(self, carry, s):
+        return modulate(self.table, s), carry
+
+
+def modem_modulator(scheme: str = None, table=None,
+                    name: str = "modem_mod") -> ModemModulator:
+    """Streaming modulator Proc: integer symbols [..., T] -> complex64."""
+    return ModemModulator(constellation(scheme) if table is None else table,
+                          name)
+
+
+class ModemDemodulator(Proc):
+    """See `modem_demodulator`."""
+
+    param_spec = {"table": "table"}
+
+    def __init__(self, table, soft, noise_var, name):
+        super().__init__(name)
+        self._buffer("table", np.asarray(table, np.complex64))
+        self.soft, self.noise_var = bool(soft), float(noise_var)
+
+    def init(self, batch_shape=(), dtype=torch.complex64, device=None):
+        return ()
+
+    def forward(self, carry, y):
+        if self.soft:
+            return demodulate_soft(self.table, y, self.noise_var), carry
+        return demodulate(self.table, y), carry
+
+
+def modem_demodulator(scheme: str = None, table=None, soft: bool = False,
+                      noise_var: float = 1.0,
+                      name: str = "modem_demod") -> ModemDemodulator:
+    """Streaming hard (symbols) or soft (max-log LLRs [..., T, m])
+    demodulator Proc."""
+    return ModemDemodulator(constellation(scheme) if table is None
+                            else table, soft, noise_var, name)
+
+
+class DPSKModulator(Proc):
+    """See `dpsk_modulator`."""
+
+    def __init__(self, m, name):
+        super().__init__(name)
+        self.M = 1 << m
+        self._buffer("lin", gray_decode(np.arange(self.M)).astype(np.int64))
+
+    def init(self, batch_shape=(), dtype=torch.complex64, device=None):
+        # integer phase accumulator in units of 2*pi/M: exact, so blocked
+        # streaming is bit-identical to one shot
+        return torch.zeros(tuple(batch_shape), dtype=torch.int32,
+                           device=device)
+
+    def forward(self, carry, s):
+        acc = torch.remainder(carry[..., None].to(torch.int64)
+                              + torch.cumsum(self.lin[s.long()], dim=-1),
+                              self.M)
+        ph = (2 * np.pi / self.M) * acc.to(torch.float32)
+        return (torch.complex(torch.cos(ph), torch.sin(ph)),
+                acc[..., -1].to(torch.int32))
+
+
+def dpsk_modulator(m: int, name: str = "dpsk_mod") -> DPSKModulator:
+    """Differential PSK modulator: the phase accumulates per symbol
+    (reference modem_dpsk.c:66-80).  Carry: the integer phase."""
+    return DPSKModulator(m, name)
+
+
+class DPSKDemodulator(Proc):
+    """See `dpsk_demodulator`."""
+
+    def __init__(self, m, name):
+        super().__init__(name)
+        self.M = 1 << m
+        self._buffer("genc", gray_encode(np.arange(self.M)).astype(np.int64))
+
+    def init(self, batch_shape=(), dtype=torch.complex64, device=None):
+        return torch.zeros(tuple(batch_shape), dtype=torch.float32,
+                           device=device)
+
+    def forward(self, carry, y):
+        theta = torch.angle(y)
+        prev = torch.cat([carry[..., None], theta[..., :-1]], dim=-1)
+        lin = torch.remainder(torch.round((theta - prev) * self.M
+                                          / (2 * np.pi)), self.M)
+        return self.genc[lin.long()].to(torch.int32), theta[..., -1]
+
+
+def dpsk_demodulator(m: int, name: str = "dpsk_demod") -> DPSKDemodulator:
+    """Differential PSK demodulator: the phase difference of consecutive
+    samples sliced on the PSK grid (reference modem_dpsk.c:82-115).
+    Carry: the last sample's phase."""
+    return DPSKDemodulator(m, name)

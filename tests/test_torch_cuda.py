@@ -16,6 +16,8 @@ roundings, FMAs where both take them; agc_scan's log and exp are the
 module's own in both);
 pll_lms: 2e-4 with equal decisions (sincos, atan2 and the dot's order and
 association differ), the reference's stream tolerance.
+viterbi_acs: bit-equal bits and packed decisions (the same exact products,
+sums in the same order, the same max and subtraction).
 """
 import numpy as np
 import pytest
@@ -775,3 +777,174 @@ def test_fft_entry_points_take_host_arrays_to_the_card(dev, n):
     assert psd.device.type == "cuda"
     assert float((psd.cpu() - fft.spgram_psd_oneshot(
         x, 2 * n, device="cpu")).abs().max()) < 1e-3
+
+
+def _viterbi_case(dev, scheme, N, dec_len, sigma, seed):
+    """(decoder, obs on the card, the messages): N codewords of random
+    bytes at noise sigma on +-4 metrics (None: all-zero metrics)."""
+    from liquid_dsp_tpu_torch.fec.conv import conv_encode
+    from liquid_dsp_tpu_torch.fec.device import conv_soft_decoder
+    rng = np.random.default_rng(seed)
+    fn, _ = conv_soft_decoder(scheme, dec_len)
+    msgs = rng.integers(0, 256, (N, dec_len)).astype(np.uint8)
+    bits = np.stack([np.unpackbits(conv_encode(scheme, m)) for m in msgs])
+    llr = np.zeros(bits.shape, np.float32) if sigma is None else (
+        (2.0 * bits - 1.0) * 4 + sigma * rng.standard_normal(bits.shape)
+    ).astype(np.float32)
+    fn = fn.to(dev)
+    return fn, fn.obs(torch.from_numpy(llr).to(dev)), msgs
+
+
+@pytest.mark.parametrize("scheme,N,dec_len,sigma", [
+    ("v27", 512, 68, 1.0), ("v29", 512, 68, 1.0), ("v39", 512, 68, 1.0),
+    ("v27p23", 64, 68, 0.8), ("v27p78", 64, 68, 0.5), ("v29p34", 64, 68, 0.8),
+    ("v29p78", 64, 68, 0.5), ("v27", 1, 1, 1.0), ("v29", 37, 1, 1.0),
+    ("v27", 64, 68, 0.0), ("v29", 64, 68, None), ("v29", 4, 2000, 1.0)])
+def test_viterbi_acs_bit_equal_to_plain(dev, scheme, N, dec_len, sigma):
+    # the kernel against its plain version on the card: bits and the
+    # packed decisions; 2000 bytes of v29 keep the decisions in device
+    # memory (T * ns / 8 > dec_smem_max()); noiseless metrics decode the
+    # bytes sent
+    from liquid_dsp_tpu_torch.ops.kernels import viterbi_acs as vk
+    fn, obs, msgs = _viterbi_case(dev, scheme, N, dec_len, sigma,
+                                  N + dec_len)
+    n0 = vk.viterbi_acs.launches
+    bits = vk.viterbi_acs(obs, fn.exp, fn.nout)
+    kb, kd = vk.viterbi_acs(obs, fn.exp, fn.nout, decisions=True)
+    pb, pd = vk.viterbi_acs_reference(obs, fn.exp, fn.nout, decisions=True)
+    torch.cuda.synchronize()
+    assert vk.viterbi_acs.launches == n0 + 2
+    assert torch.equal(bits, pb) and torch.equal(kb, pb)
+    assert torch.equal(kd, pd)
+    if sigma == 0.0:
+        np.testing.assert_array_equal(
+            np.packbits(bits.cpu().numpy().astype(np.uint8), axis=-1), msgs)
+
+
+def test_viterbi_acs_rejects_misplaced_tensors(dev):
+    from liquid_dsp_tpu_torch.ops.kernels import viterbi_acs as vk
+    obs = torch.zeros(2, 30, 2, device=dev)
+    exp = torch.ones(64, 2, 2)
+    with pytest.raises(ValueError, match="one device"):
+        vk.viterbi_acs(obs, exp, 24)
+    with pytest.raises(ValueError, match="r in"):
+        vk.viterbi_acs(torch.zeros(2, 30, 4, device=dev),
+                       torch.ones(64, 2, 4, device=dev), 24)
+
+
+@pytest.mark.parametrize("cfg", [dict(fec1="golay2412"),
+                                 dict(fec0="v27", fec1="none")])
+def test_gmskframe_rx_stream_on_the_card_matches_the_cpu(dev, cfg):
+    # B = 4 channels x 8192-sample blocks on the card and on the CPU:
+    # valid, sample_index, bytes and both CRCs equal; the payload kernel
+    # (codebook_argmax or viterbi_acs) launched once per block
+    from liquid_dsp_tpu_torch.framing.gmskframe import (gmskframegen,
+                                                        gmskframe_rx_stream)
+    from liquid_dsp_tpu_torch.ops.kernels import viterbi_acs as vk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(len(cfg))
+    T, PL, B = 8192, 64, 4
+    x = np.zeros((B, 4 * T), np.complex64)
+    n_sent = 0
+    for b in range(B - 1):
+        pos = 500 + 900 * b
+        while pos < 3 * T - 3000:
+            h = rng.integers(0, 256, 8).astype(np.uint8)
+            p = rng.integers(0, 256, PL).astype(np.uint8)
+            f = gmskframegen(h, p, **cfg)
+            x[b, pos:pos + len(f)] = f
+            pos += len(f) + 700
+            n_sent += 1
+    x = (x * np.exp(1j * (0.0015 * np.arange(x.shape[1]) + 0.3))
+         + 0.005 * (rng.standard_normal(x.shape)
+                    + 1j * rng.standard_normal(x.shape))).astype(np.complex64)
+    cpu = gmskframe_rx_stream(T, PL, **cfg)
+    card = gmskframe_rx_stream(T, PL, **cfg).to(dev)
+    cc, cg = cpu.init(batch_shape=(B,)), card.init(batch_shape=(B,),
+                                                   device=dev)
+    counter = vk.viterbi_acs if "fec0" in cfg else cba.codebook_argmax
+    n_launch = counter.launches
+    n = 0
+    for b in range(4):
+        blk = torch.from_numpy(x[:, b * T:(b + 1) * T].copy())
+        oc, cc = cpu(cc, blk)
+        og, cg = card(cg, blk.to(dev))
+        v = oc.valid
+        for key in ("valid", "sample_index", "hdr_bytes", "hdr_ok",
+                    "pay_bytes", "pay_ok"):
+            a, g = getattr(oc, key), getattr(og, key).cpu()
+            if key not in ("valid", "sample_index"):
+                a, g = a[v], g[v]
+            assert torch.equal(a, g), (b, key)
+        assert bool((oc.hdr_ok & oc.pay_ok)[v].all())
+        n += int(v.sum())
+    assert n == n_sent
+    assert counter.launches == n_launch + 4
+
+
+def test_flexframe_conv_receiver_on_the_card_matches_the_cpu(dev):
+    # flexframe_rx_stream with a v27 payload on the card and on the CPU
+    from liquid_dsp_tpu_torch.framing.flexframe import (
+        FLEXFRAME_H_USER, flexframe_rx_stream, flexframegen)
+    from liquid_dsp_tpu_torch.ops.kernels import viterbi_acs as vk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(6)
+    T, PL = 4096, 64
+    x = np.zeros((2, 4 * T), np.complex64)
+    for chn, s0 in ((0, 700), (0, 7000), (1, 3000)):
+        h = rng.integers(0, 256, FLEXFRAME_H_USER).astype(np.uint8)
+        p = rng.integers(0, 256, PL).astype(np.uint8)
+        f = flexframegen(h, p, fec0="v27", fec1="none")
+        x[chn, s0:s0 + len(f)] = f
+    x += (0.01 * (rng.standard_normal(x.shape)
+                  + 1j * rng.standard_normal(x.shape))).astype(np.complex64)
+    cpu = flexframe_rx_stream(T, PL, fec0="v27", fec1="none")
+    card = flexframe_rx_stream(T, PL, fec0="v27", fec1="none").to(dev)
+    cc, cg = cpu.init(batch_shape=(2,)), card.init(batch_shape=(2,),
+                                                   device=dev)
+    n_launch = vk.viterbi_acs.launches
+    n = 0
+    for b in range(4):
+        blk = torch.from_numpy(x[:, b * T:(b + 1) * T].copy())
+        oc, cc = cpu(cc, blk)
+        og, cg = card(cg, blk.to(dev))
+        v = oc.valid
+        for key in ("valid", "sample_index", "hdr_bytes", "hdr_ok",
+                    "pay_bytes", "pay_ok"):
+            a, g = getattr(oc, key), getattr(og, key).cpu()
+            if key not in ("valid", "sample_index"):
+                a, g = a[v], g[v]
+            assert torch.equal(a, g), (b, key)
+        assert bool((oc.hdr_ok & oc.pay_ok)[v].all())
+        n += int(v.sum())
+    assert n == 3
+    assert vk.viterbi_acs.launches == n_launch + 4
+
+
+def test_gmsk_entry_points_default_to_the_card(dev):
+    # gmskframesync and GMSKFrameSync run on the card by default and
+    # decode the reference frames gmsk_a and gmsk_b
+    import pathlib
+    from liquid_dsp_tpu_torch.framing.gmskframe import (GMSKFrameSync,
+                                                        gmskframesync)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fg = dict(np.load(pathlib.Path(__file__).parent
+                      / "golden/flexframe_golden.npz"))
+    parts, want = [], []
+    for tag, n, seed in (("gmsk_a", 40, 77), ("gmsk_b", 64, 91)):
+        rl = int(fg[tag + "_len"][0])
+        parts += [np.zeros(600, np.complex64), fg[tag][:rl]]
+        want.append((lcg_bytes(8, seed), lcg_bytes(n, seed + 1)))
+        r = gmskframesync(np.concatenate([np.zeros(40, np.complex64),
+                                          fg[tag][:rl],
+                                          np.zeros(40, np.complex64)]))
+        assert r.crc_ok
+        np.testing.assert_array_equal(r.payload, lcg_bytes(n, seed + 1))
+    fs = GMSKFrameSync()
+    assert fs.device.type == "cuda"
+    got = fs.execute(np.concatenate(parts)) + fs.flush()
+    assert len(got) == 2
+    for (gh, hok, gp, pok, st), (h, p) in zip(got, want):
+        assert hok and pok
+        np.testing.assert_array_equal(gh, h)
+        np.testing.assert_array_equal(gp, p)

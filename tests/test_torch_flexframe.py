@@ -177,15 +177,18 @@ def test_flexframe_sync_mixed_schemes_straddling_blocks():
 
 
 def test_conv_payload_raises_naming_4b():
+    # (named when the convolutional payloads still raised; a test whose
+    # check changes keeps its name) the conv payloads are ported: the
+    # generator and the full receivers take them (their parity with the
+    # JAX package: test_conv_payload_receivers_match_jax); a config with
+    # no device decoder still raises ValueError
     rng = np.random.default_rng(3)
     h, p, _ = _mkframe(rng, 8)
-    with pytest.raises(NotImplementedError, match="4b"):
-        flexframegen(h, p, fec1="v27")
-    with pytest.raises(NotImplementedError, match="4b"):
-        flexframe_rx_stream(2048, 32, fec0="v27", fec1="none")
-    with pytest.raises(NotImplementedError, match="4b"):
-        flexframe_rx_stream_multi(2048, [(32, "crc32", "v27", "none",
-                                          "qpsk")])
+    f = flexframegen(h, p, fec1="v27")
+    np.testing.assert_allclose(f, jff.flexframegen(h, p, fec1="v27"),
+                               atol=1e-5)
+    flexframe_rx_stream(2048, 32, fec0="v27", fec1="none")
+    flexframe_rx_stream_multi(2048, [(32, "crc32", "v27", "none", "qpsk")])
     with pytest.raises(ValueError):
         flexframe_rx_stream(2048, 32, fec0="secded7264", fec1="hamming84")
 
@@ -298,8 +301,9 @@ def test_flexframe_rx_stream_matches_jax():
 
 
 def test_flexframe_rx_stream_multi_matches_jax():
-    # the registered set without a conv config (the port raises for one,
-    # queue-1 item 4b); one frame of an unregistered config
+    # the registered set of block configs (conv configs:
+    # test_conv_payload_receivers_match_jax); one frame of an
+    # unregistered config
     configs = [(48, "crc32", "none", "golay2412", "qpsk"),
                (96, "crc16", "none", "hamming128", "qam16"),
                (24, "crc24", "none", "hamming74", "psk8")]
@@ -328,3 +332,52 @@ def test_flexframe_rx_stream_multi_matches_jax():
             np.testing.assert_array_equal(d["hdr_bytes"][:FLEXFRAME_H_USER],
                                           h)
             np.testing.assert_array_equal(d["pay_bytes"][:len(p)], p)
+
+
+@pytest.mark.parametrize("fec0,fec1,ms", [("v27", "none", "qpsk"),
+                                          ("none", "v29p34", "qam16")])
+def test_conv_payload_receivers_match_jax(fec0, fec1, ms):
+    # a v27 and a v29p34 payload through flexframe_rx_stream, the
+    # registered-set receiver (with a block config beside it) and
+    # FlexFrameSync (the device conv decoder): the JAX package's decodes
+    cfg = (24, "crc32", fec0, fec1, ms)
+    configs = [cfg, (24, "crc32", "none", "golay2412", "qpsk")]
+    rng = np.random.default_rng(zlib_seed(fec0, fec1))
+    T = 2048
+    frames = [_mkframe(rng, 24, crc="crc32", fec0=fec0, fec1=fec1, ms=ms)
+              for _ in range(2)]
+    h, p = frames[0][0], frames[0][1]
+    np.testing.assert_allclose(
+        frames[0][2], jff.flexframegen(h, p, crc="crc32", fec0=fec0,
+                                       fec1=fec1, ms=ms), atol=1e-5)
+    x, starts = _stream(rng, frames, [900, 1300], tail=2000, noise=0.004,
+                        T=T)
+    for proc, jproc, keys in (
+            (flexframe_rx_stream(T, *cfg), jff.flexframe_rx_stream(T, *cfg),
+             RX_KEYS),
+            (flexframe_rx_stream_multi(T, configs),
+             jff.flexframe_rx_stream_multi(T, configs),
+             RX_KEYS + ("cfg_idx",))):
+        found = _drain_both(proc, jproc, x, T, keys)
+        assert len(found) == 2
+        for d, (hs, ps, _), s0 in zip(found, frames, starts):
+            assert abs(int(d["sample_index"]) - s0) <= 2
+            assert d["hdr_ok"] and d["pay_ok"]
+            np.testing.assert_array_equal(d["pay_bytes"][:24], ps)
+    got = _run_sync(x)
+    fs = jff.FlexFrameSync(block_len=4096)
+    want = fs.execute(x) + fs.flush()
+    assert len(got) == len(want) == 2
+    assert fs._dev_fec_cache[cfg] is not None
+    for (gh, hok, gp, pok, st), (jh, jhok, jp, jpok, jst), (hs, ps, _) in zip(
+            got, want, frames):
+        assert hok and pok and jhok and jpok
+        np.testing.assert_array_equal(gh, jh)
+        np.testing.assert_array_equal(gp, jp)
+        np.testing.assert_array_equal(gp, ps)
+        assert st["sample_index"] == jst["sample_index"]
+
+
+def zlib_seed(*parts):
+    import zlib
+    return zlib.crc32("-".join(parts).encode())

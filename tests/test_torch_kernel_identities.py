@@ -32,6 +32,15 @@ tests hold to the JAX package):
   TF32 split (TF32 rounding emulated on the mantissa bits) stays under
   1e-6 of rms at 144 taps where one TF32 product alone does not.
 
+* viterbi_acs (csrc/viterbi_acs.cu): one thread per next state reads its
+  two predecessors p0 = s >> 1 and p0 + ns/2; the metrics stay
+  unnormalized in a double buffer and the state max M of the last step
+  is subtracted when they are read, which is the plain version's
+  normalized metric with the same roundings; the warps' maxima give M;
+  the decisions packed by warp (word s >> 5, bit s & 31, one word per
+  warp and step) and the traceback's read of them, walked in numpy over
+  64-step tiles, give the plain version's packed decisions and bits.
+
 Inputs are seeded numpy; T <= 1024.
 """
 import numpy as np
@@ -42,6 +51,7 @@ from liquid_dsp_tpu_torch.modem import constellation
 from liquid_dsp_tpu_torch.ops.kernels import mix_fir_decim as mfd
 from liquid_dsp_tpu_torch.ops.kernels import pll_lms as pk
 from liquid_dsp_tpu_torch.ops.kernels import symsync_scan as sk
+from liquid_dsp_tpu_torch.ops.kernels import viterbi_acs as vk
 
 PLL_KW = dict(alpha=0.05, beta2=0.5 * 0.05 ** 2, mu=0.05)
 
@@ -622,3 +632,73 @@ def test_three_tf32_products_hold_1e_6_where_one_does_not():
              + wh.astype(d) @ gh.astype(d))
     assert np.abs(three - exact).max() / rms < 1e-6
     assert np.abs(one - exact).max() / rms > 1e-4
+
+
+
+def _viterbi_walk(obs, exp, nout, tile=64):
+    """csrc/viterbi_acs.cu's walk for one codeword in float32 numpy:
+    (bits [nout], packed decisions [T, ns/32] int32)."""
+    T, R = obs.shape
+    ns = exp.shape[0]
+    half, nw = ns // 2, ns // 32
+    s = np.arange(ns)
+    p0, p1, b = s >> 1, (s >> 1) + half, s & 1
+    e0, e1 = exp[p0, b], exp[p1, b]                     # registers
+    f32 = np.float32
+    pm = np.zeros((2, ns), f32)
+    pm[0] = np.where(s == 0, f32(0), f32(vk.NEG))
+    M, cur = f32(0), 0
+    dec = np.zeros((T, nw), np.uint32)
+    for t0 in range(0, T, tile):                        # staged tiles
+        ob = obs[t0:t0 + tile]
+        for tt in range(len(ob)):
+            bm0, bm1 = e0[:, 0] * ob[tt, 0], e1[:, 0] * ob[tt, 0]
+            for k in range(1, R):
+                bm0 = (bm0 + e0[:, k] * ob[tt, k]).astype(f32)
+                bm1 = (bm1 + e1[:, k] * ob[tt, k]).astype(f32)
+            c0 = ((pm[cur, p0] - M).astype(f32) + bm0).astype(f32)
+            c1 = ((pm[cur, p1] - M).astype(f32) + bm1).astype(f32)
+            j = c1 > c0
+            nxt = cur ^ 1
+            pm[nxt] = np.where(j, c1, c0)
+            wmax = pm[nxt].reshape(nw, 32).max(axis=1)  # warp shuffles
+            # __ballot_sync: lane l's vote is bit l of its warp's word
+            dec[t0 + tt] = (j.reshape(nw, 32).astype(np.uint64)
+                            << np.arange(32, dtype=np.uint64)).sum(1)
+            M, cur = wmax.max(), nxt                    # after the sync
+    bits = np.zeros(T, np.int32)
+    st = 0
+    for t in range(T - 1, -1, -1):                      # thread 0
+        w = int(dec[t, st >> 5])
+        bits[t] = st & 1
+        st = (st >> 1) + ((w >> (st & 31)) & 1) * half
+    return bits[:nout], dec.view(np.int32)
+
+
+@pytest.mark.parametrize("scheme,dec_len,sigma", [
+    ("v27", 9, 1.0), ("v27", 9, None), ("v29", 8, 2.0), ("v39", 8, 0.8),
+    ("v29p34", 9, 1.5), ("v27p78", 10, None)])
+def test_viterbi_acs_walk_equals_plain(scheme, dec_len, sigma):
+    from liquid_dsp_tpu_torch.fec.conv import conv_encode
+    from liquid_dsp_tpu_torch.fec.device import conv_soft_decoder
+    rng = np.random.default_rng(dec_len)
+    dec_fn, _ = conv_soft_decoder(scheme, dec_len)
+    rows = []
+    for _ in range(3):
+        bits = np.unpackbits(conv_encode(
+            scheme, rng.integers(0, 256, dec_len).astype(np.uint8)))
+        llr = np.zeros(len(bits), np.float32) if sigma is None else (
+            (2.0 * bits - 1.0) * 4 + sigma * rng.standard_normal(len(bits))
+        ).astype(np.float32)
+        rows.append(llr)
+    obs = dec_fn.obs(torch.from_numpy(np.stack(rows)))
+    assert obs.shape[1] > 64                  # more than one staged tile
+    ref_bits, ref_dec = vk.viterbi_acs_reference(obs, dec_fn.exp,
+                                                 dec_fn.nout, decisions=True)
+    for n in range(3):
+        bits, dec = _viterbi_walk(obs[n].numpy(), dec_fn.exp.numpy(),
+                                  dec_fn.nout)
+        np.testing.assert_array_equal(bits, ref_bits[n].numpy())
+        np.testing.assert_array_equal(dec, ref_dec[n].numpy())
+    np.testing.assert_array_equal(ref_bits.numpy(),
+                                  dec_fn(torch.from_numpy(np.stack(rows))))
