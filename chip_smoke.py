@@ -164,11 +164,37 @@ Then the convolutional codes and the GMSK frame family:
      reference frames gmsk_a and gmsk_b; GMSKFrameSync on the card
      decodes three frames of three configurations.
 
+Then OFDM (64 subcarriers, cyclic prefix 16):
+
+ 28. ofdmflex_rx_stream(32768, 64) (crc32 / none / golay2412 / qpsk, 8
+     slots) at 128 channels, 3 carried blocks + a flush: the frames'
+     grids from the port's host packetizer, modulated in one batched
+     inverse FFT on the card (one frame held to ofdmflexframegen within
+     1e-5), 3 frames per channel and block on 120 channels (some across
+     block boundaries), 8 of them at CFO 0.002 rad/sample and phase 0.3,
+     one qam16 frame (must come back hdr_ok False), 8 noise-only
+     channels, noise 0.01.  Every frame decodes once, in order, hdr_ok
+     and pay_ok, header and payload bytes equal, its S1 timing within 2
+     of its start and the coarse sample_index on its S0 plateau;
+     codebook_argmax launched twice per block (header and payload) and
+     bit-equal to its plain version on the path's own soft bits, timed
+     there against its bound; the step's time (CUDA events) and profile;
+ 29. OFDMFlexFrameSync on the card over six frames of six configs
+     (golay2412 on codebook_argmax, v27 on viterbi_acs, hamming74 on the
+     device einsum, uncoded on the host): every frame with the bytes
+     sent, each kernel launched once per such payload and held to its
+     plain version on the payload's own symbols;
+ 30. ofdm_frame_sync on the card on the reference frame offg_a (S1 found
+     where the CPU finds it, the header's bytes), ofdm_detector_stream on
+     the card against the CPU on offg_a in noise, ofdmflexframesync on
+     the card decoding offg_a and offg_b.
+
 The JSON line before the card's name lists all seven kernels, each with
 its launches on its main path (codebook_argmax also per path, in
 "launches_by_path": frame64 receiver, scanner, flexframe receiver, GMSK
-receiver; viterbi_acs on the GMSK receiver with v27 payloads and on the
-flexframe receiver; each counted from 0 over its own run), its error
+receiver, OFDM receiver, OFDMFlexFrameSync; viterbi_acs on the GMSK
+receiver with v27 payloads, on the flexframe receiver and on
+OFDMFlexFrameSync; each counted from 0 over its own run), its error
 against the plain version (for viterbi_acs the count of decoded bits that
 differ), its time,
 the plain version's, the time of one PyTorch call for the same function
@@ -242,6 +268,13 @@ GM_PER_BLOCK = 3            # frames per channel and block
 GM_CFO = tuple(range(1, 9))  # CFO 0.0015 rad/sample, phase 0.3
 GM_FOREIGN = 9              # also carries a frame of another config
 CV_B, CV_T, CV_NBLK = 16, 1 << 15, 3    # flexframe with a v27 payload
+OF_B, OF_T, OF_NBLK = 128, 1 << 15, 3   # the OFDM flexframe receiver
+OF_PL, OF_MAX, OF_QUIET = 64, 8, 8      # payload bytes; slots; noise only
+OF_PER_BLOCK = 3            # frames per channel and block
+OF_CFO = tuple(range(1, 9))  # CFO 0.002 rad/sample, phase 0.3
+OF_FOREIGN = 9              # also carries a frame of another config
+OF_S1 = 2 * 80 + 16         # S1's body after the frame start (M=64, cp=16)
+OF_PLATEAU = 2 * 80 - 64    # the S0 plateau: coarse index in [s0, s0 + 96]
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores
 
@@ -613,17 +646,25 @@ def main():
     took("phases 25-26")
     cv_launches = conv_phases(torch, dev, card)
     took("phase 27")
+    of_cb, of_cb_err = ofdm_stream_phase(torch, dev, card)
+    took("phase 28")
+    fs_cb, fs_vt, fs_vt_err = ofdm_sync_phases(torch, dev, card)
+    took("phases 29-30")
     cb = next(k for k in kernels if k["name"] == "codebook_argmax")
     # each path's run, its counts set to 0 just before it
     cb["launches_by_path"] = {"framesync64_stream_full": cb["launches"],
                               "wideband_scanner": sc_launches,
                               "flexframe_rx_stream": ff_launches,
-                              "gmskframe_rx_stream": gm_cb}
-    cb["max_abs_err"] = max(cb["max_abs_err"], sc_err, ff_err, gm_cb_err)
+                              "gmskframe_rx_stream": gm_cb,
+                              "ofdmflex_rx_stream": of_cb,
+                              "OFDMFlexFrameSync": fs_cb}
+    cb["max_abs_err"] = max(cb["max_abs_err"], sc_err, ff_err, gm_cb_err,
+                            of_cb_err)
     vt["launches"] = gm_vt
     vt["launches_by_path"] = {"gmskframe_rx_stream": gm_vt,
-                              "flexframe_rx_stream": cv_launches}
-    vt["max_abs_err"] = max(vt["max_abs_err"], gm_vt_err)
+                              "flexframe_rx_stream": cv_launches,
+                              "OFDMFlexFrameSync": fs_vt}
+    vt["max_abs_err"] = max(vt["max_abs_err"], gm_vt_err, fs_vt_err)
     kernels.append(vt)
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -922,7 +963,8 @@ def profile_steps(torch, card, step, n, what):
     """torch.profiler over n calls of `step`: prints the device time per
     call by kernel (the 8 largest), the device operations per call and the
     busy share (device time over the host clock of the n calls, taken with
-    the profiler on: its own host work counts as idle).  One call before
+    the profiler on: its own host work counts as idle), and returns
+    {kernel name: (device ms, launches)} over the n calls.  One call before
     them is the profiler's warm-up cycle, traced and thrown away: a
     profiler's first device events can be lost while the tracing starts.
     (Host and device time stamps differ by up to a millisecond, so a
@@ -942,6 +984,7 @@ def profile_steps(torch, card, step, n, what):
           f"per call (launches per call): " + "; ".join(
               f"{name[:48]} {t / n:.3f} ({c / n:.0f})"
               for name, (t, c) in top), flush=True)
+    return by_name
 
 
 def device_profile(torch, step, n, what):
@@ -2280,6 +2323,345 @@ def conv_phases(torch, dev, card):
           "of 3 configs (uncoded, golay2412 on the device decoder, v27 on "
           "the host)", flush=True)
     return launches
+
+
+def ofdm_modulate(torch, dev, par, grids):
+    """`ofdm_generate_frame` for a batch of frames on the card: grids
+    [F, n_syms, M_data] complex64 (numpy) -> samples [F, (3 + n_syms)(M +
+    cp)] complex64, one inverse FFT for all of them."""
+    from liquid_dsp_tpu_torch.multichannel import ofdm
+    M, cp = par.M, par.cp_len
+    F, n_syms, _ = grids.shape
+    g = 1.0 / np.sqrt(par.M_pilot + par.M_data)
+    X = torch.zeros(F, n_syms, M, dtype=torch.complex64, device=dev)
+    pil = ofdm._pilot_sequence(par.M_pilot, n_syms) * g
+    X[:, :, torch.from_numpy(ofdm._pilot_order(par)).to(dev)] = \
+        torch.from_numpy(pil.astype(np.complex64)).to(dev)
+    dat = torch.from_numpy(np.nonzero(par.p == ofdm.SCTYPE_DATA)[0]).to(dev)
+    X[:, :, dat] = torch.from_numpy(grids).to(dev) * g
+    x = torch.fft.ifft(X, dim=-1) * M
+    x = torch.cat([x[..., M - cp:], x], dim=-1).reshape(F, -1)
+    pre = ofdm.ofdm_generate_frame(par, np.zeros((1, par.M_data),
+                                                 np.complex64))
+    pre = torch.from_numpy(pre[:3 * (M + cp)]).to(dev)
+    return torch.cat([pre.expand(F, -1), x], dim=-1)
+
+
+def make_ofdm_stream(torch, dev, rng):
+    """The OFDM receiver's input on the card [OF_B, (OF_NBLK+1)*OF_T] and
+    the frames sent {(0, channel): [(start, header, payload)]}: the
+    frames' data grids from the port's host packetizer
+    (`ofdmflexframe._frame_grid`), modulated in one batched inverse FFT on
+    the card (one frame held to ofdmflexframegen within 1e-5) and placed
+    OF_PER_BLOCK per channel and block at random spacings longer than a
+    frame; CFO 0.002 rad/sample and phase 0.3 on the OF_CFO channels; one
+    qam16 frame of 32 bytes (another config) on OF_FOREIGN; OF_QUIET
+    noise-only channels; noise 0.01 everywhere.  Returns (x, sent,
+    foreign start, frames across a block boundary)."""
+    from liquid_dsp_tpu_torch.framing import ofdmflexframe as off
+    from liquid_dsp_tpu_torch.multichannel.ofdm import ofdm_params
+    par = ofdm_params(64, 16)
+    n = (OF_NBLK + 1) * OF_T
+    h0, p0 = np.zeros(8, np.uint8), np.zeros(OF_PL, np.uint8)
+    flen = len(off.ofdmflexframegen(h0, p0))
+    gap = OF_T // OF_PER_BLOCK - flen       # the mean gap between frames
+    grids, where, sent, fpos = [], [], {}, None
+    for c in range(OF_B - OF_QUIET):
+        pos = int(rng.integers(0, 2000))
+        while pos + flen < OF_NBLK * OF_T - 8:
+            if c == OF_FOREIGN and fpos is None and pos > OF_T:
+                fpos = pos                      # the foreign frame's slot
+            else:
+                h = rng.integers(0, 256, 8).astype(np.uint8)
+                p = rng.integers(0, 256, OF_PL).astype(np.uint8)
+                grids.append(off._frame_grid(h, p, par))
+                where.append((c, pos))
+                sent.setdefault((0, c), []).append((pos, h, p))
+            pos += flen + int(rng.integers(gap - 2000, gap + 2000))
+    y = ofdm_modulate(torch, dev, par, np.stack(grids))
+    check(y.shape[1] == flen, f"ofdm: batched frames of {y.shape[1]} "
+          f"samples, the generator's {flen}")
+    x = torch.zeros(OF_B, n, dtype=torch.complex64, device=dev)
+    rows = torch.tensor([c for c, _ in where], device=dev)
+    cols = torch.tensor([s0 for _, s0 in where], device=dev)
+    x[rows[:, None], cols[:, None] + torch.arange(flen, device=dev)] = y
+    hf = rng.integers(0, 256, 8).astype(np.uint8)
+    yf = off.ofdmflexframegen(hf, rng.integers(0, 256, 32).astype(np.uint8),
+                              ms="qam16")
+    x[OF_FOREIGN, fpos:fpos + len(yf)] = torch.from_numpy(yf).to(dev)
+    t = torch.arange(n, dtype=torch.float32, device=dev)
+    ph = 0.002 * t + 0.3
+    cfo = torch.tensor(OF_CFO, device=dev)
+    x[cfo] = x[cfo] * torch.complex(torch.cos(ph), torch.sin(ph))
+    g = torch.Generator(device=dev).manual_seed(28)
+    x += 0.01 * torch.complex(torch.randn(x.shape, generator=g, device=dev),
+                              torch.randn(x.shape, generator=g, device=dev))
+    h, p = sent[(0, where[0][0])][0][1:]
+    err = float(np.abs(off.ofdmflexframegen(h, p)
+                       - y[0].cpu().numpy()).max())
+    check(err < 1e-5, f"ofdm: the batched card modulator differs from "
+          f"ofdmflexframegen by {err}")
+    straddle = sum(1 for _, s0 in where
+                   if s0 // OF_T != (s0 + flen - 1) // OF_T)
+    return x, sent, fpos, straddle
+
+
+def ofdm_stream_phase(torch, dev, card):
+    """Phase 28: ofdmflex_rx_stream at full width.  Returns
+    codebook_argmax's launches on its run and its max index difference
+    against the plain version on the path's soft bits."""
+    from liquid_dsp_tpu_torch.framing.ofdmflex_stream import (
+        ofdmflex_rx_stream)
+    from liquid_dsp_tpu_torch.ops.kernels.codebook_argmax import (
+        codebook_argmax)
+    t0 = time.perf_counter()
+    x, sent, foreign_at, straddle = make_ofdm_stream(
+        torch, dev, np.random.default_rng(28))
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    n_frames = sum(len(v) for v in sent.values())
+    check(straddle > 0, "ofdm: no frame across a block boundary")
+    proc = ofdmflex_rx_stream(OF_T, OF_PL, max_frames=OF_MAX).to(dev)
+    carry = proc.init(batch_shape=(OF_B,), device=dev)
+    carries, outs = [], []
+    codebook_argmax.launches = 0
+    t0 = time.perf_counter()
+    for b in range(OF_NBLK + 1):
+        carries.append(carry)
+        out, carry = proc(carry, x[:, b * OF_T:(b + 1) * OF_T])
+        outs.append(out)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = codebook_argmax.launches
+    # the S1 timing of every valid slot, from the same blocks' demod half:
+    # the frame starts OF_S1 samples before S1's body
+    starts = []
+    for b in range(OF_NBLK + 1):
+        _, det, best = proc.detect_demod(
+            carries[b], x[:, b * OF_T:(b + 1) * OF_T])[:3]
+        starts.append((carries[b]["base"][:, None] + det[1] + best
+                       - OF_S1).cpu().numpy())
+    got, foreign = {}, []
+    for out, s1 in zip(outs, starts):
+        o = {k: v.cpu().numpy() for k, v in out._asdict().items()}
+        for c, p in zip(*np.nonzero(o["valid"])):
+            d = (int(s1[c, p]), int(o["sample_index"][c, p]),
+                 bool(o["hdr_ok"][c, p]), bool(o["pay_ok"][c, p]),
+                 o["hdr_bytes"][c, p, :8].astype(np.uint8),
+                 o["pay_bytes"][c, p].astype(np.uint8))
+            if c == OF_FOREIGN and abs(d[0] - foreign_at) <= 2:
+                foreign.append(d)
+            else:
+                got.setdefault((0, int(c)), []).append(d)
+    check(len(foreign) == 1 and not foreign[0][2],
+          f"ofdm: the foreign frame must come back once, hdr_ok False: "
+          f"{[(d[0], d[2]) for d in foreign]}")
+    quiet = [k for k in got if k[1] >= OF_B - OF_QUIET]
+    check(not quiet, f"ofdm: frames on noise-only channels {quiet}")
+    off_plateau = [(k, d[1], w[0]) for k in got for d, w in
+                   zip(got[k], sent.get(k, []))
+                   if not 0 <= d[1] - w[0] <= OF_PLATEAU]
+    check(not off_plateau, f"ofdm: coarse sample_index off the S0 plateau "
+          f"(channel, index, start): {off_plateau[:5]}")
+    # check_decodes holds (S1 start, hdr_ok, pay_ok, header, payload)
+    n_ok = check_decodes({k: [(d[0],) + d[2:] for d in v]
+                          for k, v in got.items()}, sent, "ofdm channel")
+    check(launches == 2 * (OF_NBLK + 1), f"codebook_argmax launched "
+          f"{launches} times in {OF_NBLK + 1} OFDM blocks (header and "
+          f"payload: 2 each)")
+    print(f"ofdm: ofdmflex_rx_stream({OF_T}, {OF_PL}) crc32/none/golay2412/"
+          f"qpsk, M=64 cp=16, {OF_MAX} slots, at {OF_B}x{OF_T}, {OF_NBLK} "
+          f"carried blocks + 1 flush: {n_ok} of {n_frames} frames decoded "
+          f"once, in order, hdr_ok and pay_ok, header and payload bytes "
+          f"equal, the S1 start within 2 and the coarse sample_index on the "
+          f"S0 plateau (incl. {len(OF_CFO)} channels at CFO 0.002 "
+          f"rad/sample, {straddle} frames across a block boundary); the "
+          f"qam16 frame hdr_ok False; {OF_QUIET} noise-only channels: 0 "
+          f"frames; codebook_argmax launches {launches}; the frames "
+          f"modulated in one inverse FFT on the card (= ofdmflexframegen "
+          f"within 1e-5), stream made in {t_gen:.1f} s, first pass "
+          f"{t_run:.2f} s", flush=True)
+
+    # codebook_argmax against its plain version on block 1's header and
+    # payload soft bits, then its time per launch there
+    c1, x1 = carries[1], x[:, OF_T:2 * OF_T]
+    data = proc.detect_demod(c1, x1)[3]
+    cws = [proc.hdr_dec.soft_bits(proc.header_llr(data)),
+           proc.pay_dec.soft_bits(proc.payload_syms(data))]
+    errs, kms = [], []
+    for cw in cws:
+        cw = cw.reshape(-1, 24).contiguous()
+        errs.append(hold_payload_codebook(torch, cw, proc.pay_dec.bip))
+        kms.append((cw.shape[0], time_ms(
+            lambda: codebook_argmax(cw, proc.pay_dec.bip), iters=100)))
+    rows = sum(r for r, _ in kms)
+    # soft bits in, indices out, the codebook once (per launch); one
+    # multiply-add per (row, bit, codeword)
+    bip = proc.pay_dec.bip
+    cb_bound = bound(rows * 24 * 4 + rows * 4 + 2 * bip.numel() * 4,
+                     2 * rows * 24 * bip.shape[1])
+    print(f"codebook_argmax: kernel = plain on the OFDM header's "
+          f"{kms[0][0]} and payload's {kms[1][0]} rows (n=24, "
+          f"K={bip.shape[1]}); per launch ({card}, 100 launches each) "
+          f"{kms[0][1]:.4f} and {kms[1][1]:.4f} ms; the two together "
+          f"{kms[0][1] + kms[1][1]:.4f} ms against a bound of "
+          f"{cb_bound['bound_ms']:.4f} ms by {cb_bound['bound_by']}",
+          flush=True)
+    r1 = time_ms(lambda: proc(c1, x1), iters=10)
+    r2 = time_ms(lambda: proc(c1, x1), iters=10)
+    print(f"timing ({card}): ofdm receiver step {r1:.4f}, {r2:.4f} ms per "
+          f"{OF_B}x{OF_T} block = {OF_B * OF_T / r1 / 1e3:.1f}, "
+          f"{OF_B * OF_T / r2 / 1e3:.1f} Msamples/s (10 calls each)",
+          flush=True)
+    by_name = profile_steps(torch, card, lambda: proc(c1, x1), 3,
+                            f"ofdmflex_rx_stream step at {OF_B}x{OF_T}")
+    cbk = [(t, c) for k, (t, c) in by_name.items() if "codebook" in k]
+    if cbk:
+        print(f"profile ({card}): codebook_argmax inside the OFDM step "
+              f"{sum(t for t, _ in cbk) / 3:.4f} ms per step in "
+              f"{sum(c for _, c in cbk) / 3:.0f} launches", flush=True)
+    del x, outs, carries, data, cws
+    torch.cuda.empty_cache()
+    return launches, max(errs)
+
+
+def ofdm_sync_phases(torch, dev, card):
+    """Phases 29-30: OFDMFlexFrameSync on the card over mixed
+    configurations (v27 on `viterbi_acs`, golay2412 on `codebook_argmax`,
+    others on the host), then the one-shot sync, the S0 detector and
+    ofdmflexframesync on the reference frames.  Returns (codebook_argmax
+    and viterbi_acs launches on the OFDMFlexFrameSync run, viterbi_acs's
+    count of bits that differ from its plain version)."""
+    from liquid_dsp_tpu_torch.framing import ofdmflexframe as off
+    from liquid_dsp_tpu_torch.multichannel import ofdm
+    from liquid_dsp_tpu_torch.ops.kernels.codebook_argmax import (
+        codebook_argmax)
+    from liquid_dsp_tpu_torch.ops.kernels.viterbi_acs import viterbi_acs
+    # 29. the tests' mixed capture plus v27 and a second golay2412 frame,
+    # CFO 0.002 rad/sample, noise 0.01, fed in chunks of 6000
+    rng = np.random.default_rng(29)
+    cfgs = [(40, "qpsk", "none", "golay2412"),
+            (120, "qam16", "none", "hamming74"),
+            (20, "bpsk", "none", "none"), (64, "qpsk", "v27", "none"),
+            (64, "qpsk", "none", "golay2412"), (30, "qpsk", "v27", "none")]
+    cap = np.zeros(7000 * len(cfgs) + 4000, np.complex64)
+    sent = []
+    for k, (n, ms, f0, f1) in enumerate(cfgs):
+        h = rng.integers(0, 256, 8).astype(np.uint8)
+        p = rng.integers(0, 256, n).astype(np.uint8)
+        f = off.ofdmflexframegen(h, p, ms=ms, fec0=f0, fec1=f1)
+        s0 = 1000 + 7000 * k
+        cap[s0:s0 + len(f)] = f
+        sent.append((s0, h, p))
+    cap = cap * np.exp(1j * 0.002 * np.arange(len(cap)))
+    cap = (cap + 0.01 * (rng.standard_normal(len(cap)) + 1j *
+                         rng.standard_normal(len(cap)))).astype(np.complex64)
+    fs = off.OFDMFlexFrameSync(block_len=4096)
+    check(fs.device.type == "cuda", f"OFDMFlexFrameSync on {fs.device}")
+    # record what the device decoders get: the path's own symbols
+    seen = {}
+    for n, ms, f0, f1 in {c for c in cfgs if c[3] == "golay2412"
+                          or c[2] == "v27"}:
+        dfn = fs._device_decoder(n, "crc32", f0, f1, ms)[0]
+        dfn.register_forward_pre_hook(
+            lambda m, a, key=(n, f0): seen.setdefault(key, a[0]))
+    codebook_argmax.launches = viterbi_acs.launches = 0
+    res = []
+    for i in range(0, len(cap), 6000):
+        res += fs.execute(cap[i:i + 6000])
+    res += fs.flush()
+    torch.cuda.synchronize()
+    cb_launches, vt_launches = codebook_argmax.launches, viterbi_acs.launches
+    check(len(res) == len(sent), f"OFDMFlexFrameSync: {len(res)} frames "
+          f"of {len(sent)}")
+    for (s0, h, p), (gh, hok, gp, pok, st) in zip(sent, res):
+        check(hok and pok and np.array_equal(gh, h) and np.array_equal(gp, p)
+              and 0 <= st["sample_index"] - s0 <= OF_PLATEAU,
+              f"OFDMFlexFrameSync: the frame at {s0} not decoded "
+              f"({hok}, {pok}, {st['sample_index']})")
+    n_gol = sum(1 for c in cfgs if c[3] == "golay2412")
+    n_v27 = sum(1 for c in cfgs if c[2] == "v27")
+    check(cb_launches == n_gol and vt_launches == n_v27,
+          f"OFDMFlexFrameSync: codebook_argmax {cb_launches} launches for "
+          f"{n_gol} golay2412 payloads, viterbi_acs {vt_launches} for "
+          f"{n_v27} v27 payloads")
+    vt_err = 0
+    for n, ms, f0, f1 in cfgs:
+        if f0 == "v27":
+            dfn = fs._device_decoder(n, "crc32", f0, f1, ms)[0]
+            obs = dfn.vit.obs(dfn.llr(seen[(n, f0)]))
+            vt_err = max(vt_err, hold_viterbi(
+                torch, dfn.vit, obs, f"OFDMFlexFrameSync's v27 payload "
+                f"of {n} bytes")[1])
+        elif f1 == "golay2412":
+            dfn = fs._device_decoder(n, "crc32", f0, f1, ms)[0]
+            hold_payload_codebook(torch, dfn.soft_bits(seen[(n, f0)])
+                                  .reshape(-1, 24).contiguous(), dfn.bip)
+    print(f"ofdm: OFDMFlexFrameSync on the card decodes {len(res)} frames of "
+          f"{len(cfgs)} configs (golay2412 on codebook_argmax: "
+          f"{cb_launches} launches; v27 on viterbi_acs: {vt_launches} "
+          f"launches; hamming74 on the device einsum; uncoded on the host; "
+          f"the headers on the host) with the bytes sent; viterbi_acs = "
+          f"plain (bits and decisions) and codebook_argmax = plain on the "
+          f"payloads' own symbols", flush=True)
+
+    # 30. the one-shot sync and the S0 detector on the reference frame
+    # offg_a; ofdmflexframesync on offg_a and offg_b
+    gfr = golden_frames()
+    gold = dict(np.load(os.path.join(ROOT, "tests", "golden",
+                                     "flexframe_golden.npz")))
+    par = ofdm.ofdm_params(64, 16)
+    x = np.concatenate([np.zeros(30, np.complex64), gold["offg_a"],
+                        np.zeros(30, np.complex64)])
+    _, p_syms, nh, npd = off._frame_geometry(par, 64, "crc32", "none",
+                                             "golay2412", "qpsk")
+    r = ofdm.ofdm_frame_sync(par, x, nh + npd)
+    rc = ofdm.ofdm_frame_sync(par, x, nh + npd, device="cpu")
+    check(r.detected and r.sample_index == 30 + OF_S1 == rc.sample_index
+          and abs(r.cfo_hat - rc.cfo_hat) < 1e-6
+          and np.abs(r.data_syms - rc.data_syms).max() < 1e-4,
+          f"ofdm_frame_sync on offg_a: card ({r.detected}, "
+          f"{r.sample_index}, {r.cfo_hat}), CPU ({rc.sample_index}, "
+          f"{rc.cfo_hat})")
+    dec, _ = off._decode_header(r.data_syms.reshape(-1)[:8 * 36])[:2]
+    check(np.array_equal(dec[:8], gfr.lcg_bytes(8, 101)),
+          "ofdm_frame_sync on offg_a: header bytes")
+    rng = np.random.default_rng(30)
+    xs = np.zeros(4 * 4096, np.complex64)
+    xs[5000:5000 + len(gold["offg_a"])] = gold["offg_a"]
+    xs = (xs + 0.01 * (rng.standard_normal(len(xs)) + 1j *
+                       rng.standard_normal(len(xs)))).astype(np.complex64)
+    det = {}
+    for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        d = ofdm.ofdm_detector_stream(4096, par).to(where)
+        c = d.init(device=where)
+        hits = []
+        for b in range(4):
+            o, c = d(c, torch.from_numpy(xs[b * 4096:(b + 1) * 4096])
+                     .to(where))
+            v = o.valid.cpu().numpy()
+            hits += [(int(i), float(f)) for i, f in zip(
+                o.sample_index.cpu().numpy()[v], o.cfo.cpu().numpy()[v])]
+        det[key] = hits
+    check(len(det["card"]) == 1 and [i for i, _ in det["card"]]
+          == [i for i, _ in det["cpu"]]
+          and abs(det["card"][0][1] - det["cpu"][0][1]) < 1e-6
+          and 0 <= det["card"][0][0] - 5000 <= OF_PLATEAU,
+          f"ofdm_detector_stream: card {det['card']}, CPU {det['cpu']}")
+    for tag, n, seed in (("offg_a", 64, 101), ("offg_b", 40, 113)):
+        ro = off.ofdmflexframesync(np.concatenate(
+            [np.zeros(30, np.complex64), gold[tag],
+             np.zeros(30, np.complex64)]))
+        check(ro.crc_ok and np.array_equal(ro.header, gfr.lcg_bytes(8, seed))
+              and np.array_equal(ro.payload, gfr.lcg_bytes(n, seed + 1)),
+              f"ofdmflexframesync: {tag} not decoded")
+    print(f"ofdm: ofdm_frame_sync on the card finds offg_a's S1 at "
+          f"{r.sample_index} (= the CPU's; cfo within 1e-6, symbols within "
+          f"1e-4) and its header bytes; ofdm_detector_stream on the card = "
+          f"the CPU on offg_a in noise (index {det['card'][0][0]}, on the S0 "
+          f"plateau); ofdmflexframesync on the card decodes offg_a and "
+          f"offg_b with the golden's bytes", flush=True)
+    return cb_launches, vt_launches, float(vt_err)
 
 
 if __name__ == "__main__":

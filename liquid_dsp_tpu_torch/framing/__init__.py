@@ -1,7 +1,8 @@
 """Framing, ported from `liquid_dsp_tpu.framing`: packet modem and pilot
-sync, preamble detection, the frame64, flexframe and GMSK PHY pairs with
-their streaming receivers, byte packets (bpacket), the reference's header
-wire format and the symbol tracker."""
+sync, preamble detection, the frame64, flexframe, GMSK and OFDM flexframe
+PHY pairs with their streaming receivers, byte packets (bpacket), the
+reference's header wire format, the symbol tracker and the signal
+sources."""
 from .qpacket import (  # noqa: F401
     qpacketmodem_frame_len, qpacketmodem_encode, qpacketmodem_decode,
     qpacketmodem_decode_soft, qpilot_pilots, qpilot_frame_len, qpilotgen,
@@ -31,4 +32,14 @@ from .gmskframe import (  # noqa: F401
 from .bpacket import (  # noqa: F401
     bpacketgen, bpacketsync, BPacketResult, bsync_correlate,
     bpresync_detect, detector_cccf_detect,
+)
+from .ofdmflexframe import (  # noqa: F401
+    ofdmflexframegen, ofdmflexframesync, OFDMFlexResult, OFDMFlexFrameSync,
+    OFDMFLEXFRAME_H_USER,
+)
+from .ofdmflex_stream import (  # noqa: F401
+    ofdmflex_rx_stream, OFDMFlexStreamBlock, OFDMFlexStreamRX,
+)
+from .sources import (  # noqa: F401
+    symstream, msource, Symstream, Msource, FrameSyncStats, FrameDataStats,
 )

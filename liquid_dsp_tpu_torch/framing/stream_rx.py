@@ -47,6 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import debug
 from ..core import Proc
 
 __all__ = ["StreamRxBlock", "StreamRxConfig", "DetStreamBlock",
@@ -247,6 +248,7 @@ def _detect_refine(buf, last_end, dc: dict, threshold: float, P: int,
     seg_peak = _take(rxy_flat, seg_arg[..., None])[..., 0]
     seg_off = seg_arg // _DET_HOP
     n0_seg = starts + seg_arg % _DET_HOP                 # buffer position
+    debug.tap("stream_rx.seg_peak", seg_peak)           # per-segment rxy
     # a peak at p % hop == hop-1 has a +-1-sample twin in the NEXT
     # segment: keep only segments that beat both neighbours
     neg = torch.full((B, 1), float("-inf"), device=dev)
@@ -532,12 +534,15 @@ class PreambleStream(_DetectBase):
         g2 = metric.abs() / npil
         c2r, c2i = cexp_ramp(dphi2, phi2, self.region_len)
         corr = torch.complex(c2r, c2i) / torch.clamp(g2, min=1e-12)[..., None]
+        region_syms = region_rx * corr
+        debug.tap("stream_rx.dphi", dphi)
+        debug.tap("stream_rx.region_syms", region_syms)
         return StreamRxBlock(
             valid=det["valid"],
             sample_index=base[:, None] + det["n0"].to(torch.int32),
             rxy=det["peak"], gamma=gamma, dphi=dphi, phi=phi, tau=tau,
             b_idx=b_idx, off_s=off_s, dphi2=dphi2, phi2=phi2, g2=g2,
-            region_syms=region_rx * corr)
+            region_syms=region_syms)
 
 
 def preamble_stream(block_len: int, cfg: StreamRxConfig,

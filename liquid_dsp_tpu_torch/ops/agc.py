@@ -8,13 +8,14 @@ The per-sample feedback is sequential in time.  The loop needs only the
 instantaneous power p = |x|^2 (y2 = g^2 p), so the per-sample gains come
 from a real recurrence (`ops/kernels/agc_scan`: a CUDA kernel on the
 card, its plain per-sample loop on the CPU), and the signal is scaled
-elementwise outside it.  The JAX package's ``debug.tap("agc.gain")`` is
-not carried over: `debug.py` is not ported yet (ROADMAP queue 1 item 5).
+elementwise outside it.  `agc_scan` taps the gain it ends a block with
+as ``agc.gain`` (`debug.py`).
 """
 from __future__ import annotations
 
 import torch
 
+from .. import debug
 from ..core import Proc
 from .kernels.agc_scan import agc_scan as _gain_scan
 
@@ -41,6 +42,7 @@ def agc_scan(alpha, carry, x, locked: bool = False):
     {g, y2_prime}; returns (x * gains, carry')."""
     p = x.real * x.real + x.imag * x.imag if x.is_complex() else x * x
     s, c = _gains(float(alpha), carry, p, locked)
+    debug.tap("agc.gain", c["g"])      # converged gain per block
     return x * s.to(x.dtype), c
 
 

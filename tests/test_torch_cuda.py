@@ -948,3 +948,144 @@ def test_gmsk_entry_points_default_to_the_card(dev):
         assert hok and pok
         np.testing.assert_array_equal(gh, h)
         np.testing.assert_array_equal(gp, p)
+
+
+def _ofdm_stream(rng, T, B, n_blk=3):
+    """B channels of OFDM flexframes (64 bytes, golay2412, qpsk) at spaced
+    offsets, some across block boundaries, CFO 0.002 rad/sample on
+    channel 1, noise 0.01, plus a flush block."""
+    from liquid_dsp_tpu_torch.framing.ofdmflexframe import ofdmflexframegen
+    x = np.zeros((B, (n_blk + 1) * T), np.complex64)
+    n_sent = 0
+    for b in range(B - 1):
+        pos = 300 + 1100 * b
+        while pos < n_blk * T - 2500:
+            h = rng.integers(0, 256, 8).astype(np.uint8)
+            p = rng.integers(0, 256, 64).astype(np.uint8)
+            f = ofdmflexframegen(h, p)
+            x[b, pos:pos + len(f)] = f
+            pos += len(f) + 1500
+            n_sent += 1
+    x[1] *= np.exp(1j * (0.002 * np.arange(x.shape[1]) + 0.3))
+    x += 0.01 * (rng.standard_normal(x.shape)
+                 + 1j * rng.standard_normal(x.shape))
+    return x.astype(np.complex64), n_sent
+
+
+def test_ofdmflex_rx_stream_on_the_card_matches_the_cpu(dev):
+    # B = 4 channels x 4096-sample blocks on the card and on the CPU:
+    # valid and sample_index equal, the valid slots' message indices,
+    # bytes and verdicts equal, cfo within 1e-5; codebook_argmax launched
+    # twice per block (header and payload)
+    from liquid_dsp_tpu_torch.framing.ofdmflex_stream import (
+        ofdmflex_rx_stream)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T, B = 4096, 4
+    x, n_sent = _ofdm_stream(np.random.default_rng(10), T, B)
+    cpu = ofdmflex_rx_stream(T, 64, max_frames=8)
+    card = ofdmflex_rx_stream(T, 64, max_frames=8).to(dev)
+    cc, cg = cpu.init(batch_shape=(B,)), card.init(batch_shape=(B,),
+                                                   device=dev)
+    n_launch = cba.codebook_argmax.launches
+    n = 0
+    for b in range(4):
+        blk = torch.from_numpy(x[:, b * T:(b + 1) * T].copy())
+        oc, cc = cpu(cc, blk)
+        og, cg = card(cg, blk.to(dev))
+        v = oc.valid
+        for key in ("valid", "sample_index", "hdr_msgs", "pay_msgs",
+                    "hdr_bytes", "hdr_ok", "pay_bytes", "pay_ok"):
+            a, g = getattr(oc, key), getattr(og, key).cpu()
+            if key not in ("valid", "sample_index"):
+                a, g = a[v], g[v]
+            assert torch.equal(a, g), (b, key)
+        if v.any():
+            assert float((oc.cfo[v] - og.cfo.cpu()[v]).abs().max()) < 1e-5
+        assert bool((oc.hdr_ok & oc.pay_ok)[v].all())
+        n += int(v.sum())
+    assert n == n_sent
+    assert cba.codebook_argmax.launches == n_launch + 8
+
+
+def test_ofdm_kernels_bit_equal_to_plain_on_the_ofdm_paths(dev):
+    # codebook_argmax on the stream receiver's header and payload soft
+    # bits, and viterbi_acs on a v27 payload's metrics as OFDMFlexFrameSync
+    # hands them to its device decoder: bit-equal to the plain versions
+    from liquid_dsp_tpu_torch.framing.ofdmflex_stream import (
+        ofdmflex_rx_stream)
+    from liquid_dsp_tpu_torch.framing.ofdmflexframe import (
+        OFDMFlexFrameSync, ofdmflexframegen)
+    from liquid_dsp_tpu_torch.ops.kernels import viterbi_acs as vk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T, B = 4096, 4
+    x, _ = _ofdm_stream(np.random.default_rng(11), T, B)
+    proc = ofdmflex_rx_stream(T, 64, max_frames=8).to(dev)
+    c = proc.init(batch_shape=(B,), device=dev)
+    _, c = proc(c, torch.from_numpy(x[:, :T].copy()).to(dev))
+    data = proc.detect_demod(c, torch.from_numpy(x[:, T:2 * T].copy())
+                             .to(dev))[3]
+    for cw in (proc.hdr_dec.soft_bits(proc.header_llr(data)),
+               proc.pay_dec.soft_bits(proc.payload_syms(data))):
+        cw = cw.reshape(-1, 24).contiguous()
+        bip = proc.pay_dec.bip
+        assert torch.equal(cba.codebook_argmax(cw, bip),
+                           cba.codebook_argmax_reference(cw, bip))
+    rng = np.random.default_rng(12)
+    h = rng.integers(0, 256, 8).astype(np.uint8)
+    p = rng.integers(0, 256, 50).astype(np.uint8)
+    f = ofdmflexframegen(h, p, fec0="v27", fec1="none")
+    cap = np.zeros(12288, np.complex64)
+    cap[900:900 + len(f)] = f
+    cap = (cap + 0.01 * (rng.standard_normal(len(cap)) + 1j *
+                         rng.standard_normal(len(cap)))).astype(np.complex64)
+    fs = OFDMFlexFrameSync(block_len=4096)
+    dfn = fs._device_decoder(50, "crc32", "v27", "none", "qpsk")[0]
+    seen = []
+    dfn.register_forward_pre_hook(lambda m, a: seen.append(a[0]))
+    n_launch = vk.viterbi_acs.launches
+    res = fs.execute(cap) + fs.flush()
+    assert len(res) == 1 and res[0][3]
+    np.testing.assert_array_equal(res[0][2], p)
+    assert vk.viterbi_acs.launches == n_launch + 1 and len(seen) == 1
+    obs = dfn.vit.obs(dfn.llr(seen[0]))
+    kb, kd = vk.viterbi_acs(obs, dfn.vit.exp, dfn.vit.nout, decisions=True)
+    pb, pd = vk.viterbi_acs_reference(obs, dfn.vit.exp, dfn.vit.nout,
+                                      decisions=True)
+    assert torch.equal(kb, pb) and torch.equal(kd, pd)
+
+
+def test_ofdm_entry_points_default_to_the_card(dev):
+    # ofdm_frame_sync, ofdmflexframesync and OFDMFlexFrameSync run on the
+    # card by default and decode the reference frames offg_a and offg_b
+    import pathlib
+    from liquid_dsp_tpu_torch.framing.ofdmflexframe import (
+        OFDMFlexFrameSync, ofdmflexframesync)
+    from liquid_dsp_tpu_torch.multichannel.ofdm import (ofdm_frame_sync,
+                                                        ofdm_params)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fg = dict(np.load(pathlib.Path(__file__).parent
+                      / "golden/flexframe_golden.npz"))
+    x = np.concatenate([np.zeros(30, np.complex64), fg["offg_a"],
+                        np.zeros(30, np.complex64)])
+    par = ofdm_params(64, 16)
+    r, rc = ofdm_frame_sync(par, x, 20), ofdm_frame_sync(par, x, 20,
+                                                          device="cpu")
+    assert r.detected and r.sample_index == rc.sample_index == 30 + 176
+    assert abs(r.cfo_hat - rc.cfo_hat) < 1e-6
+    assert np.abs(r.data_syms - rc.data_syms).max() < 1e-4
+    parts, want = [], []
+    for tag, n, seed in (("offg_a", 64, 101), ("offg_b", 40, 113)):
+        ro = ofdmflexframesync(np.concatenate(
+            [np.zeros(30, np.complex64), fg[tag], np.zeros(30, np.complex64)]))
+        assert ro.crc_ok
+        np.testing.assert_array_equal(ro.payload, lcg_bytes(n, seed + 1))
+        parts += [np.zeros(900, np.complex64), fg[tag]]
+        want.append((lcg_bytes(8, seed), lcg_bytes(n, seed + 1)))
+    fs = OFDMFlexFrameSync()
+    assert fs.device.type == "cuda"
+    got = fs.execute(np.concatenate(parts)) + fs.flush()
+    assert len(got) == 2
+    for (gh, hok, gp, pok, st), (h, p) in zip(got, want):
+        assert hok and pok
+        np.testing.assert_array_equal(gh, h)
+        np.testing.assert_array_equal(gp, p)

@@ -44,7 +44,9 @@ def test_port_never_imports_jax_or_the_reference():
                 "framing.qpacket", "framing.stream_rx", "framing.detector",
                 "framing.frame64", "ops.kernels.symsync_scan",
                 "ops.kernels.agc_scan", "ops.kernels.pll_lms", "ops.symsync",
-                "ops.agc", "ops.equalize", "framing.symtrack"):
+                "ops.agc", "ops.equalize", "framing.symtrack", "debug",
+                "multichannel.ofdm", "framing.ofdmflexframe",
+                "framing.ofdmflex_stream", "framing.sources"):
         assert "liquid_dsp_tpu_torch." + mod in got["modules"], mod
     assert got["jax"] == [] and got["reference"] == []
     assert not got["triton"] and not got["cuda_initialized"]
