@@ -6,6 +6,8 @@ by --root:
     python3 chip_kernel_bench.py [--root DIR] [--tag NAME] [--no-steps] [--sass DIR]
     python3 chip_kernel_bench.py --ffma-rate
     python3 chip_kernel_bench.py --mma-probe
+    python3 chip_kernel_bench.py --viterbi [--root DIR] [--tag NAME] [--sass DIR]
+    python3 chip_kernel_bench.py --latency
 
 With two checkouts (this one and, say, `git archive` of its parent unpacked
 into a directory that .gitignore lists) run it in turns, one after the other,
@@ -37,6 +39,21 @@ With --mma-probe it builds fir_real's function as a product on the tensor
 cores (mma.sync in TF32, each operand split in two, three products) and
 prints its error and its time beside the port's kernel: the measurement
 behind the choice of the ordinary cores for the two FIR kernels.
+
+With --latency it measures the cycles of one instruction on a dependent
+chain, one warp alone (clock64): FADD, FMNMX, IMAD, SHFL.IDX, REDUX.MAX
+and the pair REDUX.MAX, REDUX.MIN with its FMNMX, the instructions on
+viterbi_acs's chain.
+
+With --viterbi it times only `viterbi_acs`, for the checkout given by
+--root: v27 at 512 codewords x 68 bytes (the GMSK receiver's shape), v27
+and v29 at 256 x 64 bytes (tools/bench_viterbi.py's), each over 200
+launches and twice, the same v27 launch with nout = 0 (the traceback's
+share where the kernel skips it), and one codeword at two lengths (v27:
+68 and 400 bytes, v29: 68 and 120) for one step's latency (the slope) in
+us and in cycles at the card's clock;
+with --sass DIR, cuobjdump's SASS of its kernels into
+DIR/sass_viterbi_<tag>.txt.
 
 Every line names the card and its power limit.
 """
@@ -89,6 +106,51 @@ extern "C" int ffma_rate_launch(const void* in, void* out, int blocks,
   ffma_rate<<<blocks, 128, 0, (cudaStream_t)stream>>>(
       (const float*)in, (float*)out, iters);
   return (int)cudaGetLastError();
+}
+"""
+LATENCY_SRC = r"""
+// --latency: cycles of one instruction on a dependent chain, one warp
+// alone on the card (clock64 around ITERS chained instances).
+#include <cuda_runtime.h>
+constexpr int ITERS = 4096;
+constexpr unsigned FULL = 0xffffffffu;
+template <int OP>
+__global__ void chain(const float* __restrict__ in, long long* __restrict__ cyc,
+                      float* __restrict__ out) {
+  const int lane = threadIdx.x;
+  float v = in[lane], w = in[32 + lane];
+  int k = __float_as_int(v);
+  const int src = (lane + 1) & 31;
+  const long long t0 = clock64();
+#pragma unroll 16
+  for (int it = 0; it < ITERS; ++it) {
+    if (OP == 0) v = __fadd_rn(v, w);                      // FADD
+    if (OP == 1) v = fmaxf(w, -v);                         // FMNMX
+    if (OP == 2) k = k * 3 + lane;                         // IMAD
+    if (OP == 3) v = __shfl_sync(FULL, v, src);            // SHFL.IDX
+    if (OP == 4) k = __reduce_max_sync(FULL, k) ^ lane;    // REDUX + LOP3
+    if (OP == 5) {                                         // the step's M
+      const int hi = __reduce_max_sync(FULL, k);
+      const int lo = __reduce_min_sync(FULL, k);
+      k = __float_as_int(fmaxf(__int_as_float(hi), __int_as_float(lo))) ^ lane;
+    }
+  }
+  const long long t1 = clock64();
+  out[lane] = v + __int_as_float(k);
+  if (lane == 0) cyc[OP] = t1 - t0;
+}
+extern "C" int latency_launch(const void* in, void* cyc, void* out, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto i = static_cast<const float*>(in);
+  auto c = static_cast<long long*>(cyc);
+  auto o = static_cast<float*>(out);
+  chain<0><<<1, 32, 0, s>>>(i, c, o);
+  chain<1><<<1, 32, 0, s>>>(i, c, o);
+  chain<2><<<1, 32, 0, s>>>(i, c, o);
+  chain<3><<<1, 32, 0, s>>>(i, c, o);
+  chain<4><<<1, 32, 0, s>>>(i, c, o);
+  chain<5><<<1, 32, 0, s>>>(i, c, o);
+  return static_cast<int>(cudaGetLastError());
 }
 """
 MMA_PROBE_SRC = r"""
@@ -255,6 +317,38 @@ def ffma_rate(torch, cs, build, tag):
               + "; ".join(rates), flush=True)
 
 
+def latency(torch, build, tag):
+    """--latency: the dependent latency in cycles of the instructions on
+    viterbi_acs's chain (see LATENCY_SRC), one warp alone."""
+    import ctypes
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = build.BUILD_DIR / "latency.cu"
+    src.write_text(LATENCY_SRC)
+    so = build.BUILD_DIR / "latency.so"
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
+                    str(so), str(src)], check=True, capture_output=True,
+                   text=True)
+    fn = ctypes.CDLL(str(so)).latency_launch
+    fn.argtypes = [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    dev = torch.device("cuda")
+    inp = torch.rand(64, device=dev)
+    cyc = torch.zeros(6, dtype=torch.int64, device=dev)
+    out = torch.empty(32, device=dev)
+    for _ in range(3):                      # the last run is read
+        rc = fn(inp.data_ptr(), cyc.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"latency launch failed: {rc}")
+    torch.cuda.synchronize()
+    per = (cyc.double() / 4096).tolist()
+    names = ["FADD", "FMNMX", "IMAD", "SHFL.IDX", "REDUX.MAX + LOP3",
+             "REDUX.MAX, REDUX.MIN + FMNMX + LOP3"]
+    print(f"{tag} cycles per dependent instruction (one warp): "
+          + "; ".join(f"{n} {c:.2f}" for n, c in zip(names, per)),
+          flush=True)
+
+
 def mma_probe(torch, cs, build, tag):
     """fir_real's function on the tensor cores (see MMA_PROBE_SRC): its
     error against the plain version and float64, and its time beside the
@@ -322,6 +416,82 @@ def mma_probe(torch, cs, build, tag):
               + "; ".join(out), flush=True)
 
 
+def print_ptxas(lib, tag, keys):
+    """ptxas's registers and spills for every kernel of the built library
+    whose name holds one of `keys` (from the build's log)."""
+    log = lib.with_suffix(".log").read_text().splitlines()
+    for k, ln in enumerate(log):
+        if "Compiling entry" in ln and any(key in ln for key in keys):
+            used = [u.strip() for u in log[k + 1:k + 4]
+                    if "registers" in u or "spill" in u]
+            print(f"{tag} ptxas {ln.split('function')[-1].strip()}: "
+                  f"{' | '.join(used)}", flush=True)
+
+
+def viterbi_bench(torch, cs, build, tag, name, sass_dir):
+    """--viterbi: times of viterbi_acs for this checkout (see the module
+    docstring); uses only what every checkout since its port has: the
+    wrapper, chip_smoke.viterbi_case and chip_smoke.time_ms."""
+    from liquid_dsp_tpu_torch.ops.kernels.viterbi_acs import viterbi_acs
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    lib = build.build()
+    build.load_library()
+    print(f"{tag} built in {time.perf_counter() - t0:.1f} s", flush=True)
+    print_ptxas(lib, tag, ("viterbi",))
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()[0])
+
+    def twice(fn):
+        return [cs.time_ms(fn, iters=200) for _ in range(2)]
+
+    for scheme, N, d in (("v27", 512, 68), ("v27", 256, 64),
+                         ("v29", 256, 64)):
+        fn, obs, _ = cs.viterbi_case(torch, dev, scheme, N, d, 0.8, 7)
+        a = twice(lambda: viterbi_acs(obs, fn.exp, fn.nout))
+        line = (f"{tag} viterbi_acs {scheme} {N} x {d} bytes (T = "
+                f"{obs.shape[1]}): {a[0]:.4f}, {a[1]:.4f} ms")
+        if N == 512:
+            b = twice(lambda: viterbi_acs(obs, fn.exp, 0))
+            line += (f"; nout = 0: {b[0]:.4f}, {b[1]:.4f} ms (traceback "
+                     f"{100 * (1 - sum(b) / sum(a)):.1f}%)")
+        print(line, flush=True)
+    # lengths at which the card, not the wrapper's host work, sets the
+    # launch's time; the long v29 one still keeps its decisions in
+    # shared memory
+    for scheme, lens in (("v27", (68, 400)), ("v29", (68, 120))):
+        one = []
+        for d in lens:
+            fn, obs, _ = cs.viterbi_case(torch, dev, scheme, 1, d, 0.8, 8)
+            one.append((obs.shape[1], min(twice(
+                lambda: viterbi_acs(obs, fn.exp, fn.nout)))))
+        (ta, ma), (tb, mb) = one
+        us = (mb - ma) / (tb - ta) * 1e3
+        print(f"{tag} viterbi_acs {scheme} one codeword, T = {ta} and {tb}: "
+              f"{ma:.4f}, {mb:.4f} ms; one step {us:.4f} us = "
+              f"{us * mhz:.0f} cycles at {mhz:.0f} MHz", flush=True)
+    if sass_dir:
+        out = os.path.abspath(sass_dir)
+        os.makedirs(out, exist_ok=True)
+        nvcc_dir = os.path.dirname(build._nvcc())
+        sass = subprocess.run([os.path.join(nvcc_dir, "cuobjdump"), "-sass",
+                               str(lib)], capture_output=True, text=True,
+                              timeout=600).stdout
+        keep, on = [], False
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                on = "viterbi" in ln
+            if on:
+                keep.append(ln)
+        path = os.path.join(out, f"sass_viterbi_{name}.txt")
+        with open(path, "w") as f:
+            f.write("\n".join(keep))
+        print(f"{tag} SASS of viterbi_acs's kernels: {path} ({len(keep)} "
+              f"lines)", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
@@ -330,6 +500,8 @@ def main():
     ap.add_argument("--sass", metavar="DIR")
     ap.add_argument("--ffma-rate", action="store_true")
     ap.add_argument("--mma-probe", action="store_true")
+    ap.add_argument("--viterbi", action="store_true")
+    ap.add_argument("--latency", action="store_true")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -361,18 +533,18 @@ def main():
     if args.mma_probe:
         mma_probe(torch, cs, build, tag)
         return
+    if args.latency:
+        latency(torch, build, tag)
+        return
+    if args.viterbi:
+        viterbi_bench(torch, cs, build, tag, args.tag, args.sass)
+        return
     t0 = time.perf_counter()
     lib = build.build()
     build.load_library()
-    log = lib.with_suffix(".log").read_text().splitlines()
     print(f"{tag} built {root} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for k, ln in enumerate(log):
-        if "Compiling entry" in ln and ("mix_fir" in ln or "fir_real" in ln):
-            used = [u.strip() for u in log[k + 1:k + 4]
-                    if "registers" in u or "spill" in u]
-            print(f"{tag} ptxas {ln.split('function')[-1].strip()}: "
-                  f"{' | '.join(used)}", flush=True)
+    print_ptxas(lib, tag, ("mix_fir", "fir_real"))
 
     def rel(y, ref):
         d = max(float((a.float() - b.float()).abs().max())

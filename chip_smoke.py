@@ -140,10 +140,15 @@ Then the convolutional codes and the GMSK frame family:
      GMSK receiver's shape) at noise 0.8 / 1.0 and at zero noise (which
      must decode to the bytes sent), v27p23, v27p78, v29p34, v29p78, one
      codeword and 37 of one byte, v29 at 2000 bytes (decisions in device
-     memory), all-zero metrics; times at the receiver's shape and at
-     tools/bench_viterbi.py's (256 x 64 bytes, v27 and v29) over 200
-     launches, in decoded kbit/s, beside the bound and the chain's floor
-     (T steps at one step's latency, from a lone codeword at two lengths);
+     memory), all-zero metrics, 2048 codewords (several warps a
+     scheduler), 46 steps (not a multiple of the warp form's tile), and
+     the block form at ns = 32, 512, 1024 on random +-1 tables; times at
+     the receiver's shape and at tools/bench_viterbi.py's (256 x 64
+     bytes, v27 and v29) over 200 launches, in decoded kbit/s, beside the
+     bound, the chain's floor (T steps at one step's latency, from a lone
+     codeword at two lengths, also in cycles at the card's clock), the
+     traceback's share (the launch with nout = 0 skips it) and the block
+     form's figures before (PERF.md);
  25. gmskframe_rx_stream(32768, 64) (crc32 / none / golay2412) at 128
      channels, 3 carried blocks + a flush: the frames' bits from the
      port's host packetizer, modulated in one batched gmsk_modulator call
@@ -207,6 +212,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -262,6 +268,8 @@ FF_GOLD, FF_CFO, FF_FOREIGN = 1, 2, 3   # channels with ffg_a, CFO, another
 VT_N, VT_DEC = 512, 68      # viterbi_acs at the GMSK receiver's shape
 VT_BENCH = 256, 64          # tools/bench_viterbi.py's largest batch x dec_len
 VT_ITERS = 200              # launches per viterbi_acs timing
+VT_WIDE = 2048              # codewords: several warps a scheduler
+VT_ONE = 68, 400            # bytes of the lone codeword timed for the slope
 GM_B, GM_T, GM_NBLK = 128, 1 << 15, 3   # the GMSK stream receiver
 GM_PL, GM_QUIET = 64, 8     # payload bytes; noise-only channels (the last)
 GM_PER_BLOCK = 3            # frames per channel and block
@@ -1994,14 +2002,18 @@ def viterbi_phase(torch, dev, card):
     # (scheme, N, dec_len, noise): the receiver's shape at the JAX tests'
     # noise levels (tests/test_fec_device.py: 0.8, 1.0) and at zero, the
     # puncturings, one and a ragged number of codewords, decisions that
-    # do not fit shared memory, all-zero metrics (every early step a tie)
+    # do not fit shared memory, all-zero metrics (every early step a
+    # tie); several warps a scheduler (VT_WIDE codewords) and T = 46, not
+    # a multiple of the warp form's 32-step tile or its 8-step runs
     cases = [("v27", VT_N, VT_DEC, 0.8), ("v29", VT_N, VT_DEC, 1.0),
              ("v39", VT_N, VT_DEC, 1.0), ("v27", VT_N, VT_DEC, 0.0),
              ("v29", VT_N, VT_DEC, 0.0), ("v27p23", 128, VT_DEC, 0.8),
              ("v27p78", 128, VT_DEC, 0.5), ("v29p34", 128, VT_DEC, 0.8),
              ("v29p78", 128, VT_DEC, 0.5), ("v27", 1, 1, 1.0),
              ("v29", 37, 1, 1.0), ("v29", 8, 2000, 1.0),
-             ("v27", 64, VT_DEC, None), ("v29", 64, VT_DEC, None)]
+             ("v27", 64, VT_DEC, None), ("v29", 64, VT_DEC, None),
+             ("v27", VT_WIDE, VT_DEC, 0.8), ("v29", VT_WIDE, VT_DEC, 1.0),
+             ("v39", VT_WIDE, VT_DEC, 0.0), ("v27", 16, 5, 0.8)]
     for k, (scheme, N, dec_len, sigma) in enumerate(cases):
         fn, obs, msgs = viterbi_case(torch, dev, scheme, N, dec_len, sigma,
                                      100 + k)
@@ -2017,6 +2029,14 @@ def viterbi_phase(torch, dev, card):
                   f"noiseless codewords do not decode to the bytes sent")
         held.append(f"{scheme} {N}x{dec_len} "
                     f"{'zeros' if sigma is None else sigma}")
+    # the block form (ns of 32, 512, 1024: no decoder's trellis) on
+    # random +-1 tables
+    for ns, r, N, T in ((32, 2, 64, 300), (512, 2, 64, 300),
+                        (1024, 3, 8, 200), (512, 3, 4, 900)):
+        fn, obs = vt_synthetic(torch, dev, ns, r, N, T, ns + T)
+        err = max(err, hold_viterbi(torch, fn, obs, f"ns={ns} r={r} "
+                                    f"{N}x{T} steps")[1])
+        held.append(f"ns={ns} r={r} {N}x{T} steps")
     print(f"viterbi_acs: kernel = plain version (bits and packed "
           f"decisions) at " + "; ".join(held) + "; the noiseless ones "
           f"decode to the bytes sent", flush=True)
@@ -2031,23 +2051,36 @@ def viterbi_phase(torch, dev, card):
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
     vb = vt_bound(obs, exp, nout)
     # the chain's floor: T dependent steps at one step's latency, from a
-    # lone codeword at two lengths
+    # lone codeword at two lengths, each long enough that the card and not
+    # the wrapper's host work sets the launch's time
     one = {}
-    for d in (8, VT_DEC):
+    for d in VT_ONE:
         f1, o1, _ = viterbi_case(torch, dev, "v27", 1, d, 0.8, 8)
         one[d] = (o1.shape[1], time_ms(lambda: viterbi_acs(
             o1, f1.exp, f1.nout), iters=VT_ITERS))
-    step_us = (one[VT_DEC][1] - one[8][1]) / (one[VT_DEC][0] - one[8][0]) \
-        * 1e3
+    (ta, ma), (tb, mb) = one[VT_ONE[0]], one[VT_ONE[1]]
+    step_us = (mb - ma) / (tb - ta) * 1e3
     floor_ms = obs.shape[1] * step_us / 1e3
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()[0])
+    # the traceback's share: the same launch with nothing to write skips it
+    k0 = time_ms(lambda: viterbi_acs(obs, exp, 0), iters=VT_ITERS)
     print(f"timing ({card}): viterbi_acs v27 {VT_N}x{VT_DEC} bytes (T = "
           f"{obs.shape[1]}) {ms:.4f} ms = {VT_N * nout / ms:.1f} kbit/s "
           f"decoded (runs {k1:.4f}, {k2:.4f}; {VT_ITERS} launches each); "
           f"plain version {plain_ms:.2f} ms (runs {p1:.2f}, {p2:.2f}); bound "
           f"{vb['bound_ms']:.5f} ms by {vb['bound_by']}; one step's latency "
-          f"{step_us:.4f} us (one codeword at T = {one[8][0]} and "
-          f"{one[VT_DEC][0]}: {one[8][1]:.4f}, {one[VT_DEC][1]:.4f} ms), so "
-          f"the chain's floor is {floor_ms:.4f} ms", flush=True)
+          f"{step_us:.4f} us (one codeword at T = {ta} and {tb}: "
+          f"{ma:.4f}, {mb:.4f} ms) = "
+          f"{step_us * mhz:.0f} cycles at the card's {mhz:.0f} MHz, so the "
+          f"chain's floor is {floor_ms:.4f} ms; without the traceback "
+          f"(nout = 0) {k0:.4f} ms, so the traceback is "
+          f"{100 * (1 - k0 / ms):.1f}% of the kernel; the block form "
+          f"before, measured the same way (PERF.md's kernel table, H100 "
+          f"80GB HBM3 at 700.00 W): 0.1701-0.1718 ms, 574-578 cycles a "
+          f"step on a lone codeword", flush=True)
     bench = []
     for scheme in ("v27", "v29"):
         fb, ob, _ = viterbi_case(torch, dev, scheme, VT_BENCH[0],
@@ -2066,7 +2099,20 @@ def viterbi_phase(torch, dev, card):
             "recurrence": "liquid_dsp_tpu/fec/device.py:171-271 (lax.scan)",
             "launches": 0, "max_abs_err": float(err), "ms": ms,
             "plain_ms": plain_ms, "library_ms": None, **vb,
-            "chain_floor_ms": floor_ms, "step_latency_us": step_us}
+            "chain_floor_ms": floor_ms, "step_latency_us": step_us,
+            "step_cycles": step_us * mhz, "traceback_share": 1 - k0 / ms}
+
+
+def vt_synthetic(torch, dev, ns, r, N, T, seed):
+    """(a stand-in decoder with exp [ns, 2, r] random +-1 and nout = T - 8,
+    metrics [N, T, r] normal on the card) for the trellis sizes no
+    decoder launches."""
+    rng = np.random.default_rng(seed)
+    fn = types.SimpleNamespace(
+        exp=torch.from_numpy(rng.choice(np.float32([-1, 1]), (ns, 2, r))
+                             ).to(dev), nout=T - 8)
+    return fn, torch.from_numpy(
+        rng.standard_normal((N, T, r)).astype(np.float32)).to(dev)
 
 
 def make_gmsk_stream(torch, dev, rng, cfg):

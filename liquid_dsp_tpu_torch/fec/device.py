@@ -272,7 +272,7 @@ def conv_soft_decoder(scheme: str, dec_len: int):
 
     The depuncture is a static scatter (erasures are zero metrics); the
     add-compare-select steps and the traceback are the `viterbi_acs`
-    kernel on the card (one thread block per codeword), its plain version
+    kernel on the card (one warp per codeword), its plain version
     on the CPU; both keep the JAX package's device rules (the -1e9 start,
     the strict compare, the max subtracted each step).  v615 raises
     ValueError: its 16384 states per step stay a host decode

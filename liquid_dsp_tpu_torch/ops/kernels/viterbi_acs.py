@@ -29,6 +29,10 @@ same bits and the same decisions.  The decisions are packed one bit per
 state into int32 words, bit (s & 31) of word (s >> 5) of step t
 (`tests/test_torch_kernel_identities.py` walks this layout and the
 traceback's read of it); ``decisions=True`` returns them [N, T, ns/32].
+
+The kernel decodes one codeword per warp for 64 <= ns <= 256 (every
+scheme the decoders launch: a lane holds ns/32 states, no block barrier)
+and one per thread block for ns of 32, 512 and 1024.
 """
 from __future__ import annotations
 

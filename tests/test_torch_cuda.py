@@ -799,12 +799,15 @@ def _viterbi_case(dev, scheme, N, dec_len, sigma, seed):
     ("v27", 512, 68, 1.0), ("v29", 512, 68, 1.0), ("v39", 512, 68, 1.0),
     ("v27p23", 64, 68, 0.8), ("v27p78", 64, 68, 0.5), ("v29p34", 64, 68, 0.8),
     ("v29p78", 64, 68, 0.5), ("v27", 1, 1, 1.0), ("v29", 37, 1, 1.0),
-    ("v27", 64, 68, 0.0), ("v29", 64, 68, None), ("v29", 4, 2000, 1.0)])
+    ("v27", 64, 68, 0.0), ("v29", 64, 68, None), ("v29", 4, 2000, 1.0),
+    ("v27", 2048, 68, 0.8), ("v29", 2048, 68, 1.0), ("v39", 2048, 68, 0.0),
+    ("v27", 16, 5, 0.8)])
 def test_viterbi_acs_bit_equal_to_plain(dev, scheme, N, dec_len, sigma):
     # the kernel against its plain version on the card: bits and the
     # packed decisions; 2000 bytes of v29 keep the decisions in device
     # memory (T * ns / 8 > dec_smem_max()); noiseless metrics decode the
-    # bytes sent
+    # bytes sent; 2048 codewords put several warps on each scheduler, and
+    # 5 bytes of v27 (T = 46) end inside the warp form's first tile
     from liquid_dsp_tpu_torch.ops.kernels import viterbi_acs as vk
     fn, obs, msgs = _viterbi_case(dev, scheme, N, dec_len, sigma,
                                   N + dec_len)
@@ -819,6 +822,38 @@ def test_viterbi_acs_bit_equal_to_plain(dev, scheme, N, dec_len, sigma):
     if sigma == 0.0:
         np.testing.assert_array_equal(
             np.packbits(bits.cpu().numpy().astype(np.uint8), axis=-1), msgs)
+
+
+@pytest.mark.parametrize("ns,r,N,T", [(32, 2, 64, 300), (512, 2, 64, 300),
+                                       (1024, 3, 8, 200), (512, 3, 4, 900),
+                                       (128, 2, 64, 300)])
+def test_viterbi_acs_other_trellis_sizes(dev, ns, r, N, T):
+    # the block form (ns of 32, 512, 1024) and the warp form at ns = 128
+    # (no decoder's trellis) on random +-1 tables; 900 steps at ns = 512
+    # leave shared memory
+    from liquid_dsp_tpu_torch.ops.kernels import viterbi_acs as vk
+    rng = np.random.default_rng(ns + T)
+    exp = torch.from_numpy(rng.choice(np.float32([-1, 1]), (ns, 2, r))
+                           ).to(dev)
+    obs = torch.from_numpy(rng.standard_normal((N, T, r)).astype(
+        np.float32)).to(dev)
+    kb, kd = vk.viterbi_acs(obs, exp, T - 8, decisions=True)
+    bits = vk.viterbi_acs(obs, exp, T - 8)
+    pb, pd = vk.viterbi_acs_reference(obs, exp, T - 8, decisions=True)
+    torch.cuda.synchronize()
+    assert torch.equal(bits, pb) and torch.equal(kb, pb)
+    assert torch.equal(kd, pd)
+
+
+@pytest.mark.parametrize("scheme", ["v27", "v29"])
+def test_viterbi_acs_without_bits_keeps_decisions(dev, scheme):
+    # nout = 0 skips the traceback: no bits, the same packed decisions
+    from liquid_dsp_tpu_torch.ops.kernels import viterbi_acs as vk
+    fn, obs, _ = _viterbi_case(dev, scheme, 64, 68, 0.8, 3)
+    kb, kd = vk.viterbi_acs(obs, fn.exp, 0, decisions=True)
+    _, pd = vk.viterbi_acs_reference(obs, fn.exp, 0, decisions=True)
+    torch.cuda.synchronize()
+    assert kb.shape == (64, 0) and torch.equal(kd, pd)
 
 
 def test_viterbi_acs_rejects_misplaced_tensors(dev):

@@ -32,14 +32,28 @@ tests hold to the JAX package):
   TF32 split (TF32 rounding emulated on the mantissa bits) stays under
   1e-6 of rms at 144 taps where one TF32 product alone does not.
 
-* viterbi_acs (csrc/viterbi_acs.cu): one thread per next state reads its
+* viterbi_acs's block form (csrc/viterbi_acs.cu, kept for ns of 32, 512
+  and 1024): one thread per next state reads its
   two predecessors p0 = s >> 1 and p0 + ns/2; the metrics stay
   unnormalized in a double buffer and the state max M of the last step
   is subtracted when they are read, which is the plain version's
   normalized metric with the same roundings; the warps' maxima give M;
   the decisions packed by warp (word s >> 5, bit s & 31, one word per
   warp and step) and the traceback's read of them, walked in numpy over
-  64-step tiles, give the plain version's packed decisions and bits.
+  64-step tiles, give the plain version's packed decisions and bits;
+* viterbi_acs's warp form (64 <= ns <= 256): lane l and register i hold
+  state l + 32 i, the predecessors come by shuffle from lanes
+  (l >> 1) + 16 (i & 1), registers i >> 1 and (i >> 1) + ns/64, the
+  new metric as the max of the two candidates, the state max as the
+  larger, as floats, of the int max and min of the lanes' float maxima
+  as bits, the decisions by one ballot per register, the
+  tiles in runs of 8 steps that step on past T on zero metrics, and the
+  traceback's rotation of every word (left by log2(ns/2) at its load,
+  right by the state) that puts the state's bit on the bit of ns/2, its
+  select of the word by the state's high bits and its 32 bits gathered
+  in one word, lane l writing bit l: the
+  same bits and packed decisions as the plain version, on +-0 metrics
+  too.
 
 Inputs are seeded numpy; T <= 1024.
 """
@@ -636,7 +650,7 @@ def test_three_tf32_products_hold_1e_6_where_one_does_not():
 
 
 def _viterbi_walk(obs, exp, nout, tile=64):
-    """csrc/viterbi_acs.cu's walk for one codeword in float32 numpy:
+    """csrc/viterbi_acs.cu's block form for one codeword in float32 numpy:
     (bits [nout], packed decisions [T, ns/32] int32)."""
     T, R = obs.shape
     ns = exp.shape[0]
@@ -702,3 +716,140 @@ def test_viterbi_acs_walk_equals_plain(scheme, dec_len, sigma):
         np.testing.assert_array_equal(dec, ref_dec[n].numpy())
     np.testing.assert_array_equal(ref_bits.numpy(),
                                   dec_fn(torch.from_numpy(np.stack(rows))))
+
+
+def _redux_max(x):
+    """csrc/viterbi_acs.cu's state max of float32 values `x` from the two
+    int reductions over their bits: the larger of the int max and the int
+    min as floats (the int max where it is >= 0, else the int min)."""
+    b = np.asarray(x, np.float32).view(np.int32)
+    return np.fmax(b.max().view(np.float32), b.min().view(np.float32))
+
+
+def _viterbi_warp_walk(obs, exp, nout, run=8):
+    """csrc/viterbi_acs.cu's warp form for one codeword in float32 numpy:
+    lane l, register i hold state l + 32 i.  Returns (bits [nout], packed
+    decisions [T, ns/32] int32)."""
+    T, R = obs.shape
+    ns = exp.shape[0]
+    NR, H = ns // 32, ns // 64
+    f32 = np.float32
+    lane = np.arange(32)[:, None]
+    reg = np.arange(NR)[None, :]
+    p0 = (lane >> 1) + 16 * reg                         # [32, NR]
+    e0 = exp[p0, lane & 1]                              # [32, NR, R]
+    e1 = exp[p0 + ns // 2, lane & 1]
+    pm = np.full((32, NR), f32(vk.NEG), f32)
+    pm[0, 0] = 0
+    M = f32(0)
+    dec = np.zeros((T, NR), np.uint32)
+    src_a, src_b = np.arange(32) >> 1, (np.arange(32) >> 1) + 16
+    for t0 in range(0, T, 32):
+        n_run = -(-min(32, T - t0) // run) * run        # whole runs of 8
+        tile = np.zeros((32, R), f32)
+        tile[:min(32, T - t0)] = obs[t0:t0 + 32]       # zeros past T
+        for tt in range(n_run):
+            o = tile[tt]                                # shuffle from lane tt
+            qa, qb = pm[src_a], pm[src_b]               # [32, NR] each
+            q0 = np.where(reg & 1, qb[:, reg[0] >> 1], qa[:, reg[0] >> 1])
+            q1 = np.where(reg & 1, qb[:, (reg[0] >> 1) + H],
+                          qa[:, (reg[0] >> 1) + H])
+            bm0, bm1 = e0[..., 0] * o[0], e1[..., 0] * o[0]
+            for k in range(1, R):
+                bm0 = (bm0 + e0[..., k] * o[k]).astype(f32)
+                bm1 = (bm1 + e1[..., k] * o[k]).astype(f32)
+            c0 = ((q0 - M).astype(f32) + bm0).astype(f32)
+            c1 = ((q1 - M).astype(f32) + bm1).astype(f32)
+            j = c1 > c0
+            pm = np.fmax(c0, c1)
+            if t0 + tt < T:                             # ballot, register i
+                dec[t0 + tt] = (j.astype(np.uint64) << np.arange(
+                    32, dtype=np.uint64)[:, None]).sum(0)
+            mx = pm.max(axis=1)                         # the lane's max
+            M = _redux_max(mx)                          # REDUX max, min
+    def rotl(v, sh):
+        sh %= 32
+        return ((v << sh) | (v >> (32 - sh))) & 0xffffffff
+
+    bits = np.zeros(T, np.int32)
+    st, keep = 0, 0
+    log_half = (ns // 2).bit_length() - 1
+    for t in range(T - 1, -1, -1):
+        loaded = [rotl(int(v), log_half) for v in dec[t]]   # at the load
+        x = [rotl(v, -st) for v in loaded]              # right by st
+        span = 1
+        while span < NR:                                # select by st >> 5
+            hi = (st >> 5) & span
+            for i in range(0, NR - span, 2 * span):
+                x[i] = x[i + span] if hi else x[i]
+            span <<= 1
+        keep = ((keep << 1) | (st & 1)) & 0xffffffff
+        st = (st >> 1) | (x[0] & (ns // 2))
+        if t % 32 == 0:                                 # lane l writes bit l
+            for l in range(min(32, T - t)):
+                bits[t + l] = (keep >> l) & 1
+    return bits[:nout], dec.view(np.int32)
+
+
+def _metrics(scheme, dec_len, sigma, rng, rows=3):
+    """(decoder, depunctured metrics [rows, T, r], the soft bits): rows
+    codewords of random bytes, +-4 metrics with noise `sigma`; None: all
+    zero; "pm0": zeros of both signs."""
+    from liquid_dsp_tpu_torch.fec.conv import conv_encode
+    from liquid_dsp_tpu_torch.fec.device import conv_soft_decoder
+    dec_fn, _ = conv_soft_decoder(scheme, dec_len)
+    llrs = []
+    for _ in range(rows):
+        bits = np.unpackbits(conv_encode(
+            scheme, rng.integers(0, 256, dec_len).astype(np.uint8)))
+        if sigma is None:
+            llr = np.zeros(len(bits), np.float32)
+        elif sigma == "pm0":
+            llr = np.where(rng.random(len(bits)) < 0.5, np.float32(-0.0),
+                           np.float32(0.0)).astype(np.float32)
+        else:
+            llr = ((2.0 * bits - 1.0) * 4 + sigma * rng.standard_normal(
+                len(bits))).astype(np.float32)
+        llrs.append(llr)
+    llr = np.stack(llrs)
+    return dec_fn, dec_fn.obs(torch.from_numpy(llr)), llr
+
+
+@pytest.mark.parametrize("scheme,dec_len,sigma", [
+    ("v27", 9, 0.8), ("v27", 9, 0.0), ("v27", 9, None), ("v27", 9, "pm0"),
+    ("v27", 3, 0.8), ("v29", 8, 0.8), ("v29", 8, 0.0), ("v29", 8, None),
+    ("v29", 8, "pm0"), ("v39", 8, 0.8), ("v39", 8, 0.0), ("v39", 8, None),
+    ("v39", 5, "pm0"), ("v27p23", 9, 0.8), ("v27p78", 10, None),
+    ("v29p34", 9, 0.8), ("v29p78", 9, "pm0")])
+def test_viterbi_acs_warp_walk_equals_plain(scheme, dec_len, sigma):
+    rng = np.random.default_rng(dec_len + 7)
+    dec_fn, obs, llr = _metrics(scheme, dec_len, sigma, rng)
+    if sigma == "pm0":
+        assert np.signbit(obs.numpy()[obs.numpy() == 0]).any()
+    ref_bits, ref_dec = vk.viterbi_acs_reference(obs, dec_fn.exp,
+                                                 dec_fn.nout, decisions=True)
+    for n in range(obs.shape[0]):
+        bits, dec = _viterbi_warp_walk(obs[n].numpy(), dec_fn.exp.numpy(),
+                                       dec_fn.nout)
+        np.testing.assert_array_equal(bits, ref_bits[n].numpy())
+        np.testing.assert_array_equal(dec, ref_dec[n].numpy())
+    np.testing.assert_array_equal(ref_bits.numpy(),
+                                  dec_fn(torch.from_numpy(llr)))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_redux_pair_gives_the_float_max(seed):
+    # the int max and min of float bits give the float max, numerically,
+    # over sets of both signs, all negative, all positive, with +-0, -1e9
+    # (the start metric) and infinities; a zero's sign may differ
+    rng = np.random.default_rng(seed)
+    pool = np.array([-np.inf, -1e9, -3.5, -1e-40, -0.0, 0.0, 1e-40, 2.0,
+                     1e9, np.inf], np.float32)
+    for _ in range(500):
+        v = rng.choice(pool, rng.integers(1, 33))
+        if rng.random() < 0.5:
+            v = np.concatenate([v, (rng.standard_normal(rng.integers(
+                1, 33)) * 10.0 ** rng.integers(-3, 4)).astype(np.float32)])
+        for part in (v, v[v <= 0], v[v >= 0], v[v < 0]):
+            if part.size:
+                assert _redux_max(part) == part.max()
