@@ -1,21 +1,30 @@
-"""Kaiser lowpass design, the Kaiser length estimates, the root-Kaiser
-family, the root-raised-cosine pulse and the (root-)Nyquist prototype
-dispatch (host-side NumPy, float64) and the GMSK transmit and receive
-pulses, ported from `liquid_dsp_tpu.design.firdes` (reference
-src/filter/src/firdes.c:52-160, 244-375; rkaiser.c; rrcos.c; gmsk.c)."""
+"""FIR filter design (host-side NumPy, float64), ported from
+`liquid_dsp_tpu.design.firdes`: the Kaiser lowpass and its length,
+attenuation and transition estimates, notch and Doppler filters, the
+(root-)raised-cosine, root-Kaiser, GMSK, flipped-Nyquist and hM3 pulses,
+the (root-)Nyquist prototype dispatch and the filter analysis helpers
+(reference src/filter/src/firdes.c, rcos.c, rrcos.c, rkaiser.c, gmsk.c,
+fnyquist.c, hM3.c, group_delay.c)."""
 from __future__ import annotations
 
 import numpy as np
 
-from .special import qfunction, sinc
+from .special import besselj0, qfunction, sinc
 from .windows import kaiser as kaiser_window
 from .windows import kaiser_beta_as
 
-__all__ = ["firdes_kaiser", "estimate_req_filter_len",
-           "estimate_req_filter_as", "firdes_rkaiser", "firdes_arkaiser",
-           "firdes_rrcos", "firdes_gmsktx", "firdes_gmskrx",
-           "firdes_prototype", "filter_autocorr",
-           "filter_isi"]
+__all__ = [
+    "firdes_kaiser", "firdes_notch", "firdes_doppler",
+    "firdes_rcos", "firdes_rrcos", "firdes_rkaiser", "firdes_arkaiser",
+    "firdes_gmsktx", "firdes_gmskrx",
+    "firdes_fexp", "firdes_rfexp", "firdes_fsech", "firdes_rfsech",
+    "firdes_farcsech", "firdes_rfarcsech",
+    "firdes_prototype", "firdes_hm3",
+    "estimate_req_filter_len", "estimate_req_filter_as",
+    "estimate_req_filter_df",
+    "filter_autocorr", "filter_crosscorr", "filter_isi", "filter_energy",
+    "fir_group_delay",
+]
 
 
 def _len_kaiser(df: float, as_db: float) -> float:
@@ -200,23 +209,233 @@ def firdes_gmskrx(k: int, m: int, beta: float, dt: float = 0.0) -> np.ndarray:
     return np.real(np.roll(h_hat, -(k * m + 1))) / (k * n) * k * k
 
 
-_PROTOTYPES = {"arkaiser": firdes_arkaiser, "rkaiser": firdes_rkaiser,
-               "rrcos": firdes_rrcos, "rrc": firdes_rrcos,
-               "gmsktx": firdes_gmsktx, "gmskrx": firdes_gmskrx}
+def estimate_req_filter_df(as_db: float, n: int) -> float:
+    """Transition bandwidth achievable with length n at attenuation As."""
+    df0, df1 = 1e-3, 0.499
+    df_hat = 0.0
+    for _ in range(20):
+        df_hat = 0.5 * (df0 + df1)
+        if _len_kaiser(df_hat, as_db) < float(n):
+            df1 = df_hat
+        else:
+            df0 = df_hat
+    return df_hat
+
+
+def firdes_notch(m: int, f0: float, as_db: float) -> np.ndarray:
+    """Notch filter: unit impulse minus windowed cosine at f0
+    (reference firdes.c liquid_firdes_notch semantics); length 2m+1."""
+    n = 2 * m + 1
+    beta = kaiser_beta_as(as_db)
+    i = np.arange(n, dtype=np.float64)
+    t = i - m
+    w = kaiser_window(n, beta)
+    h = -np.cos(2.0 * np.pi * f0 * t) * w
+    # scale so h sums to zero at f0 and center tap makes it all-pass elsewhere
+    scale = -1.0 / np.sum(h * np.cos(2.0 * np.pi * f0 * t))
+    h = h * scale
+    h[m] += 1.0
+    return h
+
+
+def firdes_doppler(n: int, fd: float, k_rice: float, theta: float) -> np.ndarray:
+    """Jakes Doppler filter (firdes.c:379-407): Bessel + Rice-K, Kaiser win."""
+    i = np.arange(n, dtype=np.float64)
+    t = i - (n - 1) / 2.0
+    j = 1.5 * besselj0(np.abs(2 * np.pi * fd * t))
+    r = 1.5 * k_rice / (k_rice + 1) * np.cos(2 * np.pi * fd * t * np.cos(theta))
+    w = kaiser_window(n, 4.0)
+    return (j + r) * w
+
+
+def firdes_rcos(k: int, m: int, beta: float, dt: float = 0.0) -> np.ndarray:
+    """Raised-cosine pulse, length 2km+1, gain k at center."""
+    _check_kmb(k, m, beta)
+    n = np.arange(2 * k * m + 1, dtype=np.float64)
+    z = (n + dt) / k - m
+    t1 = np.cos(beta * np.pi * z)
+    t2 = sinc(z)
+    t3 = 1.0 - 4.0 * beta * beta * z * z
+    singular = np.abs(t3) < 1e-3
+    safe = np.where(singular, 1.0, t3)
+    h = t1 * t2 / safe
+    if beta > 0:
+        h = np.where(singular, np.sin(np.pi / (2 * beta)) * beta * 0.5, h)
+    return h
+
+
+def _fnyquist(freq_fn, root: bool, k: int, m: int, beta: float, dt: float) -> np.ndarray:
+    _check_kmb(k, m, beta)
+    n = 2 * k * m + 1
+    f = np.arange(n, dtype=np.float64) / n
+    f = np.abs(np.where(f > 0.5, f - 1.0, f))
+    H = freq_fn(f, k, beta)
+    if root:
+        H = np.sqrt(np.clip(H, 0.0, None))
+    h = np.fft.ifft(H) * n  # reference uses unnormalized inverse FFT
+    return np.real(np.roll(h, -(k * m + 1))) * k / n
+
+
+def _fexp_response(f, k, beta):
+    f0 = 0.5 * (1 - beta) / k
+    f2 = 0.5 * (1 + beta) / k
+    f1 = 0.5 / k
+    B = 0.5 / k
+    gamma = np.log(2.0) / (beta * B) if beta > 0 else np.inf
+    lo = np.exp(gamma * (B * (1 - beta) - f))
+    hi = 1.0 - np.exp(gamma * (f - (1 + beta) * B))
+    H = np.where(f < f1, lo, hi)
+    H = np.where(f < f0, 1.0, np.where(f > f2, 0.0, H))
+    return H
+
+
+def _fsech_response(f, k, beta):
+    f0 = 0.5 * (1 - beta) / k
+    f2 = 0.5 * (1 + beta) / k
+    f1 = 0.5 / k
+    B = 0.5 / k
+    gamma = np.log(np.sqrt(3.0) + 2.0) / (beta * B) if beta > 0 else np.inf
+    lo = 1.0 / np.cosh(np.minimum(gamma * (f - B * (1 - beta)), 700))
+    hi = 1.0 - 1.0 / np.cosh(np.minimum(gamma * (B * (1 + beta) - f), 700))
+    H = np.where(f < f1, lo, hi)
+    return np.where(f < f0, 1.0, np.where(f > f2, 0.0, H))
+
+
+def _asech(x):
+    x = np.clip(x, 1e-12, 1.0)
+    return np.log((1.0 + np.sqrt(1.0 - x * x)) / x)
+
+
+def _farcsech_response(f, k, beta):
+    f0 = 0.5 * (1 - beta) / k
+    f2 = 0.5 * (1 + beta) / k
+    f1 = 0.5 / k
+    B = 0.5 / k
+    gamma = np.log(np.sqrt(3.0) + 2.0) / (beta * B) if beta > 0 else np.inf
+    zeta = 1.0 / (2.0 * beta * B) if beta > 0 else np.inf
+    lo = 1.0 - (zeta / gamma) * _asech(zeta * (B * (1 + beta) - f))
+    hi = (zeta / gamma) * _asech(zeta * (f - B * (1 - beta)))
+    H = np.where(f < f1, lo, hi)
+    return np.where(f < f0, 1.0, np.where(f > f2, 0.0, H))
+
+
+def firdes_fexp(k, m, beta, dt=0.0):
+    return _fnyquist(_fexp_response, False, k, m, beta, dt)
+
+
+def firdes_rfexp(k, m, beta, dt=0.0):
+    return _fnyquist(_fexp_response, True, k, m, beta, dt)
+
+
+def firdes_fsech(k, m, beta, dt=0.0):
+    return _fnyquist(_fsech_response, False, k, m, beta, dt)
+
+
+def firdes_rfsech(k, m, beta, dt=0.0):
+    return _fnyquist(_fsech_response, True, k, m, beta, dt)
+
+
+def firdes_farcsech(k, m, beta, dt=0.0):
+    return _fnyquist(_farcsech_response, False, k, m, beta, dt)
+
+
+def firdes_rfarcsech(k, m, beta, dt=0.0):
+    return _fnyquist(_farcsech_response, True, k, m, beta, dt)
+
+
+def firdes_hm3(k: int, m: int, beta: float, dt: float = 0.0) -> np.ndarray:
+    """hM3 root-Nyquist: Remez design iterated to minimize ISI (hM3.c:35+)."""
+    from .firdespm import firdespm  # lazy import to avoid cycle
+
+    if k < 2:
+        raise ValueError("hM3 requires k >= 2")
+    n = 2 * k * m + 1
+    fc = 1.0 / (2 * k)
+    fs = fc * (1 + beta)
+
+    def design(fp):
+        bands = [(0.0, fp), (fc, fc), (fs, 0.5)]
+        des = [1.0, 1.0 / np.sqrt(2.0), 0.0]
+        weights = [1.0, 1.0, 1.0]
+        return firdespm(n, bands, des, weights,
+                        wtype=["flat", "flat", "exp"])
+
+    best = design(fc * (1 - beta))
+    isi_min, _ = filter_isi(best, k, m)
+    pmax = 100
+    for p in range(pmax):
+        fp = fc * (1.0 - beta * p / pmax)
+        h = design(fp)
+        isi_rms, _ = filter_isi(h, k, m)
+        if isi_rms > isi_min:
+            break
+        isi_min, best = isi_rms, h
+    return best * np.sqrt(k / np.sum(best * best))
+
+
+def filter_crosscorr(h: np.ndarray, g: np.ndarray, lag: int) -> float:
+    """Cross-correlation of two real filters at a given lag."""
+    h = np.asarray(h, dtype=np.float64)
+    g = np.asarray(g, dtype=np.float64)
+    full = np.correlate(h, g, mode="full")  # lags -len(g)+1 .. len(h)-1
+    idx = lag + len(g) - 1
+    if idx < 0 or idx >= len(full):
+        return 0.0
+    return float(full[idx])
+
+
+def filter_energy(h: np.ndarray, fc: float, nfft: int = 1024) -> float:
+    """Fraction of signal energy in band [-fc, fc]."""
+    h = np.asarray(h, dtype=np.float64)
+    f = np.fft.fftfreq(nfft)
+    H2 = np.abs(np.fft.fft(h, nfft)) ** 2
+    return float(np.sum(H2[np.abs(f) <= fc]) / np.sum(H2))
+
+
+def fir_group_delay(h: np.ndarray, fc: float) -> float:
+    """Group delay of an FIR filter at frequency fc (group_delay.c)."""
+    h = np.asarray(h, dtype=np.float64)
+    n = np.arange(len(h))
+    w = 2 * np.pi * fc
+    e = np.exp(-1j * w * n)
+    num = np.sum(n * h * e)
+    den = np.sum(h * e)
+    return float(np.real(num / den))
+
+
+_PROTOTYPES = {
+    "rcos": firdes_rcos, "fexp": firdes_fexp, "fsech": firdes_fsech,
+    "farcsech": firdes_farcsech, "arkaiser": firdes_arkaiser,
+    "rkaiser": firdes_rkaiser, "rrcos": firdes_rrcos, "rrc": firdes_rrcos,
+    "hm3": firdes_hm3, "gmsktx": firdes_gmsktx, "gmskrx": firdes_gmskrx,
+    "rfexp": firdes_rfexp, "rfsech": firdes_rfsech,
+    "rfarcsech": firdes_rfarcsech,
+}
 
 
 def firdes_prototype(ftype: str, k: int, m: int, beta: float,
                      dt: float = 0.0) -> np.ndarray:
-    """(Root-)Nyquist prototype dispatch, length 2km+1 (firdes.c:290-375):
-    the Nyquist ``kaiser`` and the root-Nyquist ``arkaiser``, ``rkaiser``,
-    ``rrcos``/``rrc``, ``gmsktx`` and ``gmskrx``.  The other prototypes of the reference are not
-    ported yet (ROADMAP queue 1 item 5) and raise NotImplementedError."""
+    """(Root-)Nyquist prototype dispatch, length 2km+1 (firdes.c:290-375).
+
+    Nyquist: kaiser, rcos, fexp, fsech, farcsech
+    root-Nyquist: arkaiser, rkaiser, rrcos (rrc), hm3, gmsktx, gmskrx,
+                  rfexp, rfsech, rfarcsech
+
+    ``pm`` raises NotImplementedError: the JAX package's route for it
+    (liquid_dsp_tpu/design/firdes.py:423) imports a ``firdespm_run`` that
+    its firdespm module does not define, so it has no behaviour to match
+    (ROADMAP queue 3)."""
     ftype = ftype.lower()
     if ftype == "kaiser":
         n = 2 * k * m + 1
         as_db = estimate_req_filter_as(beta / k, n)
         return firdes_kaiser(n, 0.5 / k, as_db, dt)
-    if ftype not in _PROTOTYPES:
+    if ftype == "pm":
         raise NotImplementedError(
-            f"prototype {ftype!r} is not ported yet (ROADMAP queue 1 item 5)")
+            "prototype 'pm': the JAX reference's route "
+            "(liquid_dsp_tpu/design/firdes.py:423) imports firdespm_run, "
+            "which liquid_dsp_tpu/design/firdespm.py does not define, so "
+            "there is no reference behaviour to port (ROADMAP queue 3)")
+    if ftype not in _PROTOTYPES:
+        raise ValueError(f"unknown prototype {ftype!r}")
     return _PROTOTYPES[ftype](k, m, beta, dt)

@@ -1,8 +1,8 @@
 """Special math functions used by filter design (host-side NumPy, float64).
 
-The subset of `liquid_dsp_tpu.design.special` that the Kaiser and GMSK
-designs and `utils/random.py`'s densities need, ported line for line so both packages produce the same taps to the
-last bit (reference src/math/src/math.bessel.c, src/math/src/math.c).
+`liquid_dsp_tpu.design.special` ported line for line, so that both
+packages produce the same taps to the last bit (reference
+src/math/src/math.bessel.c, math.gamma.c, math.c, modular_arithmetic.c).
 Design code stays numpy: coefficients are made once on the host and only
 the final taps become tensors.
 """
@@ -12,8 +12,13 @@ import math
 
 import numpy as np
 
-__all__ = ["lngamma", "lnlowergamma", "marcumq1", "lnbesseli", "besseli",
-           "besseli0", "sinc", "qfunction"]
+__all__ = [
+    "lngamma", "gamma", "lnbesseli", "besseli", "besseli0", "besselj",
+    "besselj0", "sinc", "qfunction", "nextpow2", "is_prime", "factor",
+    "unique_factor", "totient", "gcd", "modpow", "primitive_root_prime",
+    "factorial", "lnlowergamma", "lowergamma", "lnuppergamma",
+    "uppergamma", "nchoosek", "marcumq1",
+]
 
 
 def lngamma(z):
@@ -152,3 +157,141 @@ def qfunction(x):
     """Gaussian tail Q(x) = 0.5 erfc(x/sqrt 2) (reference math.c)."""
     return 0.5 * np.vectorize(math.erfc)(np.asarray(x, dtype=np.float64)
                                          / math.sqrt(2))
+
+
+def gamma(z):
+    return np.vectorize(math.gamma)(np.asarray(z, dtype=np.float64))
+
+
+def lowergamma(z, alpha):
+    """gamma(z, alpha), lower incomplete (reference liquid_lowergammaf)."""
+    return np.exp(lnlowergamma(z, alpha))
+
+
+def lnuppergamma(z, alpha):
+    """log Gamma(z, alpha), upper incomplete (liquid_lnuppergammaf)."""
+    return np.log(np.maximum(gamma(z) - lowergamma(z, alpha), 1e-300))
+
+
+def uppergamma(z, alpha):
+    """Gamma(z, alpha), upper incomplete (liquid_uppergammaf)."""
+    return np.exp(lnuppergamma(z, alpha))
+
+
+def nchoosek(n: int, k: int) -> float:
+    """Binomial coefficient (reference liquid_nchoosek, math.c).  The
+    reference switches to a rounded-lgamma identity for n > 12, which
+    is off by one ULP-of-exp for many (n, k) (e.g. C(48,23)); python's
+    exact math.comb has no such failure, so it is used throughout —
+    tolerance-based parity, strictly more accurate."""
+    if k > n:
+        raise ValueError("k cannot exceed n")
+    return float(math.comb(n, k))
+
+
+def besselj(nu: float, z, iterations: int = 128):
+    """J_nu(z), Bessel function of the first kind (alternating series)."""
+    z = np.asarray(z, dtype=np.float64)
+    y = np.zeros_like(z)
+    half = 0.5 * np.abs(z)
+    with np.errstate(divide="ignore"):
+        lh = np.where(half > 0, np.log(np.where(half > 0, half, 1.0)), -np.inf)
+    for k in range(iterations):
+        ln_t = (nu + 2 * k) * lh - math.lgamma(k + 1) - math.lgamma(nu + k + 1)
+        y += (-1.0) ** k * np.exp(ln_t)
+    return np.where(z == 0, 1.0 if nu == 0 else 0.0, y)
+
+
+def besselj0(z):
+    return besselj(0.0, z)
+
+
+def nextpow2(n: int) -> int:
+    """Smallest k with 2**k >= n."""
+    if n < 1:
+        raise ValueError("nextpow2 requires n >= 1")
+    return int(math.ceil(math.log2(n)))
+
+
+def is_prime(n: int) -> bool:
+    if n < 2:
+        return False
+    if n < 4:
+        return True
+    if n % 2 == 0:
+        return False
+    f = 3
+    while f * f <= n:
+        if n % f == 0:
+            return False
+        f += 2
+    return True
+
+
+def factor(n: int) -> list:
+    """Prime factorization (with multiplicity), ascending."""
+    if n < 1:
+        raise ValueError("factor requires n >= 1")
+    out, f = [], 2
+    while n > 1:
+        while n % f == 0:
+            out.append(f)
+            n //= f
+        f += 1 if f == 2 else 2
+        if f * f > n and n > 1:
+            out.append(n)
+            break
+    return out
+
+
+def totient(n: int) -> int:
+    """Euler totient (reference src/math/src/modular_arithmetic.c)."""
+    result, p = n, 2
+    m = n
+    while p * p <= m:
+        if m % p == 0:
+            while m % p == 0:
+                m //= p
+            result -= result // p
+        p += 1
+    if m > 1:
+        result -= result // m
+    return result
+
+
+def gcd(a: int, b: int) -> int:
+    return math.gcd(a, b)
+
+
+def unique_factor(n: int) -> list:
+    """Distinct prime factors, ascending (reference liquid_unique_factor,
+    src/math/src/modular_arithmetic.c)."""
+    return sorted(set(factor(n)))
+
+
+def modpow(base: int, exp: int, n: int) -> int:
+    """base**exp mod n (reference liquid_modpow,
+    src/math/src/modular_arithmetic.c)."""
+    return pow(int(base), int(exp), int(n))
+
+
+def primitive_root_prime(n: int) -> int:
+    """Smallest primitive root of prime n (reference
+    liquid_primitive_root_prime, src/math/src/modular_arithmetic.c).
+    Used by Rader-style prime-length FFT reasoning; checks g**((n-1)/p)
+    != 1 for every distinct prime p | n-1."""
+    if not is_prime(n):
+        raise ValueError("primitive_root_prime requires a prime n")
+    if n == 2:
+        return 1
+    probes = [(n - 1) // p for p in unique_factor(n - 1)]
+    for g in range(2, n):
+        if all(pow(g, e, n) != 1 for e in probes):
+            return g
+    raise ValueError(f"no primitive root found for {n}")  # unreachable
+
+
+def factorial(n: int) -> float:
+    """n! as float (reference liquid_factorialf uses gamma for large n)."""
+    return math.gamma(float(n) + 1.0)
+

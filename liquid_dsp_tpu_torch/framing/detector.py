@@ -34,13 +34,18 @@ class DetectorResult(NamedTuple):
 
 def make_template(sequence, interp_proc=None) -> np.ndarray:
     """Time-domain detection template (reference
-    qdetector_cccf_create_linear).  Interpolating the sequence through a
-    Proc (`firinterp`) is ROADMAP queue 1 item 5."""
-    if interp_proc is not None:
-        raise NotImplementedError(
-            "make_template with an interpolator needs firinterp, not "
-            "ported yet (ROADMAP queue 1 item 5)")
-    return np.asarray(sequence, np.complex64)
+    qdetector_cccf_create_linear): the sequence, or the sequence through
+    an interpolator (a `firinterp` Proc) followed by its filter tail
+    (2(Lp-1) zeros pushed after it), run where the Proc's taps lie."""
+    if interp_proc is None:
+        return np.asarray(sequence, np.complex64)
+    dev = interp_proc.hp.device
+    x = torch.from_numpy(np.asarray(sequence, np.complex64)).to(dev)
+    y, carry = interp_proc(interp_proc.init(device=dev), x)
+    flush = torch.zeros(2 * (interp_proc.Lp - 1), dtype=torch.complex64,
+                        device=dev)
+    tail, _ = interp_proc(carry, flush)
+    return np.concatenate([y.cpu().numpy(), tail.cpu().numpy()])
 
 
 def qdetector_detect(x, s, threshold: float = 0.5, range_bins: int = 2,

@@ -1,5 +1,7 @@
-"""Valid-mode 1-D convolution on ``torch.nn.functional.conv1d``
-(`liquid_dsp_tpu/ops/dotprod.py:88-130`).
+"""Vector primitives (`liquid_dsp_tpu/ops/dotprod.py`): dot products,
+sums of squares, the ``vec_*`` element-wise helpers (reference
+src/dotprod/src/dotprod.c, sumsq.c, src/vector/src/vector_*.c), and
+valid-mode 1-D convolution on ``torch.nn.functional.conv1d``.
 
 Torch's conv1d has no complex dtype, so complex operands are split into
 real planes (3-mult Karatsuba for complex x complex), as the JAX package
@@ -13,7 +15,71 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["conv1d_real", "conv1d"]
+__all__ = ["dotprod", "sumsq", "vec_add", "vec_mul", "vec_norm", "vec_cexpj",
+           "vec_init", "vec_addscalar", "vec_mulscalar", "vec_carg",
+           "vec_abs", "vec_normalize", "conv1d_real", "conv1d"]
+
+
+def dotprod(h, x):
+    """y = sum_i h[i] * x[i] over the last axis (broadcasts leading axes;
+    reference dotprod_{rrrf,crcf,cccf})."""
+    return torch.sum(h * x, dim=-1)
+
+
+def sumsq(x):
+    """Sum of squared magnitudes, sum |x|^2 (reference sumsq.c)."""
+    if x.is_complex():
+        return torch.sum(x.real * x.real + x.imag * x.imag, dim=-1)
+    return torch.sum(x * x, dim=-1)
+
+
+def vec_add(x, y):
+    return x + y
+
+
+def vec_mul(x, y):
+    return x * y
+
+
+def vec_norm(x):
+    """L2 norm over the last axis (reference vector_norm.c)."""
+    return torch.sqrt(sumsq(x))
+
+
+def vec_cexpj(theta):
+    """exp(j*theta) elementwise (reference vector_trig.c)."""
+    return torch.complex(torch.cos(theta), torch.sin(theta))
+
+
+def vec_init(c, n: int, device=None):
+    """Constant-filled vector (reference vector_init)."""
+    return torch.full((n,), c, device=device)
+
+
+def vec_addscalar(x, c):
+    """x + c elementwise (reference vector_addscalar)."""
+    return x + c
+
+
+def vec_mulscalar(x, c):
+    """x * c elementwise (reference vector_mulscalar)."""
+    return x * c
+
+
+def vec_carg(x):
+    """Complex phase elementwise (reference vector_trig.c carg)."""
+    return torch.angle(x)
+
+
+def vec_abs(x):
+    """Magnitude elementwise (reference vector_abs)."""
+    return torch.abs(x)
+
+
+def vec_normalize(x):
+    """Scale to unit L2 norm over the last axis (reference
+    vector_normalize)."""
+    return x / torch.clamp(vec_norm(x), min=1e-30)[..., None]
 
 
 def conv1d_real(x, h, stride: int = 1):

@@ -17,7 +17,8 @@ import torch
 
 from ..core import Proc
 
-__all__ = ["nco", "NCO", "mix_up", "mix_down", "nco_block_phases"]
+__all__ = ["nco", "NCO", "mix_up", "mix_down", "nco_block_phases",
+           "pll_step", "unwrap_phase", "unwrap_phase2"]
 
 TWO_PI = 2.0 * math.pi
 
@@ -133,3 +134,40 @@ def mix_down(x, dphi, theta0=0.0):
 def mix_up(x, dphi, theta0=0.0):
     """y[t] = x[t] * exp(+j(theta0 + t*dphi)) (nco.c:274)."""
     return _osc(x, dphi, theta0, 1.0)
+
+
+def pll_step(theta, dphi, phase_error, bandwidth: float = 0.1):
+    """Second-order PLL update (reference nco_crcf_pll_step, nco.c:220):
+    frequency by alpha = bandwidth, phase by beta = sqrt(bandwidth), the
+    square root taken in float32 as the JAX package takes it."""
+    beta = float(torch.sqrt(torch.tensor(bandwidth, dtype=torch.float32)))
+    dphi = dphi + bandwidth * phase_error
+    theta = theta + beta * phase_error
+    return theta, dphi
+
+
+def unwrap_phase(theta):
+    """Unwrap a phase array along the last axis so that successive samples
+    never jump by more than pi (reference liquid_unwrap_phase,
+    src/nco/src/nco.utilities.c:34-43), in closed form: the first
+    differences wrapped into [-pi, pi), then one cumulative sum from
+    theta[0]."""
+    d = torch.diff(theta, dim=-1)
+    d = torch.remainder(d + math.pi, TWO_PI) - math.pi
+    return torch.cat([theta[..., :1],
+                      theta[..., :1] + torch.cumsum(d, dim=-1)], dim=-1)
+
+
+def unwrap_phase2(theta):
+    """Bias-aware phase unwrap (reference liquid_unwrap_phase2,
+    src/nco/src/nco.utilities.c:45-70): with dphi the mean first
+    difference, each step's count of 2*pi corrections is
+    floor((d - dphi + pi) / 2pi) of the raw difference, so one floor and
+    one cumulative sum."""
+    d = torch.diff(theta, dim=-1)
+    n = theta.shape[-1]
+    dphi = (theta[..., -1] - theta[..., 0])[..., None] / (n - 1)
+    k = torch.floor((d - dphi + math.pi) / TWO_PI)
+    return torch.cat([theta[..., :1],
+                      theta[..., 1:] - TWO_PI * torch.cumsum(k, dim=-1)],
+                     dim=-1)

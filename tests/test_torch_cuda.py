@@ -19,6 +19,8 @@ association differ), the reference's stream tolerance.
 viterbi_acs: bit-equal bits and packed decisions (the same exact products,
 sums in the same order, the same max and subtraction).
 """
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -1124,3 +1126,141 @@ def test_ofdm_entry_points_default_to_the_card(dev):
         assert hok and pok
         np.testing.assert_array_equal(gh, h)
         np.testing.assert_array_equal(gp, p)
+
+
+# --- the multi-rate Procs and paths: the card against the CPU --------------
+
+_GOLDEN = pathlib.Path(__file__).parent / "golden"
+_MR_NAMES = ["firdecim4", "firinterp4", "firinterp3_29", "resamp_3_2",
+             "resamp_2_3", "firhilb", "firhilb_r2c", "firhilb_interp",
+             "autocorr", "resamp2_interp", "msresamp2_interp2", "qmf",
+             "resamp_127_100"]
+
+
+def _mr_proc(name):
+    """(Proc, real input, block length) of a card case."""
+    from liquid_dsp_tpu_torch import chain
+    from liquid_dsp_tpu_torch.design.firdes import firdes_kaiser
+    from liquid_dsp_tpu_torch.ops import fir, resample
+    h = firdes_kaiser(48, 0.1, 60.0)
+    return {
+        "firdecim4": (fir.firdecim(4, h), False, 4096),
+        "firinterp4": (fir.firinterp(4, h), False, 1024),
+        "firinterp3_29": (fir.firinterp(3, h[:29]), False, 1000),
+        "resamp_3_2": (resample.resamp((3, 2)), False, 4096),
+        "resamp_2_3": (resample.resamp((2, 3)), False, 3072),
+        "firhilb": (fir.firhilb(5), True, 4096),
+        "firhilb_r2c": (fir.firhilb_r2c(5), True, 2000),
+        "firhilb_interp": (fir.firhilb_interp(5), False, 2000),
+        "autocorr": (fir.autocorr(16, 4), False, 2000),
+        "resamp2_interp": (resample.resamp2_interp(7), False, 2048),
+        "msresamp2_interp2": (resample.msresamp2("interp", 2), False, 2048),
+        "qmf": (chain(resample.resamp2_analyzer(7),
+                      resample.resamp2_synthesizer(7)), False, 2048),
+        "resamp_127_100": (resample.resamp((127, 100)), False, 1200)}[name]
+
+
+def _stream(p, blocks, dev):
+    c = p.init(batch_shape=(blocks[0].shape[0],), device=dev)
+    ys = []
+    for x in blocks:
+        y, c = p(c, x.to(dev))
+        assert y.device.type == dev.type
+        ys.append(y.cpu())
+    return torch.cat(ys, dim=-1)
+
+
+@pytest.mark.parametrize("name", _MR_NAMES)
+def test_multirate_proc_card_matches_cpu(dev, name):
+    # the card's forms (banded matmuls, the gather on the card) against the
+    # CPU's (convolutions), 4 channels x 2 carried blocks, 2e-5 of rms
+    g = torch.Generator().manual_seed(len(name))
+    p, real, n = _mr_proc(name)
+    blocks = [torch.randn(4, n, generator=g) if real else
+              torch.randn(4, n, dtype=torch.complex64, generator=g)
+              for _ in range(2)]
+    y_cpu = _stream(p, blocks, torch.device("cpu"))
+    y_card = _stream(p.to(dev), blocks, dev)
+    rms = y_cpu.abs().square().mean().sqrt()
+    assert float((y_card - y_cpu).abs().max() / rms) < 2e-5
+
+
+def _mr_path(kind):
+    from liquid_dsp_tpu_torch import chain, fuse, kernel_fuse
+    from liquid_dsp_tpu_torch.design.firdes import firdes_kaiser, firdes_rrcos
+    from liquid_dsp_tpu_torch.ops import fir, nco, resample
+    if kind == "rx":
+        front = kernel_fuse(fuse(chain(
+            nco.nco(dphi=0.125, direction="down"),
+            fir.firfilt(firdes_kaiser(64, 0.2, 60.0)),
+            fir.firdecim(4, firdes_kaiser(48, 0.1, 60.0)))))
+        return chain(front, resample.msresamp(0.375))
+    return chain(fir.firinterp(2, firdes_rrcos(2, 7, 0.35)),
+                 resample.msresamp(2.5), nco.nco(dphi=0.125, direction="up"))
+
+
+def test_multirate_rx_card_matches_cpu(dev):
+    # one mix_fir_decim launch per block at down 4; 2e-4 of rms against
+    # the CPU (the kernel's plain version, the class convolutions)
+    g = torch.Generator().manual_seed(31)
+    blocks = [torch.randn(8, n, dtype=torch.complex64, generator=g)
+              for n in (8192, 4096, 8192)]
+    p = _mr_path("rx")
+    y_cpu = _stream(p, blocks, torch.device("cpu"))
+    n0 = mfd.mix_fir_decim.launches
+    y_card = _stream(p.to(dev), blocks, dev)
+    assert mfd.mix_fir_decim.launches == n0 + 3
+    assert y_card.shape == (8, 20480 * 3 // 32)
+    rms = y_cpu.abs().square().mean().sqrt()
+    assert float((y_card - y_cpu).abs().max() / rms) < 2e-4
+
+
+def test_multirate_tx_card_matches_cpu(dev):
+    # QPSK symbols at unit power: 2e-5 absolute (tests/test_resample.py:321)
+    g = torch.Generator().manual_seed(32)
+    blocks = []
+    for _ in range(3):
+        b = torch.randint(0, 2, (2, 8, 2048), generator=g) * 2.0 - 1
+        blocks.append(torch.complex(b[0], b[1]) / 2 ** 0.5)
+    p = _mr_path("tx")
+    y_cpu = _stream(p, blocks, torch.device("cpu"))
+    y_card = _stream(p.to(dev), blocks, dev)
+    assert y_card.shape == (8, 3 * 5 * 2048)
+    assert float((y_card - y_cpu).abs().max()) < 2e-5
+
+
+def test_resample_goldens_on_card(dev):
+    # the reference C library's vectors, 1e-5 (tests/test_resample.py)
+    from liquid_dsp_tpu_torch.ops import resample as r
+    fg = dict(np.load(_GOLDEN / "flexframe_golden.npz"))
+    lohi = np.stack([fg["qmf_lo"], fg["qmf_hi"]])
+    cases = [(r.resamp((2, 3), 7, 0.25, 60.0, 64), "resamp_23_x",
+              fg["resamp_23_y"]),
+             (r.resamp((5, 4), 7, 0.25, 60.0, 64), "resamp_54_x",
+              fg["resamp_54_y"]),
+             (r.resamp2_decim(7, 0.0, 60.0), "r2_x", fg["r2_decim"]),
+             (r.resamp2_interp(7, 0.0, 60.0), "r2_x", fg["r2_interp"]),
+             (r.resamp2_analyzer(5, 60.0), "qmf_x", lohi),
+             (r.resamp2_synthesizer(5, 60.0), lohi, fg["qmf_z"]),
+             (r.msresamp2("decim", 2, 0.4, 0.0, 60.0), "ms2_x", fg["ms2_d"]),
+             (r.msresamp2("interp", 2, 0.4, 0.0, 60.0), "ms2_x", fg["ms2_i"])]
+    for p, x, want in cases:
+        x = torch.from_numpy(fg[x] if isinstance(x, str) else x).to(dev)
+        p = p.to(dev)
+        y = p(p.init(dtype=x.dtype, device=dev), x)[0]
+        assert y.device.type == "cuda"
+        assert np.abs(y.cpu().numpy() - want).max() < 1e-5, p.name
+
+
+@pytest.mark.parametrize("stem", sorted(
+    f.stem for f in _GOLDEN.glob("firdecim_*.npz")))
+def test_firdecim_golden_on_card(dev, stem):
+    # tests/conftest.py:93's assert_close tolerance, 1e-3
+    from liquid_dsp_tpu_torch.ops.fir import firdecim
+    d = {k[len(stem) + 1:]: v
+         for k, v in np.load(_GOLDEN / f"{stem}.npz").items()}
+    p = firdecim(int(stem.split("_M")[1][0]), d["h"]).to(dev)
+    x = torch.from_numpy(d["x"]).to(dev)
+    y = p(p.init(dtype=x.dtype, device=dev), x)[0]
+    assert y.shape == d["y"].shape
+    assert np.abs(y.cpu().numpy() - d["y"]).max() <= 1e-3

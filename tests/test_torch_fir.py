@@ -181,15 +181,6 @@ def test_resample_streaming_matches_jax(make):
     assert tp.rel_err(yt, yj) < 1e-5
 
 
-@pytest.mark.parametrize("call", [
-    lambda: resample.msresamp2("interp", 2),
-    lambda: resample.msresamp(2.0),
-    lambda: resample.msresamp(0.3)])
-def test_unported_resamplers_raise(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call()
-
-
 def test_fir_real_never_falls_back_off_cpu(monkeypatch):
     # a device mismatch raises, and a non-CPU tensor never reaches the
     # plain version (here "meta" stands in for a device with no kernel)

@@ -284,8 +284,17 @@ def test_time_shard_hooks_and_interp_template_not_ported():
         stream_rx._detect_refine(buf, torch.zeros(1, dtype=torch.int32),
                                  proc._dc(), 0.5, 4, T, proc.starts, 1432,
                                  prev_peak=torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        detector.make_template(np.ones(8), interp_proc=object())
+    # the interpolated template (once "not ported"): parity with the JAX
+    # package's make_template on an arkaiser pulse at k = 2
+    from liquid_dsp_tpu.framing import detector as jdet
+    from liquid_dsp_tpu.ops import fir as jfir
+    from liquid_dsp_tpu_torch.ops import fir
+    seq = tp.cnoise(np.random.default_rng(9), 64)
+    h = jfirdes.firdes_prototype("arkaiser", 2, 7, 0.3)
+    got = detector.make_template(seq, fir.firinterp(2, h))
+    want = jdet.make_template(seq, jfir.firinterp(2, h))
+    assert got.shape == want.shape == (2 * (64 + 2 * 14),)  # Lp = 15
+    assert tp.rel_err(got, want) < 1e-5
     with pytest.raises(ValueError, match="multiple of 256"):
         framesync64_stream(1000)
 

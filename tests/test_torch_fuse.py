@@ -41,13 +41,27 @@ def _halfbands(m, c):
                    m["resample"].resamp2_decim(3))
 
 
+def _multirate_front(m, c):
+    # the multi-rate receive path's front end: 64 + 48 - 1 taps at down 4
+    return c.chain(m["nco"].nco(dphi=0.125, direction="down"),
+                   m["fir"].firfilt(firdes_kaiser(64, 0.2, 60.0)),
+                   m["fir"].firdecim(4, firdes_kaiser(48, 0.1, 60.0)))
+
+
+def _decim_cascade(m, c):
+    return c.chain(m["fir"].firdecim(2, firdes_kaiser(21, 0.2, 60.0)),
+                   m["fir"].firdecim(2, firdes_kaiser(17, 0.2, 60.0)))
+
+
 JAX = {"nco": jnco, "fir": jfir, "fftfilt": jfftfilt, "resample": jresample}
 PORT = {"nco": nco, "fir": fir, "fftfilt": fftfilt, "resample": resample}
 # case: (chain builder, fused down, fused d, fused tap count)
 CASES = {"headline": (_headline, 2, 1, 144),
          "fir_cascade": (_fir_cascade, 1, 0, 21 + 33 - 1),
          "fftfilt_fir": (_fftfilt_fir, 1, 0, 57 + 20 - 1),
-         "halfbands": (_halfbands, 4, 3, 17 + 25 - 1)}  # 13 taps, up 2
+         "halfbands": (_halfbands, 4, 3, 17 + 25 - 1),  # 13 taps, up 2
+         "multirate_front": (_multirate_front, 4, 0, 64 + 48 - 1),
+         "decim_cascade": (_decim_cascade, 4, 0, 21 + 2 * 16)}
 
 
 def _fused_stage(p):

@@ -2,11 +2,14 @@
 torch and never jax or the JAX package, every module imports with no
 triton, no nvcc and no CUDA (kernels build on first use), and
 chip_smoke.py fails rather than skips without a card."""
+import ast
 import pathlib
 import re
 import shutil
 import subprocess
 import sys
+
+import pytest
 
 import _torch_port  # noqa: F401  (torch thread cap)
 
@@ -46,11 +49,31 @@ def test_port_never_imports_jax_or_the_reference():
                 "ops.kernels.agc_scan", "ops.kernels.pll_lms", "ops.symsync",
                 "ops.agc", "ops.equalize", "framing.symtrack", "debug",
                 "multichannel.ofdm", "framing.ofdmflexframe",
-                "framing.ofdmflex_stream", "framing.sources"):
+                "framing.ofdmflex_stream", "framing.sources",
+                "design.firdespm", "design.special", "ops.resample"):
         assert "liquid_dsp_tpu_torch." + mod in got["modules"], mod
     assert got["jax"] == [] and got["reference"] == []
     assert not got["triton"] and not got["cuda_initialized"]
     assert got["built"] == 0          # no kernel library loaded
+
+
+def _public_defs(path):
+    tree = ast.parse(path.read_text())
+    return {n.name for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+            and not n.name.startswith("_")}
+
+
+@pytest.mark.parametrize("module", ["ops/fir.py", "ops/resample.py",
+                                    "ops/nco.py", "ops/dotprod.py",
+                                    "design/firdes.py", "design/special.py",
+                                    "design/firdespm.py"])
+def test_port_module_defines_every_public_name(module):
+    # a diff of the top-level def/class names: the port's module is a
+    # superset of the JAX package's
+    missing = (_public_defs(ROOT / "liquid_dsp_tpu" / module)
+               - _public_defs(ROOT / "liquid_dsp_tpu_torch" / module))
+    assert not missing, sorted(missing)
 
 
 def test_chip_smoke_imports_no_jax():
