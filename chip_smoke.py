@@ -223,13 +223,50 @@ Then the multi-rate paths and the FIR side of the filters and resamplers:
      resamp_54, r2_*, qmf_* and ms2_* goldens within 1e-5 and the 12
      firdecim goldens within 1e-3.
 
-The JSON line before the card's name lists all seven kernels, each with
+Then the analog paths, the IIR side of the filters and the channel model,
+at 64 channels x 262144 samples per block:
+
+ 34. analog_tx, chain(freq_modulator(0.1), channel(snr_db=30, dphi=0.001,
+     4 complex multipath taps, shadowing 1 dB at Doppler 0.001)): a
+     two-tone message (0.013 and 0.037 cycles/sample at 0.6 and 0.3,
+     scaled per channel) over 3 carried blocks; iir_scan (the shadowing)
+     launched once per block and bit-equal to its plain version on the
+     path's own noise (the first and last 1024 samples of each block and
+     the carries, a recording wrapper); channels 0-3 rebuilt in float64
+     numpy from the message and the recorded shadowing (the FM table,
+     the multipath, the shadowing gain, the carrier offset): the card's
+     output less the signal gain times that rebuild has the AWGN's power
+     within 1%, and the same rebuild without the shadowing does not; the
+     shadowing process's std within 0.02 of 1; the step's time, the
+     kernel at the path's shape over 100 launches beside its bound, a
+     lone row's time at two lengths (its step latency), the plain
+     version at 1024 steps; torch.profiler over 3 steps;
+ 35. analog_rx on those blocks, chain(iirfilt_sos(butter 7, 0.2),
+     freq_demodulator(0.1), iirdecim(4), iirfilt_dc_blocker(0.01)):
+     every IIR filter on the block form, iir_block_state launched 3 times
+     a block and bit-equal to its plain version on the last block's own
+     inputs; channels 0-3 within 1e-4 of rms of a float64 scipy
+     sosfilt/lfilter reference on the same input; the message back (both
+     tones within 2% of their amplitudes, the residual below 0.016 rms,
+     twice what 30 dB of AWGN leaves); the scan and block backends within
+     1e-4 of rms of each other on the card at 64 x 32768 (an order-7 SOS,
+     the cccf golden's filter, the integrator, the differentiator), each
+     case's reading printed beside each backend's against float64 scipy
+     on channels 0-3, and the block form with TF32 matmuls outside that
+     limit in every case (the limit sees the precision it guards);
+     the step's time, iir_block_state at the order-7 filter's shape over
+     100 launches beside its bound, a lone row's time at two lengths, its
+     plain version; torch.profiler.
+
+The JSON line before the card's name lists all nine kernels, each with
 its launches on its main path (mix_fir_decim also per path, in
 "launches_by_path": the headline chain and multirate_rx; codebook_argmax also per path, in
 "launches_by_path": frame64 receiver, scanner, flexframe receiver, GMSK
 receiver, OFDM receiver, OFDMFlexFrameSync; viterbi_acs on the GMSK
 receiver with v27 payloads, on the flexframe receiver and on
-OFDMFlexFrameSync; each counted from 0 over its own run), its error
+OFDMFlexFrameSync; iir_scan and iir_block_state on analog_tx and
+analog_rx, with the lax.scan each replaces under "recurrence"; each
+counted from 0 over its own run), its error
 against the plain version (for viterbi_acs the count of decoded bits that
 differ), its time,
 the plain version's, the time of one PyTorch call for the same function
@@ -237,6 +274,7 @@ where there is one (F.conv1d for fir_real), and its bound: the larger of
 the bytes it must move over 3.35 TB/s and its float32 operations over
 67 TFLOP/s (a multiply-add counts 2), from this run's shapes and data.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -329,6 +367,27 @@ P33_GATHER = (4, 12800)     # resamp(127/100)'s gather route: kept small
 TOL_PROC = 2e-5             # a Proc on the card vs the CPU, max|err|/rms
 TOL_R2 = 1e-5               # resamp, resamp2, QMF, msresamp2 goldens
 TOL_DECIM = 1e-3            # firdecim goldens (tests/conftest.py:93)
+AN_B, AN_T = 64, 1 << 18    # channels x samples per block, analog paths
+AN_KF = 0.1                 # FM modulation factor (freqmodem_example.py)
+AN_TAPS = (1.0, 0.12 - 0.05j, -0.06j, 0.03 + 0.02j)   # multipath taps
+AN_CHECK = 4                # channels held to the float64 scipy reference
+AN_SETTLE = 2048            # output samples before the filters settle
+AN_CMP = 1024               # steps of the iir_scan kernel-vs-plain windows
+AN_BACKENDS = (64, 32768)   # channels x samples of the scan-vs-block runs
+TOL_AN64 = 1e-4             # analog_rx vs float64, max|err|/rms (block vs
+#                             scan bound, tests/test_agc_eq_iir.py:193)
+TOL_BACKENDS = 1e-4         # scan vs block on the card, max|err|/rms
+AN_RES = 0.016              # recovered message's residual rms: twice the
+#                             0.0080 that 30 dB of AWGN predicts (PERF.md)
+AN_AMP = 0.02               # each recovered tone's amplitude, relative
+AN_TXPOW = 0.01             # analog_tx minus its float64 rebuild on
+#                             channels 0-3, over the AWGN's power nstd^2:
+#                             within 1% of 1 (the estimate's own spread on
+#                             3.1 M complex samples is 0.06%)
+AN_SHSTD = 0.02             # the shadowing process's std and mean over
+#                             64 x 786432 samples, from 1 and 0 (their
+#                             spread at 159 samples a correlation time:
+#                             0.0013 and 0.0025)
 
 
 def fail(msg):
@@ -708,6 +767,17 @@ def main():
     took("phase 32")
     p33_phase(torch, dev, card)
     took("phase 33")
+    an_x, scan_entry = analog_tx_phase(torch, dev, card)
+    took("phase 34")
+    block_entry = analog_rx_phase(torch, dev, card, an_x)
+    del an_x
+    took("phase 35")
+    # each path's run counted from 0; the other kernel's count was checked
+    # to be 0 there
+    scan_entry["launches_by_path"] = {"analog_tx": scan_entry["launches"],
+                                      "analog_rx": 0}
+    block_entry["launches_by_path"] = {"analog_rx": block_entry["launches"],
+                                       "analog_tx": 0}
     mfd = kernels[0]
     mfd["launches_by_path"] = {"headline": mfd["launches"],
                                "multirate_rx": mr_launches}
@@ -727,7 +797,7 @@ def main():
                               "flexframe_rx_stream": cv_launches,
                               "OFDMFlexFrameSync": fs_vt}
     vt["max_abs_err"] = max(vt["max_abs_err"], gm_vt_err, fs_vt_err)
-    kernels.append(vt)
+    kernels += [vt, scan_entry, block_entry]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2119,10 +2189,7 @@ def viterbi_phase(torch, dev, card):
     (ta, ma), (tb, mb) = one[VT_ONE[0]], one[VT_ONE[1]]
     step_us = (mb - ma) / (tb - ta) * 1e3
     floor_ms = obs.shape[1] * step_us / 1e3
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        timeout=60).stdout.split()[0])
+    mhz = sm_mhz()
     # the traceback's share: the same launch with nothing to write skips it
     k0 = time_ms(lambda: viterbi_acs(obs, exp, 0), iters=VT_ITERS)
     print(f"timing ({card}): viterbi_acs v27 {VT_N}x{VT_DEC} bytes (T = "
@@ -3143,6 +3210,459 @@ def p33_phase(torch, dev, card):
           f"qmf analyzer and synthesizer, ms2_d, ms2_i max|err| {worst:.3e} "
           f"(< {TOL_R2}); the 12 firdecim goldens max|err| {worst_d:.3e} "
           f"(<= {TOL_DECIM})", flush=True)
+
+
+def analog_paths():
+    """(tx, rx): functions that make the two analog paths (phases 34-35)
+    through the public API.  tx: a real message FM-modulated at kf = 0.1,
+    then the channel: 4 complex multipath taps, shadowing (1 dB, Doppler
+    0.001), a carrier offset of 0.001 rad/sample and AWGN at 30 dB.  rx:
+    an order-7 Butterworth lowpass at 0.2 in second-order sections, the FM
+    demodulator, iirdecim(4) (its default order-4 Butterworth at 0.125)
+    and a DC blocker at alpha 0.01."""
+    from liquid_dsp_tpu_torch import chain
+    from liquid_dsp_tpu_torch.design.iirdes import iirdes_sos
+    from liquid_dsp_tpu_torch.modem.analog import (freq_demodulator,
+                                                   freq_modulator)
+    from liquid_dsp_tpu_torch.ops.channel import channel
+    from liquid_dsp_tpu_torch.ops.iir import iirfilt_dc_blocker, iirfilt_sos
+    from liquid_dsp_tpu_torch.ops.misc_filters import iirdecim
+
+    def tx():
+        return chain(freq_modulator(AN_KF), channel(
+            snr_db=30.0, dphi=0.001, multipath_taps=np.asarray(AN_TAPS),
+            shadowing_std=1.0, shadowing_fd=0.001))
+
+    def rx():
+        return chain(iirfilt_sos(*iirdes_sos("butter", 7, 0.2)),
+                     freq_demodulator(AN_KF), iirdecim(4),
+                     iirfilt_dc_blocker(0.01))
+
+    return tx, rx
+
+
+def an_message(torch, dev, B, t0, n):
+    """freqmodem_example's two tones, 0.013 and 0.037 cycles/sample at
+    0.6 and 0.3, scaled per channel from 0.5 to 1: [B, n] float32 from
+    sample t0 on."""
+    t = torch.arange(t0, t0 + n, dtype=torch.float64, device=dev)
+    scale = 0.5 + 0.5 * torch.arange(B, dtype=torch.float64, device=dev
+                                     )[:, None] / max(B - 1, 1)
+    return (scale * (0.6 * torch.cos(2 * np.pi * 0.013 * t)
+                     + 0.3 * torch.cos(2 * np.pi * 0.037 * t))).float()
+
+
+class Recorder:
+    """Wraps a kernel wrapper where a module looks it up, recording each
+    call's arguments and results (the path's own inputs)."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn, self.calls = getattr(module, name), []
+
+    def __enter__(self):
+        def rec(*args):
+            out = self.fn(*args)
+            self.calls.append((args, out))
+            return out
+        setattr(self.module, self.name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def bits_equal(torch, a, b):
+    """Equal bit for bit (float or complex), as a bool."""
+    return bool(torch.equal(torch.view_as_real(a) if a.is_complex() else a,
+                            torch.view_as_real(b) if b.is_complex() else b))
+
+
+def sm_mhz():
+    """The card's maximum SM clock in MHz (nvidia-smi)."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()[0])
+
+
+def lone_row_step_us(fn, lengths):
+    """(us per step, {length: ms}) of fn(n), a launch on one row of n
+    steps, at two lengths: the slope, each launch long enough that the
+    card and not the host sets its time."""
+    ms = {n: time_ms(lambda: fn(n), iters=20) for n in lengths}
+    a, b = lengths
+    return (ms[b] - ms[a]) / (b - a) * 1e3, ms
+
+
+def analog_tx_reference(msg, s, h, kf, sh_std, dphi):
+    """analog_tx without its signal gain and AWGN, in float64 numpy on
+    rows msg [b, n] (the message, float32) with the shadowing process's
+    outputs s [b, n]: the FM modulator's 16-bit phase and 1024-entry table
+    (as freqmod.c), the multipath h, the gain 10^(sh_std*s/20), the
+    carrier offset dphi rad/sample; zero initial state."""
+    from scipy.signal import lfilter
+    x = msg.astype(np.float32) * np.float32(kf * (1 << 16))
+    steps = np.trunc(x + np.sign(x) * np.float32(0.5)).astype(np.int64)
+    idx = (((np.cumsum(steps, axis=-1) & 0xFFFF) + 0x20) >> 6) & 0x3FF
+    z = lfilter(np.asarray(h, np.complex128), [1.0],
+                np.exp(2j * np.pi * idx / 1024.0), axis=-1)
+    z = z * 10.0 ** (sh_std * s.astype(np.float64) / 20.0)
+    return z * np.exp(1j * dphi * np.arange(msg.shape[-1]))
+
+
+def analog_tx_phase(torch, dev, card):
+    """Phase 34: the FM transmit path at AN_B x AN_T.  Returns (the
+    blocks it made, the iir_scan kernel's entry)."""
+    import liquid_dsp_tpu_torch.ops.channel as chmod
+    from liquid_dsp_tpu_torch.ops.kernels.iir_block_state import (
+        iir_block_state)
+    from liquid_dsp_tpu_torch.ops.kernels.iir_scan import (
+        iir_scan, iir_scan_reference)
+    make_tx, _ = analog_paths()
+    path = make_tx().to(dev)
+    msgs = [an_message(torch, dev, AN_B, k * AN_T, AN_T)
+            for k in range(NBLK)]
+    c0 = path.init(batch_shape=(AN_B,), device=dev)
+    iir_scan.launches = iir_block_state.launches = 0
+    with Recorder(chmod, "iir_scan") as rec:
+        outs, _ = run_blocks(path, c0, msgs)
+        torch.cuda.synchronize()
+    launches = iir_scan.launches
+    check(launches == NBLK and iir_block_state.launches == 0,
+          f"analog_tx: {launches} iir_scan, {iir_block_state.launches} "
+          f"iir_block_state launches for {NBLK} blocks")
+    check(len(rec.calls) == NBLK, f"analog_tx: {len(rec.calls)} shadowing "
+          f"calls recorded")
+    for k, y in enumerate(outs):
+        check(tuple(y.shape) == (AN_B, AN_T) and y.dtype == torch.complex64
+              and y.device.type == dev.type
+              and bool(torch.isfinite(torch.view_as_real(y)).all()),
+              f"analog_tx block {k}: {tuple(y.shape)} {y.dtype} on "
+              f"{y.device}, want ({AN_B}, {AN_T}) complex64 finite")
+    # the kernel against its plain version on the path's own inputs: the
+    # first AN_CMP samples of each block from its carry, the last AN_CMP
+    # from the state the kernel reaches before them
+    max_abs, equal = 0.0, True
+    for (x, b, a, st), (y, st2) in rec.calls:
+        yh, sh = iir_scan_reference(x[:, :AN_CMP], b, a, st)
+        _, smid = iir_scan(x[:, :-AN_CMP].contiguous(), b, a, st)
+        yt, stt = iir_scan_reference(x[:, -AN_CMP:], b, a, smid)
+        for got, want in ((y[:, :AN_CMP], yh), (y[:, -AN_CMP:], yt),
+                          (st2, stt)):
+            equal &= bits_equal(torch, got, want)
+            max_abs = max(max_abs, float((got - want).abs().max()))
+    check(equal, f"analog_tx: iir_scan vs plain max|err| {max_abs:.3e} "
+          f"(the same roundings: bit-equal)")
+    # the shadowing process (the filter's outputs): unit variance, mean 0
+    sh = torch.cat([out[0] for _, out in rec.calls], dim=-1)
+    sh_std, sh_mean = float(sh.std()), float(sh.mean())
+    check(abs(sh_std - 1) < AN_SHSTD and abs(sh_mean) < AN_SHSTD,
+          f"analog_tx: shadowing process std {sh_std:.4f}, mean "
+          f"{sh_mean:.4f}, want 1 and 0 within {AN_SHSTD}")
+    # the deterministic impairments at the path's size: channels
+    # 0..AN_CHECK-1 rebuilt in float64 from the message and the recorded
+    # shadowing; what the card adds beyond gamma times that is the AWGN
+    ch = path.stages[1]
+    y64 = torch.cat(outs, dim=-1)[:AN_CHECK].cpu().numpy().astype(
+        np.complex128)
+    m64 = torch.cat(msgs, dim=-1)[:AN_CHECK].cpu().numpy()
+    s64 = sh[:AN_CHECK].cpu().numpy()
+    npow = ch.nstd ** 2
+    pw = {}
+    for what, sstd in (("rebuild", ch.shadowing_std), ("unshadowed", 0.0)):
+        ref = analog_tx_reference(m64, s64, AN_TAPS, AN_KF, sstd, ch.dphi)
+        pw[what] = float(np.mean(np.abs(y64 - ch.gamma * ref) ** 2)) / npow
+    check(abs(pw["rebuild"] - 1) < AN_TXPOW and pw["unshadowed"] > 1 +
+          AN_TXPOW, f"analog_tx vs its float64 rebuild: residual power "
+          f"{pw['rebuild']:.5f} of the AWGN's (want 1 within {AN_TXPOW}); "
+          f"without the shadowing {pw['unshadowed']:.5f} (want above "
+          f"{1 + AN_TXPOW})")
+    del y64, m64, s64, ref
+    print(f"analog_tx: chain(freq_modulator({AN_KF}), channel(snr 30 dB, "
+          f"dphi 0.001, {len(AN_TAPS)} multipath taps, shadowing 1 dB at "
+          f"fd 0.001)) on {AN_B} channels x {AN_T} samples, {NBLK} blocks "
+          f"carried; iir_scan launches {launches} (the shadowing, one a "
+          f"block), bit-equal to its plain version on the path's own noise "
+          f"({2 * NBLK} windows of {AN_CMP} samples and the carries); "
+          f"shadowing process std {sh_std:.4f}, mean {sh_mean:.4f} (unit "
+          f"variance, 1/(1-beta) ~ 159 samples a correlation time; limit "
+          f"{AN_SHSTD}); channels 0-{AN_CHECK - 1} less gamma times their "
+          f"float64 rebuild (FM table, multipath, shadowing gain, CFO): "
+          f"{pw['rebuild']:.5f} of the AWGN's power nstd^2 = {npow:.1e} "
+          f"(limit 1 +- {AN_TXPOW}); the rebuild without the shadowing "
+          f"reads {pw['unshadowed']:.5f}", flush=True)
+    del rec, sh
+    # times: the step, the kernel alone at the path's shape
+    gen = torch.Generator(device=dev).manual_seed(34)
+    w = torch.randn(AN_B, AN_T, generator=gen, device=dev)
+    sh_b, sh_a = path.stages[1].sh_b, path.stages[1].sh_a
+    st0 = torch.zeros(AN_B, 1, 1, device=dev)
+    wc = w[:, :AN_CMP].contiguous()
+    p1 = time_once(lambda: iir_scan_reference(wc, sh_b, sh_a, st0))[0]
+    k1 = time_ms(lambda: iir_scan(w, sh_b, sh_a, st0), iters=100)
+    k2 = time_ms(lambda: iir_scan(w, sh_b, sh_a, st0), iters=100)
+    p2 = time_once(lambda: iir_scan_reference(wc, sh_b, sh_a, st0))[0]
+    step = time_ms(lambda: path(c0, msgs[0]))
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    # x in, y out once; per sample 3 products, a difference, a sum
+    bd = bound(2 * AN_B * AN_T * 4, 5 * AN_B * AN_T)
+    # a lone row at two lengths: the time one row's loop takes per sample
+    step_us, one = lone_row_step_us(lambda n: iir_scan(
+        w[:1, :n].contiguous(), sh_b, sh_a, st0[:1]), (AN_T // 4, AN_T))
+    lone_ms = AN_T * step_us / 1e3
+    mhz = sm_mhz()
+    print(f"timing ({card}): analog_tx step {step:.4f} ms per {AN_B}x{AN_T} "
+          f"block = {AN_B * AN_T / step / 1e3:.1f} Msamples/s; iir_scan at "
+          f"the shadowing's shape ({AN_B} rows x {AN_T}, one pole): {k1:.4f}"
+          f", {k2:.4f} ms (100 launches each) = "
+          f"{AN_B * AN_T / ms / 1e3:.1f} Msamples/s, bound "
+          f"{bd['bound_ms']:.5f} ms by {bd['bound_by']} "
+          f"({bd['bound_ms'] / ms:.1%}); a lone row at "
+          + ", ".join(f"{n} steps {t:.4f} ms" for n, t in one.items())
+          + f" (20 launches each): {step_us * 1e3:.2f} ns a step "
+          f"(= {step_us * mhz:.0f} cycles at the card's maximum SM clock, "
+          f"{mhz:.0f} MHz), {lone_ms:.4f} ms at {AN_T} steps, so the "
+          f"{AN_B}-row launch takes {ms / lone_ms:.3f} of one row's loop; "
+          f"the chain's arithmetic alone (3 dependent operations at an "
+          f"assumed 4 cycles, not measured) would be "
+          f"{AN_T * 12 / mhz / 1e3:.4f} ms; plain version at {AN_CMP} "
+          f"steps {p1:.2f}, {p2:.2f} ms", flush=True)
+    profile_steps(torch, card, lambda: path(c0, msgs[0]), 3,
+                  "analog_tx step")
+    entry = {
+        "name": "iir_scan", "route": "cuda",
+        "source": "liquid_dsp_tpu_torch/csrc/iir_scan.cu", "replaces": None,
+        "recurrence": "liquid_dsp_tpu/ops/iir.py:37-78 and "
+                      "liquid_dsp_tpu/ops/channel.py:65-75 (lax.scan)",
+        "launches": launches, "max_abs_err": max_abs, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": None, **bd,
+        "plain_steps": AN_CMP, "step_latency_us": step_us,
+        "lone_row_ms": lone_ms}
+    del msgs, w
+    return outs, entry
+
+
+def tone_fit(y, freqs, settle):
+    """Per row of y [B, n] (numpy), the least-squares amplitudes of cosines
+    at `freqs` (cycles/sample) past `settle` samples, and the rms of what
+    is left."""
+    n = np.arange(settle, y.shape[1])
+    M = np.stack([f(2 * np.pi * fr * n) for fr in freqs
+                  for f in (np.cos, np.sin)], axis=1)
+    c, *_ = np.linalg.lstsq(M, y[:, settle:].T.astype(np.float64),
+                            rcond=None)
+    amp = np.hypot(c[0::2], c[1::2]).T
+    res = y[:, settle:] - (M @ c).T
+    return amp, np.sqrt(np.mean(res ** 2, axis=1))
+
+
+def analog_rx_reference(x, B7, A7, B4, A4, alpha):
+    """analog_rx in float64 with scipy and numpy on rows x [b, n]
+    (complex): the same coefficients, zero initial state."""
+    from scipy.signal import lfilter, sosfilt
+    sos = np.concatenate([B7, A7], axis=1).astype(np.float64)
+    z = sosfilt(sos, x.astype(np.complex128), axis=-1)
+    prev = np.concatenate([np.zeros((len(z), 1)), z[:, :-1]], axis=1)
+    m = np.angle(np.conj(prev) * z) / (2 * np.pi * AN_KF)
+    d = sosfilt(np.concatenate([B4, A4], axis=1).astype(np.float64), m,
+                axis=-1)[:, ::4]
+    a1 = float(np.float32(-1.0 + alpha))
+    return lfilter([1.0, -1.0], [1.0, a1], d, axis=-1)
+
+
+def analog_rx_phase(torch, dev, card, xs):
+    """Phase 35: the FM receive path on analog_tx's blocks, the scan and
+    block backends on the card, the iir_block_state kernel.  Returns its
+    kernel entry."""
+    import liquid_dsp_tpu_torch.ops.iir as iirmod
+    from liquid_dsp_tpu_torch.ops.kernels.iir_block_state import (
+        iir_block_state, iir_block_state_reference)
+    from liquid_dsp_tpu_torch.ops.kernels.iir_scan import iir_scan
+    _, make_rx = analog_paths()
+    path = make_rx().to(dev)
+    filters = [path.stages[0], path.stages[2].filt, path.stages[3]]
+    check(all(f.uses_block(xs[0]) for f in filters),
+          "analog_rx: a filter does not take the block form on the card")
+    c0 = path.init(batch_shape=(AN_B,), device=dev)
+    iir_scan.launches = iir_block_state.launches = 0
+    with Recorder(iirmod, "iir_block_state") as rec:
+        outs, _ = run_blocks(path, c0, xs)
+        torch.cuda.synchronize()
+    launches = iir_block_state.launches
+    check(launches == 3 * NBLK and iir_scan.launches == 0,
+          f"analog_rx: {launches} iir_block_state, {iir_scan.launches} "
+          f"iir_scan launches for {NBLK} blocks of 3 filters")
+    for k, y in enumerate(outs):
+        check(tuple(y.shape) == (AN_B, AN_T // 4) and y.dtype == torch.float32
+              and y.device.type == dev.type and bool(torch.isfinite(y).all()),
+              f"analog_rx block {k}: {tuple(y.shape)} {y.dtype} on "
+              f"{y.device}, want ({AN_B}, {AN_T // 4}) float32 finite")
+    # the kernel against its plain version on the path's own inputs: the
+    # three filters' calls of the last block
+    max_abs = 0.0
+    for (w, m, s), (s_pre, s2) in rec.calls[-3:]:
+        pre_ref, s_ref = iir_block_state_reference(w, m, s)
+        for got, want in ((s_pre, pre_ref), (s2, s_ref)):
+            max_abs = max(max_abs, float((got - want).abs().max()))
+            check(bits_equal(torch, got, want), "analog_rx: iir_block_state "
+                  f"vs plain at p = {m.shape[0]}: not bit-equal, max|err| "
+                  f"{max_abs:.3e}")
+    shapes = [tuple(w.shape) for (w, _, _), _ in rec.calls[-3:]]
+    del rec
+    y = torch.cat(outs, dim=-1).cpu().numpy()
+    # an independent float64 reference on channels 0..AN_CHECK-1
+    x64 = torch.cat(xs, dim=-1)[:AN_CHECK].cpu().numpy()
+    f7, f4 = filters[0], filters[1]
+    ref = analog_rx_reference(x64, f7.B.cpu().numpy(), f7.A.cpu().numpy(),
+                              f4.B.cpu().numpy(), f4.A.cpu().numpy(), 0.01)
+    rel64 = float(np.abs(y[:AN_CHECK] - ref).max()
+                  / np.sqrt(np.mean(ref ** 2)))
+    check(rel64 < TOL_AN64, f"analog_rx vs float64 scipy: {rel64:.3e}")
+    # the message comes back: both tones at their amplitudes, and a
+    # residual at the AWGN's level
+    scale = 0.5 + 0.5 * np.arange(AN_B) / max(AN_B - 1, 1)
+    amp, res = tone_fit(y, (4 * 0.013, 4 * 0.037), AN_SETTLE)
+    amp_err = float(np.abs(amp / np.stack([0.6 * scale, 0.3 * scale], 1)
+                           - 1).max())
+    check(amp_err < AN_AMP and float(res.max()) < AN_RES,
+          f"analog_rx message: tone amplitudes within {amp_err:.4f} "
+          f"(< {AN_AMP}), residual rms up to {float(res.max()):.4f} "
+          f"(< {AN_RES})")
+    print(f"analog_rx: chain(iirfilt_sos(butter 7, 0.2), "
+          f"freq_demodulator({AN_KF}), iirdecim(4), iirfilt_dc_blocker(0.01))"
+          f" on {AN_B} channels x {AN_T} samples in, {AN_T // 4} out per "
+          f"block, {NBLK} blocks carried; iir_block_state launches "
+          f"{launches} (3 filters a block; w {shapes}), bit-equal to its "
+          f"plain version on the last block's own inputs; channels "
+          f"0-{AN_CHECK - 1} vs float64 scipy sosfilt/lfilter on the same "
+          f"input: max|err|/rms {rel64:.3e} (< {TOL_AN64}); the message "
+          f"past {AN_SETTLE} output samples: tone amplitudes within "
+          f"{amp_err:.4f} of those sent (< {AN_AMP}), residual rms "
+          f"{float(res.min()):.4f}-{float(res.max()):.4f} (< {AN_RES})",
+          flush=True)
+
+    # scan and block on the card, AN_BACKENDS channels x samples
+    from liquid_dsp_tpu_torch.design.iirdes import iirdes_sos
+    from liquid_dsp_tpu_torch.ops.iir import (
+        iirfilt, iirfilt_differentiator, iirfilt_integrator, iirfilt_sos)
+    cccf = golden_npz("iirfilt_cccf_data_h7x64")
+    sos = {"sos_butter7": iirdes_sos("butter", 7, 0.2),
+           **{f.name[8:]: (f.B.numpy(), f.A.numpy()) for f in (
+               iirfilt_integrator(), iirfilt_differentiator())}}
+    cases = {name: (lambda be, B=B, A=A: iirfilt_sos(B, A, backend=be))
+             for name, (B, A) in sos.items()}
+    cases["cccf_h7"] = lambda be: iirfilt(cccf["b"], cccf["a"], backend=be)
+    gen = torch.Generator(device=dev).manual_seed(35)
+    xb = torch.randn(*AN_BACKENDS, dtype=torch.complex64, generator=gen,
+                     device=dev)
+    x4 = xb[:AN_CHECK].cpu().numpy().astype(np.complex128)
+
+    def rel_err(a, b):
+        return float((a - b).abs().max() / b.abs().square().mean().sqrt())
+
+    @contextlib.contextmanager
+    def tf32():
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+
+    held, loose = [], {}
+    n0 = iir_scan.launches, iir_block_state.launches
+    for name, make in cases.items():
+        qs = {be: make(be).to(dev) for be in ("scan", "block")}
+        ys = {be: q(q.init(batch_shape=(AN_BACKENDS[0],), device=dev), xb)
+              for be, q in qs.items()}
+        rel = rel_err(ys["block"][0], ys["scan"][0])
+        crel = rel_err(ys["block"][1], ys["scan"][1])
+        check(rel < TOL_BACKENDS and crel < TOL_BACKENDS,
+              f"scan vs block on the card, {name}: {rel:.3e}, carry "
+              f"{crel:.3e}")
+        # each backend against float64 scipy on channels 0..AN_CHECK-1
+        ref = iir_reference64(qs["scan"], x4)
+        r64 = {be: float(np.abs(ys[be][0][:AN_CHECK].cpu().numpy() - ref)
+                         .max() / np.sqrt(np.mean(np.abs(ref) ** 2)))
+               for be in ys}
+        held.append(f"{name} {rel:.2e} (carry {crel:.2e}; vs float64 scan "
+                    f"{r64['scan']:.2e}, block {r64['block']:.2e})")
+        # the control: the block form with its matmuls in TF32
+        q, pinned = qs["block"], iirmod._full_f32
+        iirmod._full_f32 = contextlib.nullcontext
+        try:
+            with tf32():
+                yt = q(q.init(batch_shape=(AN_BACKENDS[0],), device=dev), xb)
+        finally:
+            iirmod._full_f32 = pinned
+        loose[name] = rel_err(yt[0], ys["scan"][0])
+    check((iir_scan.launches - n0[0], iir_block_state.launches - n0[1])
+          == (len(cases), 2 * len(cases)), "scan vs block: each backend "
+          "must launch its kernel once a case (block twice: the control)")
+    check(all(v > TOL_BACKENDS for v in loose.values()),
+          f"scan vs block with TF32 matmuls: {loose}, want every case above "
+          f"{TOL_BACKENDS}")
+    print(f"scan vs block on the card at {AN_BACKENDS[0]}x{AN_BACKENDS[1]} "
+          f"complex samples, max|err|/rms (< {TOL_BACKENDS}): "
+          + "; ".join(held) + "; the block form with TF32 matmuls (the "
+          f"control; every case must read above {TOL_BACKENDS}): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in loose.items()), flush=True)
+
+    # times: the step; the kernel alone at the path's largest shape
+    w0 = torch.randn(2 * AN_B, AN_T // 128, 8, generator=gen, device=dev)
+    m0 = torch.from_numpy(np.asarray(filters[0].Apow[128].cpu())).to(dev)
+    s0 = torch.zeros(2 * AN_B, 8, device=dev)
+    p1 = time_once(lambda: iir_block_state_reference(w0, m0, s0))[0]
+    k1 = time_ms(lambda: iir_block_state(w0, m0, s0), iters=100)
+    k2 = time_ms(lambda: iir_block_state(w0, m0, s0), iters=100)
+    p2 = time_once(lambda: iir_block_state_reference(w0, m0, s0))[0]
+    step = time_ms(lambda: path(c0, xs[0]))
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    R, nb, p = w0.shape
+    # w in, s_pre out once; per block and row p*p products and sums
+    bd = bound(2 * R * nb * p * 4 + (p * p + 2 * R * p) * 4,
+               2 * p * p * R * nb)
+    wl = torch.randn(1, 4 * nb, p, generator=gen, device=dev)
+    step_us, one = lone_row_step_us(lambda n: iir_block_state(
+        wl[:, :n].contiguous(), m0, s0[:1]), (nb, 4 * nb))
+    lone_ms = nb * step_us / 1e3
+    mhz = sm_mhz()
+    print(f"timing ({card}): analog_rx step {step:.4f} ms per {AN_B}x{AN_T} "
+          f"block = {AN_B * AN_T / step / 1e3:.1f} Msamples/s in; "
+          f"iir_block_state at the order-7 filter's shape ({R} rows x {nb} "
+          f"blocks x {p} states): {k1:.4f}, {k2:.4f} ms (100 launches each),"
+          f" bound {bd['bound_ms']:.5f} ms by {bd['bound_by']} "
+          f"({bd['bound_ms'] / ms:.1%}); a lone row at "
+          + ", ".join(f"{n} blocks {t:.4f} ms" for n, t in one.items())
+          + f" (20 launches each): {step_us * 1e3:.2f} ns a block step "
+          f"(= {step_us * mhz:.0f} cycles at the card's maximum SM clock, "
+          f"{mhz:.0f} MHz), {lone_ms:.4f} ms at {nb} blocks, so the {R}-row "
+          f"launch takes {ms / lone_ms:.3f} of one row's loop; plain "
+          f"version {p1:.1f}, {p2:.1f} ms", flush=True)
+    profile_steps(torch, card, lambda: path(c0, xs[0]), 3, "analog_rx step")
+    return {
+        "name": "iir_block_state", "route": "cuda",
+        "source": "liquid_dsp_tpu_torch/csrc/iir_block_state.cu",
+        "replaces": None,
+        "recurrence": "liquid_dsp_tpu/ops/iir.py:172-181 (lax.scan)",
+        "launches": launches, "max_abs_err": max_abs, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": None, **bd,
+        "step_latency_us": step_us, "lone_row_ms": lone_ms}
+
+
+def iir_reference64(q, x):
+    """An IIRFilt `q`'s output in float64/complex128 scipy on rows x [b, n]
+    (complex) from zero state: sosfilt for a cascade, lfilter for the
+    transfer-function form, on the filter's own float32 or complex64
+    coefficients."""
+    from scipy.signal import lfilter, sosfilt
+    if q.sos:
+        sos = np.concatenate([q.B.cpu().numpy(), q.A.cpu().numpy()], axis=1)
+        return sosfilt(sos.astype(np.result_type(sos, np.float64)), x,
+                       axis=-1)
+    return lfilter(q.b.cpu().numpy().astype(np.complex128),
+                   q.a.cpu().numpy().astype(np.complex128), x, axis=-1)
 
 
 if __name__ == "__main__":

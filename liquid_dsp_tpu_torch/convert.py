@@ -20,7 +20,7 @@ __all__ = ["load_jax_params", "carry_from_numpy", "carry_to_numpy"]
 
 def _load(module: Proc, spec, tree, path: str):
     if isinstance(spec, str):
-        buf = getattr(module, spec)
+        buf = module.get_buffer(spec)      # "filt.B": a submodule's buffer
         src = torch.from_numpy(np.array(tree))
         if src.shape != buf.shape or src.dtype != buf.dtype:
             raise ValueError(f"{path}: JAX param {tuple(src.shape)} "

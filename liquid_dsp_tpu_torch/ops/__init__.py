@@ -1,2 +1,2 @@
 """Streaming compute ops of the PyTorch port (fir, fftfilt, resample, nco,
-agc, symsync, equalize)."""
+agc, symsync, equalize, iir, misc_filters, channel)."""

@@ -47,6 +47,8 @@ _SIGNATURES = {
     "pll_lms_launch": ([_P] * 16 + [_I] * 9 + [_F] * 4 + [_P], _I),
     "viterbi_acs_launch": ([_P] * 4 + [_I] * 5 + [_P], _I),
     "viterbi_acs_dec_smem_max": ([], _I),
+    "iir_scan_launch": ([_P] * 5 + [_I] * 5 + [_P], _I),
+    "iir_block_state_launch": ([_P] * 4 + [_I] * 4 + [_P], _I),
 }
 
 

@@ -1264,3 +1264,185 @@ def test_firdecim_golden_on_card(dev, stem):
     y = p(p.init(dtype=x.dtype, device=dev), x)[0]
     assert y.shape == d["y"].shape
     assert np.abs(y.cpu().numpy() - d["y"]).max() <= 1e-3
+
+
+# --- the IIR recurrences, the channel model and the analog paths ---------
+
+def _draw(g, dev, cplx, *shape, scale=1.0):
+    dt = torch.complex64 if cplx else torch.float32
+    return torch.randn(*shape, dtype=dt, generator=g, device=dev) * scale
+
+
+def _bits(t):
+    return torch.view_as_real(t) if t.is_complex() else t
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+@pytest.mark.parametrize("ns,n", [(1, 2), (1, 3), (1, 5), (1, 9), (1, 17),
+                                  (2, 3), (4, 3), (8, 3)])
+def test_iir_scan_bit_equal_to_plain(dev, ns, n, cplx):
+    # the same roundings in the same order: bit-equal outputs and state,
+    # 70 rows (a ragged warp), T = 203 (a ragged last group of 8), and the
+    # carry handed on: two calls equal one
+    from liquid_dsp_tpu_torch.ops.kernels.iir_scan import (
+        iir_scan, iir_scan_reference)
+    g = torch.Generator(device=dev).manual_seed(ns * 20 + n)
+    x = _draw(g, dev, cplx, 70, 203)
+    b, a = _draw(g, dev, cplx, ns, n, scale=0.3), _draw(g, dev, cplx, ns, n,
+                                                       scale=0.3 / n)
+    s = _draw(g, dev, cplx, 70, ns, n - 1)
+    k0 = iir_scan.launches
+    y, s2 = iir_scan(x, b, a, s)
+    ya, sa = iir_scan(x[:, :77].contiguous(), b, a, s)
+    yb, sb = iir_scan(x[:, 77:].contiguous(), b, a, sa)
+    yr, sr = iir_scan_reference(x, b, a, s)
+    torch.cuda.synchronize()
+    assert iir_scan.launches == k0 + 3
+    assert torch.equal(_bits(y), _bits(yr)) and torch.equal(_bits(s2),
+                                                            _bits(sr))
+    assert torch.equal(_bits(torch.cat([ya, yb], -1)), _bits(y))
+    assert torch.equal(_bits(sb), _bits(s2))
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+@pytest.mark.parametrize("p", list(range(1, 9)))
+def test_iir_block_state_bit_equal_to_plain(dev, p, cplx):
+    from liquid_dsp_tpu_torch.ops.kernels.iir_block_state import (
+        iir_block_state, iir_block_state_reference)
+    g = torch.Generator(device=dev).manual_seed(p)
+    w = _draw(g, dev, cplx, 70, 37, p)
+    m = _draw(g, dev, cplx, p, p, scale=0.5 / p)
+    s = _draw(g, dev, cplx, 70, p)
+    k0 = iir_block_state.launches
+    pre, s2 = iir_block_state(w, m, s)
+    pa, sa = iir_block_state(w[:, :10].contiguous(), m, s)
+    pb, sb = iir_block_state(w[:, 10:].contiguous(), m, sa)
+    pr, sr = iir_block_state_reference(w, m, s)
+    torch.cuda.synchronize()
+    assert iir_block_state.launches == k0 + 3
+    assert torch.equal(_bits(pre), _bits(pr))
+    assert torch.equal(_bits(s2), _bits(sr))
+    assert torch.equal(_bits(torch.cat([pa, pb], 1)), _bits(pre))
+    assert torch.equal(_bits(sb), _bits(s2))
+
+
+def test_iir_kernels_refuse_what_they_do_not_take(dev):
+    from liquid_dsp_tpu_torch.ops.kernels.iir_block_state import (
+        iir_block_state)
+    from liquid_dsp_tpu_torch.ops.kernels.iir_scan import iir_scan
+    x = torch.zeros(4, 64, device=dev)
+    with pytest.raises(ValueError, match="sections"):
+        iir_scan(x, torch.ones(2, 4, device=dev), torch.ones(2, 4, device=dev),
+                 torch.zeros(4, 2, 3, device=dev))
+    with pytest.raises(ValueError, match="states"):
+        iir_block_state(torch.zeros(4, 3, 9, device=dev),
+                        torch.eye(9, device=dev), torch.zeros(4, 9, device=dev))
+    with pytest.raises(ValueError, match="one device"):
+        iir_scan(x, torch.ones(1, 2), torch.ones(1, 2),
+                 torch.zeros(4, 1, 1, device=dev))
+
+
+def _iir_cases():
+    from liquid_dsp_tpu_torch.design.iirdes import iirdes, iirdes_sos
+    d = np.load(_GOLDEN / "iirfilt_cccf_data_h5x64.npz")
+    stem = "iirfilt_cccf_data_h5x64_"
+    return {**{f"butter{n}": ("sos", iirdes_sos("butter", n, 0.17))
+               for n in (1, 2, 5, 8)},
+            "ellip6": ("sos", iirdes_sos("ellip", 6, 0.2)),
+            "cheby1_tf5": ("tf", iirdes("cheby1", 5, 0.2)),
+            "cccf_h5": ("tf", (d[stem + "b"], d[stem + "a"]))}
+
+
+@pytest.mark.parametrize("name", ["butter1", "butter2", "butter5", "butter8",
+                                  "ellip6", "cheby1_tf5", "cccf_h5"])
+def test_iir_backends_on_the_card_match_the_cpu(dev, name):
+    # scan (iir_scan) and block (iir_block_state) on the card against the
+    # CPU's scan, over blocks of 1000 and 333 samples (T % L != 0), carried:
+    # 1e-4 of rms (the JAX package's block-versus-scan bound)
+    from liquid_dsp_tpu_torch.ops import iir
+    form, (b, a) = _iir_cases()[name]
+    make = iir.iirfilt_sos if form == "sos" else iir.iirfilt
+    g = torch.Generator().manual_seed(len(name))
+    blocks = [torch.randn(6, n, dtype=torch.complex64, generator=g)
+              for n in (1000, 333)]
+    y_cpu = _stream(make(b, a, backend="scan"), blocks, torch.device("cpu"))
+    rms = y_cpu.abs().square().mean().sqrt()
+    from liquid_dsp_tpu_torch.ops.kernels.iir_block_state import (
+        iir_block_state)
+    from liquid_dsp_tpu_torch.ops.kernels.iir_scan import iir_scan
+    for backend, kern in (("scan", iir_scan), ("block", iir_block_state),
+                          ("auto", iir_block_state)):
+        k0 = kern.launches
+        y = _stream(make(b, a, backend=backend).to(dev), blocks, dev)
+        assert kern.launches == k0 + 2, backend
+        assert float((y - y_cpu).abs().max() / rms) < 1e-4, backend
+
+
+def test_unstable_filter_runs_the_scan_kernel_on_the_card(dev):
+    from liquid_dsp_tpu_torch.ops import iir
+    from liquid_dsp_tpu_torch.ops.kernels.iir_scan import iir_scan
+    q = iir.iirfilt([1.0], [1.0, -1.01])
+    x = torch.ones(3, 500)
+    y_cpu, _ = q(q.init((3,), dtype=torch.float32), x)
+    k0 = iir_scan.launches
+    q = q.to(dev)
+    y, _ = q(q.init((3,), dtype=torch.float32, device=dev), x.to(dev))
+    assert iir_scan.launches == k0 + 1
+    assert float((y.cpu() - y_cpu).abs().max() / y_cpu.abs().max()) < 1e-5
+
+
+def _analog(kind, noise):
+    from liquid_dsp_tpu_torch import chain
+    from liquid_dsp_tpu_torch.design.iirdes import iirdes_sos
+    from liquid_dsp_tpu_torch.modem.analog import (freq_demodulator,
+                                                   freq_modulator)
+    from liquid_dsp_tpu_torch.ops.channel import channel
+    from liquid_dsp_tpu_torch.ops.iir import iirfilt_dc_blocker, iirfilt_sos
+    from liquid_dsp_tpu_torch.ops.misc_filters import iirdecim
+    if kind == "tx":
+        kw = dict(dphi=0.001, multipath_taps=np.asarray(
+            [1.0, 0.12 - 0.05j, -0.06j, 0.03 + 0.02j], np.complex64))
+        if noise:
+            kw.update(snr_db=30.0, shadowing_std=1.0, shadowing_fd=0.001)
+        return chain(freq_modulator(0.1), channel(**kw))
+    return chain(iirfilt_sos(*iirdes_sos("butter", 7, 0.2)),
+                 freq_demodulator(0.1), iirdecim(4), iirfilt_dc_blocker(0.01))
+
+
+def test_analog_paths_on_the_card_match_the_cpu(dev):
+    # tx without noise: 1e-5 absolute at unit amplitude; rx on the card's tx
+    # output with noise: 1e-4 of rms (block form on the card, scan on the
+    # CPU)
+    t = torch.arange(3 * 4096, dtype=torch.float64)
+    m = (0.6 * torch.cos(2 * np.pi * 0.013 * t)
+         + 0.3 * torch.cos(2 * np.pi * 0.037 * t)).float().repeat(4, 1)
+    blocks = list(m.split(4096, dim=-1))
+    y_cpu = _stream(_analog("tx", False), blocks, torch.device("cpu"))
+    y_card = _stream(_analog("tx", False).to(dev), blocks, dev)
+    assert float((y_card - y_cpu).abs().max()) < 1e-5
+    x = _stream(_analog("tx", True).to(dev), blocks, dev)
+    xb = list(x.split(4096, dim=-1))
+    r_cpu = _stream(_analog("rx", False), xb, torch.device("cpu"))
+    r_card = _stream(_analog("rx", False).to(dev), xb, dev)
+    assert r_card.shape == (4, 3 * 1024)
+    rms = r_cpu.square().mean().sqrt()
+    assert float((r_card - r_cpu).abs().max() / rms) < 1e-4
+
+
+def test_channel_noise_and_shadowing_on_the_card(dev):
+    # statistics as tests/test_torch_channel.py: the noise floor's power
+    # within 5%, the shadowing's spread within 10%; one generator state per
+    # carry, reproducible from the seed
+    from liquid_dsp_tpu_torch.ops.channel import channel
+    q = channel(snr_db=20.0, noise_floor_db=-40.0, seed=1).to(dev)
+    z, _ = q(q.init((8,), device=dev),
+             torch.zeros(8, 20000, dtype=torch.complex64, device=dev))
+    assert abs(float(z.abs().square().mean()) / 1e-4 - 1) < 0.05
+    q = channel(shadowing_std=2.0, shadowing_fd=0.05, seed=4).to(dev)
+    c = q.init((8,), device=dev)
+    x = torch.ones(8, 8192, dtype=torch.complex64, device=dev)
+    y1, c1 = q(c, x)
+    y2, _ = q(c, x)
+    assert torch.equal(y1, y2)
+    g_db = 20 * torch.log10(y1.abs())
+    assert abs(float(g_db.std()) / 2.0 - 1) < 0.1

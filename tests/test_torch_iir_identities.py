@@ -1,0 +1,214 @@
+"""The identities the two IIR recurrence kernels rest on, walked in numpy.
+
+* The block form (`ops/iir.py`, `_block_mats` and `_block_rows`; the state
+  pass is `csrc/iir_block_state.cu`): over blocks of L samples,
+  y = Th u + Obs s and s' = A^L s + K u reproduce the per-sample DF2T
+  recurrence exactly, the carry being the stacked section states; shown
+  in float64 for the transfer-function form and for cascades of order 1
+  to 8 over several blocks and a ragged remainder (to 1e-9 of rms).
+* `csrc/iir_scan.cu`'s loop per row (groups of 8 samples, then a ragged
+  tail; the products of complex values on the planes) in float32 numpy
+  equals `iir_scan_reference` bit for bit.
+* `csrc/iir_block_state.cu`'s loop per row (the state saved, then the
+  p-term dot in order and + w) in float32 numpy equals
+  `iir_block_state_reference` bit for bit.
+
+Change a kernel's loop only together with its walk here."""
+import numpy as np
+import pytest
+import torch
+
+import _torch_port  # noqa: F401  (torch thread cap)
+from liquid_dsp_tpu_torch.design.iirdes import iirdes, iirdes_sos
+from liquid_dsp_tpu_torch.ops import iir
+from liquid_dsp_tpu_torch.ops.kernels.iir_block_state import (
+    iir_block_state_reference)
+from liquid_dsp_tpu_torch.ops.kernels.iir_scan import iir_scan_reference
+
+F32 = np.float32
+
+
+def df2t64(B, A, x, s):
+    """The per-sample DF2T cascade in float64: B, A [ns, n], x [T],
+    s [ns, n-1] -> (y, s')."""
+    s = s.astype(np.complex128).copy()
+    y = np.empty(len(x), np.complex128)
+    for t, v in enumerate(x):
+        for k in range(B.shape[0]):
+            yk = B[k, 0] * v + s[k, 0]
+            d = B[k, 1:] * v - A[k, 1:] * yk
+            s[k, :-1] = d[:-1] + s[k, 1:]
+            s[k, -1] = d[-1]
+            v = yk
+        y[t] = v
+    return y, s
+
+
+def block_walk64(ss, L, x, s):
+    """The block form in float64 on one row: per whole block the matrix
+    products and the state step, then the remainder."""
+    A, Bv, C, D = ss
+    p = A.shape[0]
+    Apow = [np.eye(p)]
+    for _ in range(L):
+        Apow.append(Apow[-1] @ A)
+    h = np.array([D] + [C @ Apow[i] @ Bv for i in range(L - 1)])
+    Th = np.array([[h[i - k] if i >= k else 0.0 for k in range(L)]
+                   for i in range(L)])
+    Obs = np.array([C @ Apow[i] for i in range(L)])
+    K = np.array([Apow[L - 1 - i] @ Bv for i in range(L)]).T
+    y = []
+    nb, r = divmod(len(x), L)
+    for n in range(nb):
+        u = x[n * L:(n + 1) * L]
+        y.append(Th @ u + Obs @ s)
+        s = Apow[L] @ s + K @ u
+    if r:
+        u = x[nb * L:]
+        y.append(Th[:r, :r] @ u + Obs[:r] @ s)
+        s = Apow[r] @ s + K[:, L - r:] @ u
+    return np.concatenate(y), s
+
+
+FILTERS = ([("sos", ("butter", n, 0.17)) for n in range(1, 9)]
+           + [("tf", ("cheby1", 5, 0.2)), ("tf", ("ellip", 4, 0.25)),
+              ("sos", ("ellip", 6, 0.3))])
+
+
+@pytest.mark.parametrize("form,design", FILTERS)
+@pytest.mark.parametrize("L,T", [(16, 100), (32, 96), (7, 5)])
+def test_block_form_reproduces_the_per_sample_recurrence(form, design, L,
+                                                         T):
+    rng = np.random.default_rng(L + T)
+    if form == "sos":
+        B, A = iirdes_sos(*design)
+        ss = iir._ss_cascade([iir._df2t_ss(B[k], A[k])
+                              for k in range(B.shape[0])])
+    else:
+        b, a = iirdes(*design)
+        B, A = b[None], a[None]
+        ss = iir._df2t_ss(b, a)
+    x = rng.standard_normal(T)
+    s0 = rng.standard_normal((B.shape[0], B.shape[1] - 1))
+    y_ref, s_ref = df2t64(B, A, x, s0)
+    y, s = block_walk64(ss, L, x, s0.reshape(-1))
+    rms = np.sqrt(np.mean(np.abs(y_ref) ** 2))
+    assert np.abs(y - y_ref).max() < 1e-9 * rms
+    # the carry IS the stacked per-section DF2T states
+    assert np.abs(s - s_ref.reshape(-1)).max() < 1e-9 * rms
+
+
+def _cmul(a, b):
+    return (F32(a[0] * b[0]) - F32(a[1] * b[1]),
+            F32(a[0] * b[1]) + F32(a[1] * b[0]))
+
+
+def _ops(cplx):
+    if cplx:
+        return (_cmul, lambda a, b: (F32(a[0] + b[0]), F32(a[1] + b[1])),
+                lambda a, b: (F32(a[0] - b[0]), F32(a[1] - b[1])))
+    return ((lambda a, b: F32(a * b)), (lambda a, b: F32(a + b)),
+            (lambda a, b: F32(a - b)))
+
+
+def _val(z, cplx):
+    return (F32(z.real), F32(z.imag)) if cplx else F32(z)
+
+
+def scan_walk(x, b, a, s, cplx):
+    """csrc/iir_scan.cu's thread on one row, in float32 numpy: registers
+    for the coefficients and the state, 8-sample groups, then the tail."""
+    mul, add, sub = _ops(cplx)
+    ns, n = b.shape
+    bc = [[_val(b[k, i], cplx) for i in range(n)] for k in range(ns)]
+    ac = [[_val(a[k, i], cplx) for i in range(n)] for k in range(ns)]
+    st = [[_val(s[k, i], cplx) for i in range(n - 1)] for k in range(ns)]
+
+    def step(v):
+        for k in range(ns):
+            yk = add(mul(bc[k][0], v), st[k][0])
+            for i in range(n - 2):
+                st[k][i] = add(sub(mul(bc[k][i + 1], v),
+                                   mul(ac[k][i + 1], yk)), st[k][i + 1])
+            st[k][n - 2] = sub(mul(bc[k][n - 1], v), mul(ac[k][n - 1], yk))
+            v = yk
+        return v
+
+    T, out, t = len(x), [], 0
+    while t + 8 <= T:
+        group = [_val(x[t + u], cplx) for u in range(8)]
+        out += [step(v) for v in group]
+        t += 8
+    out += [step(_val(x[u], cplx)) for u in range(t, T)]
+    if cplx:
+        return (np.array([complex(*v) for v in out], np.complex64),
+                np.array([[complex(*v) for v in r] for r in st],
+                         np.complex64))
+    return np.array(out, F32), np.array(st, F32)
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+@pytest.mark.parametrize("ns,n,T", [(1, 2, 21), (1, 5, 16), (3, 3, 19),
+                                    (1, 9, 3)])
+def test_scan_kernel_walk_equals_plain_version(ns, n, T, cplx):
+    rng = np.random.default_rng(ns * 10 + n)
+    dt = np.complex64 if cplx else F32
+
+    def draw(*shape):
+        z = rng.standard_normal(shape) * 0.3
+        if cplx:
+            z = z + 1j * rng.standard_normal(shape) * 0.3
+        return z.astype(dt)
+
+    x, b, a, s = draw(2, T), draw(ns, n), draw(ns, n), draw(2, ns, n - 1)
+    a[:, 0] = 1
+    y_ref, s_ref = iir_scan_reference(*(torch.from_numpy(v)
+                                        for v in (x, b, a, s)))
+    for r in range(2):
+        y, st = scan_walk(x[r], b, a, s[r], cplx)
+        np.testing.assert_array_equal(y, y_ref[r].numpy())
+        np.testing.assert_array_equal(st, s_ref[r].numpy())
+
+
+def block_state_walk(w, m, s, cplx):
+    """csrc/iir_block_state.cu's thread on one row, in float32 numpy."""
+    mul, add, _ = _ops(cplx)
+    p = m.shape[0]
+    mv = [[_val(m[q, j], cplx) for j in range(p)] for q in range(p)]
+    sv = [_val(v, cplx) for v in s]
+    pre = []
+    for n in range(w.shape[0]):
+        pre.append(list(sv))
+        ns = []
+        for q in range(p):
+            acc = mul(sv[0], mv[q][0])
+            for j in range(1, p):
+                acc = add(acc, mul(sv[j], mv[q][j]))
+            ns.append(add(acc, _val(w[n, q], cplx)))
+        sv = ns
+    if cplx:
+        return (np.array([[complex(*v) for v in r] for r in pre],
+                         np.complex64),
+                np.array([complex(*v) for v in sv], np.complex64))
+    return np.array(pre, F32), np.array(sv, F32)
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+@pytest.mark.parametrize("p,nb", [(1, 9), (4, 5), (8, 3)])
+def test_block_state_kernel_walk_equals_plain_version(p, nb, cplx):
+    rng = np.random.default_rng(p + nb)
+    dt = np.complex64 if cplx else F32
+
+    def draw(*shape):
+        z = rng.standard_normal(shape) * 0.4
+        if cplx:
+            z = z + 1j * rng.standard_normal(shape) * 0.4
+        return z.astype(dt)
+
+    w, m, s = draw(3, nb, p), draw(p, p), draw(3, p)
+    pre_ref, s_ref = iir_block_state_reference(
+        *(torch.from_numpy(v) for v in (w, m, s)))
+    for r in range(3):
+        pre, sv = block_state_walk(w[r], m, s[r], cplx)
+        np.testing.assert_array_equal(pre, pre_ref[r].numpy())
+        np.testing.assert_array_equal(sv, s_ref[r].numpy())

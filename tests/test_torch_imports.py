@@ -50,7 +50,10 @@ def test_port_never_imports_jax_or_the_reference():
                 "ops.agc", "ops.equalize", "framing.symtrack", "debug",
                 "multichannel.ofdm", "framing.ofdmflexframe",
                 "framing.ofdmflex_stream", "framing.sources",
-                "design.firdespm", "design.special", "ops.resample"):
+                "design.firdespm", "design.special", "ops.resample",
+                "design.iirdes", "ops.iir", "ops.misc_filters", "ops.channel",
+                "modem.analog", "ops.kernels.iir_scan",
+                "ops.kernels.iir_block_state"):
         assert "liquid_dsp_tpu_torch." + mod in got["modules"], mod
     assert got["jax"] == [] and got["reference"] == []
     assert not got["triton"] and not got["cuda_initialized"]
@@ -67,7 +70,9 @@ def _public_defs(path):
 @pytest.mark.parametrize("module", ["ops/fir.py", "ops/resample.py",
                                     "ops/nco.py", "ops/dotprod.py",
                                     "design/firdes.py", "design/special.py",
-                                    "design/firdespm.py"])
+                                    "design/firdespm.py", "design/iirdes.py",
+                                    "ops/iir.py", "ops/misc_filters.py",
+                                    "ops/channel.py", "modem/analog.py"])
 def test_port_module_defines_every_public_name(module):
     # a diff of the top-level def/class names: the port's module is a
     # superset of the JAX package's
