@@ -8,6 +8,7 @@ by --root:
     python3 chip_kernel_bench.py --mma-probe
     python3 chip_kernel_bench.py --viterbi [--root DIR] [--tag NAME] [--sass DIR]
     python3 chip_kernel_bench.py --latency
+    python3 chip_kernel_bench.py --iir [--root DIR] [--tag NAME] [--sass DIR]
 
 With two checkouts (this one and, say, `git archive` of its parent unpacked
 into a directory that .gitignore lists) run it in turns, one after the other,
@@ -43,7 +44,8 @@ behind the choice of the ordinary cores for the two FIR kernels.
 With --latency it measures the cycles of one instruction on a dependent
 chain, one warp alone (clock64): FADD, FMNMX, IMAD, SHFL.IDX, REDUX.MAX
 and the pair REDUX.MAX, REDUX.MIN with its FMNMX, the instructions on
-viterbi_acs's chain.
+viterbi_acs's chain; FMUL, a FADD-FMUL pair and iir_scan's one-pole
+DF2T step (FADD, FMUL, FADD), the IIR kernels' chains.
 
 With --viterbi it times only `viterbi_acs`, for the checkout given by
 --root: v27 at 512 codewords x 68 bytes (the GMSK receiver's shape), v27
@@ -54,6 +56,23 @@ share where the kernel skips it), and one codeword at two lengths (v27:
 us and in cycles at the card's clock;
 with --sass DIR, cuobjdump's SASS of its kernels into
 DIR/sass_viterbi_<tag>.txt.
+
+With --iir it times only the two IIR recurrence kernels, for the
+checkout given by --root: `iir_scan` at 64 x 262144 with the shadowing's
+one pole (analog_tx's shape) and at 128 plane rows x 262144 with the
+order-7 Butterworth's 4 sections; `iir_block_state` at analog_rx's three
+shapes (128 x 2048 blocks x 8 states, 64 x 2048 x 4, 64 x 512 x 1, each
+with its filter's own M = A^128) and at 64 x 2048 with 16 and 32 states;
+each over 100 launches and twice, with a lone row's step from the slope
+between two lengths, its cycles at the card's maximum SM clock beside the
+chain's estimate (FADD 4.5 and SHFL 26 cycles, --latency), the kernel's
+device time per launch (torch.profiler: a launch shorter than the
+wrapper's host work is timed by the host over 100 calls) and how many
+times a lone row's loop that is; ptxas's registers, shared
+memory and spills for every instance of both kernels first.  A checkout
+whose kernel refuses an instance (more than 8 states before the lane per
+state) prints "not taken" for it.  With --sass DIR, cuobjdump's SASS of
+the paths' instances into DIR/sass_iir_<tag>.txt.
 
 Every line names the card and its power limit.
 """
@@ -121,6 +140,10 @@ __global__ void chain(const float* __restrict__ in, long long* __restrict__ cyc,
   float v = in[lane], w = in[32 + lane];
   int k = __float_as_int(v);
   const int src = (lane + 1) & 31;
+  // the one-pole DF2T step of iir_scan (OP 8): the input x and its two
+  // products are off the chain; s -> y (FADD) -> a1*y (FMUL) -> s (FADD)
+  const float x = w, b0x = __fmul_rn(0.25f, x), b1x = __fmul_rn(0.5f, x);
+  float s = v;
   const long long t0 = clock64();
 #pragma unroll 16
   for (int it = 0; it < ITERS; ++it) {
@@ -134,9 +157,16 @@ __global__ void chain(const float* __restrict__ in, long long* __restrict__ cyc,
       const int lo = __reduce_min_sync(FULL, k);
       k = __float_as_int(fmaxf(__int_as_float(hi), __int_as_float(lo))) ^ lane;
     }
+    if (OP == 6) v = __fmul_rn(v, w);                      // FMUL
+    if (OP == 7) v = __fmul_rn(__fadd_rn(v, w), w);        // FADD, FMUL
+    if (OP == 8) {                                         // a DF2T step
+      const float y = __fadd_rn(b0x, s);
+      s = __fsub_rn(b1x, __fmul_rn(-0.9f, y));
+      v = y;
+    }
   }
   const long long t1 = clock64();
-  out[lane] = v + __int_as_float(k);
+  out[lane] = v + s + __int_as_float(k);
   if (lane == 0) cyc[OP] = t1 - t0;
 }
 extern "C" int latency_launch(const void* in, void* cyc, void* out, void* stream) {
@@ -150,6 +180,9 @@ extern "C" int latency_launch(const void* in, void* cyc, void* out, void* stream
   chain<3><<<1, 32, 0, s>>>(i, c, o);
   chain<4><<<1, 32, 0, s>>>(i, c, o);
   chain<5><<<1, 32, 0, s>>>(i, c, o);
+  chain<6><<<1, 32, 0, s>>>(i, c, o);
+  chain<7><<<1, 32, 0, s>>>(i, c, o);
+  chain<8><<<1, 32, 0, s>>>(i, c, o);
   return static_cast<int>(cudaGetLastError());
 }
 """
@@ -333,7 +366,7 @@ def latency(torch, build, tag):
     fn.restype = ctypes.c_int
     dev = torch.device("cuda")
     inp = torch.rand(64, device=dev)
-    cyc = torch.zeros(6, dtype=torch.int64, device=dev)
+    cyc = torch.zeros(9, dtype=torch.int64, device=dev)
     out = torch.empty(32, device=dev)
     for _ in range(3):                      # the last run is read
         rc = fn(inp.data_ptr(), cyc.data_ptr(), out.data_ptr(),
@@ -343,7 +376,8 @@ def latency(torch, build, tag):
     torch.cuda.synchronize()
     per = (cyc.double() / 4096).tolist()
     names = ["FADD", "FMNMX", "IMAD", "SHFL.IDX", "REDUX.MAX + LOP3",
-             "REDUX.MAX, REDUX.MIN + FMNMX + LOP3"]
+             "REDUX.MAX, REDUX.MIN + FMNMX + LOP3", "FMUL", "FADD + FMUL",
+             "iir_scan's one-pole step (FADD, FMUL, FADD)"]
     print(f"{tag} cycles per dependent instruction (one warp): "
           + "; ".join(f"{n} {c:.2f}" for n, c in zip(names, per)),
           flush=True)
@@ -416,6 +450,27 @@ def mma_probe(torch, cs, build, tag):
               + "; ".join(out), flush=True)
 
 
+def write_sass(build, lib, sass_dir, fname, pick):
+    """cuobjdump's SASS of the built library's functions whose header line
+    `pick` accepts, into sass_dir/fname; returns (path, lines)."""
+    out = os.path.abspath(sass_dir)
+    os.makedirs(out, exist_ok=True)
+    nvcc_dir = os.path.dirname(build._nvcc())
+    sass = subprocess.run([os.path.join(nvcc_dir, "cuobjdump"), "-sass",
+                           str(lib)], capture_output=True, text=True,
+                          timeout=600).stdout
+    keep, on = [], False
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            on = pick(ln)
+        if on:
+            keep.append(ln)
+    path = os.path.join(out, fname)
+    with open(path, "w") as f:
+        f.write("\n".join(keep))
+    return path, len(keep)
+
+
 def print_ptxas(lib, tag, keys):
     """ptxas's registers and spills for every kernel of the built library
     whose name holds one of `keys` (from the build's log)."""
@@ -473,22 +528,118 @@ def viterbi_bench(torch, cs, build, tag, name, sass_dir):
               f"{ma:.4f}, {mb:.4f} ms; one step {us:.4f} us = "
               f"{us * mhz:.0f} cycles at {mhz:.0f} MHz", flush=True)
     if sass_dir:
-        out = os.path.abspath(sass_dir)
-        os.makedirs(out, exist_ok=True)
-        nvcc_dir = os.path.dirname(build._nvcc())
-        sass = subprocess.run([os.path.join(nvcc_dir, "cuobjdump"), "-sass",
-                               str(lib)], capture_output=True, text=True,
-                              timeout=600).stdout
-        keep, on = [], False
-        for ln in sass.splitlines():
-            if "Function :" in ln:
-                on = "viterbi" in ln
-            if on:
-                keep.append(ln)
-        path = os.path.join(out, f"sass_viterbi_{name}.txt")
-        with open(path, "w") as f:
-            f.write("\n".join(keep))
-        print(f"{tag} SASS of viterbi_acs's kernels: {path} ({len(keep)} "
+        path, n = write_sass(build, lib, sass_dir, f"sass_viterbi_{name}.txt",
+                             lambda ln: "viterbi" in ln)
+        print(f"{tag} SASS of viterbi_acs's kernels: {path} ({n} lines)",
+              flush=True)
+
+
+def iir_bench(torch, cs, build, tag, name, sass_dir):
+    """--iir: times of iir_scan and iir_block_state for this checkout (see
+    the module docstring); uses only what every checkout since their port
+    has: the wrappers, the Procs and chip_smoke's analog_paths, time_ms,
+    lone_row_step_us and sm_mhz."""
+    from liquid_dsp_tpu_torch.design.iirdes import iirdes_sos
+    from liquid_dsp_tpu_torch.ops.iir import iirfilt_sos
+    from liquid_dsp_tpu_torch.ops.kernels.iir_block_state import (
+        iir_block_state)
+    from liquid_dsp_tpu_torch.ops.kernels.iir_scan import iir_scan
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    lib = build.build()
+    build.load_library()
+    print(f"{tag} built in {time.perf_counter() - t0:.1f} s", flush=True)
+    print_ptxas(lib, tag, ("iir_scan", "iir_block_state"))
+    mhz = cs.sm_mhz()
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def twice(fn):
+        return [cs.time_ms(fn, iters=100) for _ in range(2)]
+
+    def device_ms(fn, kernel):
+        """The kernel's device time per launch over 20 calls (profiler):
+        what a short launch takes on the card without the wrapper's host
+        work, which 100 back-to-back calls also time."""
+        by_name, _ = cs.device_profile(torch, fn, 20, kernel)
+        tot, cnt = map(sum, zip(*[v for k, v in by_name.items()
+                                  if kernel in k]))
+        return tot / cnt
+
+    def report(what, rows, steps, ms, dev_ms, one_step_us, lone, est):
+        ratio = dev_ms / (steps * one_step_us / 1e3)
+        print(f"{tag} {what}: {ms[0]:.4f}, {ms[1]:.4f} ms (100 launches "
+              f"each); device time {dev_ms:.4f} ms a launch (profiler) = "
+              f"{dev_ms / steps * 1e3 * mhz:.1f} cycles a step; a lone row "
+              + ", ".join(f"{n} steps {t:.4f} ms" for n, t in lone.items())
+              + f": {one_step_us * 1e3:.2f} ns = {one_step_us * mhz:.1f} "
+              f"cycles a step at {mhz:.0f} MHz (the chain's estimate "
+              f"{est:.1f}), so the {rows}-row launch takes {ratio:.3f} of "
+              f"one row's loop", flush=True)
+
+    make_tx, make_rx = cs.analog_paths()
+    ch = make_tx().stages[1]
+    rx = make_rx()
+    q7 = rx.stages[0]
+    T = 1 << 18
+    # iir_scan: (what, rows, b, a, the chain's estimate in cycles a sample:
+    # 3 dependent operations a pole at 4.5; for the cascade the ~38
+    # instructions one warp issues a sample, 9 a section, more than its 4
+    # dependent operations a section)
+    for what, rows, b, a, est in (
+            ("one pole (the shadowing)", 64, ch.sh_b, ch.sh_a, 13.5),
+            ("4 sections (butter 7)", 128, q7.B, q7.A, 38.0)):
+        b, a = b.to(dev), a.to(dev)
+        ns, n = b.shape
+        x = torch.randn(rows, T, generator=gen, device=dev)
+        st = torch.zeros(rows, ns, n - 1, device=dev)
+        ms = twice(lambda: iir_scan(x, b, a, st))
+        dms = device_ms(lambda: iir_scan(x, b, a, st), "iir_scan")
+        us, lone = cs.lone_row_step_us(lambda m: iir_scan(
+            x[:1, :m].contiguous(), b, a, st[:1]), (T // 4, T))
+        report(f"iir_scan {what}, {rows} x {T}", rows, T, ms, dms, us, lone,
+               est)
+        del x
+    # iir_block_state: M = A^128 of the path's filters, then of 16- and
+    # 32-state Butterworths; the chain's estimate: a shuffle, a product and
+    # p sums (p = 1: a product and a sum)
+    L = 128
+    mats = [(128, 2048, q7.Apow[L]), (64, 2048, rx.stages[2].filt.Apow[L]),
+            (64, 512, rx.stages[3].Apow[L])]
+    for order in (16, 32):
+        mats.append((64, 2048, iirfilt_sos(*iirdes_sos(
+            "butter", order, 0.2)).Apow[L]))
+    for rows, nb, m in mats:
+        m = m.to(dev).contiguous()
+        p = m.shape[0]
+        est = 9.0 if p == 1 else 26 + 4.5 * (p + 1)
+        # a lone row at lengths where the card, not the launch, sets the
+        # time: 8192 and 32768 steps at least
+        nl = max(nb, 8192)
+        wb = torch.randn(rows, nb, p, generator=gen, device=dev)
+        wl = torch.randn(1, 4 * nl, p, generator=gen, device=dev)
+        s0 = torch.zeros(rows, p, device=dev)
+        what = f"iir_block_state {rows} x {nb} blocks x {p} states"
+        try:
+            ms = twice(lambda: iir_block_state(wb, m, s0))
+        except ValueError as e:
+            print(f"{tag} {what}: not taken ({e})", flush=True)
+            continue
+        dms = device_ms(lambda: iir_block_state(wb, m, s0),
+                        "iir_block_state")
+        us, lone = cs.lone_row_step_us(lambda k: iir_block_state(
+            wl[:, :k].contiguous(), m, s0[:1]), (nl, 4 * nl))
+        report(what, rows, nb, ms, dms, us, lone, est)
+        del wb, wl
+    if sass_dir:
+        # the paths' instances: the one-pole scan, the block state pass at
+        # 8, 4 and 1 real states
+        want = ("iir_scan_kernelILi1ELi2ELb0E",
+                "iir_block_state_kernelILi8ELb0E",
+                "iir_block_state_kernelILi4ELb0E",
+                "iir_block_state_kernelILi1ELb0E")
+        path, n = write_sass(build, lib, sass_dir, f"sass_iir_{name}.txt",
+                             lambda ln: any(k in ln for k in want))
+        print(f"{tag} SASS of the IIR kernels' path instances: {path} ({n} "
               f"lines)", flush=True)
 
 
@@ -502,6 +653,7 @@ def main():
     ap.add_argument("--mma-probe", action="store_true")
     ap.add_argument("--viterbi", action="store_true")
     ap.add_argument("--latency", action="store_true")
+    ap.add_argument("--iir", action="store_true")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -538,6 +690,9 @@ def main():
         return
     if args.viterbi:
         viterbi_bench(torch, cs, build, tag, args.tag, args.sass)
+        return
+    if args.iir:
+        iir_bench(torch, cs, build, tag, args.tag, args.sass)
         return
     t0 = time.perf_counter()
     lib = build.build()
@@ -614,31 +769,23 @@ def main():
     del rows, xr, xi
 
     if args.sass:
-        out = os.path.abspath(args.sass)
-        os.makedirs(out, exist_ok=True)
-        nvcc_dir = os.path.dirname(build._nvcc())
-        sass = subprocess.run([os.path.join(nvcc_dir, "cuobjdump"), "-sass",
-                               str(lib)], capture_output=True, text=True,
-                              timeout=600).stdout
-        keep, on, seen = [], False, set()
-        for ln in sass.splitlines():
-            if "Function :" in ln:
-                # fir_real, and mix_fir_decim's instance for float planes
-                # (at down 2 where the factor is a template parameter)
-                name = "fir_real" if "fir_real" in ln else (
-                    "mix_fir_decim" if "mix_fir_decim" in ln and (
-                        "ILi2ELi16EffE" in ln or "kernelIffE" in ln)
-                    else None)
-                on = name is not None and name not in seen
-                if on:
-                    seen.add(name)
-            if on:
-                keep.append(ln)
-        path = os.path.join(out, f"sass_{args.tag}.txt")
-        with open(path, "w") as f:
-            f.write("\n".join(keep))
+        seen = set()
+
+        def pick(ln):
+            # fir_real, and mix_fir_decim's instance for float planes (at
+            # down 2 where the factor is a template parameter)
+            name = "fir_real" if "fir_real" in ln else (
+                "mix_fir_decim" if "mix_fir_decim" in ln and (
+                    "ILi2ELi16EffE" in ln or "kernelIffE" in ln) else None)
+            if name is None or name in seen:
+                return False
+            seen.add(name)
+            return True
+
+        path, n = write_sass(build, lib, args.sass, f"sass_{args.tag}.txt",
+                             pick)
         print(f"{tag} SASS of fir_real and mix_fir_decim (f32, down 2): "
-              f"{path} ({len(keep)} lines)", flush=True)
+              f"{path} ({n} lines)", flush=True)
 
     if args.no_steps:
         return

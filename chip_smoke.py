@@ -3424,9 +3424,9 @@ def analog_tx_phase(torch, dev, card):
           f"(= {step_us * mhz:.0f} cycles at the card's maximum SM clock, "
           f"{mhz:.0f} MHz), {lone_ms:.4f} ms at {AN_T} steps, so the "
           f"{AN_B}-row launch takes {ms / lone_ms:.3f} of one row's loop; "
-          f"the chain's arithmetic alone (3 dependent operations at an "
-          f"assumed 4 cycles, not measured) would be "
-          f"{AN_T * 12 / mhz / 1e3:.4f} ms; plain version at {AN_CMP} "
+          f"the chain's arithmetic alone (the one-pole step's 12.44 "
+          f"cycles, chip_kernel_bench.py --latency) would be "
+          f"{AN_T * 12.44 / mhz / 1e3:.4f} ms; plain version at {AN_CMP} "
           f"steps {p1:.2f}, {p2:.2f} ms", flush=True)
     profile_steps(torch, card, lambda: path(c0, msgs[0]), 3,
                   "analog_tx step")
@@ -3547,7 +3547,10 @@ def analog_rx_phase(torch, dev, card, xs):
     from liquid_dsp_tpu_torch.ops.iir import (
         iirfilt, iirfilt_differentiator, iirfilt_integrator, iirfilt_sos)
     cccf = golden_npz("iirfilt_cccf_data_h7x64")
+    # butter 16: 16 states, above the 8 the block form took before each
+    # state had a lane of its own
     sos = {"sos_butter7": iirdes_sos("butter", 7, 0.2),
+           "sos_butter16": iirdes_sos("butter", 16, 0.2),
            **{f.name[8:]: (f.B.numpy(), f.A.numpy()) for f in (
                iirfilt_integrator(), iirfilt_differentiator())}}
     cases = {name: (lambda be, B=B, A=A: iirfilt_sos(B, A, backend=be))

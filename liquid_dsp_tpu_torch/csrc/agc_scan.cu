@@ -130,12 +130,6 @@ __device__ __forceinline__ float agc_step(float& g, float& y2p, float pt,
   return g_out;
 }
 
-// Where the chain warp and the copying warp meet, once per tile: a named
-// barrier for the block's 64 threads.
-__device__ __forceinline__ void tile_barrier() {
-  asm volatile("bar.sync 1, 64;\n" ::: "memory");
-}
-
 template <bool LOCKED>
 __global__ void __launch_bounds__(2 * LANES)
 agc_scan_kernel(const float* __restrict__ p, float* __restrict__ g_io,
@@ -171,7 +165,7 @@ agc_scan_kernel(const float* __restrict__ p, float* __restrict__ g_io,
     };
     stage(0);
     stage(1);
-    cp_async_wait_all_but_newest();   // tile 0 has landed
+    cp_async_wait_all_but<1>();   // tile 0 has landed
     tile_barrier();
     for (int nt = 0; nt < ntiles; ++nt) {
       // the chain warp works on tile nt: store tile nt-1's gains, start
@@ -183,7 +177,7 @@ agc_scan_kernel(const float* __restrict__ p, float* __restrict__ g_io,
           gout[static_cast<size_t>(r) * T + t] = src[r * PITCH];
       }
       stage(nt + 2);
-      cp_async_wait_all_but_newest();
+      cp_async_wait_all_but<1>();
       tile_barrier();
     }
     const int t = (ntiles - 1) * TILE + lane;

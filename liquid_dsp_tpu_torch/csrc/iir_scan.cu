@@ -22,42 +22,72 @@
 // out on the planes: (ar*br - ai*bi, ar*bi + ai*br).
 //
 // Bound on this card: the chain.  Each sample's first section needs the
-// last sample's state, through a product, a difference and a sum per
-// section (about 12 cycles at 4 cycles a dependent float operation), and
-// the sections follow one another inside the sample; the 8 bytes a real
-// sample moves are nothing beside that, and the time axis cannot be split
-// without changing the arithmetic (the block form, iir_block_state.cu,
-// is that change).  This is the simplest design that is right:
+// last sample's state through a sum, a product and a difference per
+// section (12.44 cycles for the one-pole step alone on a warp,
+// chip_kernel_bench.py --latency), and the sections follow one another
+// inside the sample; the 8 bytes a real sample moves are nothing beside
+// that.  The time axis is not split: that would change the arithmetic,
+// and the block form (iir_block_state.cu and the matmuls around it) is
+// that split.  So a row can go no faster than its chain, and at the
+// shadowing's shape (64 rows x 262144 samples, one pole) the chain alone
+// is 262144 x 12.44 cycles = 1.65 ms at 1.98 GHz, however few rows there
+// are.  The design keeps everything else off the chain:
 //
-// * One thread per row, the coefficients and the state in registers; a
-//   warp per block, so the rows spread over as many SMs as there are
-//   warps.
-// * Straight-line code over 8 samples: the 8 loads first, the 8 steps, the
-//   8 stores, one basic block.  A ragged tail runs sample by sample.
+// * One lane per row in a chain warp that runs the chain and nothing
+//   else: the coefficients and the state in registers, every operation
+//   rounded once.  A whole tile is one basic block: its samples' loads
+//   from shared memory first, then the chain, each output stored as it
+//   forms (with the loads at the top of groups of 8, ptxas sinks them
+//   below the chain, and each group waits for shared memory).  A last
+//   ragged tile runs sample by sample.
+// * 4 rows a block (the chain warp's other lanes mirror them: the same
+//   state, the same work, the same stores), so the copy warp moves 4
+//   lines in and 4 out a tile and the rows spread over the SMs: at 32
+//   rows a block the copy warp's 64 four-byte lines a tile took longer
+//   than a one-pole chain's tile (the 64-row launch 1.16 times a lone
+//   row's loop, 1.00 at 4 rows).
+// * A second warp copies, as agc_scan.cu's does.  It stages tiles of x,
+//   a row's tile one 128-byte line (32 float samples or 16 complex ones),
+//   into shared memory by 4-byte cp.async, AHEAD tiles ahead of the
+//   chain: any T and any row start, no alignment asked.  Rows sit at a
+//   pitch of 33 floats (34 for complex rows: 17 float2, odd, so 64-bit
+//   reads hit distinct bank pairs), so the chain lanes' walk down their
+//   own rows hits distinct banks.  The chain warp leaves y in a shared
+//   tile the same way, and the copy warp stores it as full lines, the
+//   loads before the stores.  Its base addresses are opaque registers
+//   (cp_async.cuh), so ptxas does not rebuild them from the kernel's
+//   parameters line by line.  The two warps meet at one named barrier
+//   per tile.
 //
-// It does not reach the chain: at 64 rows x 262144 samples, one pole, it
-// takes about 28 ms on an H100 (211 cycles a sample) against the chain's
-// estimated 1.6 ms, and a lone row 6.9 ms (26 ns a sample).  Each lane
-// reads its own row, so a warp's load touches 32 lines 1 MB apart and a
-// group's loads wait for memory after the last group's chain, with 2
-// warps to hide it.  Staging tiles through shared
-// memory from a second warp, as agc_scan.cu does, is a later redesign.
+// Measured on an H100 (80GB HBM3, 700 W; chip_kernel_bench.py --iir): at
+// the shadowing's shape 2.99 ms, 22.5 cycles a sample, the 64-row launch
+// 1.00 times a lone row's loop: memory does not set the time.  What is
+// left above the step's 12.44 cycles: warps issue in order, and each
+// sample's input product sits between the last state and this sum (about
+// 15 cycles a sample in the SASS), then a tile's barrier and loads.
 //
 // Numerics: every operation is rounded once and written explicitly
 // (__fmul_rn, __fadd_rn, __fsub_rn), so nvcc contracts nothing into an FMA
 // and the plain PyTorch version (ops/kernels/iir_scan.py,
 // iir_scan_reference), which takes the same operations in the same order,
-// agrees with it bit for bit.
+// agrees with it bit for bit.  Fused multiply-adds would cut the chain to
+// two operations a section, with a plain version that takes the same
+// FMAs (ROADMAP queue 2b).
 //
 // Built by liquid_dsp_tpu_torch/ops/kernels/build.py with nvcc for sm_90a,
 // bound with ctypes; the C entry returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
-constexpr int LANES = 32;     // rows per block: one warp
-constexpr int GROUP = 8;      // samples per basic block
+constexpr int LANES = 32;     // lanes of the chain warp
+constexpr int ROWS = 4;       // rows per block: a chain each
+constexpr int LINE = 32;      // floats of a row per staged tile: 128 bytes
+constexpr int AHEAD = 6;      // tiles staged ahead of the chain
+constexpr int PBUF = 8;       // x tiles in shared memory (more than AHEAD)
 constexpr int MAX_N = 17;     // transfer-function form: order up to 16
 constexpr int MAX_NS = 8;     // second-order sections: order up to 16
 
@@ -67,6 +97,7 @@ struct Arith;
 template <>
 struct Arith<false> {
   using T = float;
+  static constexpr int PITCH = LINE + 1;   // row pitch in shared, floats
   static __device__ __forceinline__ T mul(T a, T b) { return __fmul_rn(a, b); }
   static __device__ __forceinline__ T add(T a, T b) { return __fadd_rn(a, b); }
   static __device__ __forceinline__ T sub(T a, T b) { return __fsub_rn(a, b); }
@@ -75,6 +106,7 @@ struct Arith<false> {
 template <>
 struct Arith<true> {
   using T = float2;
+  static constexpr int PITCH = LINE + 2;   // 17 float2: odd
   static __device__ __forceinline__ T mul(T a, T b) {
     return make_float2(__fsub_rn(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y)),
                        __fadd_rn(__fmul_rn(a.x, b.y), __fmul_rn(a.y, b.x)));
@@ -109,16 +141,92 @@ __device__ __forceinline__ typename Arith<CPLX>::T step(
 }
 
 template <int NS, int N, bool CPLX>
-__global__ void __launch_bounds__(LANES)
+__global__ void __launch_bounds__(2 * LANES)
     iir_scan_kernel(const typename Arith<CPLX>::T* __restrict__ x,
                     typename Arith<CPLX>::T* __restrict__ y,
                     const typename Arith<CPLX>::T* __restrict__ bg,
                     const typename Arith<CPLX>::T* __restrict__ ag,
                     typename Arith<CPLX>::T* __restrict__ state, int rows,
                     int T) {
-  using V = typename Arith<CPLX>::T;
-  const int r = blockIdx.x * LANES + threadIdx.x;
-  if (r >= rows) return;
+  using A = Arith<CPLX>;
+  using V = typename A::T;
+  constexpr int W = sizeof(V) / sizeof(float);   // floats a sample
+  constexpr int TILE = LINE / W;                 // samples a tile
+  constexpr int PITCH = A::PITCH;
+  __shared__ __align__(16) float sx[PBUF][ROWS * PITCH];   // x tiles
+  __shared__ __align__(16) float sy[2][ROWS * PITCH];      // y tiles
+  const int lane = threadIdx.x & 31;
+  const int r0 = blockIdx.x * ROWS;
+  const int nch = min(ROWS, rows - r0);      // rows of this block
+  const int ntiles = (T + TILE - 1) / TILE;
+
+  if (nch < ROWS) {   // the absent rows of a ragged last block read zeros
+    for (int q = threadIdx.x; q < PBUF * ROWS * PITCH; q += 2 * LANES)
+      (&sx[0][0])[q] = 0.f;
+    __syncthreads();
+  }
+
+  if (threadIdx.x >= LANES) {
+    // the copying warp: a row's tile is one line, a float per lane.  The
+    // lane's addresses are computed once: its float of row 0 (held in a
+    // register, opaque), then rows at a stride of rowf floats (device
+    // memory, one multiply-add a line) and PITCH floats (shared memory, a
+    // constant offset)
+    const unsigned rowf = static_cast<unsigned>(T) * W;   // floats a row
+    const size_t first = static_cast<size_t>(r0) * rowf + lane;
+    const float* xin = opaque(reinterpret_cast<const float*>(x) + first);
+    float* yout = opaque(reinterpret_cast<float*>(y) + first);
+    const unsigned sx0 = smem_addr(&sx[0][0]) + 4 * lane;
+    // tile nt of x into its buffer (nothing for a tile past the end);
+    // closes a group either way
+    auto stage = [&](int nt) {
+      const unsigned f = static_cast<unsigned>(nt) * LINE;
+      if (f + lane < rowf) {
+        const float* src = xin + f;
+        const unsigned dst = sx0 + (nt % PBUF) * (4 * ROWS * PITCH);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r)
+          if (r < nch)
+            cp_async_f32_at(dst + 4 * r * PITCH,
+                            src + static_cast<size_t>(r) * rowf);
+      }
+      cp_async_commit();
+    };
+    // tile nt's outputs from shared memory to their rows, as full lines:
+    // the loads, then the stores
+    auto store = [&](int nt) {
+      const unsigned f = static_cast<unsigned>(nt) * LINE;
+      if (f + lane < rowf) {
+        const float* src = sy[nt & 1] + lane;
+        float v[ROWS];
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) v[r] = src[r * PITCH];
+        float* dst = yout + f;
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r)
+          if (r < nch) dst[static_cast<size_t>(r) * rowf] = v[r];
+      }
+    };
+#pragma unroll
+    for (int nt = 0; nt < AHEAD; ++nt) stage(nt);
+    cp_async_wait_all_but<AHEAD - 1>();   // tile 0 has landed
+    tile_barrier();
+    for (int nt = 0; nt < ntiles; ++nt) {
+      // the chain warp works on tile nt: store tile nt-1's outputs, start
+      // tile nt+AHEAD, wait for tile nt+1
+      if (nt > 0) store(nt - 1);
+      stage(nt + AHEAD);
+      cp_async_wait_all_but<AHEAD - 1>();
+      tile_barrier();
+    }
+    if (ntiles > 0) store(ntiles - 1);
+    return;
+  }
+
+  // the chain warp: lane l runs row l % ROWS; the lanes past ROWS mirror
+  // those below (the same state, the same work, the same stores)
+  const int row = lane % ROWS;
+  const bool live = row < nch;
   V b[NS][N], a[NS][N], s[NS][N - 1];
 #pragma unroll
   for (int k = 0; k < NS; ++k) {
@@ -128,29 +236,40 @@ __global__ void __launch_bounds__(LANES)
       a[k][i] = ag[k * N + i];
     }
   }
-  V* const st = state + static_cast<size_t>(r) * NS * (N - 1);
+  V* const st = state + static_cast<size_t>(r0 + row) * NS * (N - 1);
 #pragma unroll
   for (int k = 0; k < NS; ++k) {
 #pragma unroll
-    for (int i = 0; i < N - 1; ++i) s[k][i] = st[k * (N - 1) + i];
+    for (int i = 0; i < N - 1; ++i)
+      s[k][i] = live ? st[k * (N - 1) + i] : V{};
   }
-  const V* const xr = x + static_cast<size_t>(r) * T;
-  V* const yr = y + static_cast<size_t>(r) * T;
-  int t = 0;
-  for (; t + GROUP <= T; t += GROUP) {
-    V v[GROUP];
+  tile_barrier();
+  for (int nt = 0; nt < ntiles; ++nt) {
+    const V* in = reinterpret_cast<const V*>(sx[nt % PBUF] + row * PITCH);
+    V* out = reinterpret_cast<V*>(sy[nt & 1] + row * PITCH);
+    const int left = T - nt * TILE;
+    if (left >= TILE) {
+      // the whole tile is one basic block: its loads first (one shared
+      // latency a tile), then the chain, each output stored as it forms
+      V v[TILE];
 #pragma unroll
-    for (int u = 0; u < GROUP; ++u) v[u] = xr[t + u];
+      for (int u = 0; u < TILE; ++u) v[u] = in[u];
 #pragma unroll
-    for (int u = 0; u < GROUP; ++u) v[u] = step<NS, N, CPLX>(v[u], b, a, s);
-#pragma unroll
-    for (int u = 0; u < GROUP; ++u) yr[t + u] = v[u];
+      for (int u = 0; u < TILE; ++u) {
+        v[u] = step<NS, N, CPLX>(v[u], b, a, s);
+        out[u] = v[u];
+      }
+    } else {
+      for (int u = 0; u < left; ++u) out[u] = step<NS, N, CPLX>(in[u], b, a, s);
+    }
+    tile_barrier();
   }
-  for (; t < T; ++t) yr[t] = step<NS, N, CPLX>(xr[t], b, a, s);
+  if (live && lane < ROWS) {
 #pragma unroll
-  for (int k = 0; k < NS; ++k) {
+    for (int k = 0; k < NS; ++k) {
 #pragma unroll
-    for (int i = 0; i < N - 1; ++i) st[k * (N - 1) + i] = s[k][i];
+      for (int i = 0; i < N - 1; ++i) st[k * (N - 1) + i] = s[k][i];
+    }
   }
 }
 
@@ -167,8 +286,8 @@ struct Args {
 template <int NS, int N, bool CPLX>
 int go(const Args& g) {
   using V = typename Arith<CPLX>::T;
-  const dim3 grid((g.rows + LANES - 1) / LANES);
-  iir_scan_kernel<NS, N, CPLX><<<grid, LANES, 0, g.stream>>>(
+  const dim3 grid((g.rows + ROWS - 1) / ROWS);
+  iir_scan_kernel<NS, N, CPLX><<<grid, 2 * LANES, 0, g.stream>>>(
       static_cast<const V*>(g.x), static_cast<V*>(g.y),
       static_cast<const V*>(g.b), static_cast<const V*>(g.a),
       static_cast<V*>(g.state), g.rows, g.T);

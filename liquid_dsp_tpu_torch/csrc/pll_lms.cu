@@ -235,7 +235,7 @@ pll_lms_kernel(const float* __restrict__ s_re, const float* __restrict__ s_im,
     } else {
       cp_async_commit();
     }
-    cp_async_wait_all_but_newest();
+    cp_async_wait_all_but<1>();
     __syncwarp();
 
     const int s0 = nt * TILE;

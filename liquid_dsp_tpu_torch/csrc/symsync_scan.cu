@@ -145,7 +145,7 @@ symsync_scan_kernel(const float* __restrict__ ma, float* __restrict__ fstate,
       stage_tile(n + 1, r0_next);
     else
       cp_async_commit();
-    cp_async_wait_all_but_newest();
+    cp_async_wait_all_but<1>();
     __syncwarp();
 
     const int t0 = n * TILE;

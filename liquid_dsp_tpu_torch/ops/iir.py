@@ -21,12 +21,13 @@ stacked DF2T state, so a carry moves between them unchanged:
 
 ``auto`` picks per call by the input tensor's device: a CPU tensor takes
 ``scan`` (as the JAX package's ``auto`` does on the CPU); a CUDA tensor
-takes ``block`` for a stable filter of at most 8 states and ``scan``
+takes ``block`` for a stable filter of at most 32 states and ``scan``
 otherwise.  An unstable filter (A^L not representable) is ``scan`` under
-every backend.  An explicit ``block`` on a stable filter of more than 8
-states raises ValueError on every device (the state pass's kernel holds
-at most 8), where the JAX package's block form takes any order.  A Proc keeps both parameter sets as buffers where the
-JAX package keeps both, so one module runs on either device.  The JAX
+every backend.  An explicit ``block`` on a stable filter of more than 32
+states raises ValueError on every device (the state pass's kernel gives
+each state a lane of one warp), where the JAX package's block form takes
+any order.  A Proc keeps both parameter sets as buffers where the JAX
+package keeps both, so one module runs on either device.  The JAX
 package's ``pscan`` (an associative scan, measured 23 times slower than
 its scan) is not carried over and raises ValueError.
 
@@ -236,7 +237,8 @@ def _resolve_iir_backend(backend: str, A) -> str:
     """'auto' stays unresolved until the call (the input's device picks);
     unstable systems (spectral radius > ~1) take scan under every
     backend: A^L is not representable.  'block' takes at most BLOCK_MAX_P
-    states, on every device."""
+    (32) states, on every device: the state pass's kernel gives each
+    state a lane of one warp."""
     if backend == "pscan":
         raise ValueError(PSCAN_NOT_PORTED)
     if backend not in ("auto", "scan", "block"):

@@ -22,8 +22,10 @@ planes), complex filters on complex64 rows with the kernels' own product
 (`iir_scan.plane_ops`).  Both round every operation once in this order,
 so on the card the kernel equals the plain version bit for bit.
 
-The kernel keeps M in registers and takes 1 <= p <= 8 states; the wrapper
-raises on more.
+The kernel gives each state of a row a lane (lane q keeps row q of M and
+its state, and gathers the row's states by warp shuffles, which are
+exact), so it takes 1 <= p <= 32 states, a warp per row at 32; the wrapper
+raises on more.  The plain version takes any p.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ from .iir_scan import plane_ops
 
 __all__ = ["MAX_P", "iir_block_state", "iir_block_state_reference"]
 
-MAX_P = 8
+MAX_P = 32      # states: one lane of a warp each
 
 
 def iir_block_state_reference(w, m, s):

@@ -1282,8 +1282,10 @@ def _bits(t):
                                   (2, 3), (4, 3), (8, 3)])
 def test_iir_scan_bit_equal_to_plain(dev, ns, n, cplx):
     # the same roundings in the same order: bit-equal outputs and state,
-    # 70 rows (a ragged warp), T = 203 (a ragged last group of 8), and the
-    # carry handed on: two calls equal one
+    # 70 rows (a ragged warp), T = 203 (a ragged last tile), and the carry
+    # handed on: two calls equal one (the second's rows start unaligned);
+    # then 70 x 1000 and 5 x 31 (rows not a multiple of 32, T not one of
+    # the 32- or 16-sample tile)
     from liquid_dsp_tpu_torch.ops.kernels.iir_scan import (
         iir_scan, iir_scan_reference)
     g = torch.Generator(device=dev).manual_seed(ns * 20 + n)
@@ -1302,11 +1304,20 @@ def test_iir_scan_bit_equal_to_plain(dev, ns, n, cplx):
                                                             _bits(sr))
     assert torch.equal(_bits(torch.cat([ya, yb], -1)), _bits(y))
     assert torch.equal(_bits(sb), _bits(s2))
+    for rows, T in ((70, 1000), (5, 31)):
+        x = _draw(g, dev, cplx, rows, T)
+        s = _draw(g, dev, cplx, rows, ns, n - 1)
+        y, s2 = iir_scan(x, b, a, s)
+        yr, sr = iir_scan_reference(x, b, a, s)
+        assert torch.equal(_bits(y), _bits(yr)), (rows, T)
+        assert torch.equal(_bits(s2), _bits(sr)), (rows, T)
 
 
 @pytest.mark.parametrize("cplx", [False, True])
-@pytest.mark.parametrize("p", list(range(1, 9)))
+@pytest.mark.parametrize("p", list(range(1, 9)) + [12, 16, 17, 32])
 def test_iir_block_state_bit_equal_to_plain(dev, p, cplx):
+    # 70 rows (a ragged last block at every width), 37 block steps (a
+    # ragged last chunk), the carry handed on at step 10
     from liquid_dsp_tpu_torch.ops.kernels.iir_block_state import (
         iir_block_state, iir_block_state_reference)
     g = torch.Generator(device=dev).manual_seed(p)
@@ -1335,8 +1346,9 @@ def test_iir_kernels_refuse_what_they_do_not_take(dev):
         iir_scan(x, torch.ones(2, 4, device=dev), torch.ones(2, 4, device=dev),
                  torch.zeros(4, 2, 3, device=dev))
     with pytest.raises(ValueError, match="states"):
-        iir_block_state(torch.zeros(4, 3, 9, device=dev),
-                        torch.eye(9, device=dev), torch.zeros(4, 9, device=dev))
+        iir_block_state(torch.zeros(4, 3, 33, device=dev),
+                        torch.eye(33, device=dev),
+                        torch.zeros(4, 33, device=dev))
     with pytest.raises(ValueError, match="one device"):
         iir_scan(x, torch.ones(1, 2), torch.ones(1, 2),
                  torch.zeros(4, 1, 1, device=dev))
@@ -1347,14 +1359,15 @@ def _iir_cases():
     d = np.load(_GOLDEN / "iirfilt_cccf_data_h5x64.npz")
     stem = "iirfilt_cccf_data_h5x64_"
     return {**{f"butter{n}": ("sos", iirdes_sos("butter", n, 0.17))
-               for n in (1, 2, 5, 8)},
+               for n in (1, 2, 5, 8, 12, 16)},
             "ellip6": ("sos", iirdes_sos("ellip", 6, 0.2)),
             "cheby1_tf5": ("tf", iirdes("cheby1", 5, 0.2)),
             "cccf_h5": ("tf", (d[stem + "b"], d[stem + "a"]))}
 
 
 @pytest.mark.parametrize("name", ["butter1", "butter2", "butter5", "butter8",
-                                  "ellip6", "cheby1_tf5", "cccf_h5"])
+                                  "ellip6", "cheby1_tf5", "cccf_h5",
+                                  "butter12", "butter16"])
 def test_iir_backends_on_the_card_match_the_cpu(dev, name):
     # scan (iir_scan) and block (iir_block_state) on the card against the
     # CPU's scan, over blocks of 1000 and 333 samples (T % L != 0), carried:

@@ -123,28 +123,42 @@ def test_auto_picks_by_the_inputs_device():
     assert not P.iirfilt_sos(B, A).uses_block(cpu)
     assert not P.iirfilt_sos(B, A, backend="scan").uses_block(cuda)
     assert P.iirfilt_sos(B, A, backend="block").uses_block(cpu)
-    B9, A9 = iirdes_sos("butter", 9, 0.2)      # 10 states: the scan kernel
-    assert not P.iirfilt_sos(B9, A9).uses_block(cuda)
+    B9, A9 = iirdes_sos("butter", 9, 0.2)      # 10 states: the block form
+    assert P.iirfilt_sos(B9, A9).uses_block(cuda)
+    assert not P.iirfilt_sos(B9, A9).uses_block(cpu)
+    B33, A33 = iirdes_sos("butter", 33, 0.2)   # 34 states: above the limit
+    assert not P.iirfilt_sos(B33, A33).uses_block(cuda)
 
 
-@pytest.mark.parametrize("order", [9, 12])
-def test_explicit_block_takes_at_most_eight_states(order):
-    # the state pass's kernel holds 8 states: an explicit 'block' above
-    # that raises when the filter is built, whatever device it would run
-    # on; 'auto' and 'scan' build and run the scan
-    B, A = iirdes_sos("butter", order, 0.2)
-    with pytest.raises(ValueError, match="at most 8 states"):
+@pytest.mark.parametrize("form,order", [("sos", 9), ("sos", 12), ("sos", 16),
+                                        ("tf", 9)])
+def test_explicit_block_takes_up_to_32_states(form, order):
+    # the state pass's kernel gives each state a lane: an explicit 'block'
+    # above 8 states builds and runs, streamed across blocks, and matches
+    # the JAX package's block form and its scan
+    if form == "sos":
+        B, A = iirdes_sos("butter", order, 0.2)
+        make = (lambda m, be: m.iirfilt_sos(B, A, backend=be))
+    else:
+        b, a = iirdes("butter", order, 0.2)
+        make = (lambda m, be: m.iirfilt(b, a, backend=be))
+    q = make(P, "block")
+    assert q.backend == "block" and q.p == order + (order % 2) * (
+        form == "sos")
+    x = tp.cnoise(np.random.default_rng(order), (2, 700))
+    blocks = [x[:, :130], x[:, 130:390], x[:, 390:]]   # none a multiple of L
+    yt, ct = tp.run_torch(q, blocks, (2,))
+    for be in ("block", "scan"):
+        yj, cj = tp.run_jax(make(J, be), blocks, (2,))
+        _close(yt, yj, 1e-5, f"y vs the JAX {be}")
+        _close(ct.numpy(), np.asarray(cj), 1e-5, f"carry vs the JAX {be}")
+
+
+def test_explicit_block_refuses_more_than_32_states():
+    B, A = iirdes_sos("butter", 33, 0.2)       # 34 states, stable
+    with pytest.raises(ValueError, match="at most 32 states"):
         P.iirfilt_sos(B, A, backend="block")
-    b, a = iirdes("butter", order, 0.2)
-    with pytest.raises(ValueError, match="at most 8 states"):
-        P.iirfilt(b, a, backend="block")
-    x = tp.cnoise(np.random.default_rng(order), (2, 300))
-    yj, _ = tp.run_jax(J.iirfilt_sos(B, A, backend="scan"), [x], (2,))
-    for backend in ("auto", "scan"):
-        q = P.iirfilt_sos(B, A, backend=backend)
-        assert q.backend == backend and q.p == order + order % 2
-        yt, _ = tp.run_torch(q, [x], (2,))
-        _close(yt, yj, 1e-5, backend)
+    assert P.iirfilt_sos(B, A).backend == "auto"
 
 
 def test_pscan_is_not_carried_over():

@@ -6,11 +6,16 @@
   recurrence exactly, the carry being the stacked section states; shown
   in float64 for the transfer-function form and for cascades of order 1
   to 8 over several blocks and a ragged remainder (to 1e-9 of rms).
-* `csrc/iir_scan.cu`'s loop per row (groups of 8 samples, then a ragged
-  tail; the products of complex values on the planes) in float32 numpy
-  equals `iir_scan_reference` bit for bit.
-* `csrc/iir_block_state.cu`'s loop per row (the state saved, then the
-  p-term dot in order and + w) in float32 numpy equals
+* `csrc/iir_scan.cu`'s chain lane on its row (staged tiles of one
+  128-byte line, 32 float or 16 complex samples; a whole tile's samples
+  loaded, then stepped; a last ragged tile sample by sample; the products
+  of complex values on the planes) in float32 numpy equals
+  `iir_scan_reference` bit for bit.
+* `csrc/iir_block_state.cu`'s lanes on a row (P' lanes, P' the next power
+  of two >= p; lane q holds row q of M and state q, saves its state, then
+  takes the row's states from lanes 0 .. p-1 as a width-P' shuffle gives
+  them and forms its p-term dot in order and + w; lanes q >= p idle, and
+  read the w of lane p-1) in float32 numpy equals
   `iir_block_state_reference` bit for bit.
 
 Change a kernel's loop only together with its walk here."""
@@ -116,8 +121,10 @@ def _val(z, cplx):
 
 
 def scan_walk(x, b, a, s, cplx):
-    """csrc/iir_scan.cu's thread on one row, in float32 numpy: registers
-    for the coefficients and the state, 8-sample groups, then the tail."""
+    """csrc/iir_scan.cu's chain lane on one row, in float32 numpy:
+    registers for the coefficients and the state; per staged tile of one
+    line (32 float samples, 16 complex), the whole tile's samples loaded
+    and then stepped, a ragged last tile sample by sample."""
     mul, add, sub = _ops(cplx)
     ns, n = b.shape
     bc = [[_val(b[k, i], cplx) for i in range(n)] for k in range(ns)]
@@ -134,12 +141,14 @@ def scan_walk(x, b, a, s, cplx):
             v = yk
         return v
 
-    T, out, t = len(x), [], 0
-    while t + 8 <= T:
-        group = [_val(x[t + u], cplx) for u in range(8)]
-        out += [step(v) for v in group]
-        t += 8
-    out += [step(_val(x[u], cplx)) for u in range(t, T)]
+    T, out = len(x), []
+    tile = 16 if cplx else 32
+    for t0 in range(0, T, tile):
+        if T - t0 >= tile:
+            loaded = [_val(x[t0 + u], cplx) for u in range(tile)]
+            out += [step(v) for v in loaded]
+        else:
+            out += [step(_val(x[u], cplx)) for u in range(t0, T)]
     if cplx:
         return (np.array([complex(*v) for v in out], np.complex64),
                 np.array([[complex(*v) for v in r] for r in st],
@@ -149,7 +158,7 @@ def scan_walk(x, b, a, s, cplx):
 
 @pytest.mark.parametrize("cplx", [False, True])
 @pytest.mark.parametrize("ns,n,T", [(1, 2, 21), (1, 5, 16), (3, 3, 19),
-                                    (1, 9, 3)])
+                                    (1, 9, 3), (2, 3, 75)])
 def test_scan_kernel_walk_equals_plain_version(ns, n, T, cplx):
     rng = np.random.default_rng(ns * 10 + n)
     dt = np.complex64 if cplx else F32
@@ -171,30 +180,38 @@ def test_scan_kernel_walk_equals_plain_version(ns, n, T, cplx):
 
 
 def block_state_walk(w, m, s, cplx):
-    """csrc/iir_block_state.cu's thread on one row, in float32 numpy."""
+    """csrc/iir_block_state.cu's P' lanes on one row, in float32 numpy:
+    lane q keeps M's row q and state q (zeros on an idle lane q >= p) and
+    reads, for each j, the state of lane j of its row (the shuffle)."""
     mul, add, _ = _ops(cplx)
     p = m.shape[0]
-    mv = [[_val(m[q, j], cplx) for j in range(p)] for q in range(p)]
-    sv = [_val(v, cplx) for v in s]
+    pw = 1 << (p - 1).bit_length()             # P': lanes a row
+    zero = _val(0, cplx)
+    mv = [[_val(m[q, j], cplx) for j in range(p)] if q < p else
+          [zero] * p for q in range(pw)]
+    lanes = [_val(s[q], cplx) if q < p else zero for q in range(pw)]
     pre = []
     for n in range(w.shape[0]):
-        pre.append(list(sv))
-        ns = []
-        for q in range(p):
-            acc = mul(sv[0], mv[q][0])
+        pre.append(lanes[:p])                  # the live lanes' stores
+        shfl = [lanes[j] for j in range(p)]    # width-P' shuffles of s
+        nxt = []
+        for q in range(pw):
+            acc = mul(shfl[0], mv[q][0])
             for j in range(1, p):
-                acc = add(acc, mul(sv[j], mv[q][j]))
-            ns.append(add(acc, _val(w[n, q], cplx)))
-        sv = ns
+                acc = add(acc, mul(shfl[j], mv[q][j]))
+            nxt.append(add(acc, _val(w[n, min(q, p - 1)], cplx)))
+        lanes = nxt
+    sv = lanes[:p]
     if cplx:
         return (np.array([[complex(*v) for v in r] for r in pre],
-                         np.complex64),
+                         np.complex64).reshape(len(pre), p),
                 np.array([complex(*v) for v in sv], np.complex64))
-    return np.array(pre, F32), np.array(sv, F32)
+    return np.array(pre, F32).reshape(len(pre), p), np.array(sv, F32)
 
 
 @pytest.mark.parametrize("cplx", [False, True])
-@pytest.mark.parametrize("p,nb", [(1, 9), (4, 5), (8, 3)])
+@pytest.mark.parametrize("p,nb", [(1, 9), (4, 5), (8, 3), (12, 4),
+                                  (32, 3)])
 def test_block_state_kernel_walk_equals_plain_version(p, nb, cplx):
     rng = np.random.default_rng(p + nb)
     dt = np.complex64 if cplx else F32
