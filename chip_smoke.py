@@ -258,14 +258,45 @@ at 64 channels x 262144 samples per block:
      100 launches beside its bound, a lone row's time at two lengths, its
      plain version; torch.profiler.
 
-The JSON line before the card's name lists all nine kernels, each with
+Then the support slice (FEC, IO, the streaming runtime, the CVSD codec):
+
+ 36. stream_runner: 64 cs16 captures of 3 x 262144 + 100,000 samples
+     (a tone of its own and noise each, written with io.write_iq), read
+     by 64 io.iq_stream iterators in blocks of 262144 (four, the last
+     zero-padded) and stacked into StreamRunner(kernel_fuse(fuse(chain(
+     nco, firfilt64, firfilt57, msresamp(0.5)))), batch_shape=(64,)):
+     one mix_fir_decim launch a block; a checkpoint after block 2 that a
+     fresh runner loads, its blocks 3-4 bit-equal to the uninterrupted
+     run's; every output bit-equal to the proc called directly with the
+     same carries, and within 2e-4 of rms of the kernel's plain version;
+     8 channels within 2e-4 of rms of the port on the CPU (the kernel
+     takes B % 8); an output back exactly through write_iq/read_iq cf32;
+     ms per block for the host read, the runner call, the whole loop,
+     and alone the host-to-device copy and the step;
+ 37. ldpc_bp: make_regular_ldpc(648, 324, col_weight=3, seed=0) (the
+     first full-rank seed), 64 messages x 64 BPSK AWGN draws at sigma
+     0.65 = 4096 rows, ldpc_decoder_device(H, 50) and min-sum on the
+     card: at least 99% of rows decode under sum-product, every ok row
+     is its sent codeword, the first 256 rows equal the CPU's wherever
+     the CPU converged (ok counts within 0.5%), rows 0-7 equal the host
+     float64 decoder; ms per decode, operations per call and busy share
+     (torch.profiler);
+ 38. cvsd: cvsd_encode/cvsd_decode on the card against the compiled
+     reference's golden (bits equal, audio within 1e-4); cvsd_scan bit-
+     equal to its plain version on the path's own [1, 400] rows and at
+     1024 x 4096 (bits and audio; decode on uint8 bits, as the path); its
+     times at 1024 streams x 32768 samples (100 launches each) beside
+     its bound and a lone row's step (the chain's floor).
+
+The JSON line before the card's name lists all ten kernels, each with
 its launches on its main path (mix_fir_decim also per path, in
 "launches_by_path": the headline chain and multirate_rx; codebook_argmax also per path, in
 "launches_by_path": frame64 receiver, scanner, flexframe receiver, GMSK
 receiver, OFDM receiver, OFDMFlexFrameSync; viterbi_acs on the GMSK
 receiver with v27 payloads, on the flexframe receiver and on
 OFDMFlexFrameSync; iir_scan and iir_block_state on analog_tx and
-analog_rx, with the lax.scan each replaces under "recurrence"; each
+analog_rx, with the lax.scan each replaces under "recurrence"; cvsd_scan
+on cvsd_encode/cvsd_decode; mix_fir_decim also on stream_runner; each
 counted from 0 over its own run), its error
 against the plain version (for viterbi_acs the count of decoded bits that
 differ), its time,
@@ -384,6 +415,16 @@ AN_TXPOW = 0.01             # analog_tx minus its float64 rebuild on
 #                             channels 0-3, over the AWGN's power nstd^2:
 #                             within 1% of 1 (the estimate's own spread on
 #                             3.1 M complex samples is 0.06%)
+SR_CH, SR_T = 64, 1 << 18  # stream_runner: captures x samples per block
+SR_N = 3 * SR_T + 100_000   # samples per capture: 4 blocks, the last padded
+SR_CPU = 8                  # channels held to the port on the CPU (B % 8)
+LD_N, LD_SEED = 648, 0      # LDPC block length, the first full-rank seed
+LD_MSGS, LD_ROWS = 64, 4096  # messages, rows (64 noise draws each)
+LD_SIGMA = 0.65             # BPSK AWGN: 99.8% of 512 rows decode on the CPU
+LD_ITERS = 50               # belief-propagation iterations
+LD_CPU, LD_HOST = 256, 8    # rows held to the CPU, to the host decoder
+CV_CMP = (1024, 4096)       # cvsd_scan vs its plain version
+CV_GATEWAY = (1024, 1 << 15)  # streams x samples of the timing
 AN_SHSTD = 0.02             # the shadowing process's std and mean over
 #                             64 x 786432 samples, from 1 and 0 (their
 #                             spread at 159 samples a correlation time:
@@ -772,6 +813,12 @@ def main():
     block_entry = analog_rx_phase(torch, dev, card, an_x)
     del an_x
     took("phase 35")
+    sr_launches, sr_err = stream_runner_phase(torch, dev, card)
+    took("phase 36")
+    ldpc_phase(torch, dev, card)
+    took("phase 37")
+    cvsd_entry = cvsd_phase(torch, dev, card)
+    took("phase 38")
     # each path's run counted from 0; the other kernel's count was checked
     # to be 0 there
     scan_entry["launches_by_path"] = {"analog_tx": scan_entry["launches"],
@@ -780,8 +827,9 @@ def main():
                                        "analog_tx": 0}
     mfd = kernels[0]
     mfd["launches_by_path"] = {"headline": mfd["launches"],
-                               "multirate_rx": mr_launches}
-    mfd["max_abs_err"] = max(mfd["max_abs_err"], mr_err)
+                               "multirate_rx": mr_launches,
+                               "stream_runner": sr_launches}
+    mfd["max_abs_err"] = max(mfd["max_abs_err"], mr_err, sr_err)
     cb = next(k for k in kernels if k["name"] == "codebook_argmax")
     # each path's run, its counts set to 0 just before it
     cb["launches_by_path"] = {"framesync64_stream_full": cb["launches"],
@@ -797,7 +845,8 @@ def main():
                               "flexframe_rx_stream": cv_launches,
                               "OFDMFlexFrameSync": fs_vt}
     vt["max_abs_err"] = max(vt["max_abs_err"], gm_vt_err, fs_vt_err)
-    kernels += [vt, scan_entry, block_entry]
+    kernels += [vt, scan_entry, block_entry, cvsd_entry]
+    check(len(kernels) == 10, f"{len(kernels)} kernels listed, want 10")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3652,6 +3701,352 @@ def analog_rx_phase(torch, dev, card, xs):
         "launches": launches, "max_abs_err": max_abs, "ms": ms,
         "plain_ms": plain_ms, "library_ms": None, **bd,
         "step_latency_us": step_us, "lone_row_ms": lone_ms}
+
+
+def sr_captures(tmpdir):
+    """The SR_CH cs16 captures of SR_N samples (written with io.write_iq):
+    channel c holds a tone at its own frequency, 0.4 of full scale, plus
+    complex noise of 0.05 rms a plane, inside the int16 rails."""
+    from liquid_dsp_tpu_torch import io
+    paths = []
+    t = np.arange(SR_N)
+    for c in range(SR_CH):
+        rng = np.random.default_rng(3600 + c)
+        f = DPHI / (2 * np.pi) + 0.001 * (c - SR_CH / 2)
+        x = 0.4 * np.exp(2j * np.pi * f * t + 1j * rng.uniform(0, 6.3))
+        x += 0.05 * (rng.standard_normal(SR_N)
+                     + 1j * rng.standard_normal(SR_N))
+        p = os.path.join(tmpdir, f"ch{c:02d}.cs16")
+        io.write_iq(p, x.astype(np.complex64), "cs16")
+        paths.append(p)
+    return paths
+
+
+def sr_proc():
+    """The headline chain (chip_smoke.py's phase 3) for StreamRunner."""
+    from liquid_dsp_tpu_torch import chain, fuse, kernel_fuse
+    from liquid_dsp_tpu_torch.design.firdes import firdes_kaiser
+    from liquid_dsp_tpu_torch.ops.fir import firfilt
+    from liquid_dsp_tpu_torch.ops.nco import nco
+    from liquid_dsp_tpu_torch.ops.resample import msresamp
+    return kernel_fuse(fuse(chain(nco(dphi=DPHI, direction="down"),
+                                  firfilt(firdes_kaiser(64, 0.2, 60.0)),
+                                  firfilt(firdes_kaiser(57, 0.3, 60.0)),
+                                  msresamp(0.5, 60.0))))
+
+
+def clone_tree(torch, c):
+    if isinstance(c, dict):
+        return {k: clone_tree(torch, v) for k, v in c.items()}
+    if isinstance(c, (tuple, list)):
+        return type(c)(clone_tree(torch, v) for v in c)
+    return c.clone() if torch.is_tensor(c) else c
+
+
+def stream_runner_phase(torch, dev, card):
+    """Phase 36: the headline chain through StreamRunner over SR_CH cs16
+    captures read with io.iq_stream, a checkpoint after block 2 and a
+    resume.  Returns (mix_fir_decim launches, its max|err| against its
+    plain version on the run's own blocks)."""
+    import tempfile
+    from liquid_dsp_tpu_torch import io
+    from liquid_dsp_tpu_torch.ops.kernels.mix_fir_decim import (
+        mix_fir_decim, mix_fir_decim_reference)
+    from liquid_dsp_tpu_torch.runtime import StreamRunner
+    nblk = -(-SR_N // SR_T)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        t0 = time.perf_counter()
+        paths = sr_captures(tmpdir)
+        t_write = time.perf_counter() - t0
+        runner = StreamRunner(sr_proc(), batch_shape=(SR_CH,), device=dev)
+        check(type(runner.proc).__name__ == "MixFIRDecim",
+              f"stream_runner: kernel_fuse gave {type(runner.proc)}")
+        its = [io.iq_stream(p, "cs16", block=SR_T) for p in paths]
+        ck = os.path.join(tmpdir, "state.npz")
+        blocks, outs, carries, t_read, t_loop, t_call = [], [], [], [], [], []
+        mix_fir_decim.launches = 0
+        for k in range(nblk):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = np.stack([next(it) for it in its])
+            t1 = time.perf_counter()
+            carries.append(clone_tree(torch, runner.carry))
+            y = runner(x)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            t_read.append((t1 - t0) * 1e3)
+            t_call.append((t2 - t1) * 1e3)
+            t_loop.append((t2 - t0) * 1e3)
+            blocks.append(x)
+            outs.append(y)
+            if k == 1:
+                runner.save(ck)
+        launches = mix_fir_decim.launches
+        check(all(next(it, None) is None for it in its),
+              f"stream_runner: the captures hold more than {nblk} blocks")
+        check(launches == nblk, f"stream_runner: {launches} mix_fir_decim "
+              f"launches for {nblk} blocks")
+        check(runner.blocks_processed == nblk,
+              f"stream_runner: {runner.blocks_processed} blocks processed")
+        # the last block is zero-padded past the capture
+        tail = SR_N - (nblk - 1) * SR_T
+        check(not blocks[-1][:, tail:].any() and blocks[-1][:, :tail].any(),
+              "stream_runner: the last block is not the capture's tail "
+              "zero-padded")
+        # a fresh runner resumes from the checkpoint: bit-equal
+        resumed = StreamRunner(sr_proc(), batch_shape=(SR_CH,), device=dev)
+        resumed.load(ck)
+        check(resumed.blocks_processed == 2, "stream_runner: the checkpoint "
+              f"resumes at block {resumed.blocks_processed}, want 2")
+        for k in range(2, nblk):
+            check(bits_equal(torch, resumed(blocks[k]), outs[k]),
+                  f"stream_runner: resumed block {k} differs from the "
+                  f"uninterrupted run")
+        # the cf32 round trip of an output
+        y0 = outs[-1][0].cpu().numpy()
+        io.write_iq(os.path.join(tmpdir, "out.cf32"), y0, "cf32")
+        back = io.read_iq(os.path.join(tmpdir, "out.cf32"), "cf32")
+        check(np.array_equal(back, y0), "stream_runner: write_iq cf32 then "
+              "read_iq does not give the output back")
+    # the proc called directly with the same carries, and its kernel
+    # against its plain version on the same inputs
+    proc = runner.proc
+    max_abs = 0.0
+    for k, (x, c, y) in enumerate(zip(blocks, carries, outs)):
+        check(tuple(y.shape) == (SR_CH, SR_T // 2)
+              and y.dtype == torch.complex64 and y.device.type == dev.type
+              and bool(torch.isfinite(torch.view_as_real(y)).all()),
+              f"stream_runner block {k}: {tuple(y.shape)} {y.dtype} on "
+              f"{y.device}")
+        xd = torch.from_numpy(x).to(dev)
+        with torch.inference_mode():
+            yd, _ = proc(clone_tree(torch, c), xd)
+            ref = mix_fir_decim_reference(
+                xd.real.contiguous(), xd.imag.contiguous(), c["tr"],
+                c["ti"], c["theta"], proc.ramp_c, proc.ramp_s, proc.taps,
+                down=proc.down, sgn=proc.sgn, dphi=proc.dphi)
+        check(bits_equal(torch, yd, y), f"stream_runner block {k}: the "
+              f"runner's output differs from the proc called directly")
+        err, rel = complex_err((y.real, y.imag), ref)
+        check(rel < TOL_F32, f"stream_runner block {k}: mix_fir_decim vs "
+              f"plain {rel:.3e} of rms")
+        max_abs = max(max_abs, err)
+    # four channels against the port on the CPU
+    cpu = StreamRunner(sr_proc(), batch_shape=(SR_CPU,), device="cpu")
+    worst = 0.0
+    for x, y in zip(blocks, outs):
+        yc = cpu(x[:SR_CPU])
+        yg = y[:SR_CPU].cpu()
+        worst = max(worst, complex_err((yg.real, yg.imag),
+                                       (yc.real, yc.imag))[1])
+    check(worst < TOL_F32, f"stream_runner vs the CPU on channels 0-"
+          f"{SR_CPU - 1}: {worst:.3e} of rms")
+    # times: the copy and the step alone, on the last block
+    xh = blocks[-1]
+    copy = time_ms(lambda: torch.from_numpy(xh).to(dev), iters=10)
+    xd = torch.from_numpy(xh).to(dev)
+    c0 = carries[-1]
+    with torch.inference_mode():
+        step = time_ms(lambda: proc(c0, xd))
+    mb = xh.nbytes / 1e6
+    print(f"stream_runner: StreamRunner(kernel_fuse(fuse(chain(nco, "
+          f"firfilt64, firfilt57, msresamp(0.5)))), batch_shape=({SR_CH},))"
+          f" over {SR_CH} cs16 captures of {SR_N} samples (written in "
+          f"{t_write:.1f} s) read by io.iq_stream in blocks of {SR_T}: "
+          f"{nblk} blocks, the last zero-padded after {tail} samples; "
+          f"mix_fir_decim launches {launches}; checkpoint after block 2 and "
+          f"a fresh runner's resume bit-equal on blocks 3-{nblk}; the "
+          f"runner bit-equal to the proc called directly with the same "
+          f"carries; mix_fir_decim within {max_abs:.2e} of its plain "
+          f"version; channels 0-{SR_CPU - 1} vs the CPU {worst:.2e} of rms "
+          f"(< {TOL_F32}); write_iq/read_iq cf32 of an output exact",
+          flush=True)
+    print(f"timing ({card}): stream_runner ms per block of {SR_CH}x{SR_T} "
+          f"(block 1 first): host read and convert ({SR_CH} iq_stream reads "
+          f"of cs16, np.stack) " + ", ".join(f"{v:.1f}" for v in t_read)
+          + "; runner call (host clock, synchronized: the copy of "
+          f"{mb:.0f} MB of complex64 from pageable memory and the step) "
+          + ", ".join(f"{v:.1f}" for v in t_call) + "; whole loop "
+          + ", ".join(f"{v:.1f}" for v in t_loop)
+          + f"; alone, on the last block (CUDA events): host-to-device copy "
+          f"{copy:.3f} ms ({mb / copy:.2f} GB/s), the step {step:.4f} ms",
+          flush=True)
+    del blocks, outs, carries, xd, runner, resumed
+    return launches, max_abs
+
+
+def ldpc_phase(torch, dev, card):
+    """Phase 37: batched LDPC belief propagation on the card at LD_ROWS
+    codewords of the n = 648 code, sum-product and min-sum."""
+    from liquid_dsp_tpu_torch.fec.ldpc import (ldpc_decoder_device,
+                                               ldpc_encode_systematic,
+                                               ldpc_sumproduct_decode,
+                                               make_regular_ldpc)
+    n, k = LD_N, LD_N // 2
+    H = make_regular_ldpc(n, k, col_weight=3, seed=LD_SEED)
+    rng = np.random.default_rng(37)
+    msgs = rng.integers(0, 2, (LD_MSGS, k)).astype(np.uint8)
+    t0 = time.perf_counter()
+    cws = np.stack([ldpc_encode_systematic(H, m)[0] for m in msgs])
+    t_enc = time.perf_counter() - t0
+    check(not ((cws @ H.T) % 2).any(), "ldpc: a codeword fails its parity")
+    sent = np.repeat(cws, LD_ROWS // LD_MSGS, axis=0)
+    y = 1.0 - 2.0 * sent + LD_SIGMA * rng.standard_normal(sent.shape)
+    llr_h = (2 * y / LD_SIGMA ** 2).astype(np.float32)
+    llr = torch.from_numpy(llr_h).to(dev)
+    res, times = {}, {}
+    for mode in ("sum-product", "min-sum"):
+        ms_ = mode == "min-sum"
+        dec = ldpc_decoder_device(H, LD_ITERS, min_sum=ms_, device=dev)
+        hard, ok = dec(llr)
+        torch.cuda.synchronize()
+        check(tuple(hard.shape) == (LD_ROWS, n) and hard.dtype == torch.int32
+              and ok.dtype == torch.bool and hard.device.type == dev.type,
+              f"ldpc {mode}: {tuple(hard.shape)} {hard.dtype} {ok.dtype}")
+        hard, ok = hard.cpu().numpy(), ok.cpu().numpy()
+        good = (hard == sent).all(axis=1)
+        check(not (ok & ~good).any(), f"ldpc {mode}: {int((ok & ~good).sum())}"
+              f" rows pass their parity with another codeword than sent")
+        # the first LD_CPU rows on the CPU: equal wherever the CPU converged
+        hc, okc = ldpc_decoder_device(H, LD_ITERS, min_sum=ms_,
+                                      device="cpu")(llr_h[:LD_CPU])
+        hc, okc = hc.numpy(), okc.numpy()
+        same = (hard[:LD_CPU][okc] == hc[okc]).all() and ok[:LD_CPU][okc].all()
+        check(same, f"ldpc {mode}: the card differs from the CPU on rows the "
+              f"CPU decoded")
+        dcount = abs(int(ok[:LD_CPU].sum()) - int(okc.sum()))
+        check(dcount <= LD_CPU * 0.005 + 1e-9 or dcount == 0,
+              f"ldpc {mode}: {int(ok[:LD_CPU].sum())} rows ok on the card, "
+              f"{int(okc.sum())} on the CPU, of {LD_CPU}")
+        res[mode] = (int(ok.sum()), int(okc.sum()), int(ok[:LD_CPU].sum()))
+        if not ms_:
+            check(ok.mean() >= 0.99, f"ldpc sum-product at sigma {LD_SIGMA}:"
+                  f" {ok.mean():.4f} of rows decode, want >= 0.99")
+            # the host decoder (float64, stops at the first codeword)
+            for r in range(LD_HOST):
+                hb, okh, _ = ldpc_sumproduct_decode(H, llr_h[r], LD_ITERS)
+                check(not okh or (ok[r] and (hard[r] == hb).all()),
+                      f"ldpc: row {r} differs from the host decoder")
+        times[mode] = (time_ms(lambda: dec(llr), iters=5),
+                       time_ms(lambda: dec(llr), iters=5))
+        by = profile_steps(torch, card, lambda: dec(llr), 2,
+                           f"ldpc_decoder_device({mode}) at {LD_ROWS} rows")
+        times[mode] += (sum(c for _, c in by.values()) / 2,)
+    print(f"ldpc_bp: make_regular_ldpc({n}, {k}, col_weight=3, seed="
+          f"{LD_SEED}) (the first full-rank seed from 0), {LD_MSGS} "
+          f"messages (encoded on the host in {t_enc:.1f} s) x "
+          f"{LD_ROWS // LD_MSGS} BPSK AWGN draws at sigma {LD_SIGMA} = "
+          f"{LD_ROWS} rows, {LD_ITERS} iterations; rows ok (card, CPU on "
+          f"the first {LD_CPU}, card on them): " + "; ".join(
+              f"{m} {a} of {LD_ROWS}, {b} / {c} of {LD_CPU}"
+              for m, (a, b, c) in res.items())
+          + "; every ok row is its sent codeword; the card equals the CPU "
+          f"where the CPU converged; rows 0-{LD_HOST - 1} equal the host "
+          f"float64 decoder", flush=True)
+    print(f"timing ({card}): ldpc_decoder_device at {LD_ROWS} x {n}, "
+          f"{LD_ITERS} iterations, ms per decode (5 calls each, CUDA "
+          f"events): " + "; ".join(f"{m} {a:.3f}, {b:.3f} ({c:.0f} device "
+                                   f"operations a call)"
+                                   for m, (a, b, c) in times.items()),
+          flush=True)
+
+
+def cvsd_phase(torch, dev, card):
+    """Phase 38: CVSD on the cvsd_scan kernel: the golden through the
+    public functions (the main path), the kernel against its plain version
+    and its times at a gateway's shape.  Returns its kernel entry."""
+    from liquid_dsp_tpu_torch.ops.kernels.cvsd_scan import (
+        cvsd_scan, cvsd_scan_reference)
+    from liquid_dsp_tpu_torch.utils.audio import cvsd_decode, cvsd_encode
+    g = dict(np.load(os.path.join(ROOT, "tests", "golden",
+                                  "flexframe_golden.npz")))
+    x = np.real(g["cvsd_x"]).astype(np.float32)
+    cvsd_scan.launches = 0
+    bits = cvsd_encode(x)                 # the card: the entry's default
+    audio = cvsd_decode(bits)
+    launches = cvsd_scan.launches
+    check(launches == 2, f"cvsd: {launches} cvsd_scan launches for an "
+          f"encode and a decode")
+    check(np.array_equal(bits.astype(np.int32),
+                         np.real(g["cvsd_bits"]).astype(np.int32)),
+          "cvsd: encoded bits differ from the compiled reference's")
+    gerr = float(np.abs(audio - np.real(g["cvsd_xr"])).max())
+    check(gerr < 1e-4, f"cvsd: decoded audio {gerr:.3e} from the "
+          f"reference's (limit 1e-4)")
+    # the launches the path made, again on its own tensors ([1, 400]
+    # float32 in, the uint8 bits back), against the plain version
+    xp = torch.from_numpy(x).to(dev).reshape(1, -1)
+    bp = torch.from_numpy(bits).to(dev).reshape(1, -1)
+    kb, ka = cvsd_scan(xp, True), cvsd_scan(bp, False)
+    pb, pa = cvsd_scan_reference(xp, True), cvsd_scan_reference(bp, False)
+    check(bits_equal(torch, kb, pb) and bits_equal(torch, kb, bp)
+          and bits_equal(torch, ka, pa)
+          and np.array_equal(ka[0].cpu().numpy(), audio),
+          f"cvsd_scan vs plain on the path's [1, {x.size}] rows: not bit-"
+          f"equal (bits {int((kb != pb).sum())} differ, audio max|err| "
+          f"{float((ka - pa).abs().max()):.3e})")
+    path_err = float((ka - pa).abs().max())
+
+    def voice(R, T, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        t = torch.arange(T, device=dev, dtype=torch.float32) / 64000.0
+        f0 = 200 + 3000 * torch.rand(R, 1, generator=gen, device=dev)
+        return (0.5 * torch.sin(2 * np.pi * f0 * t) + 0.05 * torch.randn(
+            R, T, generator=gen, device=dev)).clamp(-1, 1).contiguous()
+
+    R, Tc = CV_CMP
+    xc = voice(R, Tc, 38)
+    bc = cvsd_scan(xc, True)
+    ac = cvsd_scan(bc, False)
+    p_enc, pb = time_once(lambda: cvsd_scan_reference(xc, True))
+    p_dec, pa = time_once(lambda: cvsd_scan_reference(bc, False))
+    check(bits_equal(torch, bc, pb) and bits_equal(torch, ac, pa),
+          f"cvsd_scan vs plain at {R}x{Tc}: not bit-equal (bits "
+          f"{int((bc != pb).sum())} differ, audio max|err| "
+          f"{float((ac - pa).abs().max()):.3e})")
+    max_abs = max(path_err, float((ac - pa).abs().max()))
+    R, T = CV_GATEWAY
+    xg = voice(R, T, 39)
+    bg = cvsd_scan(xg, True)
+    e1 = time_ms(lambda: cvsd_scan(xg, True), iters=100)
+    d1 = time_ms(lambda: cvsd_scan(bg, False), iters=100)
+    e2 = time_ms(lambda: cvsd_scan(xg, True), iters=100)
+    d2 = time_ms(lambda: cvsd_scan(bg, False), iters=100)
+    enc, dec = (e1 + e2) / 2, (d1 + d2) / 2
+    # encode: 4 bytes in, 1 out a sample; 9 operations (the pre-emphasis's
+    # product and difference, the compare, delta's product and two clamps,
+    # ref's sum and two clamps); decode: 1 in, 4 out, those 7 after the
+    # compare plus the post-emphasis's sum, FMA (2), sum and product
+    bd = bound(2 * 5 * R * T, (9 + 12) * R * T)
+    step_us, one = lone_row_step_us(
+        lambda n: cvsd_scan(bg[:1, :n].contiguous(), False), (T // 4, T))
+    mhz = sm_mhz()
+    print(f"cvsd: the golden (400 samples) through cvsd_encode/cvsd_decode "
+          f"on the card: bits equal, audio {gerr:.2e} from the reference's;"
+          f" cvsd_scan launches {launches}, bit-equal to its plain version"
+          f" on the path's rows and at {CV_CMP[0]}x{CV_CMP[1]} (bits and "
+          f"audio)", flush=True)
+    print(f"timing ({card}): cvsd_scan at {R} streams x {T} samples (0.5 s "
+          f"of 64 kHz voice each): encode {e1:.4f}, {e2:.4f} ms, decode "
+          f"{d1:.4f}, {d2:.4f} ms (100 launches each) = "
+          f"{R * T / enc / 1e3:.1f} and {R * T / dec / 1e3:.1f} Msamples/s;"
+          f" bound for both {bd['bound_ms']:.5f} ms by {bd['bound_by']} "
+          f"({bd['bound_ms'] / (enc + dec):.2%}); a lone decode row at "
+          + ", ".join(f"{n} steps {t:.4f} ms" for n, t in one.items())
+          + f": {step_us * 1e3:.2f} ns a step (= {step_us * mhz:.0f} cycles "
+          f"at {mhz:.0f} MHz), the chain's floor {T * step_us / 1e3:.4f} ms "
+          f"at {T} steps; plain version at {CV_CMP[0]}x{CV_CMP[1]}: encode "
+          f"{p_enc:.1f} ms, decode {p_dec:.1f} ms", flush=True)
+    return {
+        "name": "cvsd_scan", "route": "cuda",
+        "source": "liquid_dsp_tpu_torch/csrc/cvsd_scan.cu", "replaces": None,
+        "recurrence": "liquid_dsp_tpu/utils/audio.py:41-52 and :62-84 "
+                      "(lax.scan)",
+        "launches": launches, "max_abs_err": max_abs, "ms": enc + dec,
+        "ms_encode": enc, "ms_decode": dec, "shape": [R, T],
+        "plain_ms": p_enc + p_dec, "plain_shape": list(CV_CMP),
+        "library_ms": None, **bd, "step_latency_us": step_us,
+        "chain_floor_ms": T * step_us / 1e3}
 
 
 def iir_reference64(q, x):

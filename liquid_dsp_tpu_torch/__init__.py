@@ -14,6 +14,9 @@ Package layout:
                 equalize)
   ops/kernels — CUDA kernels with their plain PyTorch versions
   fuse, planar — chain transforms; convert — state to and from JAX
+  fec/, framing/, modem/, multichannel/, utils/ — as in liquid_dsp_tpu
+  io — IQ capture formats; runtime — StreamRunner, the production loop
+  compat — the reference C library's names
 """
 
 from .core import LTI, Chain, Proc, chain  # noqa: F401

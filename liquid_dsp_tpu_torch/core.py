@@ -25,11 +25,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 __all__ = ["LTI", "Proc", "Chain", "chain", "planar_per_plane",
-           "entry_device"]
+           "entry_device", "entry_tensor"]
 
 
 def entry_device(device="cuda") -> torch.device:
@@ -43,6 +44,23 @@ def entry_device(device="cuda") -> torch.device:
             "torch.cuda.is_available() is false; pass device=\"cpu\" to "
             "run on the CPU")
     return dev
+
+
+_NARROW = {np.dtype(np.float64): np.float32,
+           np.dtype(np.complex128): np.complex64,
+           np.dtype(np.int64): np.int32, np.dtype(np.uint64): np.uint32}
+
+
+def entry_tensor(x, device="cuda") -> torch.Tensor:
+    """x as a tensor: a tensor stays where it lies; a host array (or
+    scalar) goes to ``entry_device(device)`` in the dtype the JAX package
+    gives it with 64-bit types off (float64 -> float32, complex128 ->
+    complex64, int64 -> int32)."""
+    if torch.is_tensor(x):
+        return x
+    a = np.asarray(x)
+    a = np.ascontiguousarray(a, _NARROW.get(a.dtype, a.dtype))
+    return torch.from_numpy(a).to(entry_device(device))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,7 @@
 """Forward error correction, ported from `liquid_dsp_tpu.fec`: CRC, block
-and convolutional codes, interleaver and packetizer as host numpy; the
-device soft decode (`device.py`) on torch."""
+and convolutional codes, Reed-Solomon, interleaver and packetizer as host
+numpy; the device soft decode (`device.py`) and the batched LDPC decoder
+(`ldpc.py`) on torch."""
 from .crc import (  # noqa: F401
     CRC_SCHEMES, crc_sizeof_key, crc_generate_key, crc_append_key,
     crc_check_key, crc_validate_message,
@@ -11,6 +12,7 @@ from .dispatch import (  # noqa: F401
 )
 from .block import unpack_bits, pack_bits  # noqa: F401
 from .conv import PUNCTURE_MATRICES  # noqa: F401
+from .rs import rs_encode, rs_decode, rs_get_enc_msg_length  # noqa: F401
 from .interleave import (  # noqa: F401
     interleave, deinterleave, interleave_soft, deinterleave_soft,
     interleaver_dims,

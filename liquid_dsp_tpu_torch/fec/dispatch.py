@@ -1,10 +1,9 @@
 """FEC dispatch across scheme families (`liquid_dsp_tpu/fec/dispatch.py`;
 reference src/fec/src/fec.c fec_create/encode/decode dispatch).
 
-The port has the block family (`block.py`) and the convolutional codes
-(`conv.py`).  Reed-Solomon raises NotImplementedError: it is ROADMAP
-queue 1 item 5c (`fec/rs.py`).  Its scheme name is known, so every
-length query on it says so too.
+Three families, all host numpy: the block codes (`block.py`), the
+convolutional codes (`conv.py`) and Reed-Solomon (`rs.py`, scheme
+``rs8``).
 """
 from __future__ import annotations
 
@@ -12,6 +11,7 @@ import numpy as np
 
 from . import block as _block
 from . import conv as _conv
+from . import rs as _rs
 from .conv import CONV_SCHEMES
 
 __all__ = ["FEC_SCHEMES", "CONV_SCHEMES", "fec_get_enc_msg_length",
@@ -20,34 +20,30 @@ __all__ = ["FEC_SCHEMES", "CONV_SCHEMES", "fec_get_enc_msg_length",
 FEC_SCHEMES = _block.FEC_SCHEMES + CONV_SCHEMES + ("rs8",)
 
 
-def _check_ported(scheme: str):
-    if scheme == "rs8":
-        raise NotImplementedError(
-            "'rs8': Reed-Solomon is not ported yet (ROADMAP queue 1 "
-            "item 5c, fec/rs.py)")
-
-
 def fec_get_enc_msg_length(scheme: str, dec_len: int) -> int:
     scheme = scheme.lower()
-    _check_ported(scheme)
     if scheme in CONV_SCHEMES:
         return _conv.conv_get_enc_msg_length(scheme, dec_len)
+    if scheme == "rs8":
+        return _rs.rs_get_enc_msg_length(dec_len)
     return _block.fec_get_enc_msg_length(scheme, dec_len)
 
 
 def fec_encode(scheme: str, msg) -> np.ndarray:
     scheme = scheme.lower()
-    _check_ported(scheme)
     if scheme in CONV_SCHEMES:
         return _conv.conv_encode(scheme, msg)
+    if scheme == "rs8":
+        return _rs.rs_encode(msg)
     return _block.fec_encode(scheme, msg)
 
 
 def fec_decode(scheme: str, enc, dec_len: int) -> np.ndarray:
     scheme = scheme.lower()
-    _check_ported(scheme)
     if scheme in CONV_SCHEMES:
         return _conv.conv_decode(scheme, enc, dec_len)
+    if scheme == "rs8":
+        return _rs.rs_decode(enc, dec_len)[0]
     return _block.fec_decode(scheme, enc, dec_len)
 
 
@@ -58,7 +54,6 @@ def fec_decode_soft(scheme: str, llr, dec_len: int) -> np.ndarray:
     codes sum the metrics, other schemes slice hard.  llr: metrics of the
     ENCODED bits (positive = 1)."""
     scheme = scheme.lower()
-    _check_ported(scheme)
     llr = np.asarray(llr, np.float32)
     if scheme in CONV_SCHEMES:
         return _conv.conv_decode(scheme, None, dec_len, soft=llr)

@@ -5,21 +5,21 @@ Reference analog: src/fec/src/packetizer.c:39-80 (lengths),
 packetizer_encode: msg -> append CRC -> fec0 encode -> interleave ->
 fec1 encode -> interleave; decode runs the plan in reverse.  The
 interleaver depth is 0 (pass-through) for a 'none' stage
-(packetizer.c:132-133).  The port's FEC dispatch has the block and
-convolutional schemes (fec/dispatch.py); a Reed-Solomon stage raises
-there.
+(packetizer.c:132-133).  Every scheme of the FEC dispatch
+(fec/dispatch.py) may fill either stage.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from . import dispatch as _fec
+from .block import pack_bits
 from .crc import crc_generate_key, crc_sizeof_key, crc_validate_message
 from .interleave import deinterleave, deinterleave_soft, interleave
 
 __all__ = ["packetizer_compute_enc_msg_len", "packetizer_compute_dec_msg_len",
            "packetizer_encode", "packetizer_decode",
-           "packetizer_decode_soft"]
+           "packetizer_decode_soft", "pack_bits_arr"]
 
 
 def _plan(msg_len: int, crc: str, fec0: str, fec1: str):
@@ -101,3 +101,9 @@ def packetizer_decode_soft(llr_bits, msg_len: int, crc: str = "crc32",
         buf = _fec.fec_decode(fs0, deinterleave(buf[:enc0], depth=depth0),
                               dec0)
     return _check_crc(buf, msg_len, crc)
+
+
+def pack_bits_arr(bits) -> np.ndarray:
+    """Bits (one per element, MSB first) -> bytes: `block.pack_bits`
+    under the JAX package's packetizer name."""
+    return pack_bits(bits)

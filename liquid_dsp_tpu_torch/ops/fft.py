@@ -22,7 +22,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..core import Proc, entry_device
+from ..core import Proc, entry_tensor
 from ..design.windows import window as make_window
 
 __all__ = ["fft", "ifft", "fft_plan", "fft_shift", "dct", "dst", "r2r",
@@ -33,21 +33,9 @@ FFT_FORWARD = -1
 FFT_BACKWARD = +1
 
 
-def _tensor(x, device) -> torch.Tensor:
-    """x as a tensor: a tensor stays where it lies; a host array goes to
-    ``device`` as complex64 or float32 (the JAX package's dtypes with
-    64-bit types off)."""
-    if torch.is_tensor(x):
-        return x
-    a = np.asarray(x)
-    return torch.from_numpy(np.ascontiguousarray(
-        a, np.complex64 if np.iscomplexobj(a) else np.float32)).to(
-            entry_device(device))
-
-
 def _complex_len(x, n: int | None, device) -> torch.Tensor:
     """complex64 tensor, zero-padded or cut to n along the last axis."""
-    x = _tensor(x, device).to(torch.complex64)
+    x = entry_tensor(x, device).to(torch.complex64)
     if n is not None and n != x.shape[-1]:
         if n > x.shape[-1]:
             x = torch.nn.functional.pad(x, (0, n - x.shape[-1]))
@@ -80,7 +68,7 @@ def fft_plan(n: int, direction: int = FFT_FORWARD,
 
 
 def fft_shift(x, device="cuda") -> torch.Tensor:
-    return torch.fft.fftshift(_tensor(x, device), dim=-1)
+    return torch.fft.fftshift(entry_tensor(x, device), dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -131,7 +119,7 @@ def _dst_matrix(n: int, type: int) -> np.ndarray:
 def _basis_matmul(x, basis, device) -> torch.Tensor:
     """x [..., n] float32 times a cached host basis [n, n], moved to x's
     device (full float32 unless the caller turned TF32 on)."""
-    x = _tensor(x, device).to(torch.float32)
+    x = entry_tensor(x, device).to(torch.float32)
     m = basis(x.shape[-1])
     return torch.matmul(x, torch.from_numpy(m).to(x.device))
 
@@ -246,7 +234,7 @@ def spgram_psd_oneshot(x, nfft: int, window: str = "kaiser",
     window_len = window_len or nfft // 2
     w = make_window(window, window_len, beta)
     g = np.sqrt(2.0) / (np.sqrt(np.sum(w * w) / window_len) * np.sqrt(nfft))
-    x = _tensor(x, device)
+    x = entry_tensor(x, device)
     wt = torch.from_numpy((w * g).astype(np.float32)).to(x.device)
     X = fft(x[..., -window_len:] * wt, nfft)
     mag = fft_shift(X).abs()

@@ -37,6 +37,7 @@ NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 # C signatures of the entry points in csrc/ (argtypes, restype)
 _SIGNATURES = {
     "mix_fir_decim_launch": ([_P] * 10 + [_I] * 7 + [_F, _P], _I),
@@ -49,6 +50,7 @@ _SIGNATURES = {
     "viterbi_acs_dec_smem_max": ([], _I),
     "iir_scan_launch": ([_P] * 5 + [_I] * 5 + [_P], _I),
     "iir_block_state_launch": ([_P] * 4 + [_I] * 4 + [_P], _I),
+    "cvsd_scan_launch": ([_P] * 2 + [_I] * 3 + [_U] + [_F] * 4 + [_P], _I),
 }
 
 

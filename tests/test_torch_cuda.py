@@ -18,6 +18,11 @@ pll_lms: 2e-4 with equal decisions (sincos, atan2 and the dot's order and
 association differ), the reference's stream tolerance.
 viterbi_acs: bit-equal bits and packed decisions (the same exact products,
 sums in the same order, the same max and subtraction).
+cvsd_scan: bit-equal bits and audio (the same roundings, one FMA in both).
+The LDPC decoder: hard and ok equal to the CPU's wherever the CPU converged
+(reductions in another order can flip a borderline row that did not).
+StreamRunner: bit-equal to its proc on the card, 1e-4 of rms against the
+CPU (the mixer's float32 phase from another libm).
 """
 import pathlib
 
@@ -1459,3 +1464,98 @@ def test_channel_noise_and_shadowing_on_the_card(dev):
     assert torch.equal(y1, y2)
     g_db = 20 * torch.log10(y1.abs())
     assert abs(float(g_db.std()) / 2.0 - 1) < 0.1
+
+
+# --- the support slice: cvsd_scan, the LDPC decoder, StreamRunner -----------
+
+@pytest.mark.parametrize("R,T", [(1, 1), (3, 7), (33, 1000), (64, 4097),
+                                 (100, 64)])
+@pytest.mark.parametrize("zeta", [1.5, 1.37])
+def test_cvsd_scan_bit_equal_to_plain(dev, R, T, zeta):
+    # rows not a multiple of the kernel's 32, T = 1 and a ragged last chunk
+    from liquid_dsp_tpu_torch.ops.kernels.cvsd_scan import (
+        cvsd_scan, cvsd_scan_reference)
+    g = torch.Generator(device=dev).manual_seed(R * 7 + T)
+    t = torch.arange(T, device=dev, dtype=torch.float32)
+    f = 0.001 + 0.02 * torch.rand(R, 1, generator=g, device=dev)
+    x = (0.7 * torch.sin(2 * np.pi * f * t)
+         + 0.05 * torch.randn(R, T, generator=g, device=dev)).clamp(-1, 1)
+    n0 = cvsd_scan.launches
+    bits = cvsd_scan(x, True, zeta=zeta)
+    audio = cvsd_scan(bits, False, zeta=zeta)
+    audio32 = cvsd_scan(bits.to(torch.int32), False, zeta=zeta)
+    torch.cuda.synchronize()
+    assert cvsd_scan.launches == n0 + 3
+    assert torch.equal(bits, cvsd_scan_reference(x, True, zeta=zeta))
+    assert torch.equal(audio, cvsd_scan_reference(bits, False, zeta=zeta))
+    assert torch.equal(audio32, audio)
+
+
+def test_cvsd_on_the_card_equals_the_golden():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from liquid_dsp_tpu_torch.utils.audio import cvsd_decode, cvsd_encode
+    g = dict(np.load(pathlib.Path(__file__).parent / "golden"
+                     / "flexframe_golden.npz"))
+    x = np.real(g["cvsd_x"]).astype(np.float32)
+    bits = cvsd_encode(x)          # the card by default
+    np.testing.assert_array_equal(bits.astype(np.int32),
+                                  np.real(g["cvsd_bits"]).astype(np.int32))
+    assert np.abs(cvsd_decode(bits) - np.real(g["cvsd_xr"])).max() < 1e-4
+
+
+@pytest.mark.parametrize("min_sum", [False, True])
+def test_ldpc_decoder_on_the_card_matches_the_cpu(dev, min_sum):
+    # hard and ok equal wherever the CPU converged (reductions in another
+    # order can flip a borderline row that did not)
+    from liquid_dsp_tpu_torch.fec.ldpc import (ldpc_decoder_device,
+                                               ldpc_encode_systematic,
+                                               make_regular_ldpc)
+    H = make_regular_ldpc(96, 48, col_weight=3, seed=1)
+    rng = np.random.default_rng(7)
+    cws = np.stack([ldpc_encode_systematic(
+        H, rng.integers(0, 2, 48).astype(np.uint8))[0] for _ in range(64)])
+    y = 1.0 - 2.0 * cws + 0.7 * rng.standard_normal(cws.shape)
+    llr = (2 * y / 0.49).astype(np.float32)
+    hc, okc = ldpc_decoder_device(H, 30, min_sum, device="cpu")(llr)
+    hd, okd = ldpc_decoder_device(H, 30, min_sum)(llr)
+    assert hd.device.type == "cuda" and hd.dtype == torch.int32
+    hd, okd = hd.cpu(), okd.cpu()
+    assert okc.sum() > 48
+    assert torch.equal(hd[okc], hc[okc]) and bool(okd[okc].all())
+    assert (hd[okd].numpy() == cws[okd.numpy()]).all()
+
+
+def test_stream_runner_on_the_card_equals_the_proc(dev, tmp_path):
+    from liquid_dsp_tpu_torch import chain
+    from liquid_dsp_tpu_torch.design.firdes import firdes_kaiser
+    from liquid_dsp_tpu_torch.ops.fir import firfilt
+    from liquid_dsp_tpu_torch.ops.nco import nco
+    from liquid_dsp_tpu_torch.runtime import StreamRunner
+
+    def make():
+        return chain(nco(dphi=0.1, direction="down"),
+                     firfilt(firdes_kaiser(32, 0.2, 60.0)))
+
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((4, 4096))
+         + 1j * rng.standard_normal((4, 4096))).astype(np.complex64)
+    r = StreamRunner(make(), batch_shape=(4,))          # the card
+    proc = make().to(dev)
+    c = proc.init(batch_shape=(4,), device=dev)
+    ys = []
+    for k, blk in enumerate(np.split(x, 4, axis=-1)):
+        y = r(blk)
+        yd, c = proc(c, torch.from_numpy(blk).to(dev))
+        assert y.device.type == "cuda" and torch.equal(y, yd)
+        ys.append(y)
+        if k == 1:
+            r.save(tmp_path / "s.npz")
+    r2 = StreamRunner(make(), batch_shape=(4,))
+    r2.load(tmp_path / "s.npz")
+    for blk, y in zip(np.split(x, 4, axis=-1)[2:], ys[2:]):
+        assert torch.equal(r2(blk), y)
+    rc = StreamRunner(make(), batch_shape=(4,), device="cpu")
+    yc = torch.cat([rc(b) for b in np.split(x, 4, axis=-1)], dim=-1)
+    err = (torch.cat(ys, dim=-1).cpu() - yc).abs().max()
+    assert float(err / yc.abs().square().mean().sqrt()) < 1e-4

@@ -168,16 +168,14 @@ def test_packetizer_soft_matches_jax(cfg):
 
 
 def test_conv_and_rs_not_ported():
-    # (named when the convolutional codes still raised; a test whose
-    # check changes keeps its name) what is still not ported raises
-    # naming its ROADMAP item: rs8 (5c).  The convolutional codes are
-    # ported: their encoders and decoders work (their parity is
-    # tests/test_torch_conv.py)
+    # (named when the convolutional codes and Reed-Solomon still raised; a
+    # test whose check changes keeps its name) both families are ported:
+    # their encoders and decoders work (their parity is
+    # tests/test_torch_conv.py and tests/test_torch_rs_ldpc.py)
     assert dispatch.CONV_SCHEMES == J_CONV_SCHEMES
-    with pytest.raises(NotImplementedError, match="queue 1 item 5c"):
-        fec_encode("rs8", ref_msg(4))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5c"):
-        fec_get_enc_msg_length("rs8", 4)
+    np.testing.assert_array_equal(
+        fec_decode("rs8", fec_encode("rs8", ref_msg(4)), 4), ref_msg(4))
+    assert fec_get_enc_msg_length("rs8", 4) == 4 + 32
     for scheme in ("v27", "v29p34"):
         np.testing.assert_array_equal(
             fec_decode(scheme, fec_encode(scheme, ref_msg(4)), 4),

@@ -53,7 +53,11 @@ def test_port_never_imports_jax_or_the_reference():
                 "design.firdespm", "design.special", "ops.resample",
                 "design.iirdes", "ops.iir", "ops.misc_filters", "ops.channel",
                 "modem.analog", "ops.kernels.iir_scan",
-                "ops.kernels.iir_block_state"):
+                "ops.kernels.iir_block_state", "fec.rs", "fec.ldpc", "io",
+                "runtime", "compat", "utils.audio", "utils.bits",
+                "utils.buffer", "utils.checkpoint", "utils.matrix",
+                "utils.optim", "utils.poly", "utils.quantization",
+                "ops.kernels.cvsd_scan"):
         assert "liquid_dsp_tpu_torch." + mod in got["modules"], mod
     assert got["jax"] == [] and got["reference"] == []
     assert not got["triton"] and not got["cuda_initialized"]
@@ -72,13 +76,57 @@ def _public_defs(path):
                                     "design/firdes.py", "design/special.py",
                                     "design/firdespm.py", "design/iirdes.py",
                                     "ops/iir.py", "ops/misc_filters.py",
-                                    "ops/channel.py", "modem/analog.py"])
+                                    "ops/channel.py", "modem/analog.py",
+                                    "fec/rs.py", "fec/ldpc.py", "io.py",
+                                    "runtime.py", "compat.py",
+                                    "fec/packetizer.py", "utils/audio.py",
+                                    "utils/bits.py", "utils/buffer.py",
+                                    "utils/checkpoint.py", "utils/matrix.py",
+                                    "utils/optim.py", "utils/poly.py",
+                                    "utils/quantization.py"])
 def test_port_module_defines_every_public_name(module):
     # a diff of the top-level def/class names: the port's module is a
     # superset of the JAX package's
     missing = (_public_defs(ROOT / "liquid_dsp_tpu" / module)
                - _public_defs(ROOT / "liquid_dsp_tpu_torch" / module))
     assert not missing, sorted(missing)
+
+
+_NO_JAX = """
+import importlib.abc, json, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "liquid_dsp_tpu"):
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+import liquid_dsp_tpu_torch.compat as c
+names = {}
+for n in dir(c):
+    if not n.startswith("_"):
+        o = getattr(c, n)
+        names[n] = getattr(o, "__module__", None) or ""
+print(json.dumps(names))
+"""
+
+
+def test_compat_has_every_name_of_the_jax_shim():
+    # compat's names are module-level assignments and generated aliases,
+    # not only defs: the port's module is imported in a process where jax
+    # cannot be imported, and its dir() compared with the JAX shim's
+    import json
+    import liquid_dsp_tpu.compat as jcompat
+    out = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    want = {n for n in dir(jcompat) if not n.startswith("_")}
+    assert not want - set(got), sorted(want - set(got))
+    # every alias resolves to the port (functions, classes, factories)
+    foreign = {n: m for n, m in got.items()
+               if m.startswith("liquid_dsp_tpu.") or m == "liquid_dsp_tpu"}
+    assert not foreign, foreign
+    assert got["firfilt_crcf_create"].startswith("liquid_dsp_tpu_torch")
+    assert got["eqlms_cccf_create"].startswith("liquid_dsp_tpu_torch")
 
 
 def test_chip_smoke_imports_no_jax():
