@@ -9,6 +9,7 @@ by --root:
     python3 chip_kernel_bench.py --viterbi [--root DIR] [--tag NAME] [--sass DIR]
     python3 chip_kernel_bench.py --latency
     python3 chip_kernel_bench.py --iir [--root DIR] [--tag NAME] [--sass DIR]
+    python3 chip_kernel_bench.py --cvsd [--root DIR] [--tag NAME] [--sass DIR]
 
 With two checkouts (this one and, say, `git archive` of its parent unpacked
 into a directory that .gitignore lists) run it in turns, one after the other,
@@ -45,7 +46,9 @@ With --latency it measures the cycles of one instruction on a dependent
 chain, one warp alone (clock64): FADD, FMNMX, IMAD, SHFL.IDX, REDUX.MAX
 and the pair REDUX.MAX, REDUX.MIN with its FMNMX, the instructions on
 viterbi_acs's chain; FMUL, a FADD-FMUL pair and iir_scan's one-pole
-DF2T step (FADD, FMUL, FADD), the IIR kernels' chains.
+DF2T step (FADD, FMUL, FADD), the IIR kernels' chains; FSETP + FSEL,
+and one whole step of cvsd_scan's decode and of its encode (every
+instruction of the step, no memory), the CVSD chains' floor.
 
 With --viterbi it times only `viterbi_acs`, for the checkout given by
 --root: v27 at 512 codewords x 68 bytes (the GMSK receiver's shape), v27
@@ -73,6 +76,18 @@ memory and spills for every instance of both kernels first.  A checkout
 whose kernel refuses an instance (more than 8 states before the lane per
 state) prints "not taken" for it.  With --sass DIR, cuobjdump's SASS of
 the paths' instances into DIR/sass_iir_<tag>.txt.
+
+With --cvsd it times only `cvsd_scan`, for the checkout given by
+--root: encode and decode at 1024 streams x 32768 samples, each over 100
+launches and twice, with the device time per launch (torch.profiler), and
+a lone row of each at 8192 and 32768 samples for one step's time (the
+slope) in ns and in cycles at the card's maximum SM clock, beside the
+chain's estimate (--latency's whole step, measured in the same run), and
+how many times a lone row's loop the 1024-row launch takes; ptxas's
+registers, shared memory and spills first.  For a source that takes its
+rows per block as a macro (CVSD_ROWS) it builds it again at 1, 2, 4, 8
+and 16 rows and times each beside the library's outputs.  With --sass DIR,
+cuobjdump's SASS of its kernels into DIR/sass_cvsd_<tag>.txt.
 
 Every line names the card and its power limit.
 """
@@ -144,6 +159,11 @@ __global__ void chain(const float* __restrict__ in, long long* __restrict__ cyc,
   // products are off the chain; s -> y (FADD) -> a1*y (FMUL) -> s (FADD)
   const float x = w, b0x = __fmul_rn(0.25f, x), b1x = __fmul_rn(0.5f, x);
   float s = v;
+  // cvsd_scan's steps (OP 10, 11): delta, v1, the encoder's history and
+  // its two agrees (num_bits 3: the history's last bit)
+  float dl = 0.01f + 0.5f * w, v1 = 0.f;
+  unsigned hist = static_cast<unsigned>(lane);
+  bool pa1 = false, pa0 = true;
   const long long t0 = clock64();
 #pragma unroll 16
   for (int it = 0; it < ITERS; ++it) {
@@ -164,10 +184,48 @@ __global__ void chain(const float* __restrict__ in, long long* __restrict__ cyc,
       s = __fsub_rn(b1x, __fmul_rn(-0.9f, y));
       v = y;
     }
+    if (OP == 9) v = v <= w ? b0x : b1x;                   // FSETP + FSEL
+    if (OP == 10) {            // a cvsd decode step: three chains of three
+      const float kk = (it & 1) ? 1.5f : 0.6666667f;
+      const float sg = (it & 2) ? 1.0f : -1.0f;
+      dl = fminf(fmaxf(__fmul_rn(dl, kk), 0.01f), 1.0f);
+      s = fminf(fmaxf(__fmaf_rn(sg, dl, s), -1.0f), 1.0f);
+      const float yt = __fadd_rn(s, v);
+      v = __fadd_rn(__fmaf_rn(1.9305f, yt, -s), v1);
+      v1 = __fmul_rn(-0.9405f, yt);
+    }
+    if (OP == 11) {            // a cvsd encode step: both outcomes, a select
+      const float y = (it & 1) ? w : -w;
+      const float dz = fminf(__fmul_rn(dl, 1.5f), 1.0f);
+      const float dr = fmaxf(__fmul_rn(dl, 0.6666667f), 0.01f);
+      const float d1 = pa1 ? dz : dr, d0 = pa0 ? dz : dr;
+      const float r1 = fminf(__fadd_rn(s, d1), 1.0f);
+      const float r0 = fmaxf(__fsub_rn(s, d0), -1.0f);
+      const unsigned h = hist & 1u;
+      const bool n11 = h == 1u, n00 = h == 0u, bit = s <= y;
+      s = bit ? r1 : r0;
+      dl = bit ? d1 : d0;
+      hist = (hist << 1) | static_cast<unsigned>(bit);
+      pa1 = bit && n11;
+      pa0 = !bit && n00;
+    }
   }
   const long long t1 = clock64();
-  out[lane] = v + s + __int_as_float(k);
+  out[lane] = v + s + dl + v1 + __int_as_float(k) + static_cast<float>(hist);
   if (lane == 0) cyc[OP] = t1 - t0;
+}
+// the SM clock a kernel sees: `blocks` warps each spin n cycles (clock64),
+// timed by the host's CUDA events
+__global__ void spin(long long n, long long* __restrict__ out) {
+  const long long t0 = clock64();
+  long long t = t0;
+  while (t - t0 < n) t = clock64();
+  if (threadIdx.x == 0) out[blockIdx.x] = t - t0;
+}
+extern "C" int spin_launch(long long n, int blocks, void* out, void* stream) {
+  spin<<<blocks, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      n, static_cast<long long*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 extern "C" int latency_launch(const void* in, void* cyc, void* out, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
@@ -183,6 +241,9 @@ extern "C" int latency_launch(const void* in, void* cyc, void* out, void* stream
   chain<6><<<1, 32, 0, s>>>(i, c, o);
   chain<7><<<1, 32, 0, s>>>(i, c, o);
   chain<8><<<1, 32, 0, s>>>(i, c, o);
+  chain<9><<<1, 32, 0, s>>>(i, c, o);
+  chain<10><<<1, 32, 0, s>>>(i, c, o);
+  chain<11><<<1, 32, 0, s>>>(i, c, o);
   return static_cast<int>(cudaGetLastError());
 }
 """
@@ -350,23 +411,76 @@ def ffma_rate(torch, cs, build, tag):
               + "; ".join(rates), flush=True)
 
 
+LATENCY_NAMES = [
+    "FADD", "FMNMX", "IMAD", "SHFL.IDX", "REDUX.MAX + LOP3",
+    "REDUX.MAX, REDUX.MIN + FMNMX + LOP3", "FMUL", "FADD + FMUL",
+    "iir_scan's one-pole step (FADD, FMUL, FADD)", "FSETP + FSEL",
+    "cvsd_scan's decode step (three chains of three)",
+    "cvsd_scan's encode step (both outcomes, then the select)"]
+
+
 def latency(torch, build, tag):
     """--latency: the dependent latency in cycles of the instructions on
-    viterbi_acs's chain (see LATENCY_SRC), one warp alone."""
+    the recurrence kernels' chains (see LATENCY_SRC), one warp alone."""
+    per = latency_cycles(torch, build)
+    print(f"{tag} cycles per dependent instruction (one warp): "
+          + "; ".join(f"{n} {c:.2f}" for n, c in zip(LATENCY_NAMES, per)),
+          flush=True)
+    print(f"{tag} the SM clock a kernel runs at (clock64 against CUDA "
+          f"events): one warp {sm_clock_mhz(torch, build, 1):.0f} MHz, a "
+          f"warp on each of 132 SMs {sm_clock_mhz(torch, build, 132):.0f} "
+          f"MHz", flush=True)
+
+
+def latency_lib(build):
+    """LATENCY_SRC built (once per process) and loaded."""
     import ctypes
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = build.BUILD_DIR / "latency.cu"
-    src.write_text(LATENCY_SRC)
-    so = build.BUILD_DIR / "latency.so"
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
-                    str(so), str(src)], check=True, capture_output=True,
-                   text=True)
-    fn = ctypes.CDLL(str(so)).latency_launch
+    if getattr(latency_lib, "lib", None) is None:
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = build.BUILD_DIR / "latency.cu"
+        src.write_text(LATENCY_SRC)
+        so = build.BUILD_DIR / "latency.so"
+        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
+                        str(so), str(src)], check=True, capture_output=True,
+                       text=True)
+        latency_lib.lib = ctypes.CDLL(str(so))
+    return latency_lib.lib
+
+
+def sm_clock_mhz(torch, build, blocks):
+    """The SM clock (MHz) a kernel of `blocks` one-warp blocks runs at:
+    2e7 cycles of clock64 against CUDA events, the median of 3."""
+    import ctypes
+    fn = latency_lib(build).spin_launch
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.zeros(blocks, dtype=torch.int64, device="cuda")
+    n = 20_000_000
+    mhz = []
+    for _ in range(3):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        rc = fn(n, blocks, out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        e1.record()
+        e1.synchronize()
+        if rc != 0:
+            raise RuntimeError(f"spin launch failed: {rc}")
+        mhz.append(float(out.min()) / (e0.elapsed_time(e1) * 1e3))
+    return sorted(mhz)[1]
+
+
+def latency_cycles(torch, build):
+    """Cycles per instance of each chain of LATENCY_SRC, one warp alone."""
+    import ctypes
+    fn = latency_lib(build).latency_launch
     fn.argtypes = [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     dev = torch.device("cuda")
     inp = torch.rand(64, device=dev)
-    cyc = torch.zeros(9, dtype=torch.int64, device=dev)
+    cyc = torch.zeros(len(LATENCY_NAMES), dtype=torch.int64, device=dev)
     out = torch.empty(32, device=dev)
     for _ in range(3):                      # the last run is read
         rc = fn(inp.data_ptr(), cyc.data_ptr(), out.data_ptr(),
@@ -374,13 +488,7 @@ def latency(torch, build, tag):
         if rc != 0:
             raise RuntimeError(f"latency launch failed: {rc}")
     torch.cuda.synchronize()
-    per = (cyc.double() / 4096).tolist()
-    names = ["FADD", "FMNMX", "IMAD", "SHFL.IDX", "REDUX.MAX + LOP3",
-             "REDUX.MAX, REDUX.MIN + FMNMX + LOP3", "FMUL", "FADD + FMUL",
-             "iir_scan's one-pole step (FADD, FMUL, FADD)"]
-    print(f"{tag} cycles per dependent instruction (one warp): "
-          + "; ".join(f"{n} {c:.2f}" for n, c in zip(names, per)),
-          flush=True)
+    return (cyc.double() / 4096).tolist()
 
 
 def mma_probe(torch, cs, build, tag):
@@ -643,6 +751,110 @@ def iir_bench(torch, cs, build, tag, name, sass_dir):
               f"lines)", flush=True)
 
 
+def cvsd_bench(torch, cs, build, tag, name, sass_dir):
+    """--cvsd: times of cvsd_scan for this checkout (see the module
+    docstring); uses only what every checkout since its port has: the
+    wrapper and its constants, and chip_smoke's time_ms, device_profile,
+    lone_row_step_us and sm_mhz."""
+    from liquid_dsp_tpu_torch.ops.kernels.cvsd_scan import (
+        cvsd_consts, cvsd_scan)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    lib = build.build()
+    build.load_library()
+    print(f"{tag} built in {time.perf_counter() - t0:.1f} s", flush=True)
+    print_ptxas(lib, tag, ("cvsd",))
+    mhz = cs.sm_mhz()
+    # the chains' estimates: one warp's whole step with no memory
+    # (--latency, measured here)
+    lat = dict(zip(LATENCY_NAMES, latency_cycles(torch, build)))
+    est = {True: lat[LATENCY_NAMES[11]], False: lat[LATENCY_NAMES[10]]}
+    # the clock a lone row's block and a full card's run at, measured
+    clk1, clkn = (sm_clock_mhz(torch, build, b) for b in (1, 132))
+    print(f"{tag} SM clock (clock64 against CUDA events): one warp "
+          f"{clk1:.0f} MHz, a warp on each of 132 SMs {clkn:.0f} MHz; "
+          f"nvidia-smi's maximum {mhz:.0f} MHz", flush=True)
+    R, T = 1024, 1 << 15
+    gen = torch.Generator(device=dev).manual_seed(16)
+    t = torch.arange(T, device=dev, dtype=torch.float32) / 64000.0
+    f0 = 200 + 3000 * torch.rand(R, 1, generator=gen, device=dev)
+    x = (0.5 * torch.sin(2 * np.pi * f0 * t) + 0.05 * torch.randn(
+        R, T, generator=gen, device=dev)).clamp(-1, 1).contiguous()
+    bits = cvsd_scan(x, True)
+    lens = (T // 4, T)
+    for enc, inp in ((True, x), (False, bits)):
+        what = "encode" if enc else "decode"
+        ms = [cs.time_ms(lambda: cvsd_scan(inp, enc), iters=100)
+              for _ in range(2)]
+        by_name, _ = cs.device_profile(torch, lambda: cvsd_scan(inp, enc),
+                                       20, f"cvsd_scan {what}")
+        tot, cnt = map(sum, zip(*[v for k, v in by_name.items()
+                                  if "cvsd" in k]))
+        dev_ms = tot / cnt
+        one = {n: inp[:1, :n].contiguous() for n in lens}
+        us, lone = cs.lone_row_step_us(lambda n: cvsd_scan(one[n], enc),
+                                       lens)
+        print(f"{tag} cvsd_scan {what} {R} x {T}: {ms[0]:.4f}, {ms[1]:.4f} "
+              f"ms (100 launches each); device time {dev_ms:.4f} ms a "
+              f"launch (profiler) = {dev_ms / T * 1e3 * mhz:.1f} cycles a "
+              f"step at {mhz:.0f} MHz ({dev_ms / T * 1e3 * clkn:.1f} at "
+              f"{clkn:.0f}); a lone row "
+              + ", ".join(f"{n} steps {v:.4f} ms" for n, v in lone.items())
+              + f": {us * 1e3:.2f} ns = {us * mhz:.1f} cycles a step at "
+              f"{mhz:.0f} MHz ({us * clk1:.1f} at {clk1:.0f}; the chain's "
+              f"estimate, one warp's step alone: {est[enc]:.1f}), so the "
+              f"{R}-row launch takes {dev_ms / (T * us / 1e3):.3f} of one "
+              f"row's loop", flush=True)
+    # rows per block, for a source that takes them as a macro: each build
+    # against the library's on the same inputs
+    import ctypes
+    src = build.CSRC / "cvsd_scan.cu"
+    if "CVSD_ROWS" in src.read_text():
+        mask, z, rz, al, na1, na2 = cvsd_consts(3, 1.5, 0.95)
+        want = {True: cvsd_scan(x, True), False: cvsd_scan(bits, False)}
+        for rows in (1, 2, 4, 8, 16):
+            so = build.BUILD_DIR / f"cvsd_rows_{rows}.so"
+            proc = subprocess.run(
+                [build._nvcc(), *build.NVCC_FLAGS, f"-DCVSD_ROWS={rows}",
+                 "-shared", "-o", str(so), str(src)], check=True,
+                capture_output=True, text=True)
+            used = sorted({ln.split(":", 1)[-1].strip()
+                           for ln in (proc.stdout + proc.stderr).splitlines()
+                           if "registers" in ln or "spill" in ln})
+            fn = ctypes.CDLL(str(so)).cvsd_scan_launch
+            fn.argtypes, fn.restype = build._SIGNATURES["cvsd_scan_launch"]
+            line = []
+            for enc, inp in ((True, x), (False, bits)):
+                out = torch.empty_like(want[enc])
+
+                def call(a, rows_, t_):
+                    rc = fn(a.data_ptr(), out.data_ptr(), rows_, t_,
+                            0 if enc else 1, mask, z, rz,
+                            al if enc else na1, na2,
+                            torch.cuda.current_stream().cuda_stream)
+                    if rc != 0:
+                        raise RuntimeError(f"cvsd_scan launch failed: {rc}")
+
+                call(inp, R, T)
+                same = bool(torch.equal(out, want[enc]))
+                ms = cs.time_ms(lambda: call(inp, R, T), iters=20)
+                one = {n: inp[:1, :n].contiguous() for n in lens}
+                us, _ = cs.lone_row_step_us(
+                    lambda n: call(one[n], 1, n), lens)
+                line.append(f"{'encode' if enc else 'decode'} {ms:.4f} ms"
+                            f"{'' if same else ' NOT EQUAL'} (a lone row "
+                            f"{us * clk1:.1f} cycles a step at {clk1:.0f} "
+                            f"MHz)")
+            print(f"{tag} cvsd_scan {R} x {T} at {rows} rows a block: "
+                  + ", ".join(line) + "; ptxas " + " | ".join(used),
+                  flush=True)
+    if sass_dir:
+        path, n = write_sass(build, lib, sass_dir, f"sass_cvsd_{name}.txt",
+                             lambda ln: "cvsd" in ln)
+        print(f"{tag} SASS of cvsd_scan's kernels: {path} ({n} lines)",
+              flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
@@ -654,6 +866,7 @@ def main():
     ap.add_argument("--viterbi", action="store_true")
     ap.add_argument("--latency", action="store_true")
     ap.add_argument("--iir", action="store_true")
+    ap.add_argument("--cvsd", action="store_true")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -693,6 +906,9 @@ def main():
         return
     if args.iir:
         iir_bench(torch, cs, build, tag, args.tag, args.sass)
+        return
+    if args.cvsd:
+        cvsd_bench(torch, cs, build, tag, args.tag, args.sass)
         return
     t0 = time.perf_counter()
     lib = build.build()

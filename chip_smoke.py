@@ -3954,7 +3954,9 @@ def ldpc_phase(torch, dev, card):
 def cvsd_phase(torch, dev, card):
     """Phase 38: CVSD on the cvsd_scan kernel: the golden through the
     public functions (the main path), the kernel against its plain version
-    and its times at a gateway's shape.  Returns its kernel entry."""
+    and its times at a gateway's shape, a lone row's step each way, and
+    one entry call on a 0.5 s host array each way (what a user waits for).
+    Returns its kernel entry."""
     from liquid_dsp_tpu_torch.ops.kernels.cvsd_scan import (
         cvsd_scan, cvsd_scan_reference)
     from liquid_dsp_tpu_torch.utils.audio import cvsd_decode, cvsd_encode
@@ -4018,8 +4020,26 @@ def cvsd_phase(torch, dev, card):
     # ref's sum and two clamps); decode: 1 in, 4 out, those 7 after the
     # compare plus the post-emphasis's sum, FMA (2), sum and product
     bd = bound(2 * 5 * R * T, (9 + 12) * R * T)
-    step_us, one = lone_row_step_us(
-        lambda n: cvsd_scan(bg[:1, :n].contiguous(), False), (T // 4, T))
+    lens = (T // 4, T)
+    xl = {n: xg[:1, :n].contiguous() for n in lens}
+    bl = {n: bg[:1, :n].contiguous() for n in lens}
+    step_us, one = lone_row_step_us(lambda n: cvsd_scan(bl[n], False), lens)
+    step_enc, one_enc = lone_row_step_us(lambda n: cvsd_scan(xl[n], True),
+                                         lens)
+    # what a user waits for: one entry call on a host array of T samples,
+    # the copies to and from the card included (host clock, 5 calls)
+    xh = xg[0].cpu().numpy()
+    bh = cvsd_encode(xh)
+    call_ms = {}
+    for what, fn in (("cvsd_encode", lambda: cvsd_encode(xh)),
+                     ("cvsd_decode", lambda: cvsd_decode(bh))):
+        fn()
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        call_ms[what] = sorted(ts)
     mhz = sm_mhz()
     print(f"cvsd: the golden (400 samples) through cvsd_encode/cvsd_decode "
           f"on the card: bits equal, audio {gerr:.2e} from the reference's;"
@@ -4033,10 +4053,19 @@ def cvsd_phase(torch, dev, card):
           f" bound for both {bd['bound_ms']:.5f} ms by {bd['bound_by']} "
           f"({bd['bound_ms'] / (enc + dec):.2%}); a lone decode row at "
           + ", ".join(f"{n} steps {t:.4f} ms" for n, t in one.items())
-          + f": {step_us * 1e3:.2f} ns a step (= {step_us * mhz:.0f} cycles "
+          + f": {step_us * 1e3:.2f} ns a step (= {step_us * mhz:.1f} cycles "
           f"at {mhz:.0f} MHz), the chain's floor {T * step_us / 1e3:.4f} ms "
-          f"at {T} steps; plain version at {CV_CMP[0]}x{CV_CMP[1]}: encode "
+          f"at {T} steps, the {R}-row launch {dec / (T * step_us / 1e3):.3f} "
+          f"of it; a lone encode row at "
+          + ", ".join(f"{n} steps {t:.4f} ms" for n, t in one_enc.items())
+          + f": {step_enc * 1e3:.2f} ns a step (= {step_enc * mhz:.1f} "
+          f"cycles), the {R}-row launch {enc / (T * step_enc / 1e3):.3f} of "
+          f"its loop; plain version at {CV_CMP[0]}x{CV_CMP[1]}: encode "
           f"{p_enc:.1f} ms, decode {p_dec:.1f} ms", flush=True)
+    print(f"timing ({card}): one call on a {T}-sample host array (0.5 s of "
+          f"64 kHz voice), copies included, 5 calls (host clock): "
+          + "; ".join(f"{w} " + ", ".join(f"{t:.3f}" for t in ts) + " ms"
+                      for w, ts in call_ms.items()), flush=True)
     return {
         "name": "cvsd_scan", "route": "cuda",
         "source": "liquid_dsp_tpu_torch/csrc/cvsd_scan.cu", "replaces": None,
@@ -4046,7 +4075,9 @@ def cvsd_phase(torch, dev, card):
         "ms_encode": enc, "ms_decode": dec, "shape": [R, T],
         "plain_ms": p_enc + p_dec, "plain_shape": list(CV_CMP),
         "library_ms": None, **bd, "step_latency_us": step_us,
-        "chain_floor_ms": T * step_us / 1e3}
+        "step_latency_us_encode": step_enc,
+        "chain_floor_ms": T * step_us / 1e3,
+        "call_ms": {w: ts[len(ts) // 2] for w, ts in call_ms.items()}}
 
 
 def iir_reference64(q, x):

@@ -72,7 +72,7 @@
 // iir_scan_reference), which takes the same operations in the same order,
 // agrees with it bit for bit.  Fused multiply-adds would cut the chain to
 // two operations a section, with a plain version that takes the same
-// FMAs (ROADMAP queue 2b).
+// FMAs (ROADMAP, recorded for the queues that follow the benchmark).
 //
 // Built by liquid_dsp_tpu_torch/ops/kernels/build.py with nvcc for sm_90a,
 // bound with ctypes; the C entry returns cudaGetLastError().

@@ -1468,18 +1468,27 @@ def test_channel_noise_and_shadowing_on_the_card(dev):
 
 # --- the support slice: cvsd_scan, the LDPC decoder, StreamRunner -----------
 
-@pytest.mark.parametrize("R,T", [(1, 1), (3, 7), (33, 1000), (64, 4097),
-                                 (100, 64)])
-@pytest.mark.parametrize("zeta", [1.5, 1.37])
-def test_cvsd_scan_bit_equal_to_plain(dev, R, T, zeta):
-    # rows not a multiple of the kernel's 32, T = 1 and a ragged last chunk
-    from liquid_dsp_tpu_torch.ops.kernels.cvsd_scan import (
-        cvsd_scan, cvsd_scan_reference)
+def _cvsd_voice(dev, R, T):
     g = torch.Generator(device=dev).manual_seed(R * 7 + T)
     t = torch.arange(T, device=dev, dtype=torch.float32)
     f = 0.001 + 0.02 * torch.rand(R, 1, generator=g, device=dev)
-    x = (0.7 * torch.sin(2 * np.pi * f * t)
-         + 0.05 * torch.randn(R, T, generator=g, device=dev)).clamp(-1, 1)
+    return (0.7 * torch.sin(2 * np.pi * f * t)
+            + 0.05 * torch.randn(R, T, generator=g, device=dev)).clamp(-1, 1)
+
+
+# the kernel's tiles are 64 samples in two halves of 32, staged 6 ahead, 4
+# rows a block: T at a half tile and a tile -1, 0, +1, just past 6 tiles,
+# T = 1 and T not a multiple of 4 (uint8 rows that start off a 4-byte
+# word), R at 4 -1, +1, 1 and ragged blocks
+@pytest.mark.parametrize("R,T", [(1, 1), (3, 7), (33, 1000), (64, 4097),
+                                 (100, 64), (1, 31), (5, 32), (3, 33),
+                                 (4, 193), (5, 1001), (1, 4097), (2, 63),
+                                 (3, 65), (4, 385)])
+@pytest.mark.parametrize("zeta", [1.5, 1.37])
+def test_cvsd_scan_bit_equal_to_plain(dev, R, T, zeta):
+    from liquid_dsp_tpu_torch.ops.kernels.cvsd_scan import (
+        cvsd_scan, cvsd_scan_reference)
+    x = _cvsd_voice(dev, R, T)
     n0 = cvsd_scan.launches
     bits = cvsd_scan(x, True, zeta=zeta)
     audio = cvsd_scan(bits, False, zeta=zeta)
@@ -1489,6 +1498,31 @@ def test_cvsd_scan_bit_equal_to_plain(dev, R, T, zeta):
     assert torch.equal(bits, cvsd_scan_reference(x, True, zeta=zeta))
     assert torch.equal(audio, cvsd_scan_reference(bits, False, zeta=zeta))
     assert torch.equal(audio32, audio)
+
+
+@pytest.mark.parametrize("num_bits", [1, 8, 31])
+def test_cvsd_scan_num_bits_on_the_card(dev, num_bits):
+    # every step agrees (1), all 8 bit planes of a byte (8), the widest
+    # mask (31); decode also on bytes other than 0 and 1 (shifted into
+    # bitref whole, as the plain version takes them) and on a view whose
+    # first row starts 3 bytes into a word
+    from liquid_dsp_tpu_torch.ops.kernels.cvsd_scan import (
+        cvsd_scan, cvsd_scan_reference)
+    kw = dict(num_bits=num_bits, zeta=1.37)
+    x = _cvsd_voice(dev, 5, 1001)
+    bits = cvsd_scan(x, True, **kw)
+    assert torch.equal(bits, cvsd_scan_reference(x, True, **kw))
+    assert torch.equal(cvsd_scan(bits, False, **kw),
+                       cvsd_scan_reference(bits, False, **kw))
+    g = torch.Generator(device=dev).manual_seed(num_bits)
+    flat = torch.randint(0, 2, (3 + 5 * 1001,), generator=g, device=dev,
+                         dtype=torch.uint8)
+    flat[::7] = torch.randint(0, 256, (716,), generator=g, device=dev,
+                              dtype=torch.uint8)
+    b = flat[3:].view(5, 1001)
+    assert b.data_ptr() % 4 == 3 and b.is_contiguous()
+    assert torch.equal(cvsd_scan(b, False, **kw),
+                       cvsd_scan_reference(b, False, **kw))
 
 
 def test_cvsd_on_the_card_equals_the_golden():
