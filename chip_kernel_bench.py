@@ -10,6 +10,7 @@ by --root:
     python3 chip_kernel_bench.py --latency
     python3 chip_kernel_bench.py --iir [--root DIR] [--tag NAME] [--sass DIR]
     python3 chip_kernel_bench.py --cvsd [--root DIR] [--tag NAME] [--sass DIR]
+    python3 chip_kernel_bench.py --eq [--root DIR] [--tag NAME]
 
 With two checkouts (this one and, say, `git archive` of its parent unpacked
 into a directory that .gitignore lists) run it in turns, one after the other,
@@ -88,6 +89,17 @@ registers, shared memory and spills first.  For a source that takes its
 rows per block as a macro (CVSD_ROWS) it builds it again at 1, 2, 4, 8
 and 16 rows and times each beside the library's outputs.  With --sass DIR,
 cuobjdump's SASS of its kernels into DIR/sass_cvsd_<tag>.txt.
+
+With --eq it times only the two equalizer kernels, for the checkout given
+by --root: `eqlms_scan` at 256 x 32768, L = 13, decision-directed, and
+`eqrls_scan` at 256 x 32768, L = 9, each over 20 launches and twice, with
+a lone channel's step (the slope between 8192 and 32768 samples) in ns and
+cycles at the card's maximum SM clock; then each kernel's source built
+again with its tile loop at 1, 2, 4 and 16 (the whole tile) steps a loop
+turn, and RLS's whole tile also with -maxrregcount=255: each build's
+ptxas registers and stack, the SASS instructions of its 16-lane instance
+(cuobjdump), its time against the library's outputs (equal or not) and a
+lone channel's step.
 
 Every line names the card and its power limit.
 """
@@ -855,6 +867,114 @@ def cvsd_bench(torch, cs, build, tag, name, sass_dir):
               flush=True)
 
 
+def eq_bench(torch, cs, build, tag):
+    """--eq: times of eqlms_scan and eqrls_scan for this checkout, and of
+    their sources rebuilt at other steps a loop turn (see the module
+    docstring)."""
+    import ctypes
+    import re
+    from liquid_dsp_tpu_torch.ops.equalize import eqlms, eqrls
+    from liquid_dsp_tpu_torch.ops.kernels.eqlms_scan import (
+        QPSK_SCALE, eqlms_scan)
+    from liquid_dsp_tpu_torch.ops.kernels.eqrls_scan import (
+        eqrls_scan, rls_consts)
+    dev = torch.device("cuda")
+    lib = build.build()
+    build.load_library()
+    print_ptxas(lib, tag, ("eqlms", "eqrls"))
+    mhz = cs.sm_mhz()
+    B, T = 256, 1 << 15
+    lens = (T // 4, T)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn(B, T, dtype=torch.complex64, device=dev, generator=gen)
+    d = torch.randn(B, T, dtype=torch.complex64, device=dev, generator=gen)
+    lms = eqlms(13).init((B,), device=dev)
+    rls = eqrls(9).init((B,), device=dev)
+    keys = ("w", "buf", "x2_sum", "n")
+    lf, il = rls_consts(0.99)
+    st = torch.cuda.current_stream().cuda_stream
+
+    def c_lms(fn):
+        def run(b, n, out):
+            c = [lms[k][:b].clone() for k in keys]
+            rc = fn(x[:b, :n].contiguous().data_ptr(), None, out.data_ptr(),
+                    *(t.data_ptr() for t in c), b, n, 13, 1, 0, 0.05,
+                    QPSK_SCALE, st)
+            if rc != 0:
+                raise RuntimeError(f"eqlms_scan launch failed: {rc}")
+        return run
+
+    def c_rls(fn):
+        def run(b, n, out):
+            c = [rls[k][:b].clone() for k in ("w", "buf", "P")]
+            rc = fn(x[:b, :n].contiguous().data_ptr(),
+                    d[:b, :n].contiguous().data_ptr(), out.data_ptr(),
+                    *(t.data_ptr() for t in c), b, n, 9, 1, lf, il, st)
+            if rc != 0:
+                raise RuntimeError(f"eqrls_scan launch failed: {rc}")
+        return run
+
+    cases = (("eqlms", c_lms, lambda: eqlms_scan(
+        x, *(lms[k] for k in keys), 0.05)[0]),
+             ("eqrls", c_rls, lambda: eqrls_scan(
+                 x, d, rls["w"], rls["buf"], rls["P"], 0.99)[0]))
+    for name, wrap, call in cases:
+        want = call()
+        ms = [cs.time_ms(call, iters=20) for _ in range(2)]
+        one = wrap(getattr(build.load_library(), f"{name}_scan_launch"))
+        bufs = {n: torch.empty(1, n, dtype=torch.complex64, device=dev)
+                for n in lens}
+        us, _ = cs.lone_row_step_us(lambda n: one(1, n, bufs[n]), lens)
+        print(f"{tag} {name}_scan {B} x {T} (the library): {ms[0]:.4f}, "
+              f"{ms[1]:.4f} ms (20 launches each); a lone channel "
+              f"{us * 1e3:.2f} ns = {us * mhz:.1f} cycles a step at "
+              f"{mhz:.0f} MHz", flush=True)
+        src = (build.CSRC / f"{name}_scan.cu").read_text()
+        loop = re.compile(r"#pragma unroll[^\n]*\n(\s*for \(int s = 0; s < LM; "
+                          r"\+\+s\) step\(s, xv, dv\);)")
+        if not loop.search(src):
+            print(f"{tag} {name}_scan: no tile loop to rebuild", flush=True)
+            continue
+        variants = [(k, []) for k in (1, 2, 4, 16)]
+        if name == "eqrls":
+            variants.append((16, ["-maxrregcount=255"]))
+        for steps, flags in variants:
+            cu = build.BUILD_DIR / f"{name}_steps_{steps}.cu"
+            cu.write_text(loop.sub(lambda m: f"#pragma unroll {steps}\n"
+                                   + m.group(1), src))
+            so = build.BUILD_DIR / f"{name}_steps_{steps}{len(flags)}.so"
+            proc = subprocess.run(
+                [build._nvcc(), *build.NVCC_FLAGS, *flags, "-shared", "-o",
+                 str(so), str(cu)], check=True, capture_output=True,
+                text=True)
+            log = (proc.stdout + proc.stderr).splitlines()
+            k16 = next(k for k, ln in enumerate(log)
+                       if "Compiling entry" in ln and "ILi16" in ln)
+            used = " | ".join(u.split(":", 1)[-1].strip()
+                              for u in log[k16 + 1:k16 + 4]
+                              if "registers" in u or "stack" in u)
+            sass = subprocess.run(
+                [os.path.join(os.path.dirname(build._nvcc()), "cuobjdump"),
+                 "-sass", str(so)], capture_output=True, text=True,
+                timeout=600).stdout.split("Function : ")
+            n_ins = sum(len(re.findall(r"^\s+/\*[0-9a-f]{4,}\*/", f, re.M))
+                        for f in sass if "ILi16" in f.split("\n", 1)[0])
+            fn = getattr(ctypes.CDLL(str(so)), f"{name}_scan_launch")
+            fn.argtypes, fn.restype = build._SIGNATURES[f"{name}_scan_launch"]
+            run = wrap(fn)
+            out = torch.empty_like(want)
+            run(B, T, out)
+            same = bool(torch.equal(torch.view_as_real(out),
+                                    torch.view_as_real(want)))
+            ms = cs.time_ms(lambda: run(B, T, out), iters=5)
+            us, _ = cs.lone_row_step_us(lambda n: run(1, n, bufs[n]), lens)
+            print(f"{tag} {name}_scan, {steps} steps a loop turn"
+                  f"{' ' + ' '.join(flags) if flags else ''}: {ms:.4f} ms"
+                  f"{'' if same else ' NOT EQUAL'}; a lone channel "
+                  f"{us * mhz:.1f} cycles a step; the 16-lane instance "
+                  f"{n_ins} SASS instructions, ptxas {used}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
@@ -867,6 +987,7 @@ def main():
     ap.add_argument("--latency", action="store_true")
     ap.add_argument("--iir", action="store_true")
     ap.add_argument("--cvsd", action="store_true")
+    ap.add_argument("--eq", action="store_true")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -909,6 +1030,9 @@ def main():
         return
     if args.cvsd:
         cvsd_bench(torch, cs, build, tag, args.tag, args.sass)
+        return
+    if args.eq:
+        eq_bench(torch, cs, build, tag)
         return
     t0 = time.perf_counter()
     lib = build.build()

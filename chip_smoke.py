@@ -288,7 +288,27 @@ Then the support slice (FEC, IO, the streaming runtime, the CVSD codec):
      times at 1024 streams x 32768 samples (100 launches each) beside
      its bound and a lone row's step (the chain's floor).
 
-The JSON line before the card's name lists all ten kernels, each with
+Then the equalizers:
+
+ 39. eqlms and eqrls at 256 channels, as examples/eqlms_dd_example.py
+     and examples/eqrls_example.py run them, through the Procs on the
+     card: eqlms(13, mu=0.2) trained on 256 x 400 unit-energy QPSK
+     symbols through h = [1, 0.35-0.2j, -0.12+0.05j] with noise 0.01 a
+     rail (a seed per channel), then eqlms(13, mu=0.05) decision-directed
+     on the carry over 256 x 32768: every decision after sample 200
+     equal to the sent symbol and EVM <= -30 dB on every channel;
+     eqrls(9, lam=0.99, delta=0.1) trained over 256 x 32768 through
+     h = [1, 0, -0.25+0.2j, 0, 0.1]: MSE after sample 1000 <= -30 dB on
+     every channel, P finite.  eqlms_scan bit-equal to its plain version
+     on the card on the path's 400-sample trained block and the first
+     1024 decision-directed samples (outputs and every carry leaf), and
+     on a real BPSK stream with the sign slicer at 64 x 4096; eqrls_scan
+     on the first 1024 samples and at L = 32 on 64 x 2048.  Each
+     kernel's time at 256 x 32768 (100 launches, twice) beside its
+     bound, a lone channel's step (the chain's floor) and its plain
+     version at 256 x 1024.
+
+The JSON line before the card's name lists all twelve kernels, each with
 its launches on its main path (mix_fir_decim also per path, in
 "launches_by_path": the headline chain and multirate_rx; codebook_argmax also per path, in
 "launches_by_path": frame64 receiver, scanner, flexframe receiver, GMSK
@@ -296,7 +316,8 @@ receiver, OFDM receiver, OFDMFlexFrameSync; viterbi_acs on the GMSK
 receiver with v27 payloads, on the flexframe receiver and on
 OFDMFlexFrameSync; iir_scan and iir_block_state on analog_tx and
 analog_rx, with the lax.scan each replaces under "recurrence"; cvsd_scan
-on cvsd_encode/cvsd_decode; mix_fir_decim also on stream_runner; each
+on cvsd_encode/cvsd_decode; eqlms_scan and eqrls_scan on the equalizer
+path; mix_fir_decim also on stream_runner; each
 counted from 0 over its own run), its error
 against the plain version (for viterbi_acs the count of decoded bits that
 differ), its time,
@@ -425,6 +446,12 @@ LD_ITERS = 50               # belief-propagation iterations
 LD_CPU, LD_HOST = 256, 8    # rows held to the CPU, to the host decoder
 CV_CMP = (1024, 4096)       # cvsd_scan vs its plain version
 CV_GATEWAY = (1024, 1 << 15)  # streams x samples of the timing
+EQ_B, EQ_T = 256, 1 << 15   # equalizer channels x samples (DD / RLS block)
+EQ_TRAIN = 400              # LMS training symbols (eqlms_dd_example.py)
+EQ_CMP = 1024               # samples of the kernel-vs-plain windows
+EQ_REAL = (64, 4096)        # the real BPSK stream (sign slicer)
+EQ_RLS32 = (64, 2048)       # eqrls_scan at L = 32
+EQ_LIMIT_DB = -30.0         # LMS EVM and RLS MSE limit on every channel
 AN_SHSTD = 0.02             # the shadowing process's std and mean over
 #                             64 x 786432 samples, from 1 and 0 (their
 #                             spread at 159 samples a correlation time:
@@ -819,6 +846,8 @@ def main():
     took("phase 37")
     cvsd_entry = cvsd_phase(torch, dev, card)
     took("phase 38")
+    eq_entries = equalizer_phase(torch, dev, card)
+    took("phase 39")
     # each path's run counted from 0; the other kernel's count was checked
     # to be 0 there
     scan_entry["launches_by_path"] = {"analog_tx": scan_entry["launches"],
@@ -845,8 +874,8 @@ def main():
                               "flexframe_rx_stream": cv_launches,
                               "OFDMFlexFrameSync": fs_vt}
     vt["max_abs_err"] = max(vt["max_abs_err"], gm_vt_err, fs_vt_err)
-    kernels += [vt, scan_entry, block_entry, cvsd_entry]
-    check(len(kernels) == 10, f"{len(kernels)} kernels listed, want 10")
+    kernels += [vt, scan_entry, block_entry, cvsd_entry] + eq_entries
+    check(len(kernels) == 12, f"{len(kernels)} kernels listed, want 12")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -4078,6 +4107,192 @@ def cvsd_phase(torch, dev, card):
         "step_latency_us_encode": step_enc,
         "chain_floor_ms": T * step_us / 1e3,
         "call_ms": {w: ts[len(ts) // 2] for w, ts in call_ms.items()}}
+
+
+def eq_streams(seed, B, n, h, noise):
+    """(x, s) [B, n] complex64: unit-energy QPSK symbols s, a seed per
+    channel, through the channel taps h, plus `noise` a rail."""
+    s2 = np.float32(np.sqrt(0.5))
+    s = np.empty((B, n), np.complex64)
+    x = np.empty((B, n), np.complex64)
+    for ch in range(B):
+        rng = np.random.default_rng([seed, ch])
+        bits = rng.integers(0, 2, (2, n)) * 2 - 1
+        s[ch] = (bits[0] + 1j * bits[1]) * s2
+        x[ch] = np.convolve(s[ch], np.asarray(h, np.complex64))[:n] + noise * (
+            rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return x, s
+
+
+def eq_carry_equal(torch, got, want):
+    """(bit-equal, max |got - want|) over outputs and carries."""
+    same = all(bits_equal(torch, g, w) for g, w in zip(got, want))
+    err = max((float((g - w).abs().max()) if g.numel() else 0.0)
+              for g, w in zip(got, want) if g.dtype != torch.int32)
+    return same, err
+
+
+def equalizer_phase(torch, dev, card):
+    """Phase 39: the LMS and RLS equalizers at 256 channels through their
+    Procs on the card (the path), eqlms_scan and eqrls_scan bit-equal to
+    their plain versions on the path's own inputs and at other shapes,
+    their times beside their bounds.  Returns their kernel entries."""
+    from liquid_dsp_tpu_torch.ops.equalize import eqlms, eqrls
+    from liquid_dsp_tpu_torch.ops.kernels.eqlms_scan import (
+        eqlms_scan, eqlms_scan_reference)
+    from liquid_dsp_tpu_torch.ops.kernels.eqrls_scan import (
+        eqrls_scan, eqrls_scan_reference)
+    B, T, NT, L = EQ_B, EQ_T, EQ_TRAIN, 13
+    x, s = eq_streams(39, B, NT + T, (1.0, 0.35 - 0.2j, -0.12 + 0.05j),
+                      0.01)
+    xr, dr = eq_streams(40, B, T, (1.0, 0.0, -0.25 + 0.2j, 0.0, 0.1), 0.0)
+    xt = torch.from_numpy(x[:, :NT].copy()).to(dev)
+    st = torch.from_numpy(s[:, :NT].copy()).to(dev)
+    xd = torch.from_numpy(x[:, NT:].copy()).to(dev)
+    xr, dr = torch.from_numpy(xr).to(dev), torch.from_numpy(dr).to(dev)
+    torch.cuda.synchronize()
+    # the path: train, hand the carry on, decision-directed; RLS trained
+    q_tr, q_dd = eqlms(L, mu=0.2).to(dev), eqlms(L, mu=0.05).to(dev)
+    q_rls = eqrls(9, lam=0.99, delta=0.1).to(dev)
+    c0 = q_tr.init((B,), device=dev)
+    r0 = q_rls.init((B,), device=dev)
+    eqlms_scan.launches = eqrls_scan.launches = 0
+    t0 = time.perf_counter()
+    y1, c1 = q_tr(c0, (xt, st))
+    y2, c2 = q_dd(c1, xd)
+    yr, r1 = q_rls(r0, (xr, dr))
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    lms_n, rls_n = eqlms_scan.launches, eqrls_scan.launches
+    check(lms_n == 2 and rls_n == 1, f"equalizers: {lms_n} eqlms_scan and "
+          f"{rls_n} eqrls_scan launches on the path, want 2 and 1")
+    sd = torch.from_numpy(s[:, NT:].copy()).to(dev)
+    ya, sa = y2[:, 200:], sd[:, 200:]
+    wrong = int(((torch.sign(ya.real) != torch.sign(sa.real))
+                 | (torch.sign(ya.imag) != torch.sign(sa.imag))).sum())
+    evm = 10 * torch.log10((ya - sa).abs().square().mean(-1)).cpu()
+    check(wrong == 0, f"eqlms: {wrong} decisions after sample 200 differ "
+          f"from the sent symbols")
+    check(float(evm.max()) <= EQ_LIMIT_DB, f"eqlms: EVM {float(evm.max()):.2f}"
+          f" dB on the worst channel (limit {EQ_LIMIT_DB})")
+    mse = 10 * torch.log10((yr[:, 1000:] - dr[:, 1000:]).abs().square()
+                           .mean(-1)).cpu()
+    p_ok = bool(torch.isfinite(torch.view_as_real(r1["P"])).all())
+    check(float(mse.max()) <= EQ_LIMIT_DB and p_ok, f"eqrls: MSE "
+          f"{float(mse.max()):.2f} dB on the worst channel (limit "
+          f"{EQ_LIMIT_DB}), P finite {p_ok}")
+    # the kernels against their plain versions on the card, on the path's
+    # own inputs and carries
+    keys = ("w", "buf", "x2_sum", "n")
+    cmp = {}
+    got = eqlms_scan(xt, *(c0[k] for k in keys), 0.2, d=st)
+    cmp["lms trained (path's 400)"] = eq_carry_equal(
+        torch, got, eqlms_scan_reference(xt, *(c0[k] for k in keys), 0.2,
+                                         d=st))
+    check(bits_equal(torch, got[0], y1), "eqlms_scan: the trained block "
+          "again differs from the path's")
+    xd0 = xd[:, :EQ_CMP]
+    got = eqlms_scan(xd0, *(c1[k] for k in keys), 0.05)
+    p_dd, want = time_once(lambda: eqlms_scan_reference(
+        xd0, *(c1[k] for k in keys), 0.05))
+    cmp[f"lms decision-directed (path's first {EQ_CMP})"] = eq_carry_equal(
+        torch, got, want)
+    check(bits_equal(torch, got[0], y2[:, :EQ_CMP]), "eqlms_scan: the first "
+          "decision-directed samples again differ from the path's")
+    Br, Tr = EQ_REAL
+    g = torch.Generator(device=dev).manual_seed(41)
+    bpsk = torch.sign(torch.randn(Br, Tr, generator=g, device=dev))
+    xb = (bpsk + 0.3 * torch.roll(bpsk, 1, -1) + 0.05 * torch.randn(
+        Br, Tr, generator=g, device=dev)).contiguous()
+    cb = eqlms(L, mu=0.05).init((Br,), dtype=torch.float32, device=dev)
+    got = eqlms_scan(xb, *(cb[k] for k in keys), 0.05)
+    cmp[f"lms real, sign slicer ({Br}x{Tr})"] = eq_carry_equal(
+        torch, got, eqlms_scan_reference(xb, *(cb[k] for k in keys), 0.05))
+    xr0, dr0 = xr[:, :EQ_CMP], dr[:, :EQ_CMP]
+    got = eqrls_scan(xr0, dr0, r0["w"], r0["buf"], r0["P"], 0.99)
+    p_rls, want = time_once(lambda: eqrls_scan_reference(
+        xr0, dr0, r0["w"], r0["buf"], r0["P"], 0.99))
+    cmp[f"rls (path's first {EQ_CMP})"] = eq_carry_equal(torch, got, want)
+    check(bits_equal(torch, got[0], yr[:, :EQ_CMP]), "eqrls_scan: the first "
+          "samples again differ from the path's")
+    B32, T32 = EQ_RLS32
+    x32, d32 = eq_streams(42, B32, T32, (1.0, 0.0, -0.25 + 0.2j, 0.0, 0.1),
+                          0.04)
+    x32, d32 = torch.from_numpy(x32).to(dev), torch.from_numpy(d32).to(dev)
+    r32 = eqrls(32, lam=0.99, delta=0.1).init((B32,), device=dev)
+    args32 = (x32, d32, r32["w"], r32["buf"], r32["P"], 0.99)
+    cmp[f"rls L=32 ({B32}x{T32})"] = eq_carry_equal(
+        torch, eqrls_scan(*args32), eqrls_scan_reference(*args32))
+    for what, (same, err) in cmp.items():
+        check(same, f"equalizer kernel vs plain, {what}: not bit-equal "
+              f"(max|err| {err:.3e})")
+    lms_err = max(e for w, (_, e) in cmp.items() if w.startswith("lms"))
+    rls_err = max(e for w, (_, e) in cmp.items() if w.startswith("rls"))
+    # times at the path's shape: 100 launches, twice; a lone channel's step
+    cl = [c1[k] for k in keys]
+    lms_ms = [time_ms(lambda: eqlms_scan(xd, *cl, 0.05), iters=100)
+              for _ in range(2)]
+    rl = (xr, dr, r0["w"], r0["buf"], r0["P"], 0.99)
+    rls_ms = [time_ms(lambda: eqrls_scan(*rl), iters=100) for _ in range(2)]
+    lens = (T // 4, T)
+    one = {n: xd[:1, :n].contiguous() for n in lens}
+    c1one = [t[:1] for t in cl]
+    lms_step, lms_one = lone_row_step_us(
+        lambda n: eqlms_scan(one[n], *c1one, 0.05), lens)
+    onr = {n: (xr[:1, :n].contiguous(), dr[:1, :n].contiguous())
+           for n in lens}
+    rls_step, rls_one = lone_row_step_us(
+        lambda n: eqrls_scan(*onr[n], r0["w"][:1], r0["buf"][:1],
+                             r0["P"][:1], 0.99), lens)
+    mhz = sm_mhz()
+    # bounds: LMS 16 bytes a sample (x in, y out) and about 18 L + 12
+    # float32 operations (the dot's and the update's 6 L and 8 L, the
+    # tree's 2 L, |x|^2, the gain, the error); RLS 24 bytes (x, d in, y
+    # out) and about 26 L^2 + 18 L (P x and buf^H P at 8 L^2 each with
+    # their trees, the update of P at 10 L^2, y, den, k and w)
+    bd_lms = bound(16 * B * T, (18 * L + 12) * B * T)
+    bd_rls = bound(24 * B * T, (26 * 81 + 18 * 9) * B * T)
+    lm, rm = sum(lms_ms) / 2, sum(rls_ms) / 2
+    print(f"equalizers: the path at {B} channels (train {NT}, decision-"
+          f"directed {T}; RLS {T}) {path_s:.2f} s host (builds included on "
+          f"a first call); eqlms: decision errors after sample 200: "
+          f"{wrong}, EVM worst {float(evm.max()):.2f} dB, mean "
+          f"{float(evm.mean()):.2f} dB; eqrls: MSE after sample 1000 worst "
+          f"{float(mse.max()):.2f} dB, mean {float(mse.mean()):.2f} dB, P "
+          f"finite; launches eqlms_scan {lms_n}, eqrls_scan {rls_n}; "
+          f"bit-equal to the plain versions on the card: "
+          + "; ".join(cmp), flush=True)
+    print(f"timing ({card}): eqlms_scan (L = {L}) at {B}x{T} "
+          f"{lms_ms[0]:.4f}, {lms_ms[1]:.4f} ms, eqrls_scan (L = 9) "
+          f"{rls_ms[0]:.4f}, {rls_ms[1]:.4f} ms (100 launches each); "
+          f"bounds {bd_lms['bound_ms']:.5f} ms by {bd_lms['bound_by']} "
+          f"({bd_lms['bound_ms'] / lm:.2%}) and {bd_rls['bound_ms']:.5f} ms "
+          f"by {bd_rls['bound_by']} ({bd_rls['bound_ms'] / rm:.2%}); a lone "
+          f"channel: eqlms_scan "
+          + ", ".join(f"{n} steps {t:.4f} ms" for n, t in lms_one.items())
+          + f": {lms_step * 1e3:.2f} ns a step (= {lms_step * mhz:.1f} "
+          f"cycles at {mhz:.0f} MHz), the {B}-channel launch "
+          f"{lm / (T * lms_step / 1e3):.3f} of its chain; eqrls_scan "
+          + ", ".join(f"{n} steps {t:.4f} ms" for n, t in rls_one.items())
+          + f": {rls_step * 1e3:.2f} ns a step (= {rls_step * mhz:.1f} "
+          f"cycles), the {B}-channel launch {rm / (T * rls_step / 1e3):.3f} "
+          f"of it; plain versions at {B}x{EQ_CMP}: eqlms {p_dd:.1f} ms, "
+          f"eqrls {p_rls:.1f} ms", flush=True)
+    common = {"route": "cuda", "replaces": None, "shape": [B, T],
+              "plain_shape": [B, EQ_CMP], "library_ms": None}
+    return [
+        {"name": "eqlms_scan",
+         "source": "liquid_dsp_tpu_torch/csrc/eqlms_scan.cu",
+         "recurrence": "liquid_dsp_tpu/ops/equalize.py:48-86 (lax.scan)",
+         "launches": lms_n, "max_abs_err": lms_err, "ms": lm,
+         "ms_runs": lms_ms, "plain_ms": p_dd, **common, **bd_lms,
+         "step_latency_us": lms_step, "chain_floor_ms": T * lms_step / 1e3},
+        {"name": "eqrls_scan",
+         "source": "liquid_dsp_tpu_torch/csrc/eqrls_scan.cu",
+         "recurrence": "liquid_dsp_tpu/ops/equalize.py:125-151 (lax.scan)",
+         "launches": rls_n, "max_abs_err": rls_err, "ms": rm,
+         "ms_runs": rls_ms, "plain_ms": p_rls, **common, **bd_rls,
+         "step_latency_us": rls_step, "chain_floor_ms": T * rls_step / 1e3}]
 
 
 def iir_reference64(q, x):

@@ -17,7 +17,9 @@ factory.  Every name resolves to the port's own function or class, with
 its device rule (a Proc runs where ``.to(device)`` puts it; the entry
 points that take host arrays run on the card unless given
 ``device="cpu"``).  The equalizers behind ``eqlms_*``/``eqrls_*`` run on
-the CPU only: on a CUDA tensor they raise (ROADMAP queue 2 item 1).
+the card on their kernels (`ops/kernels/eqlms_scan`, `eqrls_scan`), in
+trained mode and with the default slicers; a custom slicer runs on the
+CPU only.
 """
 from __future__ import annotations
 

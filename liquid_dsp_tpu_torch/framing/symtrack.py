@@ -9,8 +9,9 @@ NCO PLL driven by the demodulator's phase error -> symbol decisions.
 On the card a block runs through three hand-written kernels: the AGC's
 gain recurrence (`ops/kernels/agc_scan`), the symsync timing loop
 (`ops/kernels/symsync_scan`, after one conv1d per chunk) and the PLL +
-decision-directed LMS over the symsync slots (`ops/kernels/pll_lms`).
-That is the JAX package's sequential route; its fused route (the PLL +
+decision-directed LMS over the symsync slots (`ops/kernels/pll_lms`;
+the standalone `eqlms`/`eqrls` Procs run on `ops/kernels/eqlms_scan` and
+`eqrls_scan` instead).  That is the JAX package's sequential route; its fused route (the PLL +
 LMS step inside the timing loop) exists on the CPU only.  `symtrack` and
 `Symtrack`, which take host arrays, run on the card unless the caller
 passes ``device="cpu"``, and raise without a card.

@@ -1,4 +1,4 @@
-"""Adaptive equalizers: normalized LMS and RLS as per-sample loops
+"""Adaptive equalizers: normalized LMS and RLS
 (`liquid_dsp_tpu/ops/equalize.py`).
 
 Reference analogs: eqlms (src/equalization/src/eqlms.c:34-49, 248-330),
@@ -6,14 +6,23 @@ normalized LMS w += mu * conj(e) * x / sum|x|^2; eqrls
 (src/equalization/src/eqrls.c:33+), recursive least squares with a
 P-matrix update.
 
-The weight update is sequential in time: each loop here runs the JAX
-package's ``lax.scan`` body once per sample on the batch.  They have no
-kernel yet and raise on CUDA tensors (symtrack's decision-directed LMS
-has its own kernel, `ops/kernels/pll_lms`).
+The weight update is sequential in time.  `eqlms_run` runs on the
+`ops/kernels/eqlms_scan` kernel and `eqrls_run` on
+`ops/kernels/eqrls_scan`: on a CUDA tensor each launches its kernel (1 to
+32 taps), on a CPU tensor each runs its plain PyTorch version (any
+length), and any other device raises.  The card runs trained mode and
+the two default slicers (unit-energy QPSK on a complex stream, sign on a
+real one); a caller's own slicer is a Python callable that cannot run
+inside the recurrence, so it raises NotImplementedError on the card and
+runs once per sample in the plain version on the CPU.  (symtrack's
+decision-directed LMS steps beside its PLL on its own kernel,
+`ops/kernels/pll_lms`.)
 
 Weight convention: the window holds the last h_len inputs oldest first;
 y = sum_i conj(w[i]) * buf[i] (reference eqlms.c _execute).  Training
-with a known sequence d, or decision-directed through a slicer.
+with a known sequence d, or decision-directed through a slicer.  A real
+stream with a complex carry is taken as complex; a real carry takes a
+real stream.
 """
 from __future__ import annotations
 
@@ -24,6 +33,8 @@ import torch
 
 from ..core import Proc
 from ..design.firdes import firdes_kaiser
+from .kernels.eqlms_scan import eqlms_scan
+from .kernels.eqrls_scan import eqrls_scan
 
 __all__ = ["eqlms_init_weights", "eqlms_lowpass_weights", "eqlms_run",
            "eqlms", "EQLMS", "eqrls_run", "eqrls", "EQRLS"]
@@ -45,16 +56,18 @@ def eqlms_lowpass_weights(h_len: int, fc: float = 0.45) -> np.ndarray:
     return firdes_kaiser(h_len, fc, 40.0).astype(np.complex64)
 
 
-def _push(buf, xt):
-    return torch.cat([buf[..., 1:], xt[..., None]], dim=-1)
+def _weights(w_init, dtype, device):
+    """The initial weights as `dtype` (their real part for a real carry,
+    as the JAX package's cast takes it)."""
+    w = torch.as_tensor(np.asarray(w_init), device=device)
+    if w.is_complex() and not dtype.is_complex:
+        w = w.real
+    return w.to(dtype)
 
 
-def _host_only(x, name: str):
-    if x.device.type == "cuda":
-        raise NotImplementedError(
-            f"{name} is a per-sample loop with no kernel on the card "
-            "(ROADMAP, later kernel work: recurrence kernels for the "
-            "equalizers); run it on the CPU")
+def _stream(t, w):
+    """A real block as complex where the carry is complex."""
+    return t.to(w.dtype) if w.is_complex() and not t.is_complex() else t
 
 
 def eqlms_run(w0, mu: float, carry, x, d=None,
@@ -62,33 +75,14 @@ def eqlms_run(w0, mu: float, carry, x, d=None,
     """Run LMS over a block.
 
     carry: {w: [..., L], buf: [..., L], x2_sum: [...], n: [...]}; x [..., T]
-    input samples; d [..., T] desired outputs (training), or None with a
-    slicer for decision-directed operation.  Returns (y, carry')."""
-    _host_only(x, "eqlms")
-    L = carry["w"].shape[-1]
-    c = dict(carry)
-    ys = []
-    for t in range(x.shape[-1]):
-        xt = x[..., t]
-        buf = _push(c["buf"], xt)
-        x2 = (xt * torch.conj(xt)).real
-        b0 = c["buf"][..., 0]
-        x2_sum = c["x2_sum"] + x2 - (b0 * torch.conj(b0)).real
-        y = torch.sum(torch.conj(c["w"]) * buf, dim=-1)
-        target = d[..., t] if d is not None else slicer(y)
-        e = target - y
-        denom = torch.clamp(x2_sum, min=1e-12)
-        # the reference skips weight updates until h_len samples have been
-        # pushed (eqlms.c _step buf_full gating)
-        n = c["n"] + 1
-        gate = (n >= L).to(denom.dtype)
-        w = c["w"] + gate[..., None] * mu * torch.conj(e)[..., None] * \
-            buf / denom[..., None]
-        c = {"w": w, "buf": buf, "x2_sum": x2_sum, "n": n}
-        ys.append(y)
-    if not ys:
-        return torch.zeros_like(x), c
-    return torch.stack(ys, dim=-1), c
+    input samples; d [..., T] desired outputs (training), or None for
+    decision-directed operation through `slicer` (None: the default
+    slicer of the stream's type).  Returns (y, carry')."""
+    w = carry["w"]
+    y, w, buf, x2_sum, n = eqlms_scan(
+        _stream(x, w), w, carry["buf"], carry["x2_sum"], carry["n"], mu,
+        d=None if d is None else _stream(d, w), slicer=slicer)
+    return y, {"w": w, "buf": buf, "x2_sum": x2_sum, "n": n}
 
 
 class EQLMS(Proc):
@@ -99,16 +93,13 @@ class EQLMS(Proc):
         super().__init__(name)
         self.h_len, self.mu = int(h_len), float(mu)
         self.w_init = eqlms_init_weights(h_len, h)
-        # default decision device: unit-energy QPSK points (+-sqrt(1/2)
-        # per rail), the framework's modem normalization
-        s2 = float(np.float32(np.sqrt(0.5)))
-        self.slicer = slicer or (
-            lambda y: torch.complex(torch.sign(y.real) * s2,
-                                    torch.sign(y.imag) * s2)
-            if y.is_complex() else torch.sign(y))
+        # None: the default decision device, unit-energy QPSK points
+        # (+-sqrt(1/2) per rail, the framework's modem normalization) on a
+        # complex stream and sign on a real one, inside the recurrence
+        self.slicer = slicer
 
     def init(self, batch_shape=(), dtype=torch.complex64, device=None):
-        w = torch.as_tensor(np.asarray(self.w_init), device=device).to(dtype)
+        w = _weights(self.w_init, dtype, device)
         return {"w": w.expand(batch_shape + (self.h_len,)).clone(),
                 "buf": torch.zeros(batch_shape + (self.h_len,), dtype=dtype,
                                    device=device),
@@ -135,26 +126,11 @@ def eqrls_run(lam: float, delta: float, carry, x, d):
 
     carry: {w: [..., L], buf: [..., L], P: [..., L, L]}.  Standard RLS:
     k = P x / (lam + x^H P x); w += k conj(e); P = (P - k x^H P) / lam
-    (reference eqrls.c:252+)."""
-    _host_only(x, "eqrls")
-    c = dict(carry)
-    ys = []
-    for t in range(x.shape[-1]):
-        buf = _push(c["buf"], x[..., t])
-        y = torch.sum(torch.conj(c["w"]) * buf, dim=-1)
-        e = d[..., t] - y
-        Px = torch.einsum("...ij,...j->...i", c["P"], buf)
-        denom = lam + torch.einsum("...i,...i->...", torch.conj(buf),
-                                   Px).real
-        k = Px / denom[..., None]
-        w = c["w"] + k * torch.conj(e)[..., None]
-        P = (c["P"] - torch.einsum("...i,...j,...jl->...il", k,
-                                   torch.conj(buf), c["P"])) / lam
-        c = {"w": w, "buf": buf, "P": P}
-        ys.append(y)
-    if not ys:
-        return torch.zeros_like(x), c
-    return torch.stack(ys, dim=-1), c
+    (reference eqrls.c:252+).  `delta` sets P's start (`EQRLS.init`)."""
+    w = carry["w"]
+    y, w, buf, P = eqrls_scan(_stream(x, w), _stream(d, w), w, carry["buf"],
+                              carry["P"], lam)
+    return y, {"w": w, "buf": buf, "P": P}
 
 
 class EQRLS(Proc):
@@ -168,7 +144,7 @@ class EQRLS(Proc):
     def init(self, batch_shape=(), dtype=torch.complex64, device=None):
         L = self.h_len
         eye = torch.eye(L, dtype=dtype, device=device) / self.delta
-        w = torch.as_tensor(np.asarray(self.w_init), device=device).to(dtype)
+        w = _weights(self.w_init, dtype, device)
         return {"w": w.expand(batch_shape + (L,)).clone(),
                 "buf": torch.zeros(batch_shape + (L,), dtype=dtype,
                                    device=device),

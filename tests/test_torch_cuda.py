@@ -19,6 +19,9 @@ association differ), the reference's stream tolerance.
 viterbi_acs: bit-equal bits and packed decisions (the same exact products,
 sums in the same order, the same max and subtraction).
 cvsd_scan: bit-equal bits and audio (the same roundings, one FMA in both).
+eqlms_scan and eqrls_scan: bit-equal outputs and carries (the same
+roundings in the same order, the lanes' butterflies as the plain version's
+trees, one FMA in both).
 The LDPC decoder: hard and ok equal to the CPU's wherever the CPU converged
 (reductions in another order can flip a borderline row that did not).
 StreamRunner: bit-equal to its proc on the card, 1e-4 of rms against the
@@ -639,20 +642,27 @@ def test_fused_routes_raise_on_the_card(dev, monkeypatch):
 
 def test_per_step_loops_raise_on_the_card(dev):
     # the CPU-only per-step loops refuse CUDA tensors instead of running
-    # one launch per op on the card
+    # one launch per op on the card: symsync's scan body, and the LMS
+    # equalizer with a caller's slicer (a Python callable per sample); the
+    # equalizers' own modes run on their kernels
     from liquid_dsp_tpu_torch.ops import equalize as eq
     from liquid_dsp_tpu_torch.ops import symsync as ss
+    from liquid_dsp_tpu_torch.ops.kernels.eqlms_scan import eqlms_scan
+    from liquid_dsp_tpu_torch.ops.kernels.eqrls_scan import eqrls_scan
     x = torch.zeros(2, 512, dtype=torch.complex64, device=dev)
     q = ss.symsync().to(dev)
     with pytest.raises(ValueError, match="scan body"):
         ss.symsync_run(q.mf, q.dmf, q.init((2,), device=dev), x, 2,
                        hoist=False)
-    lms = eq.eqlms(5)
-    with pytest.raises(NotImplementedError, match="eqlms"):
+    lms = eq.eqlms(5, slicer=lambda y: y)
+    with pytest.raises(NotImplementedError, match="eqlms on the card"):
         lms(lms.init((2,), device=dev), x)
+    n0, n1 = eqlms_scan.launches, eqrls_scan.launches
+    lms = eq.eqlms(5)
+    lms(lms.init((2,), device=dev), x)
     rls = eq.eqrls(5)
-    with pytest.raises(NotImplementedError, match="eqrls"):
-        rls(rls.init((2,), device=dev), (x, x))
+    rls(rls.init((2,), device=dev), (x, x))
+    assert (eqlms_scan.launches, eqrls_scan.launches) == (n0 + 1, n1 + 1)
 
 
 # --- the channelizers and the flexframe receivers -----------------------
@@ -1593,3 +1603,151 @@ def test_stream_runner_on_the_card_equals_the_proc(dev, tmp_path):
     yc = torch.cat([rc(b) for b in np.split(x, 4, axis=-1)], dim=-1)
     err = (torch.cat(ys, dim=-1).cpu() - yc).abs().max()
     assert float(err / yc.abs().square().mean().sqrt()) < 1e-4
+
+
+# --- the equalizers ------------------------------------------------------
+
+def _eq_case(dev, B, T, L, real, seed):
+    """x, d [B, T] and a carry (w, buf [B, L], x2_sum, n [B], P [B, L, L])
+    that is not the Procs' start: weights, window and P off their initial
+    values, n below and above L."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def cn(*shape):
+        v = torch.randn(*shape, 2, generator=g, device=dev)
+        return v[..., 0] if real else torch.view_as_complex(v)
+
+    buf = cn(B, L)
+    P = torch.eye(L, device=dev) * 5 + 0.01 * cn(B, L, L)
+    return dict(x=0.7 * cn(B, T), d=cn(B, T), w=0.3 * cn(B, L), buf=buf,
+                x2_sum=buf.abs().square().sum(-1),
+                n=torch.randint(0, 2 * L, (B,), generator=g, device=dev,
+                                dtype=torch.int32),
+                P=P.to(buf.dtype))
+
+
+def _lms_pair(a, mode, mu=0.3):
+    from liquid_dsp_tpu_torch.ops.kernels.eqlms_scan import (
+        eqlms_scan, eqlms_scan_reference)
+    args = (a["x"], a["w"], a["buf"], a["x2_sum"], a["n"], mu)
+    d = a["d"] if mode == "trained" else None
+    n0 = eqlms_scan.launches
+    got = eqlms_scan(*args, d=d)
+    torch.cuda.synchronize()
+    launched = eqlms_scan.launches - n0
+    return got, eqlms_scan_reference(*args, d=d), launched
+
+
+def _rls_pair(a, lam=0.99):
+    from liquid_dsp_tpu_torch.ops.kernels.eqrls_scan import (
+        eqrls_scan, eqrls_scan_reference)
+    args = (a["x"], a["d"], a["w"], a["buf"], a["P"], lam)
+    n0 = eqrls_scan.launches
+    got = eqrls_scan(*args)
+    torch.cuda.synchronize()
+    launched = eqrls_scan.launches - n0
+    return got, eqrls_scan_reference(*args), launched
+
+
+def _bit_equal(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(torch.view_as_real(g) if g.is_complex() else g,
+                           torch.view_as_real(w) if w.is_complex() else w)
+
+
+@pytest.mark.parametrize("L", [1, 5, 13, 31, 32])
+@pytest.mark.parametrize("mode", ["trained", "decision", "decision_real"])
+def test_eqlms_scan_bit_equal_to_plain(dev, mode, L):
+    # T = 0, 1, L-1, L and 1000 (whole tiles and a ragged one); 3 channels
+    # (ragged warps at L <= 16)
+    for T in sorted({0, 1, max(L - 1, 0), L, 1000}):
+        a = _eq_case(dev, 3, T, L, mode == "decision_real", L * 1000 + T)
+        got, want, launched = _lms_pair(a, mode)
+        assert launched == (1 if T else 0)
+        _bit_equal(got, want)
+
+
+@pytest.mark.parametrize("B", [1, 257])
+@pytest.mark.parametrize("L", [5, 13, 32])
+@pytest.mark.parametrize("mode", ["trained", "decision", "decision_real"])
+def test_eqlms_scan_channels_bit_equal_to_plain(dev, mode, L, B):
+    a = _eq_case(dev, B, 1000, L, mode == "decision_real", B + L)
+    got, want, _ = _lms_pair(a, mode)
+    _bit_equal(got, want)
+
+
+@pytest.mark.parametrize("L", [1, 5, 13, 31, 32])
+@pytest.mark.parametrize("real", [False, True])
+def test_eqrls_scan_bit_equal_to_plain(dev, real, L):
+    for T in sorted({0, 1, max(L - 1, 0), L, 1000}):
+        a = _eq_case(dev, 3, T, L, real, L * 1000 + T + 7)
+        got, want, launched = _rls_pair(a)
+        assert launched == (1 if T else 0)
+        _bit_equal(got, want)
+
+
+@pytest.mark.parametrize("B", [1, 257])
+@pytest.mark.parametrize("L", [5, 9, 32])
+def test_eqrls_scan_channels_bit_equal_to_plain(dev, L, B):
+    a = _eq_case(dev, B, 1000, L, False, B * 3 + L)
+    got, want, _ = _rls_pair(a, lam=0.995)
+    _bit_equal(got, want)
+
+
+def test_equalizer_kernels_take_views_and_batch_shapes(dev):
+    # non-contiguous x and d (every other sample, and a transposed
+    # block), a (2, 3) batch through the Procs; each equals its plain
+    # version on the card, and the card equals the CPU
+    from liquid_dsp_tpu_torch.ops import equalize as eq
+    a = _eq_case(dev, 6, 2000, 13, False, 5)
+    for key in ("x", "d"):
+        a[key] = a[key][:, ::2]
+        assert not a[key].is_contiguous()
+    for mode in ("trained", "decision"):
+        got, want, launched = _lms_pair(a, mode)
+        assert launched == 1
+        _bit_equal(got, want)
+    a = _eq_case(dev, 6, 700, 9, False, 6)
+    for key in ("x", "d"):
+        a[key] = a[key].t().contiguous().t()
+        assert not a[key].is_contiguous()
+    got, want, launched = _rls_pair(a)
+    assert launched == 1
+    _bit_equal(got, want)
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn(2, 3, 600, dtype=torch.complex64, device=dev,
+                    generator=g)
+    d = torch.randn(2, 3, 600, dtype=torch.complex64, device=dev,
+                    generator=g)
+    for q, blk in ((eq.eqlms(13, 0.2), (x, d)), (eq.eqlms(13, 0.05), x),
+                   (eq.eqrls(9), (x, d))):
+        c = q.init((2, 3), device=dev)
+        y, c2 = q(c, blk)
+        cc = {k: v.cpu() for k, v in c.items()}
+        yc, c2c = q(cc, tuple(t.cpu() for t in blk)
+                    if isinstance(blk, tuple) else blk.cpu())
+        assert y.shape == (2, 3, 600) and y.device.type == "cuda"
+        _bit_equal([y.cpu()] + [c2[k].cpu() for k in sorted(c2)],
+                   [yc] + [c2c[k] for k in sorted(c2c)])
+
+
+def test_equalizer_kernels_refuse_what_they_do_not_take(dev):
+    from liquid_dsp_tpu_torch.ops.kernels.eqlms_scan import eqlms_scan
+    from liquid_dsp_tpu_torch.ops.kernels.eqrls_scan import eqrls_scan
+    a = _eq_case(dev, 2, 64, 33, False, 9)
+    with pytest.raises(ValueError, match="1 to 32 taps"):
+        eqlms_scan(a["x"], a["w"], a["buf"], a["x2_sum"], a["n"], 0.1)
+    with pytest.raises(ValueError, match="1 to 32 taps"):
+        eqrls_scan(a["x"], a["d"], a["w"], a["buf"], a["P"], 0.99)
+    a = _eq_case(dev, 2, 64, 5, False, 10)
+    with pytest.raises(NotImplementedError, match="custom slicer"):
+        eqlms_scan(a["x"], a["w"], a["buf"], a["x2_sum"], a["n"], 0.1,
+                   slicer=lambda y: y)
+    m = {k: v.to("meta") for k, v in a.items()}
+    with pytest.raises(ValueError, match="device"):
+        eqlms_scan(m["x"], m["w"], m["buf"], m["x2_sum"], m["n"], 0.1)
+    with pytest.raises(ValueError, match="device"):
+        eqrls_scan(m["x"], m["d"], m["w"], m["buf"], m["P"], 0.99)
+    with pytest.raises(ValueError, match="one device"):
+        eqlms_scan(a["x"].cpu(), a["w"], a["buf"], a["x2_sum"], a["n"], 0.1)

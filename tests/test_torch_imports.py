@@ -57,7 +57,8 @@ def test_port_never_imports_jax_or_the_reference():
                 "runtime", "compat", "utils.audio", "utils.bits",
                 "utils.buffer", "utils.checkpoint", "utils.matrix",
                 "utils.optim", "utils.poly", "utils.quantization",
-                "ops.kernels.cvsd_scan"):
+                "ops.kernels.cvsd_scan", "ops.kernels.eqlms_scan",
+                "ops.kernels.eqrls_scan"):
         assert "liquid_dsp_tpu_torch." + mod in got["modules"], mod
     assert got["jax"] == [] and got["reference"] == []
     assert not got["triton"] and not got["cuda_initialized"]
