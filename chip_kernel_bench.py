@@ -10,7 +10,7 @@ by --root:
     python3 chip_kernel_bench.py --latency
     python3 chip_kernel_bench.py --iir [--root DIR] [--tag NAME] [--sass DIR]
     python3 chip_kernel_bench.py --cvsd [--root DIR] [--tag NAME] [--sass DIR]
-    python3 chip_kernel_bench.py --eq [--root DIR] [--tag NAME]
+    python3 chip_kernel_bench.py --eq [--root DIR] [--tag NAME] [--vs DIR]
 
 With two checkouts (this one and, say, `git archive` of its parent unpacked
 into a directory that .gitignore lists) run it in turns, one after the other,
@@ -94,12 +94,20 @@ With --eq it times only the two equalizer kernels, for the checkout given
 by --root: `eqlms_scan` at 256 x 32768, L = 13, decision-directed, and
 `eqrls_scan` at 256 x 32768, L = 9, each over 20 launches and twice, with
 a lone channel's step (the slope between 8192 and 32768 samples) in ns and
-cycles at the card's maximum SM clock; then each kernel's source built
-again with its tile loop at 1, 2, 4 and 16 (the whole tile) steps a loop
-turn, and RLS's whole tile also with -maxrregcount=255: each build's
-ptxas registers and stack, the SASS instructions of its 16-lane instance
-(cuobjdump), its time against the library's outputs (equal or not) and a
-lone channel's step.
+cycles at the card's maximum SM clock, the library's build time, and the
+ptxas registers and spills and the SASS instruction count (cuobjdump) of
+the path's instance of each; then, for a source that takes its steps a
+loop turn as a build macro (EQLMS_UNROLL at 2, 4, 8 and 0, the whole
+tile; EQRLS_UNROLL at 2, 4 and 8), each kernel rebuilt at each setting
+(all nvcc at once): ptxas, SASS instructions and its local loads and
+stores, time against the library's outputs (equal or not) and a lone
+channel's step (not with --no-variants).  The
+last line is `EQ_RESULT {json}`.  With --vs DIR it runs that for DIR and
+for this checkout in turns, each in its own process (DIR, this, this, DIR;
+the variants on the first of this checkout's turns), and prints both
+checkouts' times side by side:
+
+    python3 chip_kernel_bench.py --eq --vs build/parent
 
 Every line names the card and its power limit.
 """
@@ -867,21 +875,61 @@ def cvsd_bench(torch, cs, build, tag, name, sass_dir):
               flush=True)
 
 
-def eq_bench(torch, cs, build, tag):
+def eq_instance(names, name):
+    """The kernel instance on the equalizer path among `names` (mangled):
+    eqrls_scan at L = 9 (a source built per L; one built per lane count
+    has it at 16 lanes), eqlms_scan at 16 lanes, decision-directed where
+    the mode is a template parameter."""
+    prefs = {"eqrls": ("eqrls_scan_kernelILi9E", "eqrls_scan_kernelILi16EEv"),
+             "eqlms": ("eqlms_scan_kernelILi16ELb0E",
+                       "eqlms_scan_kernelILi16EEv")}[name]
+    for pref in prefs:
+        hit = [n for n in names if pref in n]
+        if hit:
+            return hit[0]
+    return None
+
+
+def eq_build_facts(build, so, log_text, name):
+    """(instance, ptxas registers and spills with the SASS's local loads
+    and stores, SASS instructions) of the path's instance of `name` in
+    the shared library `so`."""
+    import re
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(build._nvcc()), "cuobjdump"), "-sass",
+         str(so)], capture_output=True, text=True,
+        timeout=600).stdout.split("Function : ")[1:]
+    counts = {f.split("\n", 1)[0].strip(): (
+        len(re.findall(r"^\s+/\*[0-9a-f]{4,}\*/", f, re.M)),
+        len(re.findall(r"\b(?:LDL|STL)\b", f))) for f in sass}
+    inst = eq_instance(counts, name)
+    log = log_text.splitlines()
+    used = next((" | ".join(u.split(":", 1)[-1].strip()
+                            for u in log[k + 1:k + 4]
+                            if "registers" in u or "spill" in u)
+                 for k, ln in enumerate(log)
+                 if "Compiling entry" in ln and inst and inst in ln), "?")
+    n_ins, n_local = counts.get(inst, (None, None))
+    return inst, f"{used}; {n_local} local loads and stores", n_ins
+
+
+def eq_bench(torch, cs, build, tag, turn, variants=True):
     """--eq: times of eqlms_scan and eqrls_scan for this checkout, and of
     their sources rebuilt at other steps a loop turn (see the module
-    docstring)."""
+    docstring).  Ends with one line `EQ_RESULT {json}`."""
     import ctypes
-    import re
+    import json
     from liquid_dsp_tpu_torch.ops.equalize import eqlms, eqrls
     from liquid_dsp_tpu_torch.ops.kernels.eqlms_scan import (
         QPSK_SCALE, eqlms_scan)
     from liquid_dsp_tpu_torch.ops.kernels.eqrls_scan import (
         eqrls_scan, rls_consts)
     dev = torch.device("cuda")
+    t0 = time.perf_counter()
     lib = build.build()
     build.load_library()
-    print_ptxas(lib, tag, ("eqlms", "eqrls"))
+    print(f"{tag} library built in {time.perf_counter() - t0:.1f} s "
+          f"(0 if it was there)", flush=True)
     mhz = cs.sm_mhz()
     B, T = 256, 1 << 15
     lens = (T // 4, T)
@@ -914,51 +962,59 @@ def eq_bench(torch, cs, build, tag):
                 raise RuntimeError(f"eqrls_scan launch failed: {rc}")
         return run
 
+    # the steps a loop turn a source takes as a macro, and the builds of
+    # it to time
+    builds = {"eqlms": ("EQLMS_UNROLL", (2, 4, 8, 0)),
+              "eqrls": ("EQRLS_UNROLL", (2, 4, 8))}
     cases = (("eqlms", c_lms, lambda: eqlms_scan(
         x, *(lms[k] for k in keys), 0.05)[0]),
              ("eqrls", c_rls, lambda: eqrls_scan(
                  x, d, rls["w"], rls["buf"], rls["P"], 0.99)[0]))
+    # every variant's nvcc at once, before the timings
+    jobs = {}
+    for name, (macro, values) in builds.items():
+        src = build.CSRC / f"{name}_scan.cu"
+        if not variants or macro not in src.read_text():
+            continue
+        for v in values:
+            so = build.BUILD_DIR / f"{name}_{v}.so"
+            jobs[name, v] = (so, subprocess.Popen(
+                [build._nvcc(), *build.NVCC_FLAGS, f"-D{macro}={v}",
+                 "-shared", "-o", str(so), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for key, (so, job) in jobs.items():
+        out, _ = job.communicate()
+        if job.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {key}:\n{out}")
+        built[key] = (so, out)
+    result = {"tag": turn}
     for name, wrap, call in cases:
+        inst, used, n_ins = eq_build_facts(
+            build, lib, lib.with_suffix(".log").read_text(), name)
         want = call()
         ms = [cs.time_ms(call, iters=20) for _ in range(2)]
         one = wrap(getattr(build.load_library(), f"{name}_scan_launch"))
         bufs = {n: torch.empty(1, n, dtype=torch.complex64, device=dev)
                 for n in lens}
         us, _ = cs.lone_row_step_us(lambda n: one(1, n, bufs[n]), lens)
+        result[name] = {"ms": ms, "cycles": us * mhz, "sass": n_ins,
+                        "ptxas": used}
         print(f"{tag} {name}_scan {B} x {T} (the library): {ms[0]:.4f}, "
               f"{ms[1]:.4f} ms (20 launches each); a lone channel "
               f"{us * 1e3:.2f} ns = {us * mhz:.1f} cycles a step at "
-              f"{mhz:.0f} MHz", flush=True)
-        src = (build.CSRC / f"{name}_scan.cu").read_text()
-        loop = re.compile(r"#pragma unroll[^\n]*\n(\s*for \(int s = 0; s < LM; "
-                          r"\+\+s\) step\(s, xv, dv\);)")
-        if not loop.search(src):
-            print(f"{tag} {name}_scan: no tile loop to rebuild", flush=True)
+              f"{mhz:.0f} MHz; path instance {inst}: {n_ins} SASS "
+              f"instructions, ptxas {used}", flush=True)
+        if not any(key[0] == name for key in built):
+            print(f"{tag} {name}_scan: no build variants "
+                  f"({'not asked' if not variants else 'no macros'})",
+                  flush=True)
             continue
-        variants = [(k, []) for k in (1, 2, 4, 16)]
-        if name == "eqrls":
-            variants.append((16, ["-maxrregcount=255"]))
-        for steps, flags in variants:
-            cu = build.BUILD_DIR / f"{name}_steps_{steps}.cu"
-            cu.write_text(loop.sub(lambda m: f"#pragma unroll {steps}\n"
-                                   + m.group(1), src))
-            so = build.BUILD_DIR / f"{name}_steps_{steps}{len(flags)}.so"
-            proc = subprocess.run(
-                [build._nvcc(), *build.NVCC_FLAGS, *flags, "-shared", "-o",
-                 str(so), str(cu)], check=True, capture_output=True,
-                text=True)
-            log = (proc.stdout + proc.stderr).splitlines()
-            k16 = next(k for k, ln in enumerate(log)
-                       if "Compiling entry" in ln and "ILi16" in ln)
-            used = " | ".join(u.split(":", 1)[-1].strip()
-                              for u in log[k16 + 1:k16 + 4]
-                              if "registers" in u or "stack" in u)
-            sass = subprocess.run(
-                [os.path.join(os.path.dirname(build._nvcc()), "cuobjdump"),
-                 "-sass", str(so)], capture_output=True, text=True,
-                timeout=600).stdout.split("Function : ")
-            n_ins = sum(len(re.findall(r"^\s+/\*[0-9a-f]{4,}\*/", f, re.M))
-                        for f in sass if "ILi16" in f.split("\n", 1)[0])
+        macro, values = builds[name]
+        for v in values:
+            label = f"{macro}={v}"
+            so, out = built[name, v]
+            v_inst, v_used, v_ins = eq_build_facts(build, so, out, name)
             fn = getattr(ctypes.CDLL(str(so)), f"{name}_scan_launch")
             fn.argtypes, fn.restype = build._SIGNATURES[f"{name}_scan_launch"]
             run = wrap(fn)
@@ -966,13 +1022,50 @@ def eq_bench(torch, cs, build, tag):
             run(B, T, out)
             same = bool(torch.equal(torch.view_as_real(out),
                                     torch.view_as_real(want)))
-            ms = cs.time_ms(lambda: run(B, T, out), iters=5)
-            us, _ = cs.lone_row_step_us(lambda n: run(1, n, bufs[n]), lens)
-            print(f"{tag} {name}_scan, {steps} steps a loop turn"
-                  f"{' ' + ' '.join(flags) if flags else ''}: {ms:.4f} ms"
-                  f"{'' if same else ' NOT EQUAL'}; a lone channel "
-                  f"{us * mhz:.1f} cycles a step; the 16-lane instance "
-                  f"{n_ins} SASS instructions, ptxas {used}", flush=True)
+            v_ms = cs.time_ms(lambda: run(B, T, out), iters=5)
+            v_us, _ = cs.lone_row_step_us(lambda n: run(1, n, bufs[n]), lens)
+            print(f"{tag} {name}_scan built with {label}: {v_ms:.4f} ms"
+                  f"{'' if same else ' NOT EQUAL'}; a lone channel"
+                  f" {v_us * mhz:.1f} cycles a step; {v_inst}: "
+                  f"{v_ins} SASS instructions, ptxas {v_used}", flush=True)
+    print("EQ_RESULT " + json.dumps(result), flush=True)
+
+
+def eq_turns(args):
+    """--eq --vs DIR: this script's --eq for DIR and for this checkout in
+    turns (DIR, this, this, DIR), each in its own process, the build
+    variants on the first of this checkout's turns only; then both
+    checkouts' times side by side."""
+    import json
+    here = os.path.dirname(os.path.abspath(__file__))
+    me = os.path.abspath(__file__)
+    turns = [(args.vs, "parent"), (args.root, args.tag),
+             (args.root, args.tag), (args.vs, "parent")]
+    got = []
+    for k, (root, tag) in enumerate(turns):
+        cmd = [sys.executable, me, "--eq", "--root", root, "--tag", tag]
+        if k != 1:
+            cmd.append("--no-variants")
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=here)
+        sys.stdout.write(proc.stdout)
+        sys.stderr.write(proc.stderr[-4000:])
+        if proc.returncode != 0:
+            sys.exit(f"chip_kernel_bench --eq for {root} failed "
+                     f"({proc.returncode})")
+        got += [json.loads(ln.split(" ", 1)[1])
+                for ln in proc.stdout.splitlines()
+                if ln.startswith("EQ_RESULT ")]
+    for name in ("eqlms", "eqrls"):
+        cells = "; ".join(
+            f"{r['tag']} {r[name]['ms'][0]:.4f}, {r[name]['ms'][1]:.4f} ms "
+            f"({r[name]['cycles']:.1f} cycles a lone step)" for r in got)
+        par = [m for r in got if r["tag"] == "parent" for m in r[name]["ms"]]
+        new = [m for r in got if r["tag"] != "parent" for m in r[name]["ms"]]
+        print(f"{name}_scan, turns in order: {cells}; parent "
+              f"{min(par):.4f}-{max(par):.4f} ms against "
+              f"{min(new):.4f}-{max(new):.4f} ms, "
+              f"{min(par) / max(new):.2f}-{max(par) / min(new):.2f} times",
+              flush=True)
 
 
 def main():
@@ -988,7 +1081,12 @@ def main():
     ap.add_argument("--iir", action="store_true")
     ap.add_argument("--cvsd", action="store_true")
     ap.add_argument("--eq", action="store_true")
+    ap.add_argument("--vs", metavar="DIR")
+    ap.add_argument("--no-variants", action="store_true")
     args = ap.parse_args()
+    if args.eq and args.vs:
+        eq_turns(args)
+        return
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
@@ -1032,7 +1130,7 @@ def main():
         cvsd_bench(torch, cs, build, tag, args.tag, args.sass)
         return
     if args.eq:
-        eq_bench(torch, cs, build, tag)
+        eq_bench(torch, cs, build, tag, args.tag, not args.no_variants)
         return
     t0 = time.perf_counter()
     lib = build.build()

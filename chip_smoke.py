@@ -620,11 +620,16 @@ def main():
     t0 = time.perf_counter()
     lib = build.build()
     build.load_library()
-    ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
-             .splitlines() if "registers" in ln or "spill" in ln]
+    log = lib.with_suffix(".log").read_text().splitlines()
+    ptxas = [ln.strip() for ln in log if "registers" in ln or "spill" in ln]
+    # each source's nvcc seconds (all run at once; a cached library has
+    # the times of the call that built it)
+    secs = sorted((ln.split()[1:3] for ln in log if ln.startswith("nvcc ")),
+                  key=lambda v: -float(v[1]))
     print(f"build: {lib.name} (nvcc {' '.join(build.NVCC_FLAGS)}) in "
-          f"{time.perf_counter() - t0:.1f} s; ptxas: {' | '.join(ptxas)}",
-          flush=True)
+          f"{time.perf_counter() - t0:.1f} s; nvcc a source: "
+          + ", ".join(f"{n[:-1]} {v} s" for n, v in secs)
+          + f"; ptxas: {' | '.join(ptxas)}", flush=True)
 
     # 3. the main path through the public API
     stages = chain(nco(dphi=DPHI, direction="down"),

@@ -11,11 +11,13 @@ source, all started together, then one link:
 The library lands in ``build/liquid_dsp_tpu_torch/`` at the repository
 root, named by a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is loaded as is.  nvcc's report (ptxas
-registers, shared memory, spills) is kept beside it as ``<lib>.log``.
+registers, shared memory, spills) and each source's seconds are kept
+beside it as ``<lib>.log``.
 Nothing here runs at import time: the first kernel call builds.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -24,6 +26,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import time
 
 __all__ = ["build", "load_library", "NVCC_FLAGS"]
 
@@ -74,6 +77,14 @@ def _sources():
     return srcs
 
 
+def _compile(cmd):
+    """(the finished nvcc process, its seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    return proc, time.perf_counter() - t0
+
+
 def build() -> pathlib.Path:
     """Compile csrc/*.cu into one shared library (once per source hash)
     and return its path: one nvcc per source, all at once, then a link.
@@ -94,21 +105,20 @@ def build() -> pathlib.Path:
         jobs = []
         for src in srcs:
             obj = os.path.join(tmpdir, src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
-            jobs.append((cmd, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+            jobs.append((src, [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                         obj))
+        with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+            done = list(pool.map(lambda job: _compile(job[1]), jobs))
         log, failed = [], []
-        for cmd, _, job in jobs:
-            out, _ = job.communicate()
-            log.append(out)
-            if job.returncode != 0:
-                failed.append(f"nvcc failed ({job.returncode}): "
-                              f"{' '.join(cmd)}\n{out}")
+        for (src, cmd, _), (proc, secs) in zip(jobs, done):
+            log.append(f"nvcc {src.name}: {secs:.1f} s\n{proc.stdout}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}\n{proc.stdout}")
         if failed:
             raise RuntimeError("\n".join(failed))
         tmp = os.path.join(tmpdir, "lib.so")
-        cmd = [nvcc, *ARCH, "-shared", "-o", tmp, *(o for _, o, _ in jobs)]
+        cmd = [nvcc, *ARCH, "-shared", "-o", tmp, *(o for _, _, o in jobs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}): "

@@ -48,13 +48,13 @@ from .symsync_scan import fma32
 __all__ = ["LMAX", "QPSK_SCALE", "lanes", "lane_tree", "eqlms_scan",
            "eqlms_scan_reference"]
 
-LMAX = 32                 # taps: one lane of a warp each
+LMAX = 32                 # taps the kernels take
 QPSK_SCALE = float(np.float32(np.sqrt(0.5)))   # unit-energy QPSK rail
 
 
 def lanes(L: int) -> int:
-    """LM, the lanes a channel takes in the kernels (8, 16, 32, ...): the
-    width over which `lane_tree` sums."""
+    """LM, the width the kernels pad L taps (or RLS's rows) to (8, 16,
+    32, ...): the width over which `lane_tree` sums."""
     return max(8, 1 << (L - 1).bit_length())
 
 

@@ -9,26 +9,29 @@ the window of the last L inputs oldest first and P the L x L matrix:
 
     buf  <- [buf[1:], x]
     y     = tree_i conj(w_i) buf_i;            e = d - y
-    Px_i  = tree_j P_ij buf_j
+    Px_i  = live_j P_ij buf_j
     den   = lam + tree_i Re(conj(buf_i) Px_i);  rden = 1 / den
     k_i   = Px_i * rden
     w_i  <- w_i + k_i conj(e)
-    r_l   = tree_i conj(buf_i) P_il             (the column product buf^H P)
+    r_l   = live_i conj(buf_i) P_il             (the column product buf^H P)
     P_il <- (P_il - k_i r_l) * (1/lam)          (1/lam: float32 of 1/f32(lam))
 
-tree is the warp's butterfly over LM = `lanes(L)` lanes (the eqlms
-kernel's `lane_tree`, the window, taps and P padded with zeros).  The
-column product is taken as written, never as (P buf)^H: P does not stay
-exactly Hermitian under this update (tests/test_torch_eq_identities.py),
-so the shortcut is another function.  Every operation is rounded once in
-the order written (complex products on the planes: (a, b)(c, d) = (ac -
-bd, ad + bc), conj(a, b)(c, d) = (ac + bd, ad - bc)), so on the card the
-kernel equals the plain version bit for bit.  Against the JAX package,
-which divides by den and by lam and contracts its einsums in its own
-order, the two agree to 1e-5 (y, w) and 1e-4 (P).
+tree is the warp's butterfly over LM = `lanes(L)` row lanes (the eqlms
+kernel's `lane_tree`, the terms padded with zeros); live is `live_tree`,
+the same levels over the L live columns (or rows) only, as the kernel sums
+them in registers.  The column product is taken as written, never as (P
+buf)^H: P does not stay exactly Hermitian under this update
+(tests/test_torch_eq_identities.py), so the shortcut is another function.
+Every operation is rounded once in the order written (complex products on
+the planes: (a, b)(c, d) = (ac - bd, ad + bc), conj(a, b)(c, d) = (ac +
+bd, ad - bc)), so on the card the kernel equals the plain version bit for
+bit.  Against the JAX package, which divides by den and by lam and
+contracts its einsums in its own order, the two agree to 1e-5 (y, w) and
+1e-4 (P).
 
-The kernel holds 1 <= L <= 32 taps (lane i keeps row i of P); the
-wrapper raises on more.  The plain version takes any L.
+The kernel holds 1 <= L <= 32 taps (a row of P on one lane, or on two at
+2 <= L <= 16); the wrapper raises on more.  The plain version takes any
+L.
 """
 from __future__ import annotations
 
@@ -39,7 +42,24 @@ import torch
 
 from .eqlms_scan import LMAX, _join, _pad, _planes, lane_tree, lanes
 
-__all__ = ["rls_consts", "eqrls_scan", "eqrls_scan_reference"]
+__all__ = ["live_tree", "rls_consts", "eqrls_scan", "eqrls_scan_reference"]
+
+
+def live_tree(v, dim: int = -1):
+    """The butterfly's levels over the live entries of `dim` only: at each
+    level o (halving from half the power of two >= n) entry j takes v[j] +
+    v[j + o] while j + o is still live, else keeps v[j].  For n a power of
+    two it is `lane_tree`; the tree over all n equals the even entries'
+    tree plus the odd entries' (the kernel's two lanes a row)."""
+    n = v.shape[dim]
+    o = (1 << (n - 1).bit_length()) // 2 if n > 1 else 0
+    while o:
+        if n > o:
+            v = torch.cat([v.narrow(dim, 0, n - o) + v.narrow(dim, o, n - o),
+                           v.narrow(dim, n - o, 2 * o - n)], dim)
+            n = o
+        o //= 2
+    return v.squeeze(dim)
 
 
 def rls_consts(lam: float):
@@ -50,40 +70,39 @@ def rls_consts(lam: float):
 
 
 def eqrls_scan_reference(x, d, w, buf, P, lam: float):
-    """Plain PyTorch version: a loop over the T samples on lane planes
-    [..., LM] and [..., LM, LM].  x, d [..., T]; w, buf [..., L]; P [...,
-    L, L] (all complex64 or all float32) -> (y [..., T], w', buf', P')."""
+    """Plain PyTorch version: a loop over the T samples on the (re, im)
+    planes, the sums over rows of y and den padded to LM lanes.  x, d
+    [..., T]; w, buf [..., L]; P [..., L, L] (all complex64 or all
+    float32) -> (y [..., T], w', buf', P')."""
     cplx = w.is_complex()
     L, T = w.shape[-1], x.shape[-1]
     LM = lanes(L)
     dev = x.device
     lf, il = rls_consts(lam)
-    wr, wi = (_pad(p, LM) for p in _planes(w))
-    br, bi = (_pad(p, LM) for p in _planes(buf))
-    Pr, Pi = (torch.nn.functional.pad(p, (0, LM - L, 0, LM - L))
-              for p in _planes(P))
+    wr, wi = _planes(w)
+    br, bi = _planes(buf)
+    Pr, Pi = _planes(P)
     xr, xi = _planes(x)
     dr, di = _planes(d)
-    pad = torch.zeros(w.shape[:-1] + (LM - L,), device=dev)
     one = torch.ones((), device=dev)
     yr_t, yi_t = [], []
     for t in range(T):
-        br = torch.cat([br[..., 1:L], xr[..., t, None], pad], -1)
-        bi = torch.cat([bi[..., 1:L], xi[..., t, None], pad], -1)
-        yr = lane_tree(wr * br + wi * bi)
-        yi = lane_tree(wr * bi - wi * br)
+        br = torch.cat([br[..., 1:], xr[..., t, None]], -1)
+        bi = torch.cat([bi[..., 1:], xi[..., t, None]], -1)
+        yr = lane_tree(_pad(wr * br + wi * bi, LM))
+        yi = lane_tree(_pad(wr * bi - wi * br, LM))
         er, ei = dr[..., t] - yr, di[..., t] - yi
         cr, ci = br[..., None, :], bi[..., None, :]
-        pxr = lane_tree(Pr * cr - Pi * ci)
-        pxi = lane_tree(Pr * ci + Pi * cr)
-        rden = one / (lane_tree(br * pxr + bi * pxi) + lf)
+        pxr = live_tree(Pr * cr - Pi * ci)
+        pxi = live_tree(Pr * ci + Pi * cr)
+        rden = one / (lane_tree(_pad(br * pxr + bi * pxi, LM)) + lf)
         kr, ki = pxr * rden[..., None], pxi * rden[..., None]
         er, ei = er[..., None], ei[..., None]
         wr = wr + (kr * er + ki * ei)
         wi = wi + (ki * er - kr * ei)
         cr, ci = br[..., :, None], bi[..., :, None]
-        rr = lane_tree(cr * Pr + ci * Pi, dim=-2)[..., None, :]
-        ri = lane_tree(cr * Pi - ci * Pr, dim=-2)[..., None, :]
+        rr = live_tree(cr * Pr + ci * Pi, dim=-2)[..., None, :]
+        ri = live_tree(cr * Pi - ci * Pr, dim=-2)[..., None, :]
         kr, ki = kr[..., :, None], ki[..., :, None]
         Pr = (Pr - (kr * rr - ki * ri)) * il
         Pi = (Pi - (kr * ri + ki * rr)) * il
@@ -93,9 +112,8 @@ def eqrls_scan_reference(x, d, w, buf, P, lam: float):
         y = torch.zeros(x.shape, dtype=w.dtype, device=dev)
     else:
         y = _join(torch.stack(yr_t, -1), torch.stack(yi_t, -1), cplx)
-    return (y, _join(wr[..., :L], wi[..., :L], cplx),
-            _join(br[..., :L], bi[..., :L], cplx),
-            _join(Pr[..., :L, :L], Pi[..., :L, :L], cplx))
+    return (y, *(_join(re, im, cplx).clone()
+                 for re, im in ((wr, wi), (br, bi), (Pr, Pi))))
 
 
 def _check(x, d, w, buf, P):

@@ -1695,6 +1695,49 @@ def test_eqrls_scan_channels_bit_equal_to_plain(dev, L, B):
     _bit_equal(got, want)
 
 
+def _carried(pair, keys, a, T1, **kw):
+    """Two carried blocks of a's stream (T1 samples, then the rest) through
+    pair(...): each block's kernel result bit-equal to its plain version,
+    the second block from the kernel's carry (`keys`, in the order the
+    kernel returns it)."""
+    blocks = [dict(a, x=a["x"][:, :T1], d=a["d"][:, :T1]),
+              dict(a, x=a["x"][:, T1:], d=a["d"][:, T1:])]
+    carry = {k: a[k] for k in keys}
+    for blk in blocks:
+        blk.update(carry)
+        got, want, launched = pair(blk, **kw)
+        assert launched == 1
+        _bit_equal(got, want)
+        carry = dict(zip(keys, got[1:]))
+
+
+@pytest.mark.parametrize("L", [1, 2, 8, 9, 13, 16, 17, 32])
+@pytest.mark.parametrize("mode", ["trained", "decision", "decision_real"])
+def test_eqlms_scan_instances_over_two_blocks(dev, mode, L):
+    # every instance (LM = 8, 16, 32 lanes, each mode): 3 channels (not a
+    # multiple of a warp's 4 or 2 at LM = 8, 16), a first block shorter
+    # than a tile, a second of 3 tiles and 5 samples (the gains two tiles
+    # ahead, a ragged tile)
+    from liquid_dsp_tpu_torch.ops.kernels.eqlms_scan import lanes
+    LM = lanes(L)
+    a = _eq_case(dev, 3, LM // 2 + 3 * LM + 5, L, mode == "decision_real",
+                 L * 31 + 3)
+    _carried(_lms_pair, ("w", "buf", "x2_sum", "n"), a, LM // 2,
+             mode=mode)
+
+
+@pytest.mark.parametrize("L", list(range(1, 33)))
+@pytest.mark.parametrize("real", [False, True])
+def test_eqrls_scan_instances_over_two_blocks(dev, real, L):
+    # every instance (one per L, two lanes a row at 2 <= L <= 16): 3
+    # channels (not a multiple of a warp's 2 or 4 at L <= 8), a first block
+    # of 5 samples (shorter than any tile), a second of two tiles of the
+    # widest layout and 3 samples
+    from liquid_dsp_tpu_torch.ops.kernels.eqlms_scan import lanes
+    a = _eq_case(dev, 3, 5 + 4 * lanes(L) + 3, L, real, L * 37 + 11)
+    _carried(_rls_pair, ("w", "buf", "P"), a, 5)
+
+
 def test_equalizer_kernels_take_views_and_batch_shapes(dev):
     # non-contiguous x and d (every other sample, and a transposed
     # block), a (2, 3) batch through the Procs; each equals its plain
