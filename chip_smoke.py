@@ -308,17 +308,52 @@ Then the equalizers:
      bound, a lone channel's step (the chain's floor) and its plain
      version at 256 x 1024.
 
+Then the mesh (parallel/), in one process, its device repeated on one
+card (the cards in turn where there are several):
+
+ 40. time_shard_apply: chain(nco(0.125, "down"), firfilt 64 and 57 taps
+     with backend="pallas") at 64 x 262144 on a 2 (ch) x 4 (t) mesh, 3
+     carried blocks, against the same chain on one device and a
+     complex128 reference (the mixer in closed form, FFT convolutions):
+     the sharded outputs and FIR carries no further from the reference
+     than 1.5 times one device's (the mixer's float32 phases round at
+     other magnitudes from each shard's closed-form start; both errors
+     printed), its carried phase bit-equal; the two FIRs alone
+     bit-equal to one device; fir_real launched 2 x 8 a
+     block and held to its plain version on one shard's input and carry;
+     framesync64_time_sharded at 128 x 32768 on 4 shards of 8192, 6
+     slots a shard, 3 carried blocks: frames 1740 or more apart, one a
+     channel placed across a shard boundary, on one, across a shard's
+     emit window or across a block boundary, 8 noise-only channels;
+     every frame decoded once through qpacket_soft_decoder on the card
+     (codebook_argmax, once a block, bit-equal to its plain version on
+     block 1's rows) with its CRC and bytes, no shard over its slots, the
+     same sample_index as framesync64_stream on one device, symbols
+     within 2e-5 (tests/test_rx_timeshard.py) and the carry equal;
+     StagePipeline of multirate_rx's two stages at 64 x 262144, 3 blocks,
+     bit-equal to the stages chained on one device, mix_fir_decim
+     launched once a block and held to its plain version on stage 0's
+     block; StreamRunner(mesh=) on the fused headline chain (no
+     kernel_fuse: its carry is not a halo) on 4 time shards, 3 blocks
+     with a checkpoint resume (bit-equal), no further from a complex128
+     reference than 1.5 times the runner without a mesh, and without
+     the mixer bit-equal to it; ms a block of each path,
+     sharded and on one device (the host clock over 10 calls, every
+     card synchronized), and torch.profiler over the sharded chain's and
+     receiver's steps.
+
 The JSON line before the card's name lists all twelve kernels, each with
 its launches on its main path (mix_fir_decim also per path, in
-"launches_by_path": the headline chain and multirate_rx; codebook_argmax also per path, in
+"launches_by_path": the headline chain, multirate_rx, stream_runner and
+the StagePipeline; fir_real on firfilt(backend="pallas") and the
+time-sharded chain; codebook_argmax also per path, in
 "launches_by_path": frame64 receiver, scanner, flexframe receiver, GMSK
-receiver, OFDM receiver, OFDMFlexFrameSync; viterbi_acs on the GMSK
+receiver, OFDM receiver, OFDMFlexFrameSync, the time-sharded receiver; viterbi_acs on the GMSK
 receiver with v27 payloads, on the flexframe receiver and on
 OFDMFlexFrameSync; iir_scan and iir_block_state on analog_tx and
 analog_rx, with the lax.scan each replaces under "recurrence"; cvsd_scan
 on cvsd_encode/cvsd_decode; eqlms_scan and eqrls_scan on the equalizer
-path; mix_fir_decim also on stream_runner; each
-counted from 0 over its own run), its error
+path; each counted from 0 over its own run), its error
 against the plain version (for viterbi_acs the count of decoded bits that
 differ), its time,
 the plain version's, the time of one PyTorch call for the same function
@@ -456,6 +491,16 @@ AN_SHSTD = 0.02             # the shadowing process's std and mean over
 #                             64 x 786432 samples, from 1 and 0 (their
 #                             spread at 159 samples a correlation time:
 #                             0.0013 and 0.0025)
+PA_B, PA_T = 64, 1 << 18    # parallel: the chain, pipeline and runner
+PA_NT, PA_NC = 4, 2         # time shards; the chain's channel groups
+PA_RX_B, PA_RX_T = 128, 1 << 15   # the time-sharded receiver
+PA_RX_P = 6                 # slots a shard: frames >= 1740 apart, so at
+#                             most 5 start in a shard's 8192 samples
+PA_QUIET = 8                # noise-only channels (the last ones)
+PA_GAP = (1740, 6000)       # frame spacing on a channel
+TOL_SHARD_SYM = 2e-5        # tests/test_rx_timeshard.py:108
+F64_RATIO = 1.5             # a sharded mixer's error to complex128 over
+                            # one device's
 
 
 def fail(msg):
@@ -853,6 +898,8 @@ def main():
     took("phase 38")
     eq_entries = equalizer_phase(torch, dev, card)
     took("phase 39")
+    pa = parallel_phase(torch, dev, card)
+    took("phase 40")
     # each path's run counted from 0; the other kernel's count was checked
     # to be 0 there
     scan_entry["launches_by_path"] = {"analog_tx": scan_entry["launches"],
@@ -862,8 +909,14 @@ def main():
     mfd = kernels[0]
     mfd["launches_by_path"] = {"headline": mfd["launches"],
                                "multirate_rx": mr_launches,
-                               "stream_runner": sr_launches}
-    mfd["max_abs_err"] = max(mfd["max_abs_err"], mr_err, sr_err)
+                               "stream_runner": sr_launches,
+                               "stage_pipeline": pa["mix_fir_decim"][0]}
+    mfd["max_abs_err"] = max(mfd["max_abs_err"], mr_err, sr_err,
+                             pa["mix_fir_decim"][1])
+    fr = next(k for k in kernels if k["name"] == "fir_real")
+    fr["launches_by_path"] = {"firfilt_pallas": fr["launches"],
+                              "time_sharded_chain": pa["fir_real"][0]}
+    fr["max_abs_err"] = max(fr["max_abs_err"], pa["fir_real"][1])
     cb = next(k for k in kernels if k["name"] == "codebook_argmax")
     # each path's run, its counts set to 0 just before it
     cb["launches_by_path"] = {"framesync64_stream_full": cb["launches"],
@@ -871,7 +924,9 @@ def main():
                               "flexframe_rx_stream": ff_launches,
                               "gmskframe_rx_stream": gm_cb,
                               "ofdmflex_rx_stream": of_cb,
-                              "OFDMFlexFrameSync": fs_cb}
+                              "OFDMFlexFrameSync": fs_cb,
+                              "framesync64_time_sharded":
+                                  pa["codebook_argmax"][0]}
     cb["max_abs_err"] = max(cb["max_abs_err"], sc_err, ff_err, gm_cb_err,
                             of_cb_err)
     vt["launches"] = gm_vt
@@ -4298,6 +4353,408 @@ def equalizer_phase(torch, dev, card):
          "launches": rls_n, "max_abs_err": rls_err, "ms": rm,
          "ms_runs": rls_ms, "plain_ms": p_rls, **common, **bd_rls,
          "step_latency_us": rls_step, "chain_floor_ms": T * rls_step / 1e3}]
+
+
+def mesh_devices(torch, dev, n):
+    """n mesh devices: the cards in turn where there are several, else the
+    one card (or the CPU of a rehearsal) n times."""
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if cards < 2:
+        return [dev] * n
+    return [torch.device("cuda", i % cards) for i in range(n)]
+
+
+def mixed_ref64(torch, xs, taps, down=1, d=0):
+    """complex128 reference on xs' device: the blocks xs [B, T] joined,
+    mixed down by DPHI x n from phase 0 in closed form, then filtered by
+    each of ``taps`` in turn from a zero state (FFT convolution) and kept
+    at d::down.  Returns (the output [B, len / down], each stage's input
+    in turn, for the FIR carries)."""
+    x = torch.cat(xs, dim=-1).to(torch.complex128)
+    n = torch.arange(x.shape[-1], dtype=torch.float64, device=x.device)
+    y = x * torch.polar(torch.ones_like(n), -DPHI * n)
+    ins = []
+    for h in taps:
+        ins.append(y)
+        h = h.to(x.device, torch.float64)
+        nfft = 1 << (y.shape[-1] + h.shape[0] - 2).bit_length()
+        y = torch.fft.ifft(torch.fft.fft(y, n=nfft)
+                           * torch.fft.fft(h, n=nfft))[..., :y.shape[-1]]
+    return y[..., d::down], ins
+
+
+def rel_err(torch, y, ref):
+    """max |y - ref| / rms(ref) over complex tensors, in float64."""
+    d = (y.to(torch.complex128) - ref.to(torch.complex128)).abs()
+    return float(d.max() / ref.to(torch.complex128).abs().square().mean()
+                 .sqrt())
+
+
+def make_shard_rx_stream(rng):
+    """The time-sharded receiver's input [PA_RX_B, NBLK * PA_RX_T] and the
+    frames sent per channel [(start, header, payload), ...] in order.
+    Every channel but the last PA_QUIET carries frames PA_GAP apart (at
+    most 5 start in a shard's 8192 samples), and channel c one more,
+    placed by c % 4: 300 samples before a shard boundary (it runs into
+    the next shard's samples), on a shard boundary, 200 samples before a
+    shard's emit window (hist before its boundary: the frame starts in
+    one shard's window and ends in the next's), across a block boundary."""
+    from liquid_dsp_tpu_torch.framing.frame64 import FRAME64_LEN, framegen64
+    from liquid_dsp_tpu_torch.framing.stream_rx import STREAM_HIST
+    T, Tl = PA_RX_T, PA_RX_T // PA_NT
+    n = NBLK * T
+    usable = n - STREAM_HIST - FRAME64_LEN     # emitted within the run
+    x = np.zeros((PA_RX_B, n), np.complex64)
+    sent = [[] for _ in range(PA_RX_B)]
+    for ch in range(PA_RX_B - PA_QUIET):
+        edge = int(rng.integers(0, NBLK)) * T + int(rng.integers(1, PA_NT)) * Tl
+        starts = [min(usable, (edge - 300, edge, edge - STREAM_HIST - 200,
+                               int(rng.integers(1, NBLK)) * T - 700)[ch % 4])]
+        pos = int(rng.integers(0, 2000))
+        while pos <= usable:
+            if all(abs(pos - s0) >= PA_GAP[0] for s0 in starts):
+                starts.append(pos)
+            pos += int(rng.integers(*PA_GAP))
+        for s0 in sorted(starts):
+            h = rng.integers(0, 256, 8).astype(np.uint8)
+            p = rng.integers(0, 256, 64).astype(np.uint8)
+            x[ch, s0:s0 + FRAME64_LEN] = framegen64(h, p)
+            sent[ch].append((s0, h, p))
+    x += (0.01 * (rng.standard_normal(x.shape)
+                  + 1j * rng.standard_normal(x.shape))).astype(np.complex64)
+    return x, sent
+
+
+def step_ms(torch, fn, iters=10):
+    """Mean ms per call of a step that may spread over several cards: the
+    host clock over `iters` calls after 3 warm-up calls, every card
+    synchronized before and after (CUDA events on one card would not wait
+    for another's work)."""
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+    for _ in range(3):
+        fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def parallel_phase(torch, dev, card):
+    """Phase 40: the mesh (parallel/), its device repeated on one card.
+    Returns {kernel: (launches on its path here, max|err| against its
+    plain version on the path's data)} for fir_real, codebook_argmax and
+    mix_fir_decim."""
+    import tempfile
+    from liquid_dsp_tpu_torch import chain, fuse
+    from liquid_dsp_tpu_torch.design.firdes import firdes_kaiser
+    from liquid_dsp_tpu_torch.fec.device import (device_packet_finish,
+                                                 qpacket_soft_decoder)
+    from liquid_dsp_tpu_torch.framing.frame64 import framesync64_stream
+    from liquid_dsp_tpu_torch.ops.fir import firfilt
+    from liquid_dsp_tpu_torch.ops.kernels.codebook_argmax import (
+        codebook_argmax, codebook_argmax_reference)
+    from liquid_dsp_tpu_torch.ops.kernels.fir_real import (
+        fir_real, fir_real_reference)
+    from liquid_dsp_tpu_torch.ops.kernels.mix_fir_decim import (
+        mix_fir_decim, mix_fir_decim_reference)
+    from liquid_dsp_tpu_torch.ops.nco import nco
+    from liquid_dsp_tpu_torch.ops.resample import msresamp
+    from liquid_dsp_tpu_torch.parallel import (
+        StagePipeline, framesync64_time_sharded, stream_mesh,
+        time_shard_apply)
+    from liquid_dsp_tpu_torch.runtime import StreamRunner
+
+    mesh = stream_mesh(PA_NT, PA_NC,
+                       devices=mesh_devices(torch, dev, PA_NT * PA_NC))
+    tmesh = stream_mesh(PA_NT, devices=mesh_devices(torch, dev, PA_NT))
+    distinct = len(set(mesh.devices.flat))
+    print(f"parallel: mesh {mesh}: {PA_NC} (ch) x {PA_NT} (t) on "
+          f"{distinct} distinct card(s) ({card})", flush=True)
+    got = {}
+
+    # the time-sharded chain: the mixer, then two FIRs on fir_real
+    def make_chain(mix):
+        firs = [firfilt(firdes_kaiser(64, 0.2, 60.0), backend="pallas"),
+                firfilt(firdes_kaiser(57, 0.3, 60.0), backend="pallas")]
+        mixer = [nco(dphi=DPHI, direction="down")] if mix else []
+        return chain(*(mixer + firs)).to(dev)
+
+    gen = torch.Generator(device=dev).manual_seed(40)
+    xs = [torch.complex(torch.randn(PA_B, PA_T, generator=gen, device=dev),
+                        torch.randn(PA_B, PA_T, generator=gen, device=dev))
+          for _ in range(NBLK)]
+    held = {}
+    for mix in (True, False):
+        p = make_chain(mix)
+        step = time_shard_apply(p, mesh)
+        c = p.init(batch_shape=(PA_B,), device=dev)
+        ys, carries = [], [c]
+        fir_real.launches = 0
+        for x in xs:
+            y, c = step(c, x)
+            ys.append(y)
+            carries.append(c)
+        torch.cuda.synchronize()
+        launches = fir_real.launches
+        check(launches == 2 * PA_NT * PA_NC * NBLK, f"time-sharded chain: "
+              f"fir_real launched {launches} times, want 2 x "
+              f"{PA_NT * PA_NC} a block")
+        c1, worst, equal = p.init(batch_shape=(PA_B,), device=dev), 0.0, True
+        y1s = []
+        for x, y in zip(xs, ys):
+            y1, c1 = p(c1, x)
+            check(y.shape == y1.shape and y.device == x.device,
+                  f"time-sharded chain: output {tuple(y.shape)} on "
+                  f"{y.device}")
+            worst = max(worst, rel_err(torch, y, y1))
+            equal = equal and torch.equal(y, y1)
+            y1s.append(y1)
+        c_worst = max(rel_err(torch, a, b)
+                      for a, b in zip(carries[-1][-2:], c1[-2:]))
+        if not mix:
+            check(equal and c_worst == 0, f"time-sharded FIRs vs one "
+                  f"device: output {worst:.3e}, carries {c_worst:.3e} of "
+                  f"rms, not bit-equal")
+            held[mix] = (worst, equal, c_worst)
+            continue
+        check(torch.equal(carries[-1][0]["theta"], c1[0]["theta"]),
+              "time-sharded chain: the mixer's carried phase differs")
+        # both against complex128: the outputs, and the FIR carries (the
+        # last L - 1 samples of each FIR's input)
+        ref, ins = mixed_ref64(torch, xs, [st.h for st in p.stages[1:]])
+        e64 = [rel_err(torch, torch.cat(yy, dim=-1), ref) for yy in (ys, y1s)]
+        c64 = [max(rel_err(torch, a, b[..., -a.shape[-1]:])
+                   for a, b in zip(cc[1:], ins)) for cc in (carries[-1], c1)]
+        del ref, ins, y1s
+        check(e64[0] <= F64_RATIO * e64[1] and c64[0] <= F64_RATIO * c64[1],
+              f"time-sharded chain vs complex128: output {e64[0]:.3e}, FIR "
+              f"carries {c64[0]:.3e}; one device {e64[1]:.3e} and "
+              f"{c64[1]:.3e} (at most {F64_RATIO} times)")
+        got["fir_real"] = launches
+        t_sh = step_ms(torch, lambda: step(carries[0], xs[0]), iters=10)
+        t_1 = step_ms(torch, lambda: p(carries[0], xs[0]), iters=10)
+        for what, fn in (("time-sharded", step), ("one-device", p)):
+            profile_steps(torch, card, lambda: fn(carries[0], xs[0]), 3,
+                          f"{what} chain step at {PA_B}x{PA_T}")
+        held[mix] = (worst, equal, c_worst)
+    # fir_real on one shard's input and carry (channel group 1, shard 2,
+    # block 1), against its plain version
+    Tl, G = PA_T // PA_NT, PA_B // PA_NC
+    h = make_chain(False).stages[0].h
+    xsh = xs[1][G:, 2 * Tl:3 * Tl]
+    csh = xs[1][G:, 2 * Tl - (h.shape[0] - 1):2 * Tl]
+    rows = torch.cat([xsh.real, xsh.imag]).contiguous()
+    crow = torch.cat([csh.real, csh.imag]).contiguous()
+    yk, yp = fir_real(rows, crow, h), fir_real_reference(rows, crow, h)
+    fr_err = float((yk - yp).abs().max())
+    fr_rel = fr_err / float(yp.square().mean().sqrt())
+    check(fr_rel < TOL_FIR, f"fir_real on a shard: {fr_rel:.3e}")
+    print(f"time-sharded chain: chain(nco, firfilt 64, firfilt 57) "
+          f"(backend pallas) at {PA_B}x{PA_T}, {NBLK} carried blocks on the "
+          f"{PA_NC}x{PA_NT} mesh against one device: max|err|/rms "
+          f"{held[True][0]:.3e}, FIR carries {held[True][2]:.3e}, the "
+          f"mixer's carried phase bit-equal; against complex128, sharded "
+          f"{e64[0]:.3e} (carries {c64[0]:.3e}), one device {e64[1]:.3e} "
+          f"({c64[1]:.3e}), ratio {e64[0] / e64[1]:.3f} (<= {F64_RATIO}); "
+          f"the two FIRs alone bit-equal, carries too; fir_real launches "
+          f"{got['fir_real']} (2 x {PA_NT * PA_NC} a block); fir_real on "
+          f"shard 2 of group 1 (block 1, {rows.shape[0]} rows x {Tl}) vs "
+          f"plain max|err| {fr_err:.3e}, of rms {fr_rel:.3e} (< {TOL_FIR}); "
+          f"ms a block ({card}, {distinct} card(s)): sharded {t_sh:.4f}, "
+          f"one device {t_1:.4f}", flush=True)
+
+    # the time-sharded frame64 receiver, its frames decoded on the card
+    t0 = time.perf_counter()
+    x_np, sent = make_shard_rx_stream(np.random.default_rng(41))
+    xr = torch.from_numpy(x_np).to(dev)
+    del x_np
+    t_gen = time.perf_counter() - t0
+    T = PA_RX_T
+    init, rstep = framesync64_time_sharded(T, tmesh,
+                                           max_frames_per_shard=PA_RX_P)
+    decode, _ = qpacket_soft_decoder(72, "crc24", "none", "golay2412",
+                                     "qpsk")
+    decode = decode.to(dev)
+    finish = device_packet_finish(72, "crc24", "none", "golay2412").to(dev)
+    c = init(batch_shape=(PA_RX_B,))
+    rcarries, outs, decs = [c], [], []
+    codebook_argmax.launches = 0
+    for b in range(NBLK):
+        out, c = rstep(c, xr[:, b * T:(b + 1) * T])
+        decs.append(finish(decode(out.symbols)))
+        outs.append(out)
+        rcarries.append(c)
+    torch.cuda.synchronize()
+    got["codebook_argmax"] = codebook_argmax.launches
+    check(got["codebook_argmax"] == NBLK, f"time-sharded receiver: "
+          f"codebook_argmax launched {got['codebook_argmax']} times in "
+          f"{NBLK} blocks")
+    frames = [[] for _ in range(PA_RX_B)]
+    most = 0
+    for out, (buf, ok) in zip(outs, decs):
+        check(out.valid.shape == (PA_RX_B, PA_NT * PA_RX_P),
+              f"time-sharded receiver: {tuple(out.valid.shape)} slots")
+        most = max(most, int(out.valid.reshape(PA_RX_B, PA_NT, PA_RX_P)
+                             .sum(-1).max()))
+        v, si = out.valid.cpu().numpy(), out.sample_index.cpu().numpy()
+        buf, ok = buf.cpu().numpy().astype(np.uint8), ok.cpu().numpy()
+        for ch, s in zip(*np.nonzero(v)):
+            frames[ch].append((int(si[ch, s]), bool(ok[ch, s]),
+                               buf[ch, s, :8], buf[ch, s, 8:]))
+    check(most < PA_RX_P, f"time-sharded receiver: a shard kept {most} "
+          f"candidates in {PA_RX_P} slots")
+    n_ok = check_rx(frames, sent)
+    # against the receiver on one device, slots enough for every shard's
+    rx1 = framesync64_stream(T, max_frames=PA_NT * PA_RX_P).to(dev)
+    c1 = rx1.init(batch_shape=(PA_RX_B,), device=dev)
+    c10 = c1
+    sym_err, n_same = 0.0, 0
+    for b, out in enumerate(outs):
+        o1, c1 = rx1(c1, xr[:, b * T:(b + 1) * T])
+        v, v1 = out.valid.cpu().numpy(), o1.valid.cpu().numpy()
+        si, si1 = out.sample_index.cpu().numpy(), o1.sample_index.cpu().numpy()
+        for ch in range(PA_RX_B):
+            a = {int(i): k for k, i in zip(np.nonzero(v[ch])[0],
+                                            si[ch][v[ch]])}
+            a1 = {int(i): k for k, i in zip(np.nonzero(v1[ch])[0],
+                                             si1[ch][v1[ch]])}
+            check(set(a) == set(a1), f"time-sharded receiver block {b} "
+                  f"channel {ch}: {sorted(a)} against one device's "
+                  f"{sorted(a1)}")
+            for i in a:
+                sym_err = max(sym_err, float(
+                    (out.symbols[ch, a[i]] - o1.symbols[ch, a1[i]])
+                    .abs().max()))
+                n_same += 1
+    for key in ("buf", "base", "last_end"):
+        check(torch.equal(rcarries[-1][key], c1[key]),
+              f"time-sharded receiver: carry {key} differs from one device's")
+    check(sym_err <= TOL_SHARD_SYM, f"time-sharded receiver: symbols "
+          f"{sym_err:.3e} from one device's (> {TOL_SHARD_SYM})")
+    cw = decode.soft_bits(outs[1].symbols).reshape(-1, 24).contiguous()
+    idx_k = codebook_argmax(cw, decode.bip)
+    idx_p = codebook_argmax_reference(cw, decode.bip)
+    torch.cuda.synchronize()
+    check(torch.equal(idx_k, idx_p), f"codebook_argmax on the time-sharded "
+          f"receiver's rows: {int((idx_k != idx_p).sum())} of {cw.shape[0]} "
+          f"differ")
+    t_rsh = step_ms(torch, lambda: rstep(rcarries[0], xr[:, :T]), iters=5)
+    t_r1 = step_ms(torch, lambda: rx1(c10, xr[:, :T]), iters=5)
+    profile_steps(torch, card, lambda: rstep(rcarries[0], xr[:, :T]), 3,
+                  f"time-sharded receiver step at {PA_RX_B}x{T}")
+    print(f"time-sharded receiver: framesync64_time_sharded at "
+          f"{PA_RX_B}x{T} on {PA_NT} shards of {T // PA_NT}, P "
+          f"{PA_RX_P} a shard, {NBLK} carried blocks: {n_ok} of "
+          f"{sum(len(s) for s in sent)} frames (some across shard, emit "
+          f"window and block boundaries) decoded once, in order, crc_ok, "
+          f"bytes equal, sample_index within 2, through "
+          f"qpacket_soft_decoder on the card; {PA_QUIET} noise-only "
+          f"channels: 0; at most {most} kept a shard (< {PA_RX_P}); against "
+          f"framesync64_stream on one device: the same {n_same} "
+          f"sample_index, symbols max|err| {sym_err:.3e} (<= "
+          f"{TOL_SHARD_SYM}), the carry equal; codebook_argmax launches "
+          f"{got['codebook_argmax']}, bit-equal to plain on block 1's "
+          f"{cw.shape[0]} rows; ms a block ({card}, {distinct} card(s)): "
+          f"sharded {t_rsh:.3f}, one device {t_r1:.3f} (the decode not "
+          f"included); capture made in {t_gen:.1f} s", flush=True)
+    del xr, outs, decs, rcarries
+
+    # StagePipeline: multirate_rx's two stages, stage 0 on mix_fir_decim
+    make_rx, _ = multirate_paths()
+    pdevs = mesh_devices(torch, dev, 2) if distinct > 1 else [dev]
+    pipe = StagePipeline(list(make_rx().stages), devices=pdevs,
+                         batch_shape=(PA_B,))
+    mix_fir_decim.launches = 0
+    yp = [pipe.feed(x) for x in xs]
+    torch.cuda.synchronize()
+    got["mix_fir_decim"] = mix_fir_decim.launches
+    check(got["mix_fir_decim"] == NBLK, f"StagePipeline: mix_fir_decim "
+          f"launched {got['mix_fir_decim']} times in {NBLK} blocks")
+    mono = make_rx().to(dev)
+    cm = mono.init(batch_shape=(PA_B,), device=dev)
+    cm0 = cm
+    for x, y in zip(xs, yp):
+        y1, cm = mono(cm, x)
+        check(torch.equal(y.to(dev), y1), "StagePipeline: output differs "
+              "from the same stages chained on one device")
+    front = pipe.procs[0]
+    cf = front.init(batch_shape=(PA_B,), device=pdevs[0])
+    x0 = xs[0].to(pdevs[0])
+    yk = front(cf, x0)[0]
+    ref = mix_fir_decim_reference(
+        x0.real.contiguous(), x0.imag.contiguous(), cf["tr"], cf["ti"],
+        cf["theta"], front.ramp_c, front.ramp_s, front.taps,
+        down=front.down, sgn=front.sgn, dphi=front.dphi)
+    mfd_err, mfd_rel = complex_err((yk.real, yk.imag), ref)
+    check(mfd_rel < TOL_F32, f"mix_fir_decim on the pipeline's stage 0: "
+          f"{mfd_rel:.3e}")
+    t_pipe = step_ms(torch, lambda: pipe.feed(xs[0]), iters=10)
+    t_mono = step_ms(torch, lambda: mono(cm0, xs[0]), iters=10)
+    print(f"StagePipeline: multirate_rx's stages (kernel_fuse(fuse(nco, "
+          f"firfilt 64, firdecim 4)), msresamp(0.375)) on {pdevs} at "
+          f"{PA_B}x{PA_T}, {NBLK} blocks: bit-equal to the chain on one "
+          f"device, output {tuple(yp[0].shape)}; mix_fir_decim launches "
+          f"{got['mix_fir_decim']}, vs plain on stage 0's block 0 "
+          f"max|err| {mfd_err:.3e}, of rms {mfd_rel:.3e} (< {TOL_F32}); ms "
+          f"a block ({card}): pipeline {t_pipe:.4f}, chain {t_mono:.4f}",
+          flush=True)
+    del yp, pipe, mono
+
+    # StreamRunner(mesh=...): the fused headline chain, time-sharded
+    def fused(mix=True):
+        mixer = [nco(dphi=DPHI, direction="down")] if mix else []
+        return fuse(chain(*mixer, firfilt(firdes_kaiser(64, 0.2, 60.0)),
+                          firfilt(firdes_kaiser(57, 0.3, 60.0)),
+                          msresamp(0.5, 60.0)))
+    r = StreamRunner(fused(), batch_shape=(PA_B,), mesh=tmesh)
+    r1 = StreamRunner(fused(), batch_shape=(PA_B,), device=dev)
+    check(r.device == tmesh.home, f"StreamRunner(mesh): device {r.device}")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        ck = os.path.join(tmpdir, "state.npz")
+        ys, ys1, worst = [], [], 0.0
+        for k, x in enumerate(xs):
+            ys.append(r(x))
+            ys1.append(r1(x))
+            worst = max(worst, rel_err(torch, ys[-1], ys1[-1]))
+            if k == 1:
+                r.save(ck)
+        r2 = StreamRunner(fused(), batch_shape=(PA_B,), mesh=tmesh)
+        r2.load(ck)
+        check(r2.blocks_processed == 2 and torch.equal(r2(xs[2]), ys[2]),
+              "StreamRunner(mesh): the resumed block differs")
+    # the fused chain is the mixer, then one FusedFIR of both FIRs and the
+    # resampler's decimation
+    ff = r1.proc.stages[1]
+    check(ff.lti is not None and len(r1.proc.stages) == 2,
+          f"StreamRunner(mesh): the fused chain is {r1.proc}")
+    ref, _ = mixed_ref64(torch, xs, [ff.h], ff.down, ff.d)
+    r64 = [rel_err(torch, torch.cat(yy, dim=-1), ref) for yy in (ys, ys1)]
+    del ref, ys, ys1
+    check(r64[0] <= F64_RATIO * r64[1], f"StreamRunner(mesh) vs complex128: "
+          f"{r64[0]:.3e}, without a mesh {r64[1]:.3e} (at most {F64_RATIO} "
+          f"times)")
+    rn = StreamRunner(fused(False), batch_shape=(PA_B,), mesh=tmesh)
+    rn1 = StreamRunner(fused(False), batch_shape=(PA_B,), device=dev)
+    check(all(torch.equal(rn(x), rn1(x)) for x in xs),
+          "StreamRunner(mesh) without the mixer: not bit-equal to the "
+          "runner without a mesh")
+    t_r = step_ms(torch, lambda: r(xs[0]), iters=10)
+    t_n = step_ms(torch, lambda: r1(xs[0]), iters=10)
+    print(f"StreamRunner(mesh=): fuse(chain(nco, firfilt 64, firfilt 57, "
+          f"msresamp(0.5))) on {PA_NT} time shards at {PA_B}x{PA_T}, "
+          f"{NBLK} blocks, a checkpoint after block 2 and a resume "
+          f"(bit-equal); against the runner without a mesh max|err|/rms "
+          f"{worst:.3e}; against complex128 mesh {r64[0]:.3e}, no mesh "
+          f"{r64[1]:.3e}, ratio {r64[0] / r64[1]:.3f} (<= {F64_RATIO}); "
+          f"without the mixer bit-equal to no mesh; ms a block ({card}): "
+          f"mesh {t_r:.4f}, no mesh {t_n:.4f}", flush=True)
+    return {"fir_real": (got["fir_real"], fr_err),
+            "codebook_argmax": (got["codebook_argmax"], 0.0),
+            "mix_fir_decim": (got["mix_fir_decim"], mfd_err)}
 
 
 def iir_reference64(q, x):

@@ -41,7 +41,8 @@ from ..utils.sequence import MSequence
 from .detector import qdetector_detect
 from .qpacket import (qpacketmodem_decode, qpacketmodem_encode,
                       qpilot_pilots, qpilotgen, qpilotsync)
-from .stream_rx import STREAM_HIST, StreamRxConfig, preamble_stream
+from .stream_rx import (STREAM_HIST, StreamRxBlock, StreamRxConfig,
+                        preamble_stream)
 
 __all__ = ["FRAME64_LEN", "framegen64", "framesync64", "Frame64Result",
            "frame64_preamble", "np_interp2", "framesync64_stream",
@@ -234,16 +235,23 @@ class Framesync64Stream(Proc):
 
     def forward(self, carry, x):
         out, carry = self.core(carry, x)
-        syms = out.region_syms[..., self.data_idx]
-        # pilot-referenced stats: EVM against the nearest QPSK point
-        s2 = float(np.float32(np.sqrt(0.5)))
-        near = torch.complex(torch.sign(syms.real) * s2,
-                             torch.sign(syms.imag) * s2)
-        evm = torch.sqrt(torch.mean((syms - near).abs() ** 2, dim=-1))
-        return Frame64Block(
-            valid=out.valid, sample_index=out.sample_index, rxy=out.rxy,
-            cfo=out.dphi + out.dphi2 / _K, gamma=out.gamma,
-            evm_db=20.0 * torch.log10(evm + 1e-12), symbols=syms), carry
+        return _frame64_block(out, self.data_idx), carry
+
+
+def _frame64_block(out: StreamRxBlock, data_idx) -> Frame64Block:
+    """The frame64 result of a preamble-sync block: the payload symbols
+    (data_idx: the 600 non-pilot positions of the 630-symbol region, on
+    out's device), the coarse + pilot CFO and the pilot-referenced EVM."""
+    syms = out.region_syms[..., data_idx]
+    # pilot-referenced stats: EVM against the nearest QPSK point
+    s2 = float(np.float32(np.sqrt(0.5)))
+    near = torch.complex(torch.sign(syms.real) * s2,
+                         torch.sign(syms.imag) * s2)
+    evm = torch.sqrt(torch.mean((syms - near).abs() ** 2, dim=-1))
+    return Frame64Block(
+        valid=out.valid, sample_index=out.sample_index, rxy=out.rxy,
+        cfo=out.dphi + out.dphi2 / _K, gamma=out.gamma,
+        evm_db=20.0 * torch.log10(evm + 1e-12), symbols=syms)
 
 
 def framesync64_stream(block_len: int, threshold: float = 0.5,

@@ -36,8 +36,13 @@ stay sequential or fixed-size:
     scattered into [B, P] slots, with no host sync; invalid slots take
     index 0 and zero windows, as the JAX package leaves them.
 
-The time-shard hooks (``prev_peak``, ``left_ext``, ``suppress_fn``; the
-JAX package's parallel/rx.py) are ROADMAP queue 1 item 6 and raise here.
+A time-sharded receiver (`parallel/rx.py`) runs the three steps of
+`_detect_refine` itself: every shard's segment detection (with its left
+neighbour's last segment peak, ``prev_peak``), one fold over all shards'
+candidates in shard order, then every shard's refinement (with its left
+neighbour's samples before the buffer head, ``left_ext``).  The JAX
+package's ``suppress_fn`` hook gathered the candidates inside the fold;
+here the host holds them between the steps.
 """
 from __future__ import annotations
 
@@ -209,11 +214,87 @@ def _detect_consts(template: np.ndarray) -> dict:
     }
 
 
+def _detect_segments(buf, dc: dict, threshold: float, T: int, starts,
+                     prev_peak=None):
+    """Detect everywhere, the first step of `_detect_refine`: the
+    correlation peak of every segment over [B] buffers, and which segments
+    are candidates (above threshold, starting in the emit window [0, T),
+    and a local peak) before the suppression fold.
+
+    buf [B, H+T] complex64; starts [n_seg] int64.  prev_peak [B] (a time
+    shard's hook) stands for the -inf before the first segment: the left
+    neighbour's last owned segment peak.  Returns a dict of [B, n_seg]
+    tensors: "peak", "off" (carrier-bin index), "n0_seg" (buffer
+    position), "cand"."""
+    dev = buf.device
+    B = buf.shape[0]
+    seg_idx = starts[:, None] + torch.arange(_DET_NFFT, device=dev)
+    segs = buf[:, seg_idx]                               # [B, n_seg, NFFT]
+    seg_peak, seg_arg = _seg_peaks(segs, dc)
+    seg_off = seg_arg // _DET_HOP
+    n0_seg = starts + seg_arg % _DET_HOP                 # buffer position
+    debug.tap("stream_rx.seg_peak", seg_peak)           # per-segment rxy
+    # a peak at p % hop == hop-1 has a +-1-sample twin in the NEXT
+    # segment: keep only segments that beat both neighbours
+    neg = torch.full((B, 1), float("-inf"), device=dev)
+    first = neg if prev_peak is None else prev_peak.reshape(B, 1).to(
+        seg_peak.dtype)
+    pk_prev = torch.cat([first, seg_peak[:, :-1]], dim=1)
+    pk_next = torch.cat([seg_peak[:, 1:], neg], dim=1)
+    local = (seg_peak > pk_prev) & (seg_peak >= pk_next)
+    cand = (seg_peak > threshold) & (n0_seg < T) & local
+    return {"peak": seg_peak, "off": seg_off, "n0_seg": n0_seg,
+            "cand": cand}
+
+
+def _seg_peaks(segs, dc: dict):
+    """(peak, argmax) of the detection metric of segments [B, S, NFFT]
+    over the 5 carrier bins x hop lags (qdetector seek as banded
+    matmuls)."""
+    Fr, Fi = segs.real, segs.imag
+    Br, Bi = dc["band_re"], dc["band_im"]
+    Rr = Fr @ Br + Fi @ Bi                               # [B, S, 5*hop]
+    Ri = Fi @ Br - Fr @ Bi
+    x2 = torch.sum(Fr ** 2 + Fi ** 2, dim=-1)
+    g0 = torch.sqrt(torch.clamp(x2, min=1e-20) * (dc["s_len"] / _DET_NFFT))
+    g = 1.0 / (g0 * np.sqrt(dc["s2_sum"]))
+    rxy_flat = torch.sqrt(Rr ** 2 + Ri ** 2) * g[..., None]
+    arg = torch.argmax(rxy_flat, dim=-1)
+    return _take(rxy_flat, arg[..., None])[..., 0], arg
+
+
+def _seg_peak_at(buf, dc: dict, start: int):
+    """Detection peak [B] of the ONE segment at static buffer position
+    `start`: the metric `_detect_segments` computes in its grid.  A time
+    shard computes its last owned segment's peak from its own buffer and
+    hands it to its right neighbour as ``prev_peak`` (parallel/rx.py)."""
+    return _seg_peaks(buf[:, None, start:start + _DET_NFFT], dc)[0][:, 0]
+
+
+def _suppress(last_end, cand, n0_seg, span: int):
+    """The greedy in-order fold, the second step of `_detect_refine`: once
+    a frame is detected nothing fires again until `span` samples have
+    passed (the reference's re-arm).  Sequential over the segments,
+    batched over rows; a non-candidate segment carries a position below
+    any watermark.  last_end [B]; cand, n0_seg [B, S] in order (a
+    time-sharded receiver passes every shard's segments, in shard order,
+    in one buffer's coordinates).  Returns the [B, S] keep mask."""
+    n0_cand = torch.where(cand, n0_seg, torch.full_like(n0_seg, -(1 << 40)))
+    n0_span = n0_seg + span
+    le = last_end.to(torch.int64)
+    keep_cols = []
+    for i in range(cand.shape[1]):
+        keep = n0_cand[:, i] >= le
+        le = torch.where(keep, n0_span[:, i], le)
+        keep_cols.append(keep)
+    return torch.stack(keep_cols, dim=1)
+
+
 def _detect_refine(buf, last_end, dc: dict, threshold: float, P: int,
                    T: int, starts, span: int, front_pad: int = 0,
-                   win_len: int | None = None, prev_peak=None,
-                   left_ext=None, suppress_fn=None):
-    """Detect-everywhere + per-candidate refinement over [B] buffers.
+                   win_len: int | None = None):
+    """Detect-everywhere + per-candidate refinement over [B] buffers:
+    `_detect_segments`, `_suppress` and `_refine` in sequence.
 
     buf [B, H+T] complex64; last_end [B] int32 watermark (buffer coords);
     dc: `_detect_consts` as tensors on buf's device ("So", "band_re",
@@ -222,54 +303,30 @@ def _detect_refine(buf, last_end, dc: dict, threshold: float, P: int,
     keep mask and segment positions the watermark folds.  With
     front_pad / win_len, ONE [2, win_len] window per candidate is cut
     starting front_pad samples before n0 and returned as "win" for
-    `mf_symbol_gather`.
+    `mf_symbol_gather`.  A time shard runs the three steps itself, with
+    its hooks (`parallel/rx.py`).
     """
-    if prev_peak is not None or left_ext is not None or suppress_fn is not None:
-        raise NotImplementedError(
-            "the time-shard hooks (prev_peak, left_ext, suppress_fn) are "
-            "not ported yet (ROADMAP queue 1 item 6, parallel/rx.py)")
+    seg = _detect_segments(buf, dc, threshold, T, starts)
+    keep = _suppress(last_end, seg["cand"], seg["n0_seg"], span)
+    return _refine(buf, seg, keep, dc, P, T, front_pad, win_len)
+
+
+def _refine(buf, seg: dict, keep, dc: dict, P: int, T: int,
+            front_pad: int = 0, win_len: int | None = None, left_ext=None):
+    """Per-candidate refinement, the third step of `_detect_refine`: the
+    first P kept segments of each row (qdetector align, batched).
+
+    seg: `_detect_segments`'s dict; keep [B, n_seg]: the fold's mask.
+    left_ext [B, 2, front_pad] float planes (a time shard's hook) stand
+    for the zero front pad: REAL neighbour samples before the buffer head
+    (shard 0 keeps zeros, the stream head).  "cand" and "n0_seg" of the
+    result are what the watermark folds: the keep mask and positions."""
     dev = buf.device
     B = buf.shape[0]
-    n_seg = int(starts.shape[0])
+    n_seg = keep.shape[1]
     s_len, s2_sum = dc["s_len"], dc["s2_sum"]
-
-    # ---- detect everywhere (qdetector seek, batched) ----
-    seg_idx = starts[:, None] + torch.arange(_DET_NFFT, device=dev)
-    segs = buf[:, seg_idx]                               # [B, n_seg, NFFT]
-    Fr, Fi = segs.real, segs.imag
-    Br, Bi = dc["band_re"], dc["band_im"]
-    Rr = Fr @ Br + Fi @ Bi                               # [B, n_seg, 5*hop]
-    Ri = Fi @ Br - Fr @ Bi
-    x2 = torch.sum(Fr ** 2 + Fi ** 2, dim=-1)
-    g0 = torch.sqrt(torch.clamp(x2, min=1e-20) * (s_len / _DET_NFFT))
-    g = 1.0 / (g0 * np.sqrt(s2_sum))
-    rxy_flat = torch.sqrt(Rr ** 2 + Ri ** 2) * g[..., None]
-    seg_arg = torch.argmax(rxy_flat, dim=-1)             # [B, n_seg]
-    seg_peak = _take(rxy_flat, seg_arg[..., None])[..., 0]
-    seg_off = seg_arg // _DET_HOP
-    n0_seg = starts + seg_arg % _DET_HOP                 # buffer position
-    debug.tap("stream_rx.seg_peak", seg_peak)           # per-segment rxy
-    # a peak at p % hop == hop-1 has a +-1-sample twin in the NEXT
-    # segment: keep only segments that beat both neighbours
-    neg = torch.full((B, 1), float("-inf"), device=dev)
-    pk_prev = torch.cat([neg, seg_peak[:, :-1]], dim=1)
-    pk_next = torch.cat([seg_peak[:, 1:], neg], dim=1)
-    local = (seg_peak > pk_prev) & (seg_peak >= pk_next)
-    cand = (seg_peak > threshold) & (n0_seg < T) & local
-
-    # greedy in-order suppression: once a frame is detected nothing fires
-    # again until `span` samples have passed (the reference's re-arm).
-    # Sequential over segments, batched over rows: a non-candidate
-    # segment carries a position below any watermark.
-    n0_cand = torch.where(cand, n0_seg, torch.full_like(n0_seg, -(1 << 40)))
-    n0_span = n0_seg + span
-    le = last_end.to(torch.int64)
-    keep_cols = []
-    for i in range(n_seg):
-        keep = n0_cand[:, i] >= le
-        le = torch.where(keep, n0_span[:, i], le)
-        keep_cols.append(keep)
-    cand = torch.stack(keep_cols, dim=1)                 # [B, n_seg]
+    n0_seg, seg_off, seg_peak = seg["n0_seg"], seg["off"], seg["peak"]
+    cand = keep
 
     # the first P candidates of each row, in order, without a host sync
     n_cand = cand.sum(dim=1)
@@ -291,7 +348,11 @@ def _detect_refine(buf, last_end, dc: dict, threshold: float, P: int,
         # zero padding keeps the edge semantics; the end pad lets n0 = T-1
         # take a whole window
         need_end = max(0, (T - 1 - fp + U) - buf2.shape[-1])
-        buf2 = F.pad(buf2, (fp, need_end))
+        if left_ext is not None and fp:
+            buf2 = F.pad(torch.cat([left_ext.to(buf2.dtype), buf2], dim=-1),
+                         (0, need_end))
+        else:
+            buf2 = F.pad(buf2, (fp, need_end))
     idx = (n0[..., None] + torch.arange(U, device=dev)).reshape(B, 1, P * U)
     win = torch.gather(buf2, 2, idx.expand(B, 2, P * U))
     win = win.reshape(B, 2, P, U).permute(0, 2, 1, 3)    # [B, P, 2, U]

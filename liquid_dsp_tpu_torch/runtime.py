@@ -27,25 +27,34 @@ _NP_DTYPES = {torch.complex64: np.complex64, torch.float32: np.float32,
 
 
 class StreamRunner:
-    """Streaming executor for a Proc pipeline on one device.
+    """Streaming executor for a Proc pipeline on one device or a mesh.
 
     The proc is moved to ``device`` (the card unless the caller names
     another; without one a CUDA device raises) and its carry is made and
-    kept there.  Each call takes one block, numpy or a tensor, as one
-    contiguous tensor on the device (numpy in ``dtype``), runs the step
-    under ``torch.inference_mode`` and returns the output tensor on the
-    device.  ``mesh`` (the JAX package's time-sharded mode) is ROADMAP
-    queue 1 item 6 and raises NotImplementedError.
+    kept there.  With ``mesh`` (`parallel.stream_mesh`) each block step is
+    `parallel.time_shard_apply` over it, as in the JAX package: the
+    device is then the mesh's home device, where the carry lives (a
+    ``device`` that names another raises ValueError).  Each call takes
+    one block, numpy or a tensor, as one contiguous tensor on the device
+    (numpy in ``dtype``), runs the step under ``torch.inference_mode``
+    and returns the output tensor on the device.
     """
 
     def __init__(self, proc: Proc, batch_shape=(), dtype=torch.complex64,
-                 mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "StreamRunner(mesh=...): the sharded runtime (parallel/) is "
-                "not ported yet (ROADMAP queue 1 item 6)")
-        self.device = entry_device(device)
-        self.proc = proc.to(self.device)
+                 mesh=None, device=None):
+        if mesh is None:
+            self.device = entry_device("cuda" if device is None else device)
+            self.proc = proc.to(self.device)
+            self._step = self.proc
+        else:
+            from .parallel.mesh import _device
+            from .parallel.stream import time_shard_apply
+            self.device = mesh.home
+            if device is not None and _device(device) != self.device:
+                raise ValueError(f"device {device!r} is not the mesh's home "
+                                 f"device {self.device}")
+            self.proc = proc.to(self.device)
+            self._step = time_shard_apply(self.proc, mesh)
         self.batch_shape = tuple(batch_shape)
         self.dtype = dtype
         self.blocks_processed = 0
@@ -64,7 +73,7 @@ class StreamRunner:
 
     def __call__(self, x):
         with torch.inference_mode():
-            y, self.carry = self.proc(self.carry, self._block(x))
+            y, self.carry = self._step(self.carry, self._block(x))
         self.blocks_processed += 1
         return y
 

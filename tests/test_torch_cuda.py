@@ -26,6 +26,17 @@ The LDPC decoder: hard and ok equal to the CPU's wherever the CPU converged
 (reductions in another order can flip a borderline row that did not).
 StreamRunner: bit-equal to its proc on the card, 1e-4 of rms against the
 CPU (the mixer's float32 phase from another libm).
+The mesh (parallel/, the card repeated): the time-sharded FIRs bit-equal
+to one device (each output sums the same taps in the same order); with
+the mixer no further from a complex128 reference than 1.5 times one
+device (its float32 phases round at other magnitudes from each shard's
+closed-form start); the time-sharded receiver the same frames with
+symbols within 2e-5 and the carry equal; StagePipeline bit-equal to the
+chain.  A card mesh fed a host block gives what it gives on the card,
+bit for bit.  A mesh of the card and the CPU: each shard bit-equal to a
+mesh all on its own device for one FIR and the receiver, a FIR chain
+within 1e-5 of rms of one device (the kernel against its plain
+version), StagePipeline bit-equal to its stages run in turn.
 """
 import pathlib
 
@@ -1794,3 +1805,293 @@ def test_equalizer_kernels_refuse_what_they_do_not_take(dev):
         eqrls_scan(m["x"], m["d"], m["w"], m["buf"], m["P"], 0.99)
     with pytest.raises(ValueError, match="one device"):
         eqlms_scan(a["x"].cpu(), a["w"], a["buf"], a["x2_sum"], a["n"], 0.1)
+
+
+# --- the mesh (parallel/) on one card, its device repeated ----------------
+
+def _rel(y, ref):
+    return float((y - ref).abs().max() / ref.abs().square().mean().sqrt())
+
+
+def _cnoise(dev, shape, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.complex(torch.randn(shape, generator=g, device=dev),
+                         torch.randn(shape, generator=g, device=dev))
+
+
+def _mixed_ref64(xs, dphi, taps):
+    """complex128: the blocks xs joined, mixed down by dphi * n from phase
+    0 in closed form, then each FIR of taps in turn from a zero state
+    (FFT convolution)."""
+    x = torch.cat(xs, dim=-1).to(torch.complex128)
+    n = torch.arange(x.shape[-1], dtype=torch.float64, device=x.device)
+    y = x * torch.polar(torch.ones_like(n), -dphi * n)
+    for h in taps:
+        h = h.to(x.device, torch.float64)
+        nfft = 1 << (y.shape[-1] + h.shape[0] - 2).bit_length()
+        y = torch.fft.ifft(torch.fft.fft(y, n=nfft)
+                           * torch.fft.fft(h, n=nfft))[..., :y.shape[-1]]
+    return y
+
+
+@pytest.mark.parametrize("mix", [False, True])
+def test_time_sharded_chain_on_the_card(dev, mix):
+    from liquid_dsp_tpu_torch import chain
+    from liquid_dsp_tpu_torch.design.firdes import firdes_kaiser
+    from liquid_dsp_tpu_torch.ops.fir import firfilt
+    from liquid_dsp_tpu_torch.ops.nco import nco
+    from liquid_dsp_tpu_torch.parallel import stream_mesh, time_shard_apply
+    stages = [firfilt(firdes_kaiser(64, 0.2, 60.0), backend="pallas"),
+              firfilt(firdes_kaiser(57, 0.3, 60.0), backend="pallas")]
+    if mix:
+        stages.insert(0, nco(dphi=0.125, direction="down"))
+    p = chain(*stages).to(dev)
+    step = time_shard_apply(p, stream_mesh(4, 2, devices=[dev] * 8))
+    xs = [_cnoise(dev, (16, 32768), 40 + k) for k in range(2)]
+    c_sh, ys = p.init(batch_shape=(16,), device=dev), []
+    fr.fir_real.launches = 0
+    for x in xs:
+        y, c_sh = step(c_sh, x)
+        ys.append(y)
+    torch.cuda.synchronize()
+    assert fr.fir_real.launches == 2 * 8 * len(xs)   # 2 stages x 8 shards
+    c1, y1s = p.init(batch_shape=(16,), device=dev), []
+    for x, y in zip(xs, ys):
+        y1, c1 = p(c1, x)
+        assert y.device == x.device and y.shape == y1.shape
+        y1s.append(y1)
+        if not mix:
+            # each output sample sums the same taps in the same order
+            assert torch.equal(y, y1)
+    if not mix:
+        assert all(torch.equal(a, b) for a, b in zip(c_sh, c1))
+        return
+    assert torch.equal(c_sh[0]["theta"], c1[0]["theta"])
+    # the mixer's float32 phases reach dphi * T on one device, dphi * T / 4
+    # from each shard's closed-form start: against complex128 the sharded
+    # chain is no further off than one device, within 1.5 times
+    ref = _mixed_ref64(xs, 0.125, [st.h for st in p.stages[1:]])
+    e_sh = _rel(torch.cat(ys, dim=-1).to(ref.dtype), ref)
+    e_1 = _rel(torch.cat(y1s, dim=-1).to(ref.dtype), ref)
+    assert e_sh <= 1.5 * e_1
+
+
+def test_time_sharded_receiver_on_the_card(dev):
+    from liquid_dsp_tpu_torch.framing.frame64 import (
+        FRAME64_LEN, framegen64, framesync64_stream)
+    from liquid_dsp_tpu_torch.parallel import (framesync64_time_sharded,
+                                               stream_mesh)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T, n, K = 16384, 4, 3
+    Tl = T // n
+    rng = np.random.default_rng(44)
+    x = np.zeros((2, K * T), np.complex64)
+    for s0 in (Tl - 300, 2 * Tl, 3 * Tl - 1536 - 100, T - 700,
+               2 * T + Tl - 400):
+        f = framegen64(rng.integers(0, 256, 8).astype(np.uint8),
+                       rng.integers(0, 256, 64).astype(np.uint8))
+        x[0, s0:s0 + FRAME64_LEN] += f
+    x += (0.004 * (rng.standard_normal(x.shape)
+                   + 1j * rng.standard_normal(x.shape))).astype(np.complex64)
+    xd = torch.from_numpy(x).to(dev)
+    init, step = framesync64_time_sharded(
+        T, stream_mesh(n, devices=[dev] * n), max_frames_per_shard=4)
+    rx1 = framesync64_stream(T, max_frames=16).to(dev)
+    cs, c1 = init(batch_shape=(2,)), rx1.init(batch_shape=(2,), device=dev)
+    got, ref = {}, {}
+    for k in range(K):
+        blk = xd[:, k * T:(k + 1) * T]
+        o, cs = step(cs, blk)
+        o1, c1 = rx1(c1, blk)
+        for out, into in ((o, got), (o1, ref)):
+            v = out.valid.cpu().numpy()
+            si = out.sample_index.cpu().numpy()
+            sy = out.symbols.cpu().numpy()
+            for ch, p in zip(*np.nonzero(v)):
+                into[(ch, int(si[ch, p]))] = sy[ch, p]
+    assert set(got) == set(ref) and len(ref) == 5
+    for key in ref:
+        np.testing.assert_allclose(got[key], ref[key], atol=2e-5)
+    for key in ("buf", "base", "last_end"):
+        assert torch.equal(cs[key], c1[key])
+
+
+def test_stage_pipeline_on_the_card(dev):
+    from liquid_dsp_tpu_torch import chain, fuse, kernel_fuse
+    from liquid_dsp_tpu_torch.design.firdes import firdes_kaiser
+    from liquid_dsp_tpu_torch.ops.fir import firdecim, firfilt
+    from liquid_dsp_tpu_torch.ops.nco import nco
+    from liquid_dsp_tpu_torch.ops.resample import msresamp
+    from liquid_dsp_tpu_torch.parallel import StagePipeline
+
+    def stages():
+        return [kernel_fuse(fuse(chain(
+                    nco(dphi=0.125, direction="down"),
+                    firfilt(firdes_kaiser(64, 0.2, 60.0)),
+                    firdecim(4, firdes_kaiser(48, 0.1, 60.0))))),
+                msresamp(0.375)]
+    blocks = _cnoise(dev, (3, 8, 8192), 45)
+    pipe = StagePipeline(stages(), devices=[dev], batch_shape=(8,))
+    mfd.mix_fir_decim.launches = 0
+    ys = [pipe.feed(b) for b in blocks]
+    torch.cuda.synchronize()
+    assert mfd.mix_fir_decim.launches == len(blocks)
+    mono = chain(*stages()).to(dev)
+    c = mono.init(batch_shape=(8,), device=dev)
+    for b, y in zip(blocks, ys):
+        y1, c = mono(c, b)
+        assert y.device.type == "cuda" and torch.equal(y, y1)
+
+
+def _fir_chain(dev, n_fir=1):
+    from liquid_dsp_tpu_torch import chain
+    from liquid_dsp_tpu_torch.design.firdes import firdes_kaiser
+    from liquid_dsp_tpu_torch.ops.fir import firfilt
+    firs = [firfilt(firdes_kaiser(64, 0.2, 60.0), backend="pallas"),
+            firfilt(firdes_kaiser(57, 0.3, 60.0), backend="pallas")]
+    return chain(*firs[:n_fir]).to(dev)
+
+
+def _rx_capture(T, K, seed):
+    """Two channels of K blocks of T: frames across and on the boundaries
+    of 4 shards and across a block boundary, in light noise."""
+    from liquid_dsp_tpu_torch.framing.frame64 import FRAME64_LEN, framegen64
+    Tl = T // 4
+    rng = np.random.default_rng(seed)
+    x = np.zeros((2, K * T), np.complex64)
+    for ch, s0 in ((0, Tl - 300), (0, 2 * Tl), (1, 3 * Tl - 1536 - 100),
+                   (1, T - 700), (0, 2 * T + Tl - 400)):
+        f = framegen64(rng.integers(0, 256, 8).astype(np.uint8),
+                       rng.integers(0, 256, 64).astype(np.uint8))
+        x[ch, s0:s0 + FRAME64_LEN] += f
+    x += (0.004 * (rng.standard_normal(x.shape)
+                   + 1j * rng.standard_normal(x.shape))).astype(np.complex64)
+    return torch.from_numpy(x)
+
+
+def _run(step, carry, blocks):
+    outs = []
+    for b in blocks:
+        y, carry = step(carry, b)
+        outs.append(y)
+    return outs, carry
+
+
+def test_card_mesh_fed_a_host_block(dev):
+    # the output is assembled on the block's device: a card mesh fed a
+    # host block gives, bit for bit, what it gives for the block on the
+    # card (a copy from the card to the host must wait for its data)
+    from liquid_dsp_tpu_torch.parallel import (framesync64_time_sharded,
+                                               stream_mesh, time_shard_apply)
+    p = _fir_chain(dev, 2)
+    step = time_shard_apply(p, stream_mesh(4, devices=[dev] * 4))
+    xs = [_cnoise(dev, (64, 262144), 50 + k) for k in range(2)]
+    on_card, c_card = _run(step, p.init(batch_shape=(64,), device=dev), xs)
+    on_host, c_host = _run(step, p.init(batch_shape=(64,), device=dev),
+                           [x.cpu() for x in xs])
+    for a, b in zip(on_host, on_card):
+        assert a.device.type == "cpu" and torch.equal(a, b.cpu())
+    assert all(torch.equal(a, b) for a, b in zip(c_host, c_card))
+    T = 16384
+    x = _rx_capture(T, 3, 51)
+    init, rstep = framesync64_time_sharded(T, stream_mesh(
+        4, devices=[dev] * 4))
+    blocks = [x[:, k * T:(k + 1) * T] for k in range(3)]
+    on_host, c_host = _run(rstep, init(batch_shape=(2,)), blocks)
+    on_card, c_card = _run(rstep, init(batch_shape=(2,)),
+                           [b.to(dev) for b in blocks])
+    assert sum(int(o.valid.sum()) for o in on_card) == 5
+    for a, b in zip(on_host, on_card):
+        for fa, fb in zip(a, b):
+            assert fa.device.type == "cpu" and torch.equal(fa, fb.cpu())
+    assert all(torch.equal(c_host[k], c_card[k]) for k in c_card)
+
+
+def test_mesh_of_the_card_and_the_cpu(dev):
+    # distinct devices: the halos, the carries and the output cross
+    # between the card and the host.  One FIR: each shard's output is its
+    # own device's, so it is bit-equal to the same shard of a mesh all on
+    # that device; a chain of two within 1e-5 of rms of one device.
+    from liquid_dsp_tpu_torch.parallel import stream_mesh, time_shard_apply
+    cpu = torch.device("cpu")
+    layout = [dev, cpu, cpu, dev]          # ch 2 x t 2: [dev, cpu], [cpu, dev]
+    xs = [_cnoise(dev, (8, 32768), 52 + k) for k in range(3)]
+    p = _fir_chain(dev, 1)
+    runs = {}
+    for name, devs in (("mixed", layout), ("card", [dev] * 4),
+                       ("cpu", [cpu] * 4)):
+        step = time_shard_apply(p, stream_mesh(2, 2, devices=devs))
+        runs[name] = _run(step, p.init(batch_shape=(8,), device=dev), xs)
+    (ym, cm), Tl = runs["mixed"], 16384
+    for k, y in enumerate(ym):
+        assert y.device == xs[k].device
+        for g in range(2):
+            for i in range(2):
+                want = runs["card" if layout[2 * g + i] == dev else "cpu"]
+                sl = (slice(4 * g, 4 * g + 4), slice(i * Tl, (i + 1) * Tl))
+                assert torch.equal(y[sl], want[0][k][sl])
+    assert all(torch.equal(cm[0].cpu(), c[0].cpu())
+               for c in (runs["card"][1], runs["cpu"][1]))
+    p2 = _fir_chain(dev, 2)
+    step = time_shard_apply(p2, stream_mesh(2, 2, devices=layout))
+    ym, _ = _run(step, p2.init(batch_shape=(8,), device=dev), xs)
+    y1, _ = _run(p2, p2.init(batch_shape=(8,), device=dev), xs)
+    for a, b in zip(ym, y1):
+        assert _rel(a, b) < 1e-5
+
+
+def test_receiver_on_a_mesh_of_the_card_and_the_cpu(dev):
+    # each shard's slot group bit-equal to the same group of a mesh all on
+    # its own device; the carry (input samples, positions) equal
+    from liquid_dsp_tpu_torch.parallel import (framesync64_time_sharded,
+                                               stream_mesh)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu, T, P = torch.device("cpu"), 16384, 4
+    layout = [dev, cpu, cpu, dev]
+    x = _rx_capture(T, 3, 53).to(dev)
+    blocks = [x[:, k * T:(k + 1) * T] for k in range(3)]
+    runs = {}
+    for name, devs in (("mixed", layout), ("card", [dev] * 4),
+                       ("cpu", [cpu] * 4)):
+        init, step = framesync64_time_sharded(
+            T, stream_mesh(4, devices=devs), max_frames_per_shard=P)
+        runs[name] = _run(step, init(batch_shape=(2,)), blocks)
+    (om, cm) = runs["mixed"]
+    assert sum(int(o.valid.sum()) for o in om) == 5
+    for k, o in enumerate(om):
+        for i, d in enumerate(layout):
+            want = runs["card" if d == dev else "cpu"][0][k]
+            sl = (slice(None), slice(i * P, (i + 1) * P))
+            for fa, fb in zip(o, want):
+                assert torch.equal(fa[sl], fb[sl].to(fa.device))
+    for name in ("card", "cpu"):
+        c = runs[name][1]
+        assert all(torch.equal(cm[k], c[k].to(cm[k].device)) for k in cm)
+
+
+def test_stage_pipeline_of_the_card_and_the_cpu(dev):
+    from liquid_dsp_tpu_torch import chain, fuse, kernel_fuse
+    from liquid_dsp_tpu_torch.design.firdes import firdes_kaiser
+    from liquid_dsp_tpu_torch.ops.fir import firdecim, firfilt
+    from liquid_dsp_tpu_torch.ops.nco import nco
+    from liquid_dsp_tpu_torch.ops.resample import msresamp
+    from liquid_dsp_tpu_torch.parallel import StagePipeline
+
+    def stages():
+        return [kernel_fuse(fuse(chain(
+                    nco(dphi=0.125, direction="down"),
+                    firfilt(firdes_kaiser(64, 0.2, 60.0)),
+                    firdecim(4, firdes_kaiser(48, 0.1, 60.0))))),
+                msresamp(0.375)]
+    cpu = torch.device("cpu")
+    blocks = _cnoise(dev, (3, 8, 8192), 54)
+    pipe = StagePipeline(stages(), devices=[dev, cpu], batch_shape=(8,))
+    ys = [pipe.feed(b) for b in blocks]
+    s0, s1 = stages()
+    s0, s1 = s0.to(dev), s1.to(cpu)
+    c0 = s0.init(batch_shape=(8,), device=dev)
+    c1 = s1.init(batch_shape=(8,), device=cpu)
+    for b, y in zip(blocks, ys):
+        z, c0 = s0(c0, b)
+        z, c1 = s1(c1, z.cpu())
+        assert y.device == cpu and torch.equal(y, z)

@@ -278,12 +278,54 @@ def test_mf_symbol_gather_without_windows_matches_jax():
 
 
 def test_time_shard_hooks_and_interp_template_not_ported():
-    buf = torch.zeros(1, 1536 + T, dtype=torch.complex64)
+    # the time-shard hooks (once "not ported"): a frame 5 samples after
+    # the buffer head, so that its window's front pad is the left_ext
+    # samples; a low prev_peak keeps segment 0 a local peak, a high one
+    # drops it.  The port's three steps, as a time shard runs them
+    # (parallel/rx.py), against the JAX package's _detect_refine with the
+    # hooks, at the module's tolerances.
+    rng = np.random.default_rng(21)
     proc = framesync64_stream(T).core
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        stream_rx._detect_refine(buf, torch.zeros(1, dtype=torch.int32),
-                                 proc._dc(), 0.5, 4, T, proc.starts, 1432,
-                                 prev_peak=torch.zeros(1))
+    buf = 0.005 * tp.cnoise(rng, 1536 + T)
+    buf[5:5 + FRAME64_LEN] += _mkframe(rng)[2]
+    ext = 0.3 * rng.standard_normal((2, proc.Lb)).astype(np.float32)
+    R = jrx._rx_consts(T, jf._stream_cfg(), 4, 1536)
+    tb = torch.from_numpy(buf)[None]
+    for pk in (0.1, 10.0):
+        seg = stream_rx._detect_segments(tb, proc._dc(), 0.5, T, proc.starts,
+                                         torch.tensor([pk]))
+        keep = stream_rx._suppress(
+            torch.full((1,), -(1 << 30), dtype=torch.int32), seg["cand"],
+            seg["n0_seg"], proc.span)
+        got = stream_rx._refine(tb, seg, keep, proc._dc(), 4, T,
+                                front_pad=proc.Lb, win_len=proc.win_len,
+                                left_ext=torch.from_numpy(ext)[None])
+        want = jrx._detect_refine(
+            jnp.asarray(buf), jnp.int32(-(1 << 30)), R["dc"], 0.5, 4, T,
+            R["starts"], R["span"], front_pad=R["Lb"], win_len=R["win_len"],
+            prev_peak=jnp.float32(pk), left_ext=jnp.asarray(ext))
+        v = np.asarray(want["valid"])
+        np.testing.assert_array_equal(got["valid"][0].numpy(), v)
+        assert v.sum() == (1 if pk < 1 else 0)
+        np.testing.assert_array_equal(got["n0"][0].numpy()[v],
+                                      np.asarray(want["n0"])[v])
+        np.testing.assert_array_equal(got["cand"][0].numpy(),
+                                      np.asarray(want["cand"]))
+        for k in ("peak", "gamma", "tau"):
+            np.testing.assert_allclose(got[k][0].numpy()[v],
+                                       np.asarray(want[k])[v], rtol=1e-4)
+        np.testing.assert_allclose(got["dphi"][0].numpy()[v],
+                                   np.asarray(want["dphi"])[v],
+                                   atol=1e-4 * BIN)
+        if pk < 1:
+            gw, ww = got["win"][0].numpy()[v], np.asarray(want["win"])[v]
+            assert tp.rel_err(gw, ww) < 1e-6
+            # the window starts Lb samples before n0 < Lb: its head is
+            # the neighbour's samples, not zeros
+            n0 = int(np.asarray(want["n0"])[0])
+            assert n0 < proc.Lb
+            np.testing.assert_array_equal(
+                gw[0, :, :proc.Lb - n0], ext[:, n0:])
     # the interpolated template (once "not ported"): parity with the JAX
     # package's make_template on an arkaiser pulse at k = 2
     from liquid_dsp_tpu.framing import detector as jdet

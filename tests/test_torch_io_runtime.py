@@ -278,8 +278,16 @@ def test_shape_mismatch_raises(tmp_path):
 
 
 def test_mesh_raises_naming_item_6_and_the_card_is_the_default():
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        StreamRunner(_proc(), mesh=object(), device="cpu")
+    # the mesh (once a raise naming the item that ports it): a 2-shard
+    # time mesh of the CPU, its home device the runner's; a device other
+    # than the mesh's home raises
+    from liquid_dsp_tpu_torch.parallel import stream_mesh
+    mesh = stream_mesh(n_time=2, devices=["cpu", "cpu"])
+    r = StreamRunner(_proc(), batch_shape=(1,), mesh=mesh)
+    assert r.device == torch.device("cpu")
+    assert r(_signal(512, 3)[None]).shape == (1, 512)
+    with pytest.raises(ValueError, match="home device"):
+        StreamRunner(_proc(), mesh=mesh, device="cuda:0")
     with pytest.raises(RuntimeError, match="CUDA card"):
         StreamRunner(_proc())
 
