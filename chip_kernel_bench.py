@@ -11,6 +11,7 @@ by --root:
     python3 chip_kernel_bench.py --iir [--root DIR] [--tag NAME] [--sass DIR]
     python3 chip_kernel_bench.py --cvsd [--root DIR] [--tag NAME] [--sass DIR]
     python3 chip_kernel_bench.py --eq [--root DIR] [--tag NAME] [--vs DIR]
+    python3 chip_kernel_bench.py --fused [--root DIR] [--tag NAME] [--vs DIR]
 
 With two checkouts (this one and, say, `git archive` of its parent unpacked
 into a directory that .gitignore lists) run it in turns, one after the other,
@@ -108,6 +109,22 @@ the variants on the first of this checkout's turns), and prints both
 checkouts' times side by side:
 
     python3 chip_kernel_bench.py --eq --vs build/parent
+
+With --fused it runs, for the checkout given by --root, `pll_lms` on
+seeded slots (chip_smoke.py's `synth_slots`: 256 channels x 12288 slots,
+a sixth valid, qpsk at L = 13 and qam16 at L = 32) over 20 launches and
+twice, and saves its outputs and state; and where the checkout has the
+fused kernel, `symsync_pll_lms` per 4096-step chunk at 256 channels on a
+tracker's own inputs (a QPSK stream after 8192 samples) against
+`symsync_scan` + `pll_lms` on the same chunk (fused, sequential, in
+turns) and both tracker routes' steps at 256 x 32768.  The last line is
+`FUSED_RESULT {json}`.  With --vs DIR it runs that for DIR and for this
+checkout in turns (DIR, this, this, DIR), each in its own process, and
+prints the two checkouts' `pll_lms` outputs against each other (largest
+difference of y, decisions and every state leaf equal or not) and their
+times side by side:
+
+    python3 chip_kernel_bench.py --fused --vs build/parent
 
 Every line names the card and its power limit.
 """
@@ -1068,6 +1085,118 @@ def eq_turns(args):
               flush=True)
 
 
+FUSED_PLL = (("qpsk", 13), ("qam16", 32))   # pll_lms's cases in --fused
+
+
+def fused_bench(torch, cs, build, tag, name, save):
+    """--fused for one checkout (see the module's docstring)."""
+    import json
+    from liquid_dsp_tpu_torch.framing.symtrack import symtrack_stream
+    from liquid_dsp_tpu_torch.ops.kernels.pll_lms import pll_lms
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    lib = build.build()
+    build.load_library()
+    print(f"{tag} built in {time.perf_counter() - t0:.1f} s", flush=True)
+    print_ptxas(lib, tag, ("pll_lms", "symsync"))
+    result, outs = {"tag": name}, {}
+    for ms, L in FUSED_PLL:
+        st = symtrack_stream(ms=ms, eq_len=L).to(dev)
+        B, S = 256, 12288
+        sr, si, sv = cs.synth_slots(torch, dev, st, B, S, 1 / 6, L)
+        pc = st.pll_state(st.init(batch_shape=(B,), device=dev), B)
+        args = (sr, si, sv, pc, st.tab_re, st.tab_im)
+        y_re, y_im, dec, stt = pll_lms(*args, **st.pll_kwargs())
+        outs[ms] = {"y_re": y_re.cpu(), "y_im": y_im.cpu(), "dec": dec.cpu(),
+                    **{k: v.cpu() for k, v in stt.items()}}
+        ms_ = [cs.time_ms(lambda: pll_lms(*args, **st.pll_kwargs()))
+               for _ in range(2)]
+        result[f"pll_lms_{ms}"] = ms_
+        print(f"{tag} pll_lms {ms} L={L} at {B} x {S} slots: {ms_[0]:.4f}, "
+              f"{ms_[1]:.4f} ms", flush=True)
+    torch.save(outs, save)
+    if hasattr(cs, "fused_phase"):
+        from liquid_dsp_tpu_torch.ops.kernels.pll_lms import pll_lms as pl
+        from liquid_dsp_tpu_torch.ops.kernels.symsync_pll_lms import \
+            symsync_pll_lms
+        from liquid_dsp_tpu_torch.ops.kernels.symsync_scan import \
+            symsync_scan
+        B, T, warm = 256, 1 << 15, 8192
+        x, _ = cs.make_timing_stream(np.random.default_rng(41), B, warm + T,
+                                     7, 20.0, True)
+        x = torch.from_numpy(x).to(dev)
+        st = symtrack_stream().to(dev)
+        c = st.init(batch_shape=(B,), device=dev)
+        os.environ["LIQUID_SYMTRACK_FUSED"] = "0"
+        _, c = st(c, x[:, :warm])
+        ma, fs, is_, pc = cs.fused_inputs(torch, st, c, x[:, warm:warm + 4096])
+        kw = dict(npfb=32, max_out=3, k=2, k_out=1, bw=st.sync_bw,
+                  locked=False)
+
+        def seq():
+            sr_, si_, sv_, _, _ = symsync_scan(ma, fs, is_, **kw)
+            return pl(sr_, si_, sv_, pc, st.tab_re, st.tab_im,
+                      **st.pll_kwargs())
+
+        def fused():
+            return symsync_pll_lms(ma, fs, is_, pc, st.post, **kw)
+
+        chunk = [cs.time_ms(f, iters=10) for f in (fused, seq, seq, fused)]
+        steps = {}
+        for route in ("1", "0", "0", "1"):
+            os.environ["LIQUID_SYMTRACK_FUSED"] = route
+            steps.setdefault(route, []).append(
+                cs.time_ms(lambda: st(c, x[:, warm:]), iters=5))
+        result.update(chunk_fused=[chunk[0], chunk[3]],
+                      chunk_sequential=[chunk[1], chunk[2]],
+                      step_fused=steps["1"], step_sequential=steps["0"])
+        print(f"{tag} per 4096-step chunk at {B} channels: symsync_pll_lms "
+              f"{chunk[0]:.4f}, {chunk[3]:.4f} ms against symsync_scan + "
+              f"pll_lms {chunk[1]:.4f}, {chunk[2]:.4f} ms; symtrack_stream "
+              f"step at {B} x {T}: fused {steps['1'][0]:.4f}, "
+              f"{steps['1'][1]:.4f} ms, sequential {steps['0'][0]:.4f}, "
+              f"{steps['0'][1]:.4f} ms", flush=True)
+    print("FUSED_RESULT " + json.dumps(result), flush=True)
+
+
+def fused_turns(args):
+    """--fused --vs DIR: this script's --fused for DIR and for this
+    checkout in turns (DIR, this, this, DIR), each in its own process;
+    then the two checkouts' pll_lms outputs against each other and their
+    times side by side."""
+    import json
+    import torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    me = os.path.abspath(__file__)
+    turns = [(args.vs, "parent"), (args.root, args.tag),
+             (args.root, args.tag), (args.vs, "parent")]
+    got, saved = [], {}
+    for k, (root, tag) in enumerate(turns):
+        save = os.path.join(here, "build", f"fused_{tag}_{k}.pt")
+        cmd = [sys.executable, me, "--fused", "--root", root, "--tag", tag,
+               "--save", save]
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=here)
+        sys.stdout.write(proc.stdout)
+        sys.stderr.write(proc.stderr[-4000:])
+        if proc.returncode != 0:
+            sys.exit(f"chip_kernel_bench --fused for {root} failed "
+                     f"({proc.returncode})")
+        got += [json.loads(ln.split(" ", 1)[1])
+                for ln in proc.stdout.splitlines()
+                if ln.startswith("FUSED_RESULT ")]
+        saved.setdefault(tag, torch.load(save))
+    par, new = saved["parent"], saved[args.tag]
+    for ms, L in FUSED_PLL:
+        a, b = new[ms], par[ms]
+        dy = max(float((a[k] - b[k]).abs().max()) for k in ("y_re", "y_im"))
+        same = {k: bool(torch.equal(a[k], b[k])) for k in a}
+        print(f"pll_lms {ms} L={L}, {args.tag} against parent: y largest "
+              f"difference {dy:.3e}; equal: {same}", flush=True)
+        cells = "; ".join(f"{r['tag']} {r[f'pll_lms_{ms}'][0]:.4f}, "
+                          f"{r[f'pll_lms_{ms}'][1]:.4f}" for r in got)
+        print(f"pll_lms {ms} ms, turns in order: {cells}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
@@ -1083,9 +1212,14 @@ def main():
     ap.add_argument("--eq", action="store_true")
     ap.add_argument("--vs", metavar="DIR")
     ap.add_argument("--no-variants", action="store_true")
+    ap.add_argument("--fused", action="store_true")
+    ap.add_argument("--save", metavar="FILE", default="build/fused.pt")
     args = ap.parse_args()
     if args.eq and args.vs:
         eq_turns(args)
+        return
+    if args.fused and args.vs:
+        fused_turns(args)
         return
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -1131,6 +1265,9 @@ def main():
         return
     if args.eq:
         eq_bench(torch, cs, build, tag, args.tag, not args.no_variants)
+        return
+    if args.fused:
+        fused_bench(torch, cs, build, tag, args.tag, args.save)
         return
     t0 = time.perf_counter()
     lib = build.build()

@@ -67,10 +67,12 @@ channel, made with numpy and scipy):
      on every channel, symsync_scan launched once per chunk and block;
  13. symtrack_stream(ms="qpsk") over 3 carried blocks, adding per-channel
      gain, carrier phase and on a quarter of the channels a CFO up to
-     5e-4 rad/sample, at 20 dB SNR: over the third block's last 8192
+     5e-4 rad/sample, at 20 dB SNR, on the route the card's rule picks
+     (framing/symtrack.py's _use_fused): over the third block's last 8192
      symbols the decisions equal those sent up to a delay and a multiple
-     of 90 degrees (SER <= 1e-3) on every channel; agc_scan, symsync_scan
-     and pll_lms launched as the blocks and chunks say;
+     of 90 degrees (SER <= 1e-3) on every channel; agc_scan and that
+     route's kernels (symsync_scan and pll_lms, or symsync_pll_lms)
+     launched as the blocks and chunks say;
  14. each new kernel against its plain version on the same inputs and
      states: symsync_scan bit-equal over 1024 steps x 256 channels,
      agc_scan bit-equal (else max|err|/rms <= 1e-6) over 1024 samples,
@@ -93,7 +95,22 @@ channel, made with numpy and scipy):
      1024 steps / 3072 slots (plain, kernel, kernel, plain), each kernel
      at full width, and the symsync and symtrack_stream block steps;
  17. torch.profiler over 3 symtrack_stream steps: device time by kernel,
-     device operations per step, busy share (a measurement, no check).
+     device operations per step, busy share (a measurement, no check);
+ 41. (right after phase 17, on phase 13's stream) symtrack's two routes
+     over its 3 carried blocks, LIQUID_SYMTRACK_FUSED=1 and =0: on the
+     fused route symsync_pll_lms launched once per chunk and block and
+     neither symsync_scan nor pll_lms, valid masks and decisions equal to
+     the sequential route's, symbols and carries within 2e-4 (the largest
+     difference printed, 0 when bit-equal), SER <= 1e-3 on every channel;
+     symsync_pll_lms against its plain version on 256 channels x 1024
+     steps (the timing loop's slot mask and state bit-equal, y and the
+     PLL state within 2e-4, decisions and eq_n equal), on a ragged chunk
+     (509 steps), from the zero state (acquisition), at L = 32 and with
+     the argmin slicer (qam16, its own stream); times (CUDA events): the
+     kernel at 1024 steps against its plain version, per 4096-step chunk
+     against symsync_scan + pll_lms on the same chunk, both routes' block
+     steps at 1, 8, 32, 64 and 256 channels x 32768 samples (the crossover
+     the card's rule rests on), and torch.profiler over 3 fused steps.
 
 Then the channelizer family, the 64-channel wideband scanner and the
 flexframe receiver on block codes:
@@ -342,8 +359,10 @@ card (the cards in turn where there are several):
      card synchronized), and torch.profiler over the sharded chain's and
      receiver's steps.
 
-The JSON line before the card's name lists all twelve kernels, each with
-its launches on its main path (mix_fir_decim also per path, in
+The JSON line before the card's name lists all thirteen kernels, each
+with its launches on its main path (symsync_scan on symsync and, in
+"launches_by_path", the tracker's sequential route; pll_lms on that route;
+symsync_pll_lms on the fused route; mix_fir_decim also per path, in
 "launches_by_path": the headline chain, multirate_rx, stream_runner and
 the StagePipeline; fir_real on firfilt(backend="pallas") and the
 time-sharded chain; codebook_argmax also per path, in
@@ -382,6 +401,8 @@ TR_CMP = 1024      # steps (x3 slots for pll_lms) of the kernel-vs-plain runs
 TR_AGC = 1024      # samples of the agc_scan comparison (its plain loop is slow)
 TR_TAIL = 8192     # symtrack symbols checked in the last block
 TR_SMALL = (4, 4096)   # channels x samples of the card-vs-CPU run
+TR_WARM = 8192     # samples a stress case's tracker runs before the window
+TR_CROSS = (1, 8, 32, 64, 256)   # channels of the routes' crossover
 TOL_TAIL = 5e-3    # symsync tail error (tests/test_symsync_misc.py:45-56)
 TOL_STREAM = 2e-4  # symtrack stream tolerance (tests/test_framing_extras.py:56)
 TOL_AGC = 1e-6     # agc_scan vs plain, max|err|/rms, if not bit-equal
@@ -861,8 +882,24 @@ def main():
     took("phases 1-8 (the build included)")
     kernels += receiver_phases(torch, dev, card)
     took("phases 9-11")
-    kernels += timing_phases(torch, dev, card)
+    tr_ctx, tr_entries = timing_phases(torch, dev, card)
+    kernels += tr_entries
     took("phases 12-17")
+    seq_n, fused_entry = fused_phase(torch, dev, card, tr_ctx)
+    # symsync_scan's own path is symsync (phase 12); it and pll_lms run on
+    # the tracker's sequential route too, which phase 41 drives alone
+    for ent in tr_entries:
+        if ent["name"] == "symsync_scan":
+            ent["launches"] = tr_ctx["ss_launches"]
+            ent["launches_by_path"] = {
+                "symsync": tr_ctx["ss_launches"],
+                "symtrack_sequential": seq_n["symsync_scan"]}
+        elif ent["name"] == "pll_lms":
+            ent["launches"] = seq_n["pll_lms"]
+            ent["launches_by_path"] = {"symtrack_sequential":
+                                       seq_n["pll_lms"]}
+    del tr_ctx
+    took("phase 41")
     channelizer_phases(torch, dev, card)
     took("phases 18-19")
     sc_launches, sc_err = scanner_phases(torch, dev, card)
@@ -935,7 +972,8 @@ def main():
                               "OFDMFlexFrameSync": fs_vt}
     vt["max_abs_err"] = max(vt["max_abs_err"], gm_vt_err, fs_vt_err)
     kernels += [vt, scan_entry, block_entry, cvsd_entry] + eq_entries
-    check(len(kernels) == 12, f"{len(kernels)} kernels listed, want 12")
+    kernels.append(fused_entry)
+    check(len(kernels) == 13, f"{len(kernels)} kernels listed, want 13")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1172,18 +1210,19 @@ def time_once(fn):
     return e0.elapsed_time(e1), out
 
 
-def make_timing_stream(rng, B, n, m, snr_db, carrier):
-    """QPSK at 2 samples/symbol through an arkaiser(2, m, 0.3) pulse with a
-    fractional delay in [-0.5, 0.5) samples per channel, white noise at
-    `snr_db`: x [B, n] complex64 and the symbol indices sent [B, n/2 + 2m].
-    With `carrier`, each channel also gets a gain in [0.3, 2] and a
-    carrier phase, and every 4th channel a CFO of 1e-4..5e-4 rad/sample."""
+def make_timing_stream(rng, B, n, m, snr_db, carrier, ms="qpsk"):
+    """Symbols of `ms` (QPSK unless given) at 2 samples/symbol through an
+    arkaiser(2, m, 0.3) pulse with a fractional delay in [-0.5, 0.5)
+    samples per channel, white noise at `snr_db`: x [B, n] complex64 and
+    the symbol indices sent [B, n/2 + 2m].  With `carrier`, each channel
+    also gets a gain in [0.3, 2] and a carrier phase, and every 4th
+    channel a CFO of 1e-4..5e-4 rad/sample."""
     from scipy.signal import upfirdn
     from liquid_dsp_tpu_torch.design.firdes import firdes_prototype
     from liquid_dsp_tpu_torch.modem import constellation
-    table = constellation("qpsk").astype(np.complex64)
+    table = constellation(ms).astype(np.complex64)
     nsym = n // 2 + 2 * m
-    idx = rng.integers(0, 4, (B, nsym))
+    idx = rng.integers(0, len(table), (B, nsym))
     x = np.empty((B, n), np.complex64)
     t = np.arange(n)
     for ch in range(B):
@@ -1332,15 +1371,19 @@ def pll_bound(valid, L):
 
 
 def timing_phases(torch, dev, card):
-    """Phases 12-16: symsync and symtrack_stream at full width, the
-    symsync_scan, agc_scan and pll_lms kernels.  Returns their kernel
-    entries."""
+    """Phases 12-17: symsync and symtrack_stream at full width, the
+    symsync_scan, agc_scan and pll_lms kernels.  Returns (what phase 41
+    reuses: phase 13's stream and tracker, the chunks a block, phase 12's
+    symsync_scan launches; the three kernels' entries)."""
     from unittest import mock
-    from liquid_dsp_tpu_torch.framing.symtrack import symtrack_stream
+    from liquid_dsp_tpu_torch.framing.symtrack import (_use_fused,
+                                                       symtrack_stream)
     from liquid_dsp_tpu_torch.modem import constellation
     from liquid_dsp_tpu_torch.ops import symsync as symsync_mod
     from liquid_dsp_tpu_torch.ops.kernels.agc_scan import (
         agc_scan, agc_scan_reference)
+    from liquid_dsp_tpu_torch.ops.kernels.symsync_pll_lms import \
+        symsync_pll_lms
     from liquid_dsp_tpu_torch.ops.kernels.pll_lms import (
         pll_lms, pll_lms_reference)
     from liquid_dsp_tpu_torch.ops.kernels.symsync_scan import (
@@ -1400,6 +1443,7 @@ def timing_phases(torch, dev, card):
     c = st.init(batch_shape=(B,), device=dev)
     st_carries, st_outs = [c], []
     agc_scan.launches = symsync_scan.launches = pll_lms.launches = 0
+    symsync_pll_lms.launches = 0
     t0 = time.perf_counter()
     for b in range(NB):
         out, c = st(c, x2[:, b * T:(b + 1) * T])
@@ -1409,9 +1453,15 @@ def timing_phases(torch, dev, card):
     t_run = time.perf_counter() - t0
     launches = {"agc_scan": agc_scan.launches,
                 "symsync_scan": symsync_scan.launches,
-                "pll_lms": pll_lms.launches}
-    want = {"agc_scan": NB, "symsync_scan": nch * NB, "pll_lms": NB}
-    check(launches == want, f"symtrack launches {launches}, want {want}")
+                "pll_lms": pll_lms.launches,
+                "symsync_pll_lms": symsync_pll_lms.launches}
+    # the route the card's rule picks for this batch (phase 41 runs both)
+    fused = _use_fused((B,), dev)
+    want = {"agc_scan": NB, "symsync_scan": 0 if fused else nch * NB,
+            "pll_lms": 0 if fused else NB,
+            "symsync_pll_lms": nch * NB if fused else 0}
+    check(launches == want, f"symtrack launches {launches}, want {want} "
+          f"({'fused' if fused else 'sequential'} route)")
     for sy, dec, sv in st_outs:
         check(sy.shape == (B, 3 * T) and dec.shape == (B, 3 * T),
               f"symtrack output {tuple(sy.shape)} {tuple(dec.shape)}")
@@ -1427,7 +1477,8 @@ def timing_phases(torch, dev, card):
     check(max(sers) <= MAX_SER, f"symtrack SER {max(sers):.2e} (channel "
           f"{int(np.argmax(sers))}) > {MAX_SER}")
     print(f"symtrack: symtrack_stream(ms='qpsk') at {B}x{T}, {NB} carried "
-          f"blocks, gain 0.3-2, random phase, CFO up to 5e-4 rad/sample on "
+          f"blocks on the card's default ({'fused' if fused else 'sequential'}"
+          f") route, gain 0.3-2, random phase, CFO up to 5e-4 rad/sample on "
           f"{(B + 3) // 4} channels, 20 dB SNR; SER over the last "
           f"{TR_TAIL} symbols max {max(sers):.2e} (<= {MAX_SER}), "
           f"{sum(s > 0 for s in sers)} channels with any error; launches "
@@ -1703,8 +1754,11 @@ def timing_phases(torch, dev, card):
 
     # 17. where the tracker step's device time goes
     profile_steps(torch, card, lambda: st(c2, xb2), 3,
-                  f"symtrack_stream step at {B}x{T}")
-    return [{
+                  f"symtrack_stream step at {B}x{T} ("
+                  f"{'fused' if fused else 'sequential'} route)")
+    ctx = {"x2": x2, "idx2": idx2, "rot": rot, "st": st, "nch": nch,
+           "ss_launches": ss_launches}
+    return ctx, [{
         "name": "symsync_scan", "route": "cuda",
         "source": "liquid_dsp_tpu_torch/csrc/symsync_scan.cu",
         "replaces": "liquid_dsp_tpu/ops/kernels/pallas_symsync.py:132",
@@ -1727,6 +1781,262 @@ def timing_phases(torch, dev, card):
         "ms": pl_ms, "plain_ms": pl_plain, "library_ms": None, **pl_bound,
         "steps": int(sr.shape[1]), "full_block_ms": pl_full,
         "full_block_bound_ms": pl_full_bound["bound_ms"]}]
+
+
+def fused_inputs(torch, st, c, x):
+    """What `symsync_pll_lms` takes for the tracker `st` at carry `c` on the
+    samples x [B, n]: (ma, fstate, istate, PLL state)."""
+    from liquid_dsp_tpu_torch.ops.symsync import (branch_kernel,
+                                                  branch_outputs, loop_state)
+    B = x.shape[0]
+    y, _ = st.ag(c["agc"], x)
+    xp = torch.cat([c["ss"]["win"][..., 1:], y], -1)
+    ma = branch_outputs(branch_kernel(st.ss.mf, st.ss.dmf, x.device),
+                        torch.stack([xp.real, xp.imag]).contiguous())
+    fs, is_ = loop_state(c["ss"], B)
+    return ma, fs, is_, st.pll_state(c, B)
+
+
+def fused_bound(out, P, L):
+    """Bound of one `symsync_pll_lms` call from its own output: 2P floats
+    read per active emit (a valid slot), 13 bytes written per slot (y, the
+    decision, the mask), both states read and written; per active emit
+    about 12 float32 operations of the timing loop, 16 L of the equalizer's
+    dot and update and 60 of the PLL and the slicers.  The slots pass
+    through shared memory, so unlike symsync_scan + pll_lms they count
+    once."""
+    B, S = out.valid.shape
+    active = int(out.valid.sum())
+    return bound(active * 2 * P * 4 + B * S * 13
+                 + 2 * B * (8 * 4 + (4 * L + 4) * 4 + 8),
+                 active * (12 + 16 * L + 60))
+
+
+def fused_phase(torch, dev, card, ctx):
+    """Phase 41: symtrack's fused route on symsync_pll_lms, on phase 13's
+    stream, against the sequential route; the kernel against its plain
+    version; the two routes' times.  Returns the launches of the
+    sequential route's kernels and the new kernel's entry."""
+    from unittest import mock
+    from liquid_dsp_tpu_torch.framing.symtrack import symtrack_stream
+    from liquid_dsp_tpu_torch.ops.kernels.agc_scan import agc_scan
+    from liquid_dsp_tpu_torch.ops.kernels.pll_lms import pll_lms
+    from liquid_dsp_tpu_torch.ops.kernels.symsync_pll_lms import (
+        symsync_pll_lms, symsync_pll_lms_reference)
+    from liquid_dsp_tpu_torch.ops.kernels.symsync_scan import symsync_scan
+
+    B, T, NB = TR_B, TR_T, TR_NBLK
+    x2, st, nch = ctx["x2"], ctx["st"], ctx["nch"]
+
+    def route(fused):
+        return mock.patch.dict(os.environ, {
+            "LIQUID_SYMTRACK_FUSED": "1" if fused else "0"})
+
+    # both routes over phase 13's 3 carried blocks, counts from 0 each
+    runs = {}
+    for fused in (False, True):
+        agc_scan.launches = symsync_scan.launches = pll_lms.launches = 0
+        symsync_pll_lms.launches = 0
+        c = st.init(batch_shape=(B,), device=dev)
+        outs, carries = [], [c]
+        with route(fused):
+            for b in range(NB):
+                out, c = st(c, x2[:, b * T:(b + 1) * T])
+                outs.append(out)
+                carries.append(c)
+        torch.cuda.synchronize()
+        runs[fused] = (outs, carries, {
+            "agc_scan": agc_scan.launches,
+            "symsync_scan": symsync_scan.launches,
+            "pll_lms": pll_lms.launches,
+            "symsync_pll_lms": symsync_pll_lms.launches})
+    (s_outs, s_cs, s_n), (f_outs, f_cs, f_n) = runs[False], runs[True]
+    check(s_n == {"agc_scan": NB, "symsync_scan": nch * NB, "pll_lms": NB,
+                  "symsync_pll_lms": 0}, f"sequential route launches {s_n}")
+    check(f_n == {"agc_scan": NB, "symsync_scan": 0, "pll_lms": 0,
+                  "symsync_pll_lms": nch * NB},
+          f"fused route launches {f_n}: want symsync_pll_lms {nch} chunks "
+          f"x {NB} blocks and neither symsync_scan nor pll_lms")
+    sym_diff, bits = 0.0, True
+    for b, ((ys, ds, vs), (yf, df, vf)) in enumerate(zip(s_outs, f_outs)):
+        check(torch.equal(vs, vf), f"fused vs sequential, block {b}: valid "
+              f"masks differ")
+        check(torch.equal(ds, df), f"fused vs sequential, block {b}: "
+              f"{int((ds != df).sum())} decisions differ")
+        sym_diff = max(sym_diff, float((ys - yf).abs().max()))
+        bits = bits and torch.equal(torch.view_as_real(ys),
+                                    torch.view_as_real(yf))
+    s_c, f_c = s_cs[-1], f_cs[-1]
+    carry_diff = 0.0
+    for key in ("theta", "dtheta", "eq_w", "eq_buf", "eq_x2"):
+        carry_diff = max(carry_diff, float((s_c[key] - f_c[key]).abs().max()))
+        bits = bits and torch.equal(s_c[key], f_c[key])
+    check(torch.equal(s_c["eq_n"], f_c["eq_n"]) and all(
+        torch.equal(v, f_c["ss"][k_]) for k_, v in s_c["ss"].items()) and all(
+        torch.equal(v, f_c["agc"][k_]) for k_, v in s_c["agc"].items()),
+        "fused vs sequential: the timing, AGC or eq_n carries differ")
+    check(sym_diff <= TOL_STREAM and carry_diff <= TOL_STREAM,
+          f"fused vs sequential: symbols {sym_diff:.3e}, carries "
+          f"{carry_diff:.3e} (> {TOL_STREAM})")
+    dec_all = torch.cat([d for _, d, _ in f_outs], -1).cpu().numpy()
+    val_all = torch.cat([v for _, _, v in f_outs], -1).cpu().numpy()
+    sers = [qpsk_ser(dec_all[ch][val_all[ch]], ctx["idx2"][ch], ctx["rot"],
+                     TR_TAIL) for ch in range(B)]
+    check(max(sers) <= MAX_SER, f"fused route SER {max(sers):.2e} (channel "
+          f"{int(np.argmax(sers))}) > {MAX_SER}")
+    same = "bit-equal" if bits else "not bit-equal"
+    print(f"fused route: symtrack_stream at {B}x{T}, {NB} carried blocks "
+          f"with LIQUID_SYMTRACK_FUSED=1 against =0: valid masks and "
+          f"decisions equal, largest difference symbols {sym_diff:.3e}, "
+          f"carries {carry_diff:.3e} ({same}); SER over the last {TR_TAIL} "
+          f"symbols max {max(sers):.2e} (<= {MAX_SER}), "
+          f"{sum(v > 0 for v in sers)} channels with any error; launches "
+          f"fused {f_n}, sequential {s_n}", flush=True)
+    del s_outs, f_outs
+
+    # the kernel against its plain version on the same inputs and states
+    kw = dict(npfb=32, max_out=3, k=2, k_out=1, bw=st.sync_bw, locked=False)
+
+    def hold(name, trk, ma_, fs_, is__, pc_, p_=None):
+        k_ = symsync_pll_lms(ma_, fs_, is__, pc_, trk.post, **kw)
+        if p_ is None:
+            p_ = symsync_pll_lms_reference(ma_, fs_, is__, pc_, trk.post,
+                                           **kw)
+        torch.cuda.synchronize()
+        for f_ in ("valid", "fstate", "istate"):
+            check(torch.equal(getattr(k_, f_), getattr(p_, f_)),
+                  f"symsync_pll_lms, {name}: the timing loop's {f_} differs "
+                  f"from the plain version")
+        err = max(float((k_.y_re - p_.y_re).abs().max()),
+                  float((k_.y_im - p_.y_im).abs().max()))
+        check(err <= TOL_STREAM, f"symsync_pll_lms, {name}: {err:.3e} vs "
+              f"plain")
+        check(torch.equal(k_.dec, p_.dec), f"symsync_pll_lms, {name}: "
+              f"{int((k_.dec != p_.dec).sum())} decisions differ")
+        check(torch.equal(k_.pll_state["eq_n"], p_.pll_state["eq_n"]),
+              f"symsync_pll_lms, {name}: eq_n differs")
+        for key in p_.pll_state:
+            d = float((k_.pll_state[key].float()
+                       - p_.pll_state[key].float()).abs().max())
+            check(d <= TOL_STREAM, f"symsync_pll_lms, {name}: state {key} "
+                  f"{d:.3e}")
+        return k_, err
+
+    c2 = s_cs[2]
+    ma, fs, is_, pc = fused_inputs(torch, st, c2, x2[:, 2 * T:2 * T + TR_CMP])
+    fup1, out_p = time_once(lambda: symsync_pll_lms_reference(
+        ma, fs, is_, pc, st.post, **kw))
+    out_k, fu_err = hold(f"{B} x {TR_CMP} steps", st, ma, fs, is_, pc, out_p)
+    del out_p
+    fu_bound = fused_bound(out_k, 2, st.L)
+    stress = {f"{B} x {TR_CMP} steps": fu_err}
+    stress[f"ragged chunk ({TR_STRESS} steps)"] = hold(
+        "ragged chunk", st, ma[..., :TR_STRESS].contiguous(), fs, is_, pc)[1]
+    stress["from the zero state"] = hold(
+        "zero state", st, *fused_inputs(torch, st, s_cs[0], x2[:, :TR_CMP]))[1]
+    st32 = symtrack_stream(ms="qpsk", eq_len=32).to(dev)
+    c32 = st32.init(batch_shape=(B,), device=dev)
+    with route(False):
+        _, c32 = st32(c32, x2[:, :TR_WARM])
+    stress["L=32"] = hold("L=32", st32, *fused_inputs(
+        torch, st32, c32, x2[:, TR_WARM:TR_WARM + TR_CMP]))[1]
+    x16, _ = make_timing_stream(np.random.default_rng(16), B,
+                                TR_WARM + TR_CMP, 7, 30.0, False, ms="qam16")
+    x16 = torch.from_numpy(x16).to(dev)
+    st16 = symtrack_stream(ms="qam16").to(dev)
+    c16 = st16.init(batch_shape=(B,), device=dev)
+    with route(False):
+        _, c16 = st16(c16, x16[:, :TR_WARM])
+    stress["argmin slicer (qam16)"] = hold("qam16", st16, *fused_inputs(
+        torch, st16, c16, x16[:, TR_WARM:]))[1]
+    del x16, out_k
+    print(f"symsync_pll_lms vs plain, {B} channels: the timing loop's mask "
+          f"and state bit-equal, decisions and eq_n equal, max|err| of "
+          f"y and state at most: " + "; ".join(
+              f"{k_} {v_:.3e}" for k_, v_ in stress.items())
+          + f" (<= {TOL_STREAM})", flush=True)
+
+    # times: plain, kernel, kernel, plain at the comparison shape; the
+    # kernel against the two sequential kernels on one full chunk
+    fuk1 = time_ms(lambda: symsync_pll_lms(ma, fs, is_, pc, st.post, **kw),
+                   iters=5)
+    fuk2 = time_ms(lambda: symsync_pll_lms(ma, fs, is_, pc, st.post, **kw),
+                   iters=5)
+    fup2 = time_once(lambda: symsync_pll_lms_reference(
+        ma, fs, is_, pc, st.post, **kw))[0]
+    fu_ms, fu_plain = (fuk1 + fuk2) / 2, (fup1 + fup2) / 2
+    del ma
+    ma_c, fs_c, is_c, pc_c = fused_inputs(torch, st, c2,
+                                          x2[:, 2 * T:2 * T + T // nch])
+
+    def seq_chunk():
+        sr_, si_, sv_, _, _ = symsync_scan(ma_c, fs_c, is_c, **kw)
+        return pll_lms(sr_, si_, sv_, pc_c, st.tab_re, st.tab_im,
+                       **st.pll_kwargs())
+
+    def fused_chunk():
+        return symsync_pll_lms(ma_c, fs_c, is_c, pc_c, st.post, **kw)
+
+    sq1 = time_ms(seq_chunk, iters=5)
+    fc1 = time_ms(fused_chunk, iters=5)
+    fc2 = time_ms(fused_chunk, iters=5)
+    sq2 = time_ms(seq_chunk, iters=5)
+    ss_alone = time_ms(lambda: symsync_scan(ma_c, fs_c, is_c, **kw), iters=5)
+    sr_c, si_c, sv_c, _, _ = symsync_scan(ma_c, fs_c, is_c, **kw)
+    pl_alone = time_ms(lambda: pll_lms(sr_c, si_c, sv_c, pc_c, st.tab_re,
+                                       st.tab_im, **st.pll_kwargs()), iters=5)
+    chunk_bound = fused_bound(fused_chunk(), 2, st.L)
+    fc_ms = (fc1 + fc2) / 2
+    del ma_c, sr_c, si_c, sv_c
+    print(f"timing ({card}): symsync_pll_lms {fu_ms:.4f} ms (runs "
+          f"{fuk1:.4f}, {fuk2:.4f}) vs plain {fu_plain:.2f} ms (runs "
+          f"{fup1:.2f}, {fup2:.2f}) at {B} x {TR_CMP} steps; per "
+          f"{T // nch}-step chunk {fc_ms:.4f} ms (runs {fc1:.4f}, {fc2:.4f})"
+          f" against symsync_scan + pll_lms {(sq1 + sq2) / 2:.4f} ms (runs "
+          f"{sq1:.4f}, {sq2:.4f}; alone {ss_alone:.4f} and {pl_alone:.4f});"
+          f" bound {fu_bound['bound_ms']:.5f} / {chunk_bound['bound_ms']:.5f}"
+          f" ms by {chunk_bound['bound_by']}", flush=True)
+
+    # the two routes' block steps at 32768 samples by channels (the
+    # crossover the card's rule rests on): sequential, fused, fused,
+    # sequential at each B
+    steps = {}
+    for Bc in TR_CROSS:
+        xb = x2[:Bc, 2 * T:].contiguous()
+        cb = st.init(batch_shape=(Bc,), device=dev)
+        ts = []
+        for fused in (False, True, True, False):
+            with route(fused):
+                ts.append(time_ms(lambda: st(cb, xb), iters=3))
+        steps[Bc] = ((ts[0] + ts[3]) / 2, (ts[1] + ts[2]) / 2, ts)
+    print(f"timing ({card}): symtrack_stream step at {T} samples, "
+          f"sequential / fused ms (runs s, f, f, s): " + "; ".join(
+              f"B={Bc} {sq:.4f} / {fu:.4f} ({', '.join(f'{t:.4f}' for t in ts)})"
+              for Bc, (sq, fu, ts) in steps.items()) + " ; fused wins at B = "
+          + ", ".join(str(Bc) for Bc, (sq, fu, _) in steps.items() if fu < sq),
+          flush=True)
+
+    # where the fused step's device time goes
+    with route(True):
+        profile_steps(torch, card, lambda: st(c2, x2[:, 2 * T:]), 3,
+                      f"symtrack_stream step at {B}x{T}, fused route")
+    return s_n, {
+        "name": "symsync_pll_lms", "route": "cuda",
+        "source": "liquid_dsp_tpu_torch/csrc/symsync_pll_lms.cu",
+        "replaces": None,
+        "recurrence": "liquid_dsp_tpu/ops/symsync.py:187-206 with "
+                      "liquid_dsp_tpu/framing/symtrack.py:218-267,284-296 "
+                      "(lax.scan: the loop of pallas_symsync.py:132 with "
+                      "the post step)",
+        "launches": f_n["symsync_pll_lms"], "max_abs_err": max(
+            stress.values()),
+        "ms": fu_ms, "plain_ms": fu_plain, "library_ms": None, **fu_bound,
+        "steps": TR_CMP, "full_chunk_ms": fc_ms,
+        "full_chunk_bound_ms": chunk_bound["bound_ms"],
+        "sequential_chunk_ms": (sq1 + sq2) / 2,
+        "tracker_step_ms": {str(Bc): {"sequential": sq, "fused": fu}
+                            for Bc, (sq, fu, _) in steps.items()},
+        "fused_vs_sequential_max_diff": max(sym_diff, carry_diff)}
 
 
 CH_KINDS = ("firpfbch_analyzer", "firpfbch_synthesizer",

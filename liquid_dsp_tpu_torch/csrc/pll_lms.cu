@@ -61,13 +61,17 @@
 //   registers.
 //
 // Numerics: float32 with the accurate sincosf, an atan2 by polynomial
-// (7e-8 rad) and a fast division for the gain (2 ulp), and nvcc's default
-// FMA contraction.  The length-L
+// (7e-8 rad) and a fast division for the gain (2 ulp); every other
+// rounding is written out (one FMA for each part of a complex product), so
+// that nvcc contracts nothing by its own choice.  The length-L
 // dot is summed as a tree across lanes with the newest tap added last,
 // and through A + (g e) C instead of from the updated taps: another order
 // and association than the plain PyTorch version's
 // (ops/kernels/pll_lms.py), so the two agree to the stream tolerance
 // (2e-4, decisions equal), not bit for bit.
+//
+// The slicers, the atan2 and the walk over a group are pll_lms_step.cuh's,
+// shared with symsync_pll_lms.cu (the same step inside the timing loop).
 //
 // Built by liquid_dsp_tpu_torch/ops/kernels/build.py with nvcc for sm_90a,
 // bound with ctypes; the C entry returns cudaGetLastError().
@@ -75,76 +79,16 @@
 #include <cuda_runtime.h>
 
 #include "cp_async.cuh"
+#include "pll_lms_step.cuh"
 
 namespace {
+
+using pll_lms_step::FULL;
+using pll_lms_step::Slicer;
 
 constexpr int THREADS = 32;          // one warp = one channel
 constexpr int TILE = 256;            // slots per staged tile
 constexpr int GROUPS = TILE / 32;    // 32-slot groups per tile
-constexpr unsigned FULL = 0xffffffffu;
-
-struct Slicer {
-  const float* tab_re;
-  const float* tab_im;
-  int M, k00, k01, k10, k11;
-  float s2v;
-
-  template <bool QPSK>
-  __device__ __forceinline__ int nearest(float v_re, float v_im, float* r_re,
-                                         float* r_im) const {
-    if (QPSK) {
-      const bool a = v_re < 0.f, b = v_im < 0.f;
-      *r_re = a ? -s2v : s2v;
-      *r_im = b ? -s2v : s2v;
-      return a ? (b ? k11 : k10) : (b ? k01 : k00);
-    }
-    int best = 0;
-    float dbest = 0.f;
-    for (int m = 0; m < M; ++m) {
-      const float dr = v_re - __ldg(tab_re + m);
-      const float di = v_im - __ldg(tab_im + m);
-      const float d2 = dr * dr + di * di;
-      if (m == 0 || d2 < dbest) {
-        dbest = d2;
-        best = m;
-      }
-    }
-    *r_re = __ldg(tab_re + best);
-    *r_im = __ldg(tab_im + best);
-    return best;
-  }
-};
-
-// atan2(y, x) of finite arguments without a branch or a call, so that the
-// compiler can weave the PLL chain and the LMS work into one block: the
-// smaller magnitude over the larger (fast reciprocal, 2 ulp), an odd
-// polynomial for atan on [0, 1] (max error 7e-8 rad against float64), then
-// the octant by selects.  Zeros follow atan2f: the sign bit of x picks
-// 0 or pi, the sign of y the sign.
-__device__ __forceinline__ float atan2_poly(float y, float x) {
-  const float ax = fabsf(x), ay = fabsf(y);
-  const float mx = fmaxf(ax, ay), mn = fminf(ax, ay);
-  const float a = mx > 0.f ? __fdividef(mn, mx) : 0.f;
-  const float s = a * a;
-  float r = 0.0027856871f;
-  r = r * s - 0.0158660002f;
-  r = r * s + 0.042472221f;
-  r = r * s - 0.0749753043f;
-  r = r * s + 0.106448799f;
-  r = r * s - 0.142070308f;
-  r = r * s + 0.199934542f;
-  r = r * s - 0.333331466f;
-  r = r * s * a + a;
-  r = ay > ax ? 1.57079637f - r : r;
-  r = __float_as_int(x) < 0 ? 3.14159274f - r : r;
-  return copysignf(r, y);
-}
-
-// What an output needs of the state: the dot over the shifted window, the
-// newest tap and the rotation.
-struct Frozen {
-  float p_re, p_im, wl_re, wl_im, cth, sth;
-};
 
 template <int LM, bool QPSK>
 __global__ void __launch_bounds__(THREADS)
@@ -161,34 +105,18 @@ pll_lms_kernel(const float* __restrict__ s_re, const float* __restrict__ s_im,
   __shared__ float sh_im[2][TILE];
   const int b = blockIdx.x;
   const int lane = threadIdx.x;
-  const int jt = lane & (LM - 1);      // this lane's tap
-  const bool newest = jt == L - 1;     // the tap that takes the new sample
-  const bool ahead = jt < L - 1;       // taps with a shifted-ahead sample
-
-  const size_t tap0 = static_cast<size_t>(b) * L;
-  float w_re = jt < L ? w_re_io[tap0 + jt] : 0.f;
-  float w_im = jt < L ? w_im_io[tap0 + jt] : 0.f;
-  float sb_re = ahead ? b_re_io[tap0 + jt + 1] : 0.f;
-  float sb_im = ahead ? b_im_io[tap0 + jt + 1] : 0.f;
-  float old_re = b_re_io[tap0], old_im = b_im_io[tap0];   // buf_0
-  float theta = theta_io[b], dtheta = dtheta_io[b], x2s = x2_io[b];
-  int n = n_io[b];
+  pll_lms_step::Chain<LM, QPSK> ch;
+  ch.sl = sl;
+  ch.alpha = alpha;
+  ch.beta2 = beta2;
+  ch.mu = mu;
+  ch.L = L;
+  ch.lane = lane;
+  ch.load(theta_io, dtheta_io, w_re_io, w_im_io, b_re_io, b_im_io, x2_io,
+          n_io, b);
+  ch.start(true, 0.f, 0.f);
   const size_t row = static_cast<size_t>(b) * S;
   const int ntiles = (S + TILE - 1) / TILE;
-
-  // a sum over the lanes' taps; the butterfly leaves the same bits in
-  // every lane (each level adds the same two numbers)
-  auto lanes_sum = [](float x) {
-#pragma unroll
-    for (int o = LM / 2; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
-    return x;
-  };
-  Frozen cur;
-  cur.p_re = lanes_sum(w_re * sb_re + w_im * sb_im);
-  cur.p_im = lanes_sum(w_re * sb_im - w_im * sb_re);
-  cur.wl_re = __shfl_sync(FULL, w_re, L - 1);
-  cur.wl_im = __shfl_sync(FULL, w_im, L - 1);
-  sincosf(theta, &cur.sth, &cur.cth);
 
   // tile n's planes into buffer n & 1, a line per warp instruction
   auto stage_tile = [&](int n_tile) {
@@ -243,93 +171,10 @@ pll_lms_kernel(const float* __restrict__ s_re, const float* __restrict__ s_im,
       const int s = s0 + g * 32 + lane;
       const float my_re = s < S ? sh_re[nt & 1][g * 32 + lane] : 0.f;
       const float my_im = s < S ? sh_im[nt & 1][g * 32 + lane] : 0.f;
-      unsigned mask = __shfl_sync(FULL, masks, g);
-      const bool my_valid = (mask >> lane) & 1u;
-      Frozen fz = cur;                 // the state this lane's slot sees
-      float oy_re = 0.f, oy_im = 0.f;
-      int od = 0;
-
-      // the first valid slot's sample, fetched one slot ahead of its use
-      int i = mask ? __ffs(mask) - 1 : 0;
-      float sr = __shfl_sync(FULL, my_re, i);
-      float si = __shfl_sync(FULL, my_im, i);
-      while (mask) {
-        mask &= mask - 1;
-        const int i_next = mask ? __ffs(mask) - 1 : 0;
-        const float sr_next = __shfl_sync(FULL, my_re, i_next);
-        const float si_next = __shfl_sync(FULL, my_im, i_next);
-
-        const float v_re = sr * cur.cth + si * cur.sth;
-        const float v_im = si * cur.cth - sr * cur.sth;
-        // PLL chain
-        float r_re, r_im;
-        sl.nearest<QPSK>(v_re, v_im, &r_re, &r_im);
-        const float e = atan2_poly(v_im * r_re - v_re * r_im,
-                                   v_re * r_re + v_im * r_im);
-        dtheta = dtheta + beta2 * e;
-        theta = theta + dtheta + alpha * e;
-        // the window with v and its shift, then the two sums that the
-        // next P needs and that do not wait for the decision
-        const float nb_re = newest ? v_re : sb_re;
-        const float nb_im = newest ? v_im : sb_im;
-        const float up_re = __shfl_down_sync(FULL, nb_re, 1);
-        const float up_im = __shfl_down_sync(FULL, nb_im, 1);
-        const float first_re = __shfl_sync(FULL, nb_re, 0);
-        const float first_im = __shfl_sync(FULL, nb_im, 0);
-        sb_re = ahead ? up_re : 0.f;    // lane j takes tap j+1's sample
-        sb_im = ahead ? up_im : 0.f;
-        const float a_re = lanes_sum(w_re * sb_re + w_im * sb_im);
-        const float a_im = lanes_sum(w_re * sb_im - w_im * sb_re);
-        const float c_re = lanes_sum(nb_re * sb_re + nb_im * sb_im);
-        const float c_im = lanes_sum(nb_re * sb_im - nb_im * sb_re);
-        x2s = x2s + (v_re * v_re + v_im * v_im)
-              - (old_re * old_re + old_im * old_im);
-        old_re = first_re;
-        old_im = first_im;
-        n = n + 1;
-        const float gain = __fdividef(n >= L ? mu : 0.f, fmaxf(x2s, 1e-12f));
-        // LMS chain: the output, the decision, the error, the next P
-        const float y_re = cur.p_re + (cur.wl_re * v_re + cur.wl_im * v_im);
-        const float y_im = cur.p_im + (cur.wl_re * v_im - cur.wl_im * v_re);
-        float d_re, d_im;
-        const int dec = sl.nearest<QPSK>(y_re, y_im, &d_re, &d_im);
-        const float e_re = d_re - y_re, e_im = d_im - y_im;
-        const float ge_re = gain * e_re, ge_im = gain * e_im;
-        cur.p_re = a_re + (ge_re * c_re - ge_im * c_im);
-        cur.p_im = a_im + (ge_re * c_im + ge_im * c_re);
-        // w += g conj(e) nb, in operations rounded one by one so that the
-        // newest tap's copy in every lane equals its own lane's
-        w_re = __fmaf_rn(gain, __fmaf_rn(e_re, nb_re, __fmul_rn(e_im, nb_im)),
-                         w_re);
-        w_im = __fmaf_rn(gain, __fmaf_rn(e_re, nb_im,
-                                         -__fmul_rn(e_im, nb_re)), w_im);
-        cur.wl_re = __fmaf_rn(gain, __fmaf_rn(e_re, v_re,
-                                              __fmul_rn(e_im, v_im)),
-                              cur.wl_re);
-        cur.wl_im = __fmaf_rn(gain, __fmaf_rn(e_re, v_im,
-                                              -__fmul_rn(e_im, v_re)),
-                              cur.wl_im);
-        sincosf(theta, &cur.sth, &cur.cth);
-
-        if (lane == i) {
-          oy_re = y_re;
-          oy_im = y_im;
-          od = dec;
-        }
-        if (lane > i) fz = cur;
-        i = i_next;
-        sr = sr_next;
-        si = si_next;
-      }
-
-      if (!my_valid) {
-        const float v_re = my_re * fz.cth + my_im * fz.sth;
-        const float v_im = my_im * fz.cth - my_re * fz.sth;
-        oy_re = fz.p_re + (fz.wl_re * v_re + fz.wl_im * v_im);
-        oy_im = fz.p_im + (fz.wl_re * v_im - fz.wl_im * v_re);
-        float d_re, d_im;
-        od = sl.nearest<QPSK>(oy_re, oy_im, &d_re, &d_im);
-      }
+      float oy_re, oy_im;
+      int od;
+      ch.group(my_re, my_im, __shfl_sync(FULL, masks, g), &oy_re, &oy_im,
+               &od);
       if (s < S) {
         y_re_o[row + s] = oy_re;
         y_im_o[row + s] = oy_im;
@@ -340,23 +185,8 @@ pll_lms_kernel(const float* __restrict__ s_re, const float* __restrict__ s_im,
     if (nt + 1 < ntiles) masks = to_masks(vb);
   }
 
-  // the window back in its own order: buf_0 the oldest, buf_{j+1} = sb_j
-  if (lane < L) {
-    w_re_io[tap0 + lane] = w_re;
-    w_im_io[tap0 + lane] = w_im;
-    if (lane < L - 1) {
-      b_re_io[tap0 + lane + 1] = sb_re;
-      b_im_io[tap0 + lane + 1] = sb_im;
-    }
-  }
-  if (lane == 0) {
-    b_re_io[tap0] = old_re;
-    b_im_io[tap0] = old_im;
-    theta_io[b] = theta;
-    dtheta_io[b] = dtheta;
-    x2_io[b] = x2s;
-    n_io[b] = n;
-  }
+  ch.store(theta_io, dtheta_io, w_re_io, w_im_io, b_re_io, b_im_io, x2_io,
+           n_io, b);
 }
 
 }  // namespace

@@ -58,28 +58,22 @@
 //   emits into a zeroed tile, and after the tile all lanes write y_re,
 //   y_im and valid to global memory in full lines and zero the tile again.
 //
+// The staging and the step are symsync_step.cuh's, shared with
+// symsync_pll_lms.cu (the loop with symtrack's PLL + LMS after every emit).
+//
 // Built by liquid_dsp_tpu_torch/ops/kernels/build.py with nvcc for sm_90a,
 // bound with ctypes; the C entry returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
-#include "cp_async.cuh"
+#include "symsync_step.cuh"
 
 namespace {
 
-constexpr int THREADS = 32;   // one warp = one channel
-constexpr int TILE = 32;      // steps per staged tile (one line per row)
-constexpr int WIN = 8;        // branch rows staged around the current one
-constexpr int STAGE = 4 * WIN * TILE;   // floats per stage buffer (P = 2)
+using symsync_step::STAGE;
+using symsync_step::TILE;
 
-// First staged row for a tile, from the chain's current branch index: the
-// window [r0, r0 + win) mod npfb is centred on where the next active emit
-// will read (bi mod npfb; a negative bi reads row 0).
-__device__ __forceinline__ int window_start(int bi, int npfb, int win) {
-  const int c = bi < 0 ? 0 : bi % npfb;
-  const int r0 = c - win / 2;
-  return r0 < 0 ? r0 + npfb : r0;
-}
+constexpr int THREADS = 32;   // one warp = one channel
 
 __global__ void __launch_bounds__(THREADS)
 symsync_scan_kernel(const float* __restrict__ ma, float* __restrict__ fstate,
@@ -97,17 +91,19 @@ symsync_scan_kernel(const float* __restrict__ ma, float* __restrict__ fstate,
   const int b = blockIdx.x;
   const int lane = threadIdx.x;
   const unsigned FULL = 0xffffffffu;
-  float tau = fstate[b], rate = fstate[B + b], dl = fstate[2 * B + b];
-  float v0 = fstate[3 * B + b], bf = fstate[4 * B + b];
-  float ran = fstate[5 * B + b];
-  int bi = istate[b], decim = istate[B + b];
-
-  const size_t row = static_cast<size_t>(2 * npfb) * Tc;
-  const float* mre = ma + static_cast<size_t>(b) * row;
-  const float* mim = mre + static_cast<size_t>(B) * row;
+  symsync_step::TimingLoop lp{};
+  lp.load(fstate, istate, B, b);
+  lp.npfb = npfb;
+  lp.max_out = max_out;
+  lp.k_out = k_out;
+  lp.locked = locked;
+  lp.inv_k = inv_k;
+  lp.c_q = c_q;
+  lp.c_v = c_v;
+  lp.c_r = c_r;
+  lp.fnpfb = static_cast<float>(npfb);
+  const symsync_step::Rows rw(ma, B, b, Tc, npfb, P);
   const size_t o0 = static_cast<size_t>(b) * Tc * max_out;
-  const float fnpfb = static_cast<float>(npfb);
-  const int win = npfb < WIN ? npfb : WIN;
   const int ntiles = (Tc + TILE - 1) / TILE;
 
   for (int i = lane; i < TILE * max_out; i += THREADS) {
@@ -116,33 +112,15 @@ symsync_scan_kernel(const float* __restrict__ ma, float* __restrict__ fstate,
     o_v[i] = 0;
   }
 
-  // Stage tile n (steps n*TILE ..) into buffer n & 1: segment
-  // (plane*2 + g)*WIN + j holds row (r0 + j) mod npfb of the MF (g = 0)
-  // or dMF (g = 1) of that plane; each lane copies its own step.
-  auto stage_tile = [&](int n, int r0) {
-    const int t0 = n * TILE;
-    if (t0 + lane < Tc) {
-      float* dst = stage + (n & 1) * STAGE + lane;
-      for (int pg = 0; pg < 2 * P; ++pg) {
-        const float* src = ((pg >> 1) ? mim : mre)
-            + static_cast<size_t>((pg & 1) * npfb) * Tc + t0 + lane;
-        for (int j = 0; j < win; ++j) {
-          const int r = r0 + j < npfb ? r0 + j : r0 + j - npfb;
-          cp_async_f32(dst + (pg * WIN + j) * TILE,
-                       src + static_cast<size_t>(r) * Tc);
-        }
-      }
-    }
-    cp_async_commit();
-  };
-
-  int r0_cur = window_start(__shfl_sync(FULL, bi, 0), npfb, win);
-  stage_tile(0, r0_cur);
+  int r0_cur = symsync_step::window_start(__shfl_sync(FULL, lp.bi, 0), npfb,
+                                          rw.win);
+  rw.stage_tile(stage, 0, r0_cur, lane);
 
   for (int n = 0; n < ntiles; ++n) {
-    const int r0_next = window_start(__shfl_sync(FULL, bi, 0), npfb, win);
+    const int r0_next = symsync_step::window_start(
+        __shfl_sync(FULL, lp.bi, 0), npfb, rw.win);
     if (n + 1 < ntiles)
-      stage_tile(n + 1, r0_next);
+      rw.stage_tile(stage, n + 1, r0_next, lane);
     else
       cp_async_commit();
     cp_async_wait_all_but<1>();
@@ -152,70 +130,8 @@ symsync_scan_kernel(const float* __restrict__ ma, float* __restrict__ fstate,
     const int nt = Tc - t0 < TILE ? Tc - t0 : TILE;
     if (lane == 0) {
       const float* st = stage + (n & 1) * STAGE;
-      for (int tl = 0; tl < nt; ++tl) {
-        int e = 0;
-        if (bi >= npfb) {
-          // the step opens inactive on the bi and bf of the step
-          // decrement: the emit's tau + 0 and its recompute of bf, bi
-          tau = __fadd_rn(tau, 0.f);
-          ran = fmaxf(ran, 0.f);
-          bf = __fmul_rn(tau, fnpfb);
-          bi = __float2int_rn(bf);
-          e = 1;
-        }
-        // active emits; the first inactive emit after one, and every emit
-        // after an inactive one, would only repeat the recompute just made
-        for (; e < max_out && bi < npfb; ++e) {
-          const int bc = bi < 0 ? 0 : bi;
-          int j = bc - r0_cur;
-          if (j < 0) j += npfb;
-          float mf_re, dmf_re, mf_im = 0.f, dmf_im = 0.f;
-          if (j < win) {
-            const float* s = st + j * TILE + tl;
-            mf_re = s[0];
-            dmf_re = s[WIN * TILE];
-            if (P == 2) {
-              mf_im = s[2 * WIN * TILE];
-              dmf_im = s[3 * WIN * TILE];
-            }
-          } else {
-            const size_t t = static_cast<size_t>(t0 + tl);
-            mf_re = __ldg(mre + static_cast<size_t>(bc) * Tc + t);
-            dmf_re = __ldg(mre + static_cast<size_t>(npfb + bc) * Tc + t);
-            if (P == 2) {
-              mf_im = __ldg(mim + static_cast<size_t>(bc) * Tc + t);
-              dmf_im = __ldg(mim + static_cast<size_t>(npfb + bc) * Tc + t);
-            }
-          }
-          const float q_raw = P == 2
-              ? __fmaf_rn(mf_re, dmf_re, __fmul_rn(mf_im, dmf_im))
-              : __fmul_rn(mf_re, dmf_re);
-          const bool run = decim == k_out && !locked;
-          // clip(q, -1, 1) as selects (a NaN passes, as in jnp.clip)
-          const float q = q_raw < -1.f ? -1.f : (q_raw > 1.f ? 1.f : q_raw);
-          const float q_hat = __fmaf_rn(c_q, q, v0);
-          const float v0n = __fmul_rn(c_v, q_hat);
-          const float rn = __fmaf_rn(c_r, q_hat, rate);
-          const float dn = __fadd_rn(rn, q_hat);
-          tau = __fadd_rn(tau, dl);
-          bf = __fmul_rn(tau, fnpfb);
-          bi = __float2int_rn(bf);        // rounds half to even
-          if (run) {
-            rate = rn;
-            dl = dn;
-            v0 = v0n;
-          }
-          ran = fmaxf(ran, run ? 1.f : 0.f);
-          decim = decim == k_out ? 1 : decim + 1;
-          const int o = tl * max_out + e;
-          o_re[o] = __fmul_rn(mf_re, inv_k);
-          o_im[o] = __fmul_rn(mf_im, inv_k);
-          o_v[o] = 1;
-        }
-        tau = __fadd_rn(tau, -1.f);
-        bf = __fadd_rn(bf, -fnpfb);
-        bi -= npfb;
-      }
+      for (int tl = 0; tl < nt; ++tl)
+        lp.step(st, r0_cur, rw, t0, tl, o_re, o_im, o_v);
     }
     __syncwarp();
 
@@ -232,16 +148,7 @@ symsync_scan_kernel(const float* __restrict__ ma, float* __restrict__ fstate,
     r0_cur = r0_next;
   }
 
-  if (lane == 0) {
-    fstate[b] = tau;
-    fstate[B + b] = rate;
-    fstate[2 * B + b] = dl;
-    fstate[3 * B + b] = v0;
-    fstate[4 * B + b] = bf;
-    fstate[5 * B + b] = ran;
-    istate[b] = bi;
-    istate[B + b] = decim;
-  }
+  if (lane == 0) lp.store(fstate, istate, B, b);
 }
 
 }  // namespace

@@ -6,15 +6,19 @@ Reference analog: symtrack_cccf (src/framing/src/symtrack.c:42-124):
 agc_crcf -> symsync (2 samples/symbol, root-Nyquist) -> eqlms_cccf -> an
 NCO PLL driven by the demodulator's phase error -> symbol decisions.
 
-On the card a block runs through three hand-written kernels: the AGC's
-gain recurrence (`ops/kernels/agc_scan`), the symsync timing loop
+Two routes, as in the JAX package.  The sequential route runs, on the
+card, three hand-written kernels a block: the AGC's gain recurrence
+(`ops/kernels/agc_scan`), the symsync timing loop
 (`ops/kernels/symsync_scan`, after one conv1d per chunk) and the PLL +
 decision-directed LMS over the symsync slots (`ops/kernels/pll_lms`;
 the standalone `eqlms`/`eqrls` Procs run on `ops/kernels/eqlms_scan` and
-`eqrls_scan` instead).  That is the JAX package's sequential route; its fused route (the PLL +
-LMS step inside the timing loop) exists on the CPU only.  `symtrack` and
-`Symtrack`, which take host arrays, run on the card unless the caller
-passes ``device="cpu"``, and raise without a card.
+`eqrls_scan` instead).  The fused route runs the PLL + LMS step inside
+the timing loop: on the card `agc_scan`, then per chunk the conv1d and
+one launch of `ops/kernels/symsync_pll_lms` (both chains side by side);
+on the CPU the hoisted loop's plain version with the step as its post
+hook.  `_use_fused` picks the route.  `symtrack` and `Symtrack`, which
+take host arrays, run on the card unless the caller passes
+``device="cpu"``, and raise without a card.
 """
 from __future__ import annotations
 
@@ -28,21 +32,29 @@ from ..core import Proc, entry_device
 from ..modem import constellation, demodulate
 from ..ops.agc import agc
 from ..ops.equalize import eqlms_lowpass_weights
-from ..ops.kernels.pll_lms import pll_lms, pll_lms_step, slicer_config
+from ..ops.kernels.pll_lms import pll_lms
+from ..ops.kernels.symsync_pll_lms import PllLmsPost
 from ..ops.symsync import _hoist_chunk, _symsync_run_hoisted, symsync
 
 __all__ = ["SymtrackResult", "symtrack", "symtrack_stream", "SymtrackStream",
            "Symtrack"]
 
 
-def _use_fused() -> bool:
+def _use_fused(batch=(), device="cpu") -> bool:
     """The fused route (PLL + LMS inside the timing loop) or the
-    sequential one (timing loop, then PLL + LMS over its slots).  The
-    default is sequential: on CUDA those are the two kernels, and the JAX
-    package's CPU default is the same.  LIQUID_SYMTRACK_FUSED=0/1
-    overrides, as in the JAX package; a fused route on CUDA raises in the
-    block step (no fused kernel yet)."""
-    return os.environ.get("LIQUID_SYMTRACK_FUSED") == "1"
+    sequential one (timing loop, then PLL + LMS over its slots), for a
+    block of channel shape `batch` on `device`.  LIQUID_SYMTRACK_FUSED=0/1
+    overrides, as in the JAX package.  Otherwise the CPU takes the
+    sequential route (the JAX package's CPU default) and the card the fused
+    one at every channel count: on an H100 at 32768 samples the fused step
+    took 7.05 against 12.17 ms at 1 channel and 13.21 against 18.51 ms at
+    256 (chip_smoke.py phase 41, PERF.md), both routes' chains being
+    latency-bound and flat in the count, so `batch` (the JAX package's
+    B > 32, a TPU measurement) does not decide here."""
+    ov = os.environ.get("LIQUID_SYMTRACK_FUSED")
+    if ov is not None:
+        return ov == "1"
+    return torch.device(device).type == "cuda"
 
 
 class SymtrackResult(NamedTuple):
@@ -60,7 +72,7 @@ def symtrack(x, ftype: str = "arkaiser", k: int = 2, m: int = 7,
     `symtrack_stream` from its initial state: the same AGC, symsync, PLL
     and LMS as the JAX package's one-shot (its PLL does not see the
     equalizer, so stepping both per slot equals the PLL over all symbols
-    followed by the LMS), through the three kernels on the card.
+    followed by the LMS), on the card's route (`_use_fused`).
     Decisions by `demodulate` on the compacted symbols."""
     dev = entry_device(device)
     x = torch.from_numpy(np.asarray(x, np.complex64)).to(dev)
@@ -88,11 +100,11 @@ class SymtrackStream(Proc):
         table = np.asarray(constellation(ms)).astype(np.complex64)
         self._buffer("tab_re", table.real.copy())
         self._buffer("tab_im", table.imag.copy())
-        self.qpsk = slicer_config(table)
-        self.alpha = float(pll_bw)
-        self.beta2 = 0.5 * float(pll_bw) ** 2
         self.L = int(eq_len)
-        self.mu = float(eq_mu)
+        # the PLL + LMS step, a submodule so that its table follows .to()
+        self.post = PllLmsPost(table, alpha=float(pll_bw),
+                               beta2=0.5 * float(pll_bw) ** 2,
+                               mu=float(eq_mu))
         w0 = eqlms_lowpass_weights(self.L).astype(np.complex64)
         self._buffer("w0_re", w0.real.copy())
         self._buffer("w0_im", w0.imag.copy())
@@ -115,10 +127,6 @@ class SymtrackStream(Proc):
                 # (reference symtrack.c:122 eqlms_create_lowpass init)
                 "eq_x2": full(float(L)), "eq_n": full(L, torch.int32)}
 
-    def _post(self, pc, y_re, y_im, vm):
-        return pll_lms_step(pc, y_re, y_im, vm, self.tab_re, self.tab_im,
-                            **self.pll_kwargs())
-
     def pll_state(self, carry, Bf: int):
         """The carry's PLL + LMS state on planes, channels flattened to
         [Bf] (the form `pll_lms` takes)."""
@@ -135,8 +143,7 @@ class SymtrackStream(Proc):
 
     def pll_kwargs(self):
         """`pll_lms`'s loop constants and slicer."""
-        return dict(alpha=self.alpha, beta2=self.beta2, mu=self.mu,
-                    qpsk=self.qpsk)
+        return self.post.kwargs()
 
     def forward(self, carry, x):
         batch = tuple(x.shape[:-1])
@@ -144,15 +151,14 @@ class SymtrackStream(Proc):
         L = self.L
         y, agc_c = self.ag(carry["agc"], x)
         pc = self.pll_state(carry, Bf)
-        if _use_fused() and _hoist_chunk(int(x.shape[-1])) <= 4096:
-            if x.device.type == "cuda":
-                raise NotImplementedError(
-                    "the fused symtrack route on CUDA needs the fused "
-                    "timing + PLL/LMS kernel (ROADMAP, later kernel work); "
-                    "unset LIQUID_SYMTRACK_FUSED for the sequential route")
+        # the CPU keeps the JAX package's guard against chunks that would
+        # hold the whole block; the card's chunks are bounded and ragged
+        if _use_fused(batch, x.device) and (
+                x.device.type == "cuda"
+                or _hoist_chunk(int(x.shape[-1])) <= 4096):
             _, sv, ss_c, (yr, yi, dt), pc = _symsync_run_hoisted(
                 self.ss.mf, self.ss.dmf, carry["ss"], y, self.k, 1,
-                self.sync_bw, post=self._post, post_carry=pc)
+                self.sync_bw, post=self.post, post_carry=pc)
         else:
             (sy, sv), ss_c = self.ss(carry["ss"], y)
             S = sy.shape[-1]

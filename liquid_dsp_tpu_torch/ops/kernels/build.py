@@ -49,6 +49,7 @@ _SIGNATURES = {
     "symsync_scan_launch": ([_P] * 6 + [_I] * 7 + [_F] * 4 + [_P], _I),
     "agc_scan_launch": ([_P] * 4 + [_I] * 3 + [_F] * 3 + [_P], _I),
     "pll_lms_launch": ([_P] * 16 + [_I] * 9 + [_F] * 4 + [_P], _I),
+    "symsync_pll_lms_launch": ([_P] * 18 + [_I] * 15 + [_F] * 8 + [_P], _I),
     "viterbi_acs_launch": ([_P] * 4 + [_I] * 5 + [_P], _I),
     "viterbi_acs_dec_smem_max": ([], _I),
     "iir_scan_launch": ([_P] * 5 + [_I] * 5 + [_P], _I),

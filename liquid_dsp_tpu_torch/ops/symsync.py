@@ -15,8 +15,9 @@ Two formulations, as in the JAX package:
   branch output is computed up front by one conv1d per chunk, and the
   timing loop only picks which branch to read.  On CUDA the loop is the
   hand-written kernel `ops/kernels/symsync_scan` (the port of the TPU
-  kernel `pallas_symsync.symsync_scan_pallas`); on the CPU its plain
-  version.
+  kernel `pallas_symsync.symsync_scan_pallas`), and with symtrack's
+  PLL + LMS as its post hook `ops/kernels/symsync_pll_lms`; on the CPU
+  their plain versions.
 
 Each input step emits at most ceil(k/k_out)+1 outputs; outputs come
 padded with a validity mask (variable-rate output).
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 
 from ..core import Proc
 from ..design.firdes import firdes_kaiser, firdes_prototype
+from .kernels.symsync_pll_lms import PllLmsPost, symsync_pll_lms
 from .kernels.symsync_scan import (fma32, inverse_k, loop_consts,
                                    symsync_scan, symsync_scan_reference)
 
@@ -98,6 +100,25 @@ def _timing_update(st, q_raw, active, k_out: int, locked: bool, bw: float,
     new["bf"] = tau * npfb
     new["b"] = torch.round(new["bf"]).to(torch.int32)
     return {**st, **new}
+
+
+def _fused_kernel(post, device: torch.device) -> bool:
+    """Whether the post hook runs inside the fused timing + PLL/LMS kernel
+    (`ops/kernels/symsync_pll_lms`): on CUDA symtrack's `PllLmsPost` does,
+    and any other callable raises NotImplementedError there (not carried
+    over, by decision: a Python callable cannot run inside the kernel's
+    recurrence, and a per-emit loop on the card would be the plain version
+    on the main path).  On the CPU every hook runs in the plain loop."""
+    if post is None or device.type != "cuda":
+        return False
+    if isinstance(post, PllLmsPost):
+        return True
+    raise NotImplementedError(
+        f"symsync with a post hook on CUDA runs symtrack's PLL + LMS "
+        f"(PllLmsPost) in the fused kernel only, got "
+        f"{type(post).__name__}: a Python callable cannot run inside the "
+        f"kernel's recurrence (Not carried over, by decision); run it on "
+        f"the CPU")
 
 
 def _use_scan_kernel(device: torch.device, post) -> bool:
@@ -186,16 +207,15 @@ def _symsync_run_hoisted(mf_bank, dmf_bank, carry, x, k: int,
     arithmetic; the MF dots reassociated by the conv).
 
     post(pc, y_re, y_im, valid) -> (pc', extras) runs after every emit
-    (symtrack's fused PLL + LMS); it runs only on the CPU: on CUDA it
-    raises, since the fused timing + PLL/LMS kernel is not written yet
-    (ROADMAP).  Returns (y, valid, carry') or, with post,
-    (y, valid, carry', extras, pc')."""
+    (symtrack's fused PLL + LMS).  On CUDA the post must be a `PllLmsPost`
+    and each chunk is one launch of the fused kernel `symsync_pll_lms`,
+    the states carried from chunk to chunk (`_fused_kernel` decides);
+    on the CPU any post runs in the plain loop.  Returns (y, valid,
+    carry') or, with post, (None, valid, carry', extras, pc'): the fused
+    kernel keeps the timing loop's slots to itself, and the CPU returns
+    what the card returns."""
     cuda = x.device.type == "cuda"
-    if post is not None and cuda:
-        raise NotImplementedError(
-            "symsync with a post hook on CUDA needs the fused timing + "
-            "PLL/LMS kernel (ROADMAP, later kernel work); use the "
-            "sequential route")
+    fused = _fused_kernel(post, x.device)
     dev = x.device
     kern = branch_kernel(mf_bank, dmf_bank, dev)
     npfb, Lb = kern.shape[0] // 2, kern.shape[-1]
@@ -218,7 +238,12 @@ def _symsync_run_hoisted(mf_bank, dmf_bank, carry, x, k: int,
     for s, Tc in _chunks(T, cuda):
         ma = branch_outputs(kern, planes[..., s:s + Tc + Lb - 1])
         fs[5] = 0.0
-        if use_kernel:
+        if fused:
+            out = symsync_pll_lms(ma, fs, is_, pc, post, **kw)
+            val, fs, is_ = out.valid, out.fstate, out.istate
+            exs.append((out.y_re, out.y_im, out.dec))
+            pc = out.pll_state          # with the dot for the next chunk
+        elif use_kernel:
             y_re, y_im, val, fs, is_ = symsync_scan(ma, fs, is_, **kw)
         else:
             out = symsync_scan_reference(ma, fs, is_, **kw, post=post,
@@ -228,16 +253,11 @@ def _symsync_run_hoisted(mf_bank, dmf_bank, carry, x, k: int,
                 exs.append(out[5])
                 pc = out[6]
         v1 = torch.where(fs[5] > 0.5, torch.zeros_like(v1), v1)
-        ys_re.append(y_re)
-        ys_im.append(y_im)
+        if post is None:
+            ys_re.append(y_re)
+            ys_im.append(y_im)
         vs.append(val)
     shape = batch + (T * max_out,)
-    y_re = torch.cat(ys_re, -1) if ys_re else fs.new_zeros(Bf, 0)
-    if cplx:
-        y_im = torch.cat(ys_im, -1) if ys_im else fs.new_zeros(Bf, 0)
-        y = torch.complex(y_re, y_im).reshape(shape)
-    else:
-        y = y_re.reshape(shape)
     valid = (torch.cat(vs, -1) if vs else torch.zeros(
         Bf, 0, dtype=torch.bool, device=dev)).reshape(shape)
     win = (torch.cat([prefix, x], dim=-1)[..., -Lb:] if T >= 1
@@ -248,10 +268,18 @@ def _symsync_run_hoisted(mf_bank, dmf_bank, carry, x, k: int,
         "del": fs[2].reshape(batch), "v0": fs[3].reshape(batch),
         "v1": v1.reshape(batch), "decim": is_[1].reshape(batch)}
     if post is None:
+        y_re = torch.cat(ys_re, -1) if ys_re else fs.new_zeros(Bf, 0)
+        if cplx:
+            y_im = torch.cat(ys_im, -1) if ys_im else fs.new_zeros(Bf, 0)
+            y = torch.complex(y_re, y_im).reshape(shape)
+        else:
+            y = y_re.reshape(shape)
         return y, valid, new_carry
     ex = tuple(torch.cat([e[j] for e in exs], -1).reshape(shape)
                for j in range(len(exs[0]))) if exs else ()
-    return y, valid, new_carry, ex, pc
+    if fused:
+        pc = {key: v for key, v in pc.items() if key != "dot"}
+    return None, valid, new_carry, ex, pc
 
 
 def symsync_run(mf_bank, dmf_bank, carry, x, k: int, k_out: int = 1,

@@ -16,6 +16,9 @@ roundings, FMAs where both take them; agc_scan's log and exp are the
 module's own in both);
 pll_lms: 2e-4 with equal decisions (sincos, atan2 and the dot's order and
 association differ), the reference's stream tolerance.
+symsync_pll_lms: its timing loop (slots, mask, loop state) bit-equal to
+the plain version, its PLL + LMS as pll_lms (2e-4, decisions equal); the
+fused tracker route against the sequential one likewise.
 viterbi_acs: bit-equal bits and packed decisions (the same exact products,
 sums in the same order, the same max and subtraction).
 cvsd_scan: bit-equal bits and audio (the same roundings, one FMA in both).
@@ -570,9 +573,10 @@ def test_pll_lms_structure_cases(dev, case, ms, L, B, S):
 
 def test_oneshot_symtrack_on_the_card_matches_the_cpu(dev):
     # symtrack() runs on the card by default, as one block of
-    # symtrack_stream through the three kernels
-    from liquid_dsp_tpu_torch.framing.symtrack import symtrack
+    # symtrack_stream on the route the card's rule picks
+    from liquid_dsp_tpu_torch.framing.symtrack import _use_fused, symtrack
     from liquid_dsp_tpu_torch.ops.kernels import pll_lms as pk
+    from liquid_dsp_tpu_torch.ops.kernels import symsync_pll_lms as fk
     from liquid_dsp_tpu_torch.design.firdes import firdes_prototype
     rng = np.random.default_rng(3)
     up = np.zeros(1400, np.complex64)
@@ -581,9 +585,10 @@ def test_oneshot_symtrack_on_the_card_matches_the_cpu(dev):
     x = 0.4 * np.exp(0.5j) * np.convolve(up, h)[:1400]
     x = (x + 0.004 * (rng.standard_normal(1400)
                       + 1j * rng.standard_normal(1400))).astype(np.complex64)
-    launches = pk.pll_lms.launches
+    kern = fk.symsync_pll_lms if _use_fused((), dev) else pk.pll_lms
+    launches = kern.launches
     got = symtrack(x)
-    assert pk.pll_lms.launches == launches + 1
+    assert kern.launches == launches + 1
     ref = symtrack(x, device="cpu")
     assert len(got.symbols) == len(ref.symbols) > 600
     np.testing.assert_allclose(got.symbols, ref.symbols, rtol=0, atol=2e-4)
@@ -604,11 +609,14 @@ def test_pll_lms_rejects_long_equalizers(dev):
 
 
 def test_symtrack_on_the_card_matches_the_cpu(dev, monkeypatch):
-    # the card's route (agc_scan, conv1d + symsync_scan, pll_lms) against
-    # the port on the CPU forced to the same hoisted route
-    from liquid_dsp_tpu_torch.framing.symtrack import Symtrack, symtrack_stream
+    # the card's route (agc_scan, then conv1d + symsync_pll_lms, or
+    # conv1d + symsync_scan and pll_lms, as the card's rule picks) against
+    # the port on the CPU forced to the sequential hoisted route
+    from liquid_dsp_tpu_torch.framing.symtrack import (Symtrack, _use_fused,
+                                                       symtrack_stream)
     from liquid_dsp_tpu_torch.ops.kernels import agc_scan, pll_lms
     from liquid_dsp_tpu_torch.ops import symsync as ss
+    from liquid_dsp_tpu_torch.ops.kernels import symsync_pll_lms as fk
     from liquid_dsp_tpu_torch.ops.kernels import symsync_scan
     # the conv must not follow the global flag
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
@@ -617,8 +625,13 @@ def test_symtrack_on_the_card_matches_the_cpu(dev, monkeypatch):
         (3, 2048))).astype(np.complex64) * 0.3
     card = symtrack_stream().to(dev)
     cpu = symtrack_stream()
-    n = (agc_scan.agc_scan.launches, symsync_scan.symsync_scan.launches,
-         pll_lms.pll_lms.launches)
+    def counts():
+        return (agc_scan.agc_scan.launches,
+                symsync_scan.symsync_scan.launches, pll_lms.pll_lms.launches,
+                fk.symsync_pll_lms.launches)
+
+    n = counts()
+    fused = _use_fused((3,), dev)
     (yg, dg, vg), _ = card(card.init(batch_shape=(3,), device=dev),
                            torch.from_numpy(x).to(dev))
     run = ss.symsync_run
@@ -626,8 +639,8 @@ def test_symtrack_on_the_card_matches_the_cpu(dev, monkeypatch):
                         lambda *a, **kw: run(*a, **kw, hoist=True))
     monkeypatch.setenv("LIQUID_SYMSYNC_KERNEL", "1")
     (yc, dc, vc), _ = cpu(cpu.init(batch_shape=(3,)), torch.from_numpy(x))
-    assert (agc_scan.agc_scan.launches, symsync_scan.symsync_scan.launches,
-            pll_lms.pll_lms.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    assert counts() == ((n[0] + 1, n[1], n[2], n[3] + 1) if fused else
+                        (n[0] + 1, n[1] + 1, n[2] + 1, n[3]))
     assert torch.equal(vg.cpu(), vc)
     assert float((yg.cpu()[vc] - yc[vc]).abs().max()) <= 2e-4
     assert torch.equal(dg.cpu()[vc], dc[vc])
@@ -637,18 +650,167 @@ def test_symtrack_on_the_card_matches_the_cpu(dev, monkeypatch):
     assert len(sy) == len(dec) > 900
 
 
-def test_fused_routes_raise_on_the_card(dev, monkeypatch):
+def _tracker_stream(B, n, seed, ms="qpsk"):
+    """Symbols of `ms` at 2 samples/symbol through arkaiser(2, 7, 0.3),
+    a carrier phase and a gain per channel, noise 0.01 a rail."""
+    from liquid_dsp_tpu_torch.design.firdes import firdes_prototype
+    from liquid_dsp_tpu_torch.modem import constellation
+    rng = np.random.default_rng(seed)
+    table = constellation(ms).astype(np.complex64)
+    h = firdes_prototype("arkaiser", 2, 7, 0.3)
+    x = np.empty((B, n), np.complex64)
+    for ch in range(B):
+        up = np.zeros(n, np.complex64)
+        up[::2] = table[rng.integers(0, len(table), (n + 1) // 2)]
+        gain = rng.uniform(0.3, 2.0) * np.exp(1j * rng.uniform(0, 2 * np.pi))
+        x[ch] = gain * np.convolve(up, h)[:n] + 0.01 * (
+            rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return x
+
+
+def test_fused_tracker_route_runs_on_the_card(dev, monkeypatch):
+    # LIQUID_SYMTRACK_FUSED=1 on the card: agc_scan, then per chunk the
+    # conv1d and one symsync_pll_lms launch (two chunks a block here, the
+    # second ragged), against the sequential route on the same blocks
     from liquid_dsp_tpu_torch.framing.symtrack import symtrack_stream
-    from liquid_dsp_tpu_torch.ops import symsync as ss
-    monkeypatch.setenv("LIQUID_SYMTRACK_FUSED", "1")
+    from liquid_dsp_tpu_torch.ops.kernels import pll_lms, symsync_scan
+    from liquid_dsp_tpu_torch.ops.kernels import symsync_pll_lms as fk
+    from liquid_dsp_tpu_torch.ops.symsync import _chunks
+    B, T, NB = 6, 6000, 2
+    x = torch.from_numpy(_tracker_stream(B, NB * T, 4)).to(dev)
     st = symtrack_stream().to(dev)
+    outs, carries = {}, {}
+    for route in ("0", "1"):
+        monkeypatch.setenv("LIQUID_SYMTRACK_FUSED", route)
+        n = (symsync_scan.symsync_scan.launches, pll_lms.pll_lms.launches,
+             fk.symsync_pll_lms.launches)
+        c, outs[route] = st.init(batch_shape=(B,), device=dev), []
+        for b in range(NB):
+            out, c = st(c, x[:, b * T:(b + 1) * T])
+            outs[route].append(out)
+        carries[route] = c
+        got = (symsync_scan.symsync_scan.launches - n[0],
+               pll_lms.pll_lms.launches - n[1],
+               fk.symsync_pll_lms.launches - n[2])
+        nch = len(_chunks(T, True))
+        assert got == ((nch * NB, NB, 0) if route == "0"
+                       else (0, 0, nch * NB)), (route, got)
+    for (ys, ds, vs), (yf, df, vf) in zip(outs["0"], outs["1"]):
+        assert torch.equal(vs, vf) and int(vs.sum()) > T // 3
+        assert torch.equal(ds, df)
+        assert float((ys - yf).abs().max()) <= 2e-4
+    for key in ("theta", "dtheta", "eq_w", "eq_buf", "eq_x2"):
+        assert float((carries["0"][key] - carries["1"][key]).abs().max()) \
+            <= 2e-4, key
+    assert torch.equal(carries["0"]["eq_n"], carries["1"]["eq_n"])
+    for key, v in carries["0"]["ss"].items():
+        assert torch.equal(v, carries["1"]["ss"][key]), key
+
+
+def test_foreign_post_raises_on_the_card(dev):
+    # a Python post hook cannot run inside the fused kernel's recurrence
+    from liquid_dsp_tpu_torch.ops import symsync as ss
     x = torch.zeros(2, 1024, dtype=torch.complex64, device=dev)
-    with pytest.raises(NotImplementedError, match="fused timing"):
-        st(st.init(batch_shape=(2,), device=dev), x)
     q = ss.symsync().to(dev)
-    with pytest.raises(NotImplementedError, match="fused timing"):
+    with pytest.raises(NotImplementedError, match="Not carried over"):
         ss._symsync_run_hoisted(q.mf, q.dmf, q.init((2,), device=dev), x, 2,
                                 post=lambda *a: a, post_carry={})
+
+
+def _fused_inputs(dev, st, B, n, seed, warm, ms="qpsk"):
+    """Branch outputs, loop and PLL states of the tracker `st` on a stream:
+    from the zero state, or after `warm` samples (a locked state)."""
+    from liquid_dsp_tpu_torch.ops.symsync import (branch_kernel,
+                                                  branch_outputs, loop_state)
+    x = torch.from_numpy(_tracker_stream(B, warm + n, seed, ms)).to(dev)
+    c = st.init(batch_shape=(B,), device=dev)
+    if warm:
+        _, c = st(c, x[:, :warm])
+    y, _ = st.ag(c["agc"], x[:, warm:])
+    xp = torch.cat([c["ss"]["win"][..., 1:], y], -1)
+    ma = branch_outputs(branch_kernel(st.ss.mf, st.ss.dmf, dev),
+                        torch.stack([xp.real, xp.imag]).contiguous())
+    fs, is_ = loop_state(c["ss"], B)
+    return ma, fs, is_, st.pll_state(c, B)
+
+
+@pytest.mark.parametrize("ms,L,B,Tc,warm", [
+    ("qpsk", 13, 256, 1024, 4096),     # the tracker's own shape, locked
+    ("qam16", 32, 40, 700, 4096),      # the argmin slicer, 32 taps
+    ("qpsk", 13, 33, 509, 0),          # ragged, from the zero state
+    ("psk8", 20, 5, 31, 2048),         # less than one tile
+    ("qpsk", 1, 9, 300, 2048)])        # one tap
+def test_symsync_pll_lms_matches_plain(dev, ms, L, B, Tc, warm):
+    from liquid_dsp_tpu_torch.framing.symtrack import symtrack_stream
+    from liquid_dsp_tpu_torch.ops.kernels import symsync_pll_lms as fk
+    st = symtrack_stream(ms=ms, eq_len=L).to(dev)
+    ma, fs, is_, pc = _fused_inputs(dev, st, B, Tc, B + Tc, warm, ms)
+    kw = dict(npfb=32, max_out=3, k=2, k_out=1, bw=st.sync_bw, locked=False)
+    launches = fk.symsync_pll_lms.launches
+    got = fk.symsync_pll_lms(ma, fs, is_, pc, st.post, **kw)
+    want = fk.symsync_pll_lms_reference(ma, fs, is_, pc, st.post, **kw)
+    torch.cuda.synchronize()
+    assert fk.symsync_pll_lms.launches == launches + 1
+    # the timing loop bit for bit, the PLL + LMS at the stream tolerance
+    for name in ("valid", "fstate", "istate"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert int(want.valid.sum()) > Tc // 3
+    assert float((got.y_re - want.y_re).abs().max()) <= 2e-4
+    assert float((got.y_im - want.y_im).abs().max()) <= 2e-4
+    assert torch.equal(got.dec, want.dec)
+    assert torch.equal(got.pll_state["eq_n"], want.pll_state["eq_n"])
+    for key in want.pll_state:
+        assert float((got.pll_state[key].float()
+                      - want.pll_state[key].float()).abs().max()) <= 2e-4, key
+
+
+def test_symsync_pll_lms_equals_the_two_kernels(dev):
+    # one chunk through the fused kernel against symsync_scan then pll_lms
+    # on its slots: the same device code, so the same bits; then a second
+    # chunk with the dot handed on against pll_lms over both chunks' slots
+    from liquid_dsp_tpu_torch.framing.symtrack import symtrack_stream
+    from liquid_dsp_tpu_torch.ops.kernels import pll_lms as pk
+    from liquid_dsp_tpu_torch.ops.kernels import symsync_pll_lms as fk
+    from liquid_dsp_tpu_torch.ops.kernels import symsync_scan as sk
+    st = symtrack_stream().to(dev)
+    ma, fs, is_, pc = _fused_inputs(dev, st, 64, 1400, 3, 2048)
+    kw = dict(npfb=32, max_out=3, k=2, k_out=1, bw=st.sync_bw, locked=False)
+    halves = (ma[..., :700].contiguous(), ma[..., 700:].contiguous())
+    f1 = fk.symsync_pll_lms(halves[0], fs, is_, pc, st.post, **kw)
+    f2 = fk.symsync_pll_lms(halves[1], f1.fstate, f1.istate, f1.pll_state,
+                            st.post, **kw)
+    s1 = sk.symsync_scan(halves[0], fs, is_, **kw)
+    s2 = sk.symsync_scan(halves[1], s1[3], s1[4], **kw)
+    y_re, y_im, dec, pc2 = pk.pll_lms(
+        torch.cat([s1[0], s2[0]], -1), torch.cat([s1[1], s2[1]], -1),
+        torch.cat([s1[2], s2[2]], -1), pc, st.tab_re, st.tab_im,
+        **st.pll_kwargs())
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([f1.valid, f2.valid], -1),
+                       torch.cat([s1[2], s2[2]], -1))
+    assert torch.equal(f2.fstate, s2[3]) and torch.equal(f2.istate, s2[4])
+    assert torch.equal(torch.cat([f1.dec, f2.dec], -1), dec)
+    for a, b in ((torch.cat([f1.y_re, f2.y_re], -1), y_re),
+                 (torch.cat([f1.y_im, f2.y_im], -1), y_im)):
+        assert float((a - b).abs().max()) <= 2e-4
+    for key in pk.STATE_KEYS:
+        assert float((f2.pll_state[key].float() - pc2[key].float()).abs()
+                     .max()) <= 2e-4, key
+
+
+def test_symsync_pll_lms_refuses(dev):
+    from liquid_dsp_tpu_torch.framing.symtrack import symtrack_stream
+    from liquid_dsp_tpu_torch.ops.kernels import pll_lms as pk
+    from liquid_dsp_tpu_torch.ops.kernels import symsync_pll_lms as fk
+    kw = dict(npfb=32, max_out=3, k=2, k_out=1, bw=0.02, locked=False)
+    st = symtrack_stream(eq_len=pk.LMAX + 1).to(dev)
+    ma, fs, is_, pc = _fused_inputs(dev, st, 2, 64, 0, 0)
+    with pytest.raises(ValueError, match="equalizer"):
+        fk.symsync_pll_lms(ma, fs, is_, pc, st.post, **kw)
+    st = symtrack_stream().to(dev)
+    ma, fs, is_, pc = _fused_inputs(dev, st, 2, 64, 0, 0)
+    with pytest.raises(ValueError, match="one device"):
+        fk.symsync_pll_lms(ma, fs, is_, pc, st.post.cpu(), **kw)
 
 
 def test_per_step_loops_raise_on_the_card(dev):

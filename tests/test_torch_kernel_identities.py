@@ -13,6 +13,12 @@ tests hold to the JAX package):
   axis, and the kernel's emit loop (one recompute for a step that opens
   inactive, then active emits only), written out with the plain version's
   arithmetic, gives bit-equal outputs and state.
+* symsync_pll_lms (both walks above on two warps): pll_lms's walk run
+  chunk by chunk with the state and the running dot handed on equals one
+  pass bit for bit; the two warps' hand-off through a ring of NBUF tiles
+  with two named barriers a buffer never writes a full buffer, never reads
+  a stale one, never leaves an arrive unmet and never sticks, under any
+  interleaving tried; the PLL warp's groups cover each slot once, in order.
 
 * fir_real and mix_fir_decim (csrc/fir_window.cuh and the two sources):
   the padded shared-memory map is a bijection that keeps every group of R
@@ -175,15 +181,17 @@ def _nearest64(v, table, qpsk):
     return idx, complex(table[idx])
 
 
-def _kernel_walk(sym, valid, st, table, qpsk, alpha, beta2, mu):
+def _kernel_walk(sym, valid, st, table, qpsk, alpha, beta2, mu, P0=None):
     """csrc/pll_lms.cu's walk over one channel in float64: valid slots
     only, the window kept shifted ahead, P' = A + g e C, invalid slots from
-    the state latched at the last valid slot."""
+    the state latched at the last valid slot.  P0: the dot as a run left it
+    (symsync_pll_lms's carried "dot"), else summed anew; the final state
+    holds the running dot under "P"."""
     L = len(st["w"])
     w, theta, dtheta = st["w"].copy(), st["theta"], st["dtheta"]
     sb = np.append(st["buf"][1:], 0)          # sb_j = buf_{j+1}, newest 0
     old, x2, n = st["buf"][0], st["x2"], st["n"]
-    P = np.sum(np.conj(w) * sb)
+    P = np.sum(np.conj(w) * sb) if P0 is None else P0
     y = np.zeros(len(sym), complex)
     dec = np.zeros(len(sym), np.int64)
     frozen = (P, w[L - 1], theta)
@@ -215,7 +223,7 @@ def _kernel_walk(sym, valid, st, table, qpsk, alpha, beta2, mu):
         frozen = (P, w[L - 1], theta)
     buf = np.append(old, sb[:L - 1])
     return y, dec, {"theta": theta, "dtheta": dtheta, "w": w, "buf": buf,
-                    "x2": x2, "n": n}
+                    "x2": x2, "n": n, "P": P}
 
 
 @pytest.mark.parametrize("ms,L,share,n0", [
@@ -256,6 +264,142 @@ def test_pll_lms_kernel_walk_matches_plain_version(ms, L, share, n0):
         np.testing.assert_allclose(
             fin["buf"], (out["eb_re"][b] + 1j * out["eb_im"][b]).numpy(),
             rtol=0, atol=2e-5)
+
+
+def _st64(st, b):
+    return {"theta": float(st["theta"][b]), "dtheta": float(st["dtheta"][b]),
+            "w": (st["ew_re"][b] + 1j * st["ew_im"][b]).numpy().astype(
+                complex),
+            "buf": (st["eb_re"][b] + 1j * st["eb_im"][b]).numpy().astype(
+                complex),
+            "x2": float(st["eq_x2"][b]), "n": int(st["eq_n"][b])}
+
+
+@pytest.mark.parametrize("ms,L,cuts", [
+    ("qpsk", 13, (0, 288, 300, 768)), ("qam16", 32, (0, 3, 96, 97, 768)),
+    ("qpsk", 1, (0, 400, 768))])
+def test_chunks_with_the_dot_carried_equal_one_pass(ms, L, cuts):
+    # symsync_pll_lms runs pll_lms's walk one chunk of slots at a time: with
+    # the state and the running dot handed on (summed anew at the block's
+    # first chunk only), the chunks' outputs and state are one pass's over
+    # the block, bit for bit (float64 here, the same operations in turn)
+    s_re, s_im, valid, st, tab, qpsk = _pll_case(31 + L, 1, 768, L, ms,
+                                                 1 / 6)
+    table = (tab[0] + 1j * tab[1]).numpy().astype(complex)
+    sym = (s_re[0] + 1j * s_im[0]).numpy().astype(complex)
+    v = valid[0].numpy()
+    y, d, fin = _kernel_walk(sym, v, _st64(st, 0), table, qpsk, **PLL_KW)
+    state, P, ys, ds = _st64(st, 0), None, [], []
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        yc, dc, state = _kernel_walk(sym[a:b], v[a:b], state, table, qpsk,
+                                     **PLL_KW, P0=P)
+        P = state["P"]
+        ys.append(yc)
+        ds.append(dc)
+    np.testing.assert_array_equal(np.concatenate(ys), y)
+    np.testing.assert_array_equal(np.concatenate(ds), d)
+    for key in fin:
+        np.testing.assert_array_equal(state[key], fin[key], err_msg=key)
+
+
+NBUF = 4           # csrc/symsync_pll_lms.cu: tiles in the two warps' ring
+
+
+def _ring_walk(ntiles, rng):
+    """csrc/symsync_pll_lms.cu's hand-off between its two warps under a
+    random interleaving.  The timing warp waits on EMPTY(u) for tile
+    n >= NBUF, writes tile n into buffer u = n % NBUF, arrives on FULL(u);
+    the PLL warp waits on FULL(u), reads and zeroes the tile, and arrives on
+    EMPTY(u) when n + NBUF < ntiles.  A named barrier of the two warps
+    completes on one arrive and one wait, so a second arrive before the
+    wait would complete it alone: the walk asserts that never happens,
+    that a buffer is written only when empty and read only when it holds
+    its tile, that neither warp is stuck, and that no arrive is left over.
+    Returns the tiles the PLL warp read, in order."""
+    pending = {}                      # barrier id -> arrives not yet met
+    buf = [None] * NBUF
+    prod, cons = [0, "wait"], [0, "wait"]
+    read = []
+
+    def full(u):
+        return ("full", u)
+
+    def empty(u):
+        return ("empty", u)
+
+    def arrive(bar):
+        assert pending.get(bar, 0) == 0, f"second arrive on {bar}"
+        pending[bar] = 1
+
+    def met(bar):
+        if pending.get(bar, 0):
+            pending[bar] = 0
+            return True
+        return False
+
+    def step_prod():
+        n, stage = prod
+        u = n % NBUF
+        if stage == "wait":
+            if n >= NBUF and not met(empty(u)):
+                return False
+            prod[1] = "write"
+        elif stage == "write":
+            assert buf[u] is None, f"tile {n} over tile {buf[u]}"
+            buf[u] = n
+            prod[1] = "arrive"
+        else:
+            arrive(full(u))
+            prod[:] = [n + 1, "wait"]
+        return True
+
+    def step_cons():
+        n, stage = cons
+        u = n % NBUF
+        if stage == "wait":
+            if not met(full(u)):
+                return False
+            cons[1] = "read"
+        elif stage == "read":
+            assert buf[u] == n, f"buffer {u} holds {buf[u]}, not tile {n}"
+            read.append(n)
+            buf[u] = None
+            cons[1] = "arrive"
+        else:
+            if n + NBUF < ntiles:
+                arrive(empty(u))
+            cons[:] = [n + 1, "wait"]
+        return True
+
+    while prod[0] < ntiles or cons[0] < ntiles:
+        movers = [f for f, w in ((step_prod, prod), (step_cons, cons))
+                  if w[0] < ntiles]
+        rng.shuffle(movers)
+        assert any(f() for f in movers), f"stuck at {prod}, {cons}"
+    assert not any(pending.values()), pending
+    return read
+
+
+@pytest.mark.parametrize("ntiles", [1, 3, NBUF, NBUF + 1, 9, 128])
+def test_symsync_pll_lms_ring_hand_off(ntiles):
+    for seed in range(20):
+        assert _ring_walk(ntiles, np.random.default_rng(seed)) == list(
+            range(ntiles))
+
+
+@pytest.mark.parametrize("Tc,max_out", [(4096, 3), (509, 3), (31, 3),
+                                        (300, 4), (33, 2)])
+def test_symsync_pll_lms_groups_cover_each_slot_once(Tc, max_out):
+    # the PLL warp walks each tile of TILE steps as groups of 32 slots from
+    # the tile's start (the last group of a ragged tile partly empty): every
+    # slot of the chunk once, in the order pll_lms walks the block
+    TILE = 32
+    order = []
+    for t0 in range(0, Tc, TILE):
+        ns = min(TILE, Tc - t0) * max_out
+        for g in range(0, ns, 32):
+            order += [t0 * max_out + i for i in range(g, min(g + 32, ns))]
+    assert order == list(range(Tc * max_out))
 
 
 # ---------------------------------------------------------------- symsync
