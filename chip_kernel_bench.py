@@ -115,9 +115,15 @@ seeded slots (chip_smoke.py's `synth_slots`: 256 channels x 12288 slots,
 a sixth valid, qpsk at L = 13 and qam16 at L = 32) over 20 launches and
 twice, and saves its outputs and state; and where the checkout has the
 fused kernel, `symsync_pll_lms` per 4096-step chunk at 256 channels on a
-tracker's own inputs (a QPSK stream after 8192 samples) against
-`symsync_scan` + `pll_lms` on the same chunk (fused, sequential, in
-turns) and both tracker routes' steps at 256 x 32768.  The last line is
+tracker's own inputs (a QPSK stream after 8192 samples) against the
+sequential route's kernels on the same chunk (fused, sequential, in
+turns), both tracker routes' steps and symsync(k=2, m=5) alone at 256 x
+32768, and each route's step under torch.profiler (device ms,
+operations, `symsync_pll_lms` launches a block, the convolutions' ms);
+where the fused kernel takes the input planes, also a whole block in its
+one launch at 32 (the full bank), 8, 4 and 2 rows a step (with the
+misses) and
+`branch_bank` against F.conv1d on that block.  The last line is
 `FUSED_RESULT {json}`.  With --vs DIR it runs that for DIR and for this
 checkout in turns (DIR, this, this, DIR), each in its own process, and
 prints the two checkouts' `pll_lms` outputs against each other (largest
@@ -1116,47 +1122,135 @@ def fused_bench(torch, cs, build, tag, name, save):
               f"{ms_[1]:.4f} ms", flush=True)
     torch.save(outs, save)
     if hasattr(cs, "fused_phase"):
-        from liquid_dsp_tpu_torch.ops.kernels.pll_lms import pll_lms as pl
-        from liquid_dsp_tpu_torch.ops.kernels.symsync_pll_lms import \
-            symsync_pll_lms
-        from liquid_dsp_tpu_torch.ops.kernels.symsync_scan import \
-            symsync_scan
-        B, T, warm = 256, 1 << 15, 8192
-        x, _ = cs.make_timing_stream(np.random.default_rng(41), B, warm + T,
-                                     7, 20.0, True)
-        x = torch.from_numpy(x).to(dev)
-        st = symtrack_stream().to(dev)
-        c = st.init(batch_shape=(B,), device=dev)
-        os.environ["LIQUID_SYMTRACK_FUSED"] = "0"
-        _, c = st(c, x[:, :warm])
-        ma, fs, is_, pc = cs.fused_inputs(torch, st, c, x[:, warm:warm + 4096])
-        kw = dict(npfb=32, max_out=3, k=2, k_out=1, bw=st.sync_bw,
-                  locked=False)
-
-        def seq():
-            sr_, si_, sv_, _, _ = symsync_scan(ma, fs, is_, **kw)
-            return pl(sr_, si_, sv_, pc, st.tab_re, st.tab_im,
-                      **st.pll_kwargs())
-
-        def fused():
-            return symsync_pll_lms(ma, fs, is_, pc, st.post, **kw)
-
-        chunk = [cs.time_ms(f, iters=10) for f in (fused, seq, seq, fused)]
-        steps = {}
-        for route in ("1", "0", "0", "1"):
-            os.environ["LIQUID_SYMTRACK_FUSED"] = route
-            steps.setdefault(route, []).append(
-                cs.time_ms(lambda: st(c, x[:, warm:]), iters=5))
-        result.update(chunk_fused=[chunk[0], chunk[3]],
-                      chunk_sequential=[chunk[1], chunk[2]],
-                      step_fused=steps["1"], step_sequential=steps["0"])
-        print(f"{tag} per 4096-step chunk at {B} channels: symsync_pll_lms "
-              f"{chunk[0]:.4f}, {chunk[3]:.4f} ms against symsync_scan + "
-              f"pll_lms {chunk[1]:.4f}, {chunk[2]:.4f} ms; symtrack_stream "
-              f"step at {B} x {T}: fused {steps['1'][0]:.4f}, "
-              f"{steps['1'][1]:.4f} ms, sequential {steps['0'][0]:.4f}, "
-              f"{steps['0'][1]:.4f} ms", flush=True)
+        fused_steps(torch, cs, dev, tag, result)
     print("FUSED_RESULT " + json.dumps(result), flush=True)
+
+
+WINDOWS = (32, 8, 4, 2)   # the fused kernel's filter rows a step, timed
+
+
+def fused_steps(torch, cs, dev, tag, result):
+    """--fused's tracker part for a checkout with the fused kernel: the
+    kernel per 4096-step chunk against the sequential route's kernels on
+    the same chunk; both routes' steps and symsync(k=2, m=5) alone at
+    256 x 32768 (host clock, CUDA events); each route's step profiled
+    (device ms, operations, kernel launches, the convolutions' share);
+    for a checkout whose fused kernel takes the input planes (it has
+    ops/kernels/branch_bank.py), also the whole block in one launch at
+    WINDOWS rows a step (32: the full bank; with the misses), and
+    branch_bank against F.conv1d on the tracker's block."""
+    import torch.nn.functional as F
+    from liquid_dsp_tpu_torch.framing.symtrack import symtrack_stream
+    from liquid_dsp_tpu_torch.ops.kernels.pll_lms import pll_lms as pl
+    from liquid_dsp_tpu_torch.ops.kernels.symsync_pll_lms import \
+        symsync_pll_lms
+    from liquid_dsp_tpu_torch.ops.kernels.symsync_scan import symsync_scan
+    from liquid_dsp_tpu_torch.ops.symsync import symsync
+    try:
+        from liquid_dsp_tpu_torch.ops.kernels.branch_bank import branch_bank
+    except ImportError:          # the fused kernel on branch outputs
+        branch_bank = None
+    B, T, warm = 256, 1 << 15, 8192
+    x, _ = cs.make_timing_stream(np.random.default_rng(41), B, warm + T,
+                                 7, 20.0, True)
+    x = torch.from_numpy(x).to(dev)
+    st = symtrack_stream().to(dev)
+    c = st.init(batch_shape=(B,), device=dev)
+    os.environ["LIQUID_SYMTRACK_FUSED"] = "0"
+    _, c = st(c, x[:, :warm])
+    kw = dict(npfb=32, max_out=3, k=2, k_out=1, bw=st.sync_bw, locked=False)
+    inp = cs.fused_inputs(torch, st, c, x[:, warm:warm + 4096])
+    if branch_bank is None:
+        ma, fs, is_, pc = inp
+        bank = (lambda: ma)
+        fused_args = (ma,)
+    else:
+        planes, kern, fs, is_, pc = inp
+        bank = (lambda: branch_bank(planes, kern))
+        fused_args = (planes, kern)
+
+    def seq():
+        sr_, si_, sv_, _, _ = symsync_scan(bank(), fs, is_, **kw)
+        return pl(sr_, si_, sv_, pc, st.tab_re, st.tab_im, **st.pll_kwargs())
+
+    def fused():
+        return symsync_pll_lms(*fused_args, fs, is_, pc, st.post, **kw)
+
+    chunk = [cs.time_ms(f, iters=10) for f in (fused, seq, seq, fused)]
+    del inp, fused_args
+    steps, prof = {}, {}
+    xb = x[:, warm:]
+    for route in ("1", "0", "0", "1"):
+        os.environ["LIQUID_SYMTRACK_FUSED"] = route
+        steps.setdefault(route, []).append(
+            cs.time_ms(lambda: st(c, xb), iters=5))
+    ss = symsync(k=2, m=5).to(dev)
+    cs_ss = ss.init(batch_shape=(B,), device=dev)
+    _, cs_ss = ss(cs_ss, x[:, :warm])
+    ss_ms = [cs.time_ms(lambda: ss(cs_ss, xb), iters=5) for _ in range(2)]
+    for route in ("1", "0"):
+        os.environ["LIQUID_SYMTRACK_FUSED"] = route
+        n0 = symsync_pll_lms.launches
+        st(c, xb)
+        torch.cuda.synchronize()
+        launches = symsync_pll_lms.launches - n0
+        by_name, wall = cs.device_profile(torch, lambda: st(c, xb), 3,
+                                          f"route {route}")
+        conv = [(k_, v_) for k_, v_ in by_name.items()
+                if "conv" in k_.lower() or "cudnn" in k_.lower()]
+        prof[route] = {
+            "device_ms": sum(t for t, _ in by_name.values()) / 3,
+            "operations": sum(n for _, n in by_name.values()) / 3,
+            "busy": sum(t for t, _ in by_name.values()) / wall,
+            "fused_launches_a_block": launches,
+            "conv_ms": sum(t for _, (t, _) in conv) / 3,
+            "top": {k_[:60]: [t / 3, n / 3] for k_, (t, n) in sorted(
+                by_name.items(), key=lambda kv: -kv[1][0])[:6]}}
+    result.update(chunk_fused=[chunk[0], chunk[3]],
+                  chunk_sequential=[chunk[1], chunk[2]],
+                  step_fused=steps["1"], step_sequential=steps["0"],
+                  symsync_step=ss_ms, profile=prof)
+    print(f"{tag} per 4096-step chunk at {B} channels: symsync_pll_lms "
+          f"{chunk[0]:.4f}, {chunk[3]:.4f} ms against the sequential "
+          f"route's kernels {chunk[1]:.4f}, {chunk[2]:.4f} ms; steps at {B} "
+          f"x {T}: symtrack_stream fused {steps['1'][0]:.4f}, "
+          f"{steps['1'][1]:.4f} ms, sequential {steps['0'][0]:.4f}, "
+          f"{steps['0'][1]:.4f} ms; symsync(k=2, m=5) {ss_ms[0]:.4f}, "
+          f"{ss_ms[1]:.4f} ms", flush=True)
+    for route, pr in prof.items():
+        print(f"{tag} profile, {'fused' if route == '1' else 'sequential'} "
+              f"route step: device {pr['device_ms']:.3f} ms in "
+              f"{pr['operations']:.0f} operations, busy {pr['busy']:.3f}; "
+              f"symsync_pll_lms launches a block "
+              f"{pr['fused_launches_a_block']}; convolutions "
+              f"{pr['conv_ms']:.3f} ms; by kernel (ms, launches): "
+              + "; ".join(f"{k_} {t:.3f} ({n:.0f})"
+                          for k_, (t, n) in pr["top"].items()), flush=True)
+    if branch_bank is None:
+        return
+    planes, kern, fs, is_, pc = cs.fused_inputs(torch, st, c, xb)
+    blk = {}
+    for win in WINDOWS + WINDOWS[::-1]:
+        blk.setdefault(str(win), []).append(cs.time_ms(
+            lambda: symsync_pll_lms(planes, kern, fs, is_, pc, st.post,
+                                    win=win, **kw), iters=3))
+    miss = {str(w): int(symsync_pll_lms(planes, kern, fs, is_, pc, st.post,
+                                        win=w, **kw).misses.sum())
+            for w in WINDOWS}
+    bb = [cs.time_ms(lambda: branch_bank(planes, kern), iters=3)
+          for _ in range(2)]
+    torch.cuda.empty_cache()
+    wk = kern[:, None].contiguous()
+    cv = [cs.time_ms(lambda: F.conv1d(planes.reshape(2 * B, 1, -1), wk),
+                     iters=3) for _ in range(2)]
+    result.update(block_by_rows=blk, misses_by_rows=miss, branch_bank=bb,
+                  conv1d=cv)
+    print(f"{tag} symsync_pll_lms on a whole {B} x {T} block by rows a "
+          f"step: " + "; ".join(f"{w} rows {', '.join(f'{t:.4f}' for t in v)}"
+                                f" ms ({miss[w]} misses)"
+                                for w, v in blk.items())
+          + f"; branch_bank on that block {bb[0]:.4f}, {bb[1]:.4f} ms "
+          f"against F.conv1d {cv[0]:.4f}, {cv[1]:.4f} ms", flush=True)
 
 
 def fused_turns(args):
@@ -1195,6 +1289,23 @@ def fused_turns(args):
         cells = "; ".join(f"{r['tag']} {r[f'pll_lms_{ms}'][0]:.4f}, "
                           f"{r[f'pll_lms_{ms}'][1]:.4f}" for r in got)
         print(f"pll_lms {ms} ms, turns in order: {cells}", flush=True)
+    for r in got:
+        if "profile" not in r:
+            continue
+        pf, ps = r["profile"]["1"], r["profile"]["0"]
+        print(f"turn {r['tag']}: symtrack_stream step fused "
+              f"{', '.join(f'{t:.4f}' for t in r['step_fused'])} ms "
+              f"(device {pf['device_ms']:.3f} ms, convolutions "
+              f"{pf['conv_ms']:.3f}, symsync_pll_lms launches a block "
+              f"{pf['fused_launches_a_block']}), sequential "
+              f"{', '.join(f'{t:.4f}' for t in r['step_sequential'])} ms "
+              f"(device {ps['device_ms']:.3f}, convolutions "
+              f"{ps['conv_ms']:.3f}); symsync "
+              f"{', '.join(f'{t:.4f}' for t in r['symsync_step'])} ms; "
+              f"chunk fused {', '.join(f'{t:.4f}' for t in r['chunk_fused'])}"
+              f", sequential "
+              f"{', '.join(f'{t:.4f}' for t in r['chunk_sequential'])}",
+              flush=True)
 
 
 def main():

@@ -51,8 +51,11 @@ Then the frame64 streaming receiver with in-stream Golay decode,
      rows whose best score is tied between far-apart duplicate columns;
  10. fir_real: firfilt(h, backend="pallas") on the card against its
      plain version over 3 carried 64x262144 blocks (< 1e-5 of rms), one
-     launch per block; then fir_real itself at 1, 13, 257 and 4096 taps
-     and at a ragged T (2053);
+     launch per block; then fir_real itself at 1, 13, 257, 4096, 4200
+     and 24576 taps (fir_real.LMAX: above 4096 the kernel asks for more
+     than 48 KB of shared memory) and at a ragged T (2053), the long
+     filters' times at 16 x 65536 beside F.conv1d, and 24577 taps
+     refused on the card;
  11. times (CUDA events): the receiver step, and each kernel against its
      plain version (plain, kernel, kernel, plain); torch.profiler over 3
      receiver steps (device time by kernel; a measurement, no check).
@@ -64,15 +67,17 @@ channel, made with numpy and scipy):
  12. symsync(k=2, m=5) over 3 carried blocks at 40 dB SNR: after the first
      block T/2 +- 2 symbols per block on every channel, the tail symbols
      against those sent (_tail_err < 5e-3, tests/test_symsync_misc.py)
-     on every channel, symsync_scan launched once per chunk and block;
+     on every channel, branch_bank and symsync_scan launched once per
+     chunk and block;
  13. symtrack_stream(ms="qpsk") over 3 carried blocks, adding per-channel
      gain, carrier phase and on a quarter of the channels a CFO up to
      5e-4 rad/sample, at 20 dB SNR, on the route the card's rule picks
      (framing/symtrack.py's _use_fused): over the third block's last 8192
      symbols the decisions equal those sent up to a delay and a multiple
      of 90 degrees (SER <= 1e-3) on every channel; agc_scan and that
-     route's kernels (symsync_scan and pll_lms, or symsync_pll_lms)
-     launched as the blocks and chunks say;
+     route's kernels (branch_bank, symsync_scan and pll_lms per chunk
+     and block, or symsync_pll_lms once a block) launched as the blocks
+     and chunks say;
  14. each new kernel against its plain version on the same inputs and
      states: symsync_scan bit-equal over 1024 steps x 256 channels,
      agc_scan bit-equal (else max|err|/rms <= 1e-6) over 1024 samples,
@@ -88,29 +93,39 @@ channel, made with numpy and scipy):
      2e-4 (outputs and state) with equal decisions where every 4th
      channel has no valid slot (and invalid slots carry samples), where
      all slots are valid, with the argmin slicer (qam16) and with L = 32;
+     branch_bank bit-equal to its plain version and within 1e-5 of rms
+     of F.conv1d (TF32 off) on symsync's input, the tracker's bank on
+     phase 13's, a real stream, a ragged chunk and a strided view;
  15. 4 channels x 4096 samples through symtrack_stream on the card and on
      the CPU (hoisted route with the kernels' plain versions): equal valid
      masks and decisions, symbols within 2e-4;
  16. times (CUDA events): each new kernel against its plain version at
      1024 steps / 3072 slots (plain, kernel, kernel, plain), each kernel
-     at full width, and the symsync and symtrack_stream block steps;
+     at full width, branch_bank at the tracker's whole block (256 x
+     32768, 4.29 GB out) beside F.conv1d, and the symsync and
+     symtrack_stream block steps;
  17. torch.profiler over 3 symtrack_stream steps: device time by kernel,
      device operations per step, busy share (a measurement, no check);
  41. (right after phase 17, on phase 13's stream) symtrack's two routes
      over its 3 carried blocks, LIQUID_SYMTRACK_FUSED=1 and =0: on the
-     fused route symsync_pll_lms launched once per chunk and block and
-     neither symsync_scan nor pll_lms, valid masks and decisions equal to
-     the sequential route's, symbols and carries within 2e-4 (the largest
-     difference printed, 0 when bit-equal), SER <= 1e-3 on every channel;
-     symsync_pll_lms against its plain version on 256 channels x 1024
+     fused route symsync_pll_lms launched once per block and neither
+     branch_bank, symsync_scan nor pll_lms, valid masks and decisions
+     equal to the sequential route's, symbols and carries within 2e-4
+     (the largest difference printed, 0 when bit-equal), SER <= 1e-3 on
+     every channel; symsync_pll_lms (on the input planes, its filter warp
+     at its default 8 rows a step and at the full bank of 32, the misses
+     of both printed, none at the full bank) against its plain version
+     on 256 channels x 1024
      steps (the timing loop's slot mask and state bit-equal, y and the
      PLL state within 2e-4, decisions and eq_n equal), on a ragged chunk
      (509 steps), from the zero state (acquisition), at L = 32 and with
      the argmin slicer (qam16, its own stream); times (CUDA events): the
      kernel at 1024 steps against its plain version, per 4096-step chunk
-     against symsync_scan + pll_lms on the same chunk, both routes' block
-     steps at 1, 8, 32, 64 and 256 channels x 32768 samples (the crossover
-     the card's rule rests on), and torch.profiler over 3 fused steps.
+     against branch_bank + symsync_scan + pll_lms on the same chunk, a
+     whole block's one launch at both windows, both routes' block steps
+     at 1, 8, 32, 64 and 256 channels x 32768 samples (the crossover the
+     card's rule rests on), and torch.profiler over 3 steps of each
+     route.
 
 Then the channelizer family, the 64-channel wideband scanner and the
 flexframe receiver on block codes:
@@ -254,10 +269,15 @@ at 64 channels x 262144 samples per block:
      the multipath, the shadowing gain, the carrier offset): the card's
      output less the signal gain times that rebuild has the AWGN's power
      within 1%, and the same rebuild without the shadowing does not; the
-     shadowing process's std within 0.02 of 1; the step's time, the
-     kernel at the path's shape over 100 launches beside its bound, a
-     lone row's time at two lengths (its step latency), the plain
-     version at 1024 steps; torch.profiler over 3 steps;
+     shadowing process's std within 0.02 of 1; iir_scan's size repairs:
+     12 second-order sections (two launches) and an order-24 complex
+     section (the wide form, its state in shared memory) bit-equal to the
+     plain version over 64 x 1024 from a random state, each timed at
+     64 x 32768, and a section of 4097 coefficients refused on the card;
+     the step's time, the kernel at the path's shape over 100 launches
+     beside its bound, a lone row's time at two lengths (its step
+     latency), the plain version at 1024 steps; torch.profiler over 3
+     steps;
  35. analog_rx on those blocks, chain(iirfilt_sos(butter 7, 0.2),
      freq_demodulator(0.1), iirdecim(4), iirfilt_dc_blocker(0.01)):
      every IIR filter on the block form, iir_block_state launched 3 times
@@ -359,10 +379,10 @@ card (the cards in turn where there are several):
      card synchronized), and torch.profiler over the sharded chain's and
      receiver's steps.
 
-The JSON line before the card's name lists all thirteen kernels, each
-with its launches on its main path (symsync_scan on symsync and, in
-"launches_by_path", the tracker's sequential route; pll_lms on that route;
-symsync_pll_lms on the fused route; mix_fir_decim also per path, in
+The JSON line before the card's name lists all fourteen kernels, each
+with its launches on its main path (symsync_scan and branch_bank on
+symsync and, in "launches_by_path", the tracker's sequential route;
+pll_lms on that route; symsync_pll_lms on the fused route; mix_fir_decim also per path, in
 "launches_by_path": the headline chain, multirate_rx, stream_runner and
 the StagePipeline; fir_real on firfilt(backend="pallas") and the
 time-sharded chain; codebook_argmax also per path, in
@@ -376,7 +396,7 @@ path; each counted from 0 over its own run), its error
 against the plain version (for viterbi_acs the count of decoded bits that
 differ), its time,
 the plain version's, the time of one PyTorch call for the same function
-where there is one (F.conv1d for fir_real), and its bound: the larger of
+where there is one (F.conv1d for fir_real and branch_bank), and its bound: the larger of
 the bytes it must move over 3.35 TB/s and its float32 operations over
 67 TFLOP/s (a multiply-add counts 2), from this run's shapes and data.
 """
@@ -406,6 +426,8 @@ TR_CROSS = (1, 8, 32, 64, 256)   # channels of the routes' crossover
 TOL_TAIL = 5e-3    # symsync tail error (tests/test_symsync_misc.py:45-56)
 TOL_STREAM = 2e-4  # symtrack stream tolerance (tests/test_framing_extras.py:56)
 TOL_AGC = 1e-6     # agc_scan vs plain, max|err|/rms, if not bit-equal
+TOL_CONV = 1e-5    # branch_bank vs F.conv1d (TF32 off), max|err|/rms: two
+#                    summation orders of one float32 sum of Lb products
 MAX_SER = 1e-3     # symtrack symbol errors over the checked tail
 RX_B, RX_T = 128, 1 << 15   # receiver: channels x samples per block
 RX_NBLK = 3                 # carried receiver blocks (plus one flush block)
@@ -419,7 +441,10 @@ TOL_SHAPES = 1e-5           # mix_fir_decim vs plain at the structure's shapes
 MIX_SHAPES = ((16, 6144, 41, 4), (8, 4096, 257, 1), (8, 2048, 257, 256),
               (8, 2048, 1, 1), (24, 8192, 100, 8))
 FIR_SHAPES = ((6, 4096, 1), (6, 4096, 13), (6, 4096, 257), (2, 3000, 4096),
-              (6, 2053, 144))   # (rows, T, L): a ragged T stores past no row
+              (6, 2053, 144), (2, 3000, 4200), (2, 3000, 24576))
+#             (rows, T, L): a ragged T stores past no row; above 4096 taps
+#             the shared memory asked for beyond 48 KB, up to fir_real.LMAX
+FIR_LONG = (16, 1 << 16)    # rows x samples of the long filters' timings
 TR_STRESS = 509             # steps of the symsync_scan stress cases (ragged)
 PLL_STRESS = 1536           # slots of the pll_lms stress cases
 AGC_STRESS = 1024           # samples of the longest agc_scan stress cases
@@ -482,6 +507,9 @@ AN_CHECK = 4                # channels held to the float64 scipy reference
 AN_SETTLE = 2048            # output samples before the filters settle
 AN_CMP = 1024               # steps of the iir_scan kernel-vs-plain windows
 AN_BACKENDS = (64, 32768)   # channels x samples of the scan-vs-block runs
+AN_SPLIT = 12               # sections of the split iir_scan cascade
+AN_WIDE = 24                # order of the wide-form iir_scan section
+AN_IIR_T = 1 << 15          # samples a row of the repairs' timings
 TOL_AN64 = 1e-4             # analog_rx vs float64, max|err|/rms (block vs
 #                             scan bound, tests/test_agc_eq_iir.py:193)
 TOL_BACKENDS = 1e-4         # scan vs block on the card, max|err|/rms
@@ -894,6 +922,10 @@ def main():
             ent["launches_by_path"] = {
                 "symsync": tr_ctx["ss_launches"],
                 "symtrack_sequential": seq_n["symsync_scan"]}
+        elif ent["name"] == "branch_bank":
+            ent["launches_by_path"] = {
+                "symsync": ent["launches"],
+                "symtrack_sequential": seq_n["branch_bank"]}
         elif ent["name"] == "pll_lms":
             ent["launches"] = seq_n["pll_lms"]
             ent["launches_by_path"] = {"symtrack_sequential":
@@ -973,7 +1005,7 @@ def main():
     vt["max_abs_err"] = max(vt["max_abs_err"], gm_vt_err, fs_vt_err)
     kernels += [vt, scan_entry, block_entry, cvsd_entry] + eq_entries
     kernels.append(fused_entry)
-    check(len(kernels) == 13, f"{len(kernels)} kernels listed, want 13")
+    check(len(kernels) == 14, f"{len(kernels)} kernels listed, want 14")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1129,6 +1161,36 @@ def receiver_phases(torch, dev, card):
         held.append(f"{rows_}x{T_} L={L_}: {e_:.2e}")
     print(f"fir_real vs plain at other shapes (< {TOL_FIR}): "
           + "; ".join(held), flush=True)
+    # the long filters at FIR_LONG, the kernel beside F.conv1d (the same
+    # function, TF32 off), and the refusal above the kernel's limit
+    import torch.nn.functional as F
+    from liquid_dsp_tpu_torch.ops.kernels.fir_real import LMAX as FIR_LMAX
+    long_ms = {}
+    for L_ in (4200, FIR_LMAX):
+        g_ = torch.Generator(device=dev).manual_seed(L_)
+        x_ = torch.randn(*FIR_LONG, generator=g_, device=dev)
+        c_ = torch.randn(FIR_LONG[0], L_ - 1, generator=g_, device=dev)
+        h_ = torch.randn(L_, generator=g_, device=dev) / L_ ** 0.5
+        xin_ = torch.cat([c_, x_], 1)[:, None, :]
+        w_ = h_.flip(0)[None, None, :].contiguous()
+        long_ms[L_] = (time_ms(lambda: fir_real(x_, c_, h_), iters=5),
+                       time_ms(lambda: F.conv1d(xin_, w_), iters=5),
+                       bound(2 * x_.numel() * 4, 2 * x_.numel() * L_))
+        del xin_
+    refused = False
+    try:
+        fir_real(x_[:, :64].contiguous(), torch.zeros(
+            FIR_LONG[0], FIR_LMAX, device=dev), torch.zeros(
+            FIR_LMAX + 1, device=dev))
+    except ValueError:
+        refused = True
+    check(refused, f"fir_real took {FIR_LMAX + 1} taps on the card")
+    print(f"timing ({card}): fir_real at {FIR_LONG[0]} x {FIR_LONG[1]}: "
+          + "; ".join(f"{L_} taps {k_:.4f} ms (F.conv1d {c_:.4f} ms, bound "
+                      f"{b_['bound_ms']:.4f} ms by {b_['bound_by']})"
+                      for L_, (k_, c_, b_) in long_ms.items())
+          + f"; {FIR_LMAX + 1} taps refused on the card (ValueError)",
+          flush=True)
 
     # 11. timing: plain, kernel, kernel, plain on one card
     c1, x1 = carries[1], x[:, RX_T:2 * RX_T]
@@ -1148,7 +1210,6 @@ def receiver_phases(torch, dev, card):
     fp2 = time_ms(lambda: fir_real_reference(rows, crow, hk))
     # the one PyTorch call for the same function: conv1d (a
     # cross-correlation, so the taps flipped) over [carry | rows]
-    import torch.nn.functional as F
     xin = torch.cat([crow, rows], 1)[:, None, :]
     wk = hk.flip(0)[None, None, :].contiguous()
     lib_err = float((F.conv1d(xin, wk)[:, 0] - fir_real(rows, crow, hk))
@@ -1194,7 +1255,9 @@ def receiver_phases(torch, dev, card):
         "replaces": "liquid_dsp_tpu/ops/kernels/pallas_fir.py:51",
         "launches": fir_launches, "max_abs_err": abs_fir,
         "ms": fr_ms, "plain_ms": fr_plain, "library_ms": fr_lib,
-        **fr_bound}]
+        **fr_bound, "long_filters_ms": {
+            str(L_): {"ms": k_, "library_ms": c_, "bound_ms": b_["bound_ms"]}
+            for L_, (k_, c_, b_) in long_ms.items()}}]
 
 
 def time_once(fn):
@@ -1388,8 +1451,11 @@ def timing_phases(torch, dev, card):
         pll_lms, pll_lms_reference)
     from liquid_dsp_tpu_torch.ops.kernels.symsync_scan import (
         symsync_scan, symsync_scan_reference)
+    from liquid_dsp_tpu_torch.ops.kernels.branch_bank import (
+        branch_bank, branch_bank_reference)
     from liquid_dsp_tpu_torch.ops.symsync import (
-        _chunks, branch_kernel, branch_outputs, loop_state, symsync)
+        _chunks, branch_kernel, loop_state, symsync)
+    import torch.nn.functional as F
 
     B, T, NB = TR_B, TR_T, TR_NBLK
     nch = len(_chunks(T, True))
@@ -1407,15 +1473,16 @@ def timing_phases(torch, dev, card):
     ss = symsync(k=2, m=5).to(dev)
     c = ss.init(batch_shape=(B,), device=dev)
     ss_carries, outs = [c], []
-    symsync_scan.launches = 0
+    symsync_scan.launches = branch_bank.launches = 0
     for b in range(NB):
         out, c = ss(c, x1[:, b * T:(b + 1) * T])
         outs.append(out)
         ss_carries.append(c)
     torch.cuda.synchronize()
-    ss_launches = symsync_scan.launches
-    check(ss_launches == nch * NB, f"symsync_scan launched {ss_launches} "
-          f"times for {nch} chunks x {NB} blocks")
+    ss_launches, bb_launches = symsync_scan.launches, branch_bank.launches
+    check(ss_launches == nch * NB and bb_launches == nch * NB,
+          f"symsync_scan launched {ss_launches}, branch_bank "
+          f"{bb_launches} times for {nch} chunks x {NB} blocks")
     counts = torch.stack([v.sum(-1) for _, v in outs]).cpu().numpy()
     check(np.abs(counts[1:] - T // 2).max() <= 2, f"symsync: symbols per "
           f"block after lock {counts[1:].min()}..{counts[1:].max()}, "
@@ -1430,8 +1497,9 @@ def timing_phases(torch, dev, card):
           f"40 dB SNR; symbols per block after lock {counts[1:].min()}.."
           f"{counts[1:].max()} (T/2 = {T // 2}); tail error max "
           f"{max(errs):.3e} (< {TOL_TAIL}) on all {B} channels; "
-          f"symsync_scan launches {ss_launches} ({nch} chunks x {NB} "
-          f"blocks); stream made in {t_gen:.1f} s", flush=True)
+          f"symsync_scan and branch_bank launches {ss_launches} and "
+          f"{bb_launches} ({nch} chunks x {NB} blocks); stream made in "
+          f"{t_gen:.1f} s", flush=True)
 
     # 13. symtrack_stream at full width
     t0 = time.perf_counter()
@@ -1443,7 +1511,7 @@ def timing_phases(torch, dev, card):
     c = st.init(batch_shape=(B,), device=dev)
     st_carries, st_outs = [c], []
     agc_scan.launches = symsync_scan.launches = pll_lms.launches = 0
-    symsync_pll_lms.launches = 0
+    symsync_pll_lms.launches = branch_bank.launches = 0
     t0 = time.perf_counter()
     for b in range(NB):
         out, c = st(c, x2[:, b * T:(b + 1) * T])
@@ -1452,14 +1520,18 @@ def timing_phases(torch, dev, card):
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     launches = {"agc_scan": agc_scan.launches,
+                "branch_bank": branch_bank.launches,
                 "symsync_scan": symsync_scan.launches,
                 "pll_lms": pll_lms.launches,
                 "symsync_pll_lms": symsync_pll_lms.launches}
-    # the route the card's rule picks for this batch (phase 41 runs both)
+    # the route the card's rule picks for this batch (phase 41 runs both):
+    # the fused kernel once a block, or per chunk branch_bank and
+    # symsync_scan, then pll_lms
     fused = _use_fused((B,), dev)
-    want = {"agc_scan": NB, "symsync_scan": 0 if fused else nch * NB,
+    want = {"agc_scan": NB, "branch_bank": 0 if fused else nch * NB,
+            "symsync_scan": 0 if fused else nch * NB,
             "pll_lms": 0 if fused else NB,
-            "symsync_pll_lms": nch * NB if fused else 0}
+            "symsync_pll_lms": NB if fused else 0}
     check(launches == want, f"symtrack launches {launches}, want {want} "
           f"({'fused' if fused else 'sequential'} route)")
     for sy, dec, sv in st_outs:
@@ -1489,7 +1561,7 @@ def timing_phases(torch, dev, card):
     c1 = ss_carries[1]
     kern = branch_kernel(ss.mf, ss.dmf, dev)
     xp = torch.cat([c1["win"][..., 1:], x1[:, T:T + TR_CMP]], -1)
-    ma = branch_outputs(kern, torch.stack([xp.real, xp.imag]).contiguous())
+    ma = branch_bank(torch.stack([xp.real, xp.imag]).contiguous(), kern)
     fs, is_ = loop_state(c1, B)
     kw = dict(npfb=32, max_out=3, k=2, k_out=1, bw=ss.bw, locked=False)
     out_k = symsync_scan(ma, fs, is_, **kw)
@@ -1498,6 +1570,51 @@ def timing_phases(torch, dev, card):
           "symsync_scan: kernel and plain version differ")
     ss_err = float((out_k[0] - out_p[0]).abs().max()
                    + (out_k[1] - out_p[1]).abs().max())
+
+    # branch_bank against its plain version (bit-equal) and against cuDNN's
+    # full-float32 conv1d (another summation order: TOL_CONV of the rms),
+    # on symsync's input above, the tracker's bank on phase 13's input, a
+    # real stream, a ragged chunk (no 16-byte stores) and a strided view
+    def hold_bank(name, planes_, kern_):
+        k_ = branch_bank(planes_, kern_)
+        p_ = branch_bank_reference(planes_, kern_)
+        P_, B_, n_ = planes_.shape
+        c_ = F.conv1d(planes_.reshape(P_ * B_, 1, n_), kern_[:, None]
+                      ).reshape(k_.shape)
+        torch.cuda.synchronize()
+        check(torch.equal(k_, p_), f"branch_bank, {name}: kernel and plain "
+              f"version differ by {float((k_ - p_).abs().max()):.3e}")
+        rel = float((k_ - c_).abs().max() / c_.square().mean().sqrt())
+        check(rel <= TOL_CONV, f"branch_bank, {name}: {rel:.3e} of rms "
+              f"from F.conv1d (> {TOL_CONV})")
+        bank_abs.append(float((k_ - p_).abs().max()))
+        return rel
+
+    bank_abs = []
+    kern_t = branch_kernel(st.ss.mf, st.ss.dmf, dev)
+    xp_t = torch.cat([st_carries[1]["ss"]["win"][..., 1:],
+                      x2[:, T:T + TR_CMP]], -1)
+    xp_w = torch.cat([c1["win"][..., 1:], x1[:, T:T + 4 * TR_CMP]], -1)
+    planes_w = torch.stack([xp_w.real, xp_w.imag])
+    bank_rel = {
+        f"symsync's bank (Lb {kern.shape[1]}), {B} x {TR_CMP}": hold_bank(
+            "symsync", torch.stack([xp.real, xp.imag]).contiguous(), kern),
+        f"the tracker's bank (Lb {kern_t.shape[1]})": hold_bank(
+            "tracker", torch.stack([xp_t.real, xp_t.imag]).contiguous(),
+            kern_t),
+        "a real stream (P=1)": hold_bank("P=1", xp.real[None].contiguous(),
+                                         kern),
+        f"a ragged chunk ({TR_STRESS} steps)": hold_bank(
+            "ragged", torch.stack([xp.real, xp.imag])[
+                ..., :TR_STRESS + kern.shape[1] - 1].contiguous(), kern),
+        "a strided view": hold_bank("view", planes_w[
+            ..., TR_CMP // 2 + 3:TR_CMP // 2 + 3 + TR_CMP
+            + kern.shape[1] - 1], kern)}
+    del xp_w, planes_w
+    print(f"branch_bank vs plain, bit-equal; vs F.conv1d (TF32 off), "
+          f"max|err|/rms: " + "; ".join(f"{k_} {v_:.2e}" for k_, v_ in
+                                        bank_rel.items())
+          + f" (<= {TOL_CONV})", flush=True)
 
     xa = x2[:, T:T + TR_AGC]
     p = (xa.real * xa.real + xa.imag * xa.imag).contiguous()
@@ -1549,11 +1666,11 @@ def timing_phases(torch, dev, card):
     n_s = TR_STRESS
     ma_s = ma[..., :n_s].contiguous()
     xr = torch.cat([c1["win"][..., 1:].real, x1[:, T:T + n_s].real], -1)
-    ma_real = branch_outputs(kern, xr[None].contiguous())
+    ma_real = branch_bank(xr[None].contiguous(), kern)
     c0 = ss_carries[0]
     xp0 = torch.cat([c0["win"][..., 1:], x1[:, :n_s]], -1)
-    ma_acq = branch_outputs(kern, torch.stack([xp0.real, xp0.imag])
-                            .contiguous())
+    ma_acq = branch_bank(torch.stack([xp0.real, xp0.imag]).contiguous(),
+                         kern)
     fs0, is0 = loop_state(c0, B)
     stress = {
         "ragged chunk": hold_symsync("ragged chunk", ma_s, fs, is_, **kw),
@@ -1713,9 +1830,9 @@ def timing_phases(torch, dev, card):
           f"{pl_plain / sr.shape[1] * 1e3:.1f} us per slot", flush=True)
     del ma
     xp = torch.cat([c1["win"][..., 1:], x1[:, T:2 * T]], -1)
-    ma_full = branch_outputs(kern, torch.stack(
+    ma_full = branch_bank(torch.stack(
         [xp[:, :T // nch + kern.shape[-1] - 1].real,
-         xp[:, :T // nch + kern.shape[-1] - 1].imag]).contiguous())
+         xp[:, :T // nch + kern.shape[-1] - 1].imag]).contiguous(), kern)
     ss_full = time_ms(lambda: symsync_scan(ma_full, fs, is_, **kw), iters=3)
     ss_full_bound = symsync_bound(symsync_scan(ma_full, fs, is_, **kw), 2, B,
                                   ma_full.shape[-1], 3)
@@ -1740,6 +1857,39 @@ def timing_phases(torch, dev, card):
           f"ms = {B * T / ss_step / 1e3:.1f} Msamples/s; symtrack_stream "
           f"step {st_step:.4f} ms (runs {st1:.4f}, {st2:.4f}) = "
           f"{B * T / st_step / 1e3:.1f} Msamples/s", flush=True)
+    # branch_bank at the tracker's full block (its bank, 256 x 32768, the
+    # planes as the fused route builds them) against F.conv1d on the same
+    # planes; its plain version at TR_CMP steps.  Bound: the planes read
+    # and the outputs written once, one multiply-add a tap and output
+    xp_b = torch.cat([c2["ss"]["win"][..., 1:],
+                      st.ag(c2["agc"], x2[:, 2 * T:])[0]], -1)
+    pl_b = torch.stack([xp_b.real, xp_b.imag]).contiguous()
+    del xp_b
+    R_, Lb_ = kern_t.shape
+    wc_ = kern_t[:, None].contiguous()
+    pl_c = pl_b[..., :TR_CMP + Lb_ - 1].contiguous()
+    bbp1 = time_once(lambda: branch_bank_reference(pl_c, kern_t))[0]
+    bbk = []
+    for _ in range(2):
+        bbk.append(time_ms(lambda: branch_bank(pl_b, kern_t), iters=3))
+        torch.cuda.empty_cache()
+    bb_lib = time_ms(lambda: F.conv1d(pl_b.reshape(2 * B, 1, -1), wc_),
+                     iters=3)
+    torch.cuda.empty_cache()
+    bbp2 = time_once(lambda: branch_bank_reference(pl_c, kern_t))[0]
+    bb_ms, bb_plain = sum(bbk) / 2, (bbp1 + bbp2) / 2
+    bb_bound = bound(pl_b.numel() * 4 + 2 * B * R_ * T * 4 + R_ * Lb_ * 4,
+                     2 * 2 * B * R_ * T * Lb_)
+    bb_cmp_bound = bound(pl_c.numel() * 4 + 2 * B * R_ * TR_CMP * 4,
+                         2 * 2 * B * R_ * TR_CMP * Lb_)
+    del pl_b, pl_c
+    print(f"timing ({card}): branch_bank at the tracker's block (2 planes x "
+          f"{B} x {T} steps, {R_} rows of {Lb_} taps, "
+          f"{2 * B * R_ * T * 4 / 1e9:.2f} GB out): {bbk[0]:.4f}, "
+          f"{bbk[1]:.4f} ms against F.conv1d {bb_lib:.4f} ms, bound "
+          f"{bb_bound['bound_ms']:.4f} ms by {bb_bound['bound_by']} "
+          f"({bb_bound['bound_ms'] / bb_ms:.1%}); plain version at "
+          f"{TR_CMP} steps {bbp1:.2f}, {bbp2:.2f} ms", flush=True)
     ag_full_bound = bound(2 * p_full.numel() * 4, p_full.numel() * 12)
     pl_full_bound = pll_bound(sv_b, st.L)
     print(f"bounds (bytes once over {HBM_BYTES_PER_S / 1e12} TB/s, float32 "
@@ -1759,6 +1909,16 @@ def timing_phases(torch, dev, card):
     ctx = {"x2": x2, "idx2": idx2, "rot": rot, "st": st, "nch": nch,
            "ss_launches": ss_launches}
     return ctx, [{
+        "name": "branch_bank", "route": "cuda",
+        "source": "liquid_dsp_tpu_torch/csrc/branch_bank.cu",
+        "replaces": None,
+        "computes": "liquid_dsp_tpu/ops/symsync.py:153-166 "
+                    "(lax.conv_general_dilated, outside any Pallas kernel)",
+        "launches": bb_launches, "max_abs_err": max(bank_abs),
+        "conv1d_max_rel_err": max(bank_rel.values()),
+        "ms": bb_ms, "plain_ms": bb_plain, "library_ms": bb_lib,
+        **bb_bound, "shape": [2, B, R_, T], "plain_steps": TR_CMP,
+        "plain_bound_ms": bb_cmp_bound["bound_ms"]}, {
         "name": "symsync_scan", "route": "cuda",
         "source": "liquid_dsp_tpu_torch/csrc/symsync_scan.cu",
         "replaces": "liquid_dsp_tpu/ops/kernels/pallas_symsync.py:132",
@@ -1785,44 +1945,47 @@ def timing_phases(torch, dev, card):
 
 def fused_inputs(torch, st, c, x):
     """What `symsync_pll_lms` takes for the tracker `st` at carry `c` on the
-    samples x [B, n]: (ma, fstate, istate, PLL state)."""
-    from liquid_dsp_tpu_torch.ops.symsync import (branch_kernel,
-                                                  branch_outputs, loop_state)
+    samples x [B, n]: (planes, bank, fstate, istate, PLL state)."""
+    from liquid_dsp_tpu_torch.ops.symsync import branch_kernel, loop_state
     B = x.shape[0]
     y, _ = st.ag(c["agc"], x)
     xp = torch.cat([c["ss"]["win"][..., 1:], y], -1)
-    ma = branch_outputs(branch_kernel(st.ss.mf, st.ss.dmf, x.device),
-                        torch.stack([xp.real, xp.imag]).contiguous())
+    planes = torch.stack([xp.real, xp.imag]).contiguous()
     fs, is_ = loop_state(c["ss"], B)
-    return ma, fs, is_, st.pll_state(c, B)
+    return (planes, branch_kernel(st.ss.mf, st.ss.dmf, x.device), fs, is_,
+            st.pll_state(c, B))
 
 
-def fused_bound(out, P, L):
-    """Bound of one `symsync_pll_lms` call from its own output: 2P floats
-    read per active emit (a valid slot), 13 bytes written per slot (y, the
-    decision, the mask), both states read and written; per active emit
-    about 12 float32 operations of the timing loop, 16 L of the equalizer's
-    dot and update and 60 of the PLL and the slicers.  The slots pass
-    through shared memory, so unlike symsync_scan + pll_lms they count
-    once."""
+def fused_bound(out, planes, Lb, L):
+    """Bound of one `symsync_pll_lms` call from its own output and input:
+    the planes read once, 13 bytes written per slot (y, the decision, the
+    mask), both states read and written; per active emit about 12 float32
+    operations of the timing loop, 16 L of the equalizer's dot and update
+    and 60 of the PLL and the slicers, and the 2P branch dots it reads (Lb
+    multiply-adds each; the rows the kernel filters beyond those are its
+    own choice, not the function's).  The branch rows and the slots pass
+    through shared memory, so unlike branch_bank + symsync_scan + pll_lms
+    they count once."""
     B, S = out.valid.shape
+    P = planes.shape[0]
     active = int(out.valid.sum())
-    return bound(active * 2 * P * 4 + B * S * 13
+    return bound(planes.numel() * 4 + B * S * 13
                  + 2 * B * (8 * 4 + (4 * L + 4) * 4 + 8),
-                 active * (12 + 16 * L + 60))
+                 active * (12 + 16 * L + 60 + 2 * P * 2 * Lb))
 
 
 def fused_phase(torch, dev, card, ctx):
     """Phase 41: symtrack's fused route on symsync_pll_lms, on phase 13's
     stream, against the sequential route; the kernel against its plain
-    version; the two routes' times.  Returns the launches of the
-    sequential route's kernels and the new kernel's entry."""
+    version and its window's misses; the two routes' times.  Returns the
+    launches of the sequential route's kernels and the kernel's entry."""
     from unittest import mock
     from liquid_dsp_tpu_torch.framing.symtrack import symtrack_stream
     from liquid_dsp_tpu_torch.ops.kernels.agc_scan import agc_scan
+    from liquid_dsp_tpu_torch.ops.kernels.branch_bank import branch_bank
     from liquid_dsp_tpu_torch.ops.kernels.pll_lms import pll_lms
     from liquid_dsp_tpu_torch.ops.kernels.symsync_pll_lms import (
-        symsync_pll_lms, symsync_pll_lms_reference)
+        FILTER_WIN, symsync_pll_lms, symsync_pll_lms_reference)
     from liquid_dsp_tpu_torch.ops.kernels.symsync_scan import symsync_scan
 
     B, T, NB = TR_B, TR_T, TR_NBLK
@@ -1836,7 +1999,7 @@ def fused_phase(torch, dev, card, ctx):
     runs = {}
     for fused in (False, True):
         agc_scan.launches = symsync_scan.launches = pll_lms.launches = 0
-        symsync_pll_lms.launches = 0
+        symsync_pll_lms.launches = branch_bank.launches = 0
         c = st.init(batch_shape=(B,), device=dev)
         outs, carries = [], [c]
         with route(fused):
@@ -1847,16 +2010,18 @@ def fused_phase(torch, dev, card, ctx):
         torch.cuda.synchronize()
         runs[fused] = (outs, carries, {
             "agc_scan": agc_scan.launches,
+            "branch_bank": branch_bank.launches,
             "symsync_scan": symsync_scan.launches,
             "pll_lms": pll_lms.launches,
             "symsync_pll_lms": symsync_pll_lms.launches})
     (s_outs, s_cs, s_n), (f_outs, f_cs, f_n) = runs[False], runs[True]
-    check(s_n == {"agc_scan": NB, "symsync_scan": nch * NB, "pll_lms": NB,
+    check(s_n == {"agc_scan": NB, "branch_bank": nch * NB,
+                  "symsync_scan": nch * NB, "pll_lms": NB,
                   "symsync_pll_lms": 0}, f"sequential route launches {s_n}")
-    check(f_n == {"agc_scan": NB, "symsync_scan": 0, "pll_lms": 0,
-                  "symsync_pll_lms": nch * NB},
-          f"fused route launches {f_n}: want symsync_pll_lms {nch} chunks "
-          f"x {NB} blocks and neither symsync_scan nor pll_lms")
+    check(f_n == {"agc_scan": NB, "branch_bank": 0, "symsync_scan": 0,
+                  "pll_lms": 0, "symsync_pll_lms": NB},
+          f"fused route launches {f_n}: want symsync_pll_lms once a block "
+          f"({NB}) and no branch_bank, symsync_scan or pll_lms")
     sym_diff, bits = 0.0, True
     for b, ((ys, ds, vs), (yf, df, vf)) in enumerate(zip(s_outs, f_outs)):
         check(torch.equal(vs, vf), f"fused vs sequential, block {b}: valid "
@@ -1894,46 +2059,64 @@ def fused_phase(torch, dev, card, ctx):
           f"fused {f_n}, sequential {s_n}", flush=True)
     del s_outs, f_outs
 
-    # the kernel against its plain version on the same inputs and states
+    # the kernel against its plain version on the same inputs and states,
+    # its filter warp at the default window (FILTER_WIN rows a step, the
+    # branches outside it filtered on the chain: misses, counted) and at
+    # the full bank (npfb rows: none)
     kw = dict(npfb=32, max_out=3, k=2, k_out=1, bw=st.sync_bw, locked=False)
+    win_d, full = FILTER_WIN or kw["npfb"], kw["npfb"]
+    misses = {}
 
-    def hold(name, trk, ma_, fs_, is__, pc_, p_=None):
-        k_ = symsync_pll_lms(ma_, fs_, is__, pc_, trk.post, **kw)
+    def hold(name, trk, planes_, kern_, fs_, is__, pc_, p_=None):
         if p_ is None:
-            p_ = symsync_pll_lms_reference(ma_, fs_, is__, pc_, trk.post,
-                                           **kw)
-        torch.cuda.synchronize()
-        for f_ in ("valid", "fstate", "istate"):
-            check(torch.equal(getattr(k_, f_), getattr(p_, f_)),
-                  f"symsync_pll_lms, {name}: the timing loop's {f_} differs "
-                  f"from the plain version")
-        err = max(float((k_.y_re - p_.y_re).abs().max()),
-                  float((k_.y_im - p_.y_im).abs().max()))
-        check(err <= TOL_STREAM, f"symsync_pll_lms, {name}: {err:.3e} vs "
-              f"plain")
-        check(torch.equal(k_.dec, p_.dec), f"symsync_pll_lms, {name}: "
-              f"{int((k_.dec != p_.dec).sum())} decisions differ")
-        check(torch.equal(k_.pll_state["eq_n"], p_.pll_state["eq_n"]),
-              f"symsync_pll_lms, {name}: eq_n differs")
-        for key in p_.pll_state:
-            d = float((k_.pll_state[key].float()
-                       - p_.pll_state[key].float()).abs().max())
-            check(d <= TOL_STREAM, f"symsync_pll_lms, {name}: state {key} "
-                  f"{d:.3e}")
-        return k_, err
+            p_ = symsync_pll_lms_reference(planes_, kern_, fs_, is__, pc_,
+                                           trk.post, **kw)
+        errs = []
+        for win in (win_d, full):
+            k_ = symsync_pll_lms(planes_, kern_, fs_, is__, pc_, trk.post,
+                                 win=win, **kw)
+            torch.cuda.synchronize()
+            what = f"{name}, {win} rows a step"
+            for f_ in ("valid", "fstate", "istate"):
+                check(torch.equal(getattr(k_, f_), getattr(p_, f_)),
+                      f"symsync_pll_lms, {what}: the timing loop's {f_} "
+                      f"differs from the plain version")
+            err = max(float((k_.y_re - p_.y_re).abs().max()),
+                      float((k_.y_im - p_.y_im).abs().max()))
+            check(err <= TOL_STREAM, f"symsync_pll_lms, {what}: {err:.3e} "
+                  f"vs plain")
+            check(torch.equal(k_.dec, p_.dec), f"symsync_pll_lms, {what}: "
+                  f"{int((k_.dec != p_.dec).sum())} decisions differ")
+            check(torch.equal(k_.pll_state["eq_n"], p_.pll_state["eq_n"]),
+                  f"symsync_pll_lms, {what}: eq_n differs")
+            for key in p_.pll_state:
+                d = float((k_.pll_state[key].float()
+                           - p_.pll_state[key].float()).abs().max())
+                check(d <= TOL_STREAM, f"symsync_pll_lms, {what}: state "
+                      f"{key} {d:.3e}")
+            # (the plain version counts none: a CPU rehearsal)
+            misses.setdefault(name, []).append(
+                0 if k_.misses is None else int(k_.misses.sum()))
+            errs.append(err)
+        return k_, max(errs)
 
     c2 = s_cs[2]
-    ma, fs, is_, pc = fused_inputs(torch, st, c2, x2[:, 2 * T:2 * T + TR_CMP])
+    planes, kern, fs, is_, pc = fused_inputs(torch, st, c2,
+                                             x2[:, 2 * T:2 * T + TR_CMP])
     fup1, out_p = time_once(lambda: symsync_pll_lms_reference(
-        ma, fs, is_, pc, st.post, **kw))
-    out_k, fu_err = hold(f"{B} x {TR_CMP} steps", st, ma, fs, is_, pc, out_p)
+        planes, kern, fs, is_, pc, st.post, **kw))
+    out_k, fu_err = hold(f"{B} x {TR_CMP} steps", st, planes, kern, fs, is_,
+                         pc, out_p)
     del out_p
-    fu_bound = fused_bound(out_k, 2, st.L)
+    fu_bound = fused_bound(out_k, planes, kern.shape[1], st.L)
+    Lb = kern.shape[1]
     stress = {f"{B} x {TR_CMP} steps": fu_err}
     stress[f"ragged chunk ({TR_STRESS} steps)"] = hold(
-        "ragged chunk", st, ma[..., :TR_STRESS].contiguous(), fs, is_, pc)[1]
+        "ragged chunk", st, planes[..., :TR_STRESS + Lb - 1].contiguous(),
+        kern, fs, is_, pc)[1]
     stress["from the zero state"] = hold(
-        "zero state", st, *fused_inputs(torch, st, s_cs[0], x2[:, :TR_CMP]))[1]
+        "from the zero state", st,
+        *fused_inputs(torch, st, s_cs[0], x2[:, :TR_CMP]))[1]
     st32 = symtrack_stream(ms="qpsk", eq_len=32).to(dev)
     c32 = st32.init(batch_shape=(B,), device=dev)
     with route(False):
@@ -1947,55 +2130,82 @@ def fused_phase(torch, dev, card, ctx):
     c16 = st16.init(batch_shape=(B,), device=dev)
     with route(False):
         _, c16 = st16(c16, x16[:, :TR_WARM])
-    stress["argmin slicer (qam16)"] = hold("qam16", st16, *fused_inputs(
+    stress["argmin slicer (qam16)"] = hold("argmin slicer (qam16)", st16,
+                                           *fused_inputs(
         torch, st16, c16, x16[:, TR_WARM:]))[1]
     del x16, out_k
-    print(f"symsync_pll_lms vs plain, {B} channels: the timing loop's mask "
-          f"and state bit-equal, decisions and eq_n equal, max|err| of "
-          f"y and state at most: " + "; ".join(
+    check(all(v_[1] == 0 for v_ in misses.values()),
+          f"symsync_pll_lms: misses at the full bank {misses}")
+    print(f"symsync_pll_lms vs plain, {B} channels, the filter warp at "
+          f"{win_d} and {full} rows a step: the timing loop's mask and "
+          f"state bit-equal, decisions and eq_n equal, max|err| of y and "
+          f"state at most: " + "; ".join(
               f"{k_} {v_:.3e}" for k_, v_ in stress.items())
-          + f" (<= {TOL_STREAM})", flush=True)
+          + f" (<= {TOL_STREAM}); branches filtered on the chain (misses, "
+          f"all channels) at {win_d} / {full} rows: " + "; ".join(
+              f"{k_} {v_[0]} / {v_[1]}" for k_, v_ in misses.items()),
+          flush=True)
 
     # times: plain, kernel, kernel, plain at the comparison shape; the
-    # kernel against the two sequential kernels on one full chunk
-    fuk1 = time_ms(lambda: symsync_pll_lms(ma, fs, is_, pc, st.post, **kw),
-                   iters=5)
-    fuk2 = time_ms(lambda: symsync_pll_lms(ma, fs, is_, pc, st.post, **kw),
-                   iters=5)
+    # kernel against branch_bank + symsync_scan + pll_lms on one 4096-step
+    # chunk; a whole block in the route's one launch at both windows
+    fuk1 = time_ms(lambda: symsync_pll_lms(planes, kern, fs, is_, pc,
+                                           st.post, **kw), iters=5)
+    fuk2 = time_ms(lambda: symsync_pll_lms(planes, kern, fs, is_, pc,
+                                           st.post, **kw), iters=5)
     fup2 = time_once(lambda: symsync_pll_lms_reference(
-        ma, fs, is_, pc, st.post, **kw))[0]
+        planes, kern, fs, is_, pc, st.post, **kw))[0]
     fu_ms, fu_plain = (fuk1 + fuk2) / 2, (fup1 + fup2) / 2
-    del ma
-    ma_c, fs_c, is_c, pc_c = fused_inputs(torch, st, c2,
-                                          x2[:, 2 * T:2 * T + T // nch])
+    del planes
+    pl_c, kern_c, fs_c, is_c, pc_c = fused_inputs(
+        torch, st, c2, x2[:, 2 * T:2 * T + T // nch])
 
     def seq_chunk():
-        sr_, si_, sv_, _, _ = symsync_scan(ma_c, fs_c, is_c, **kw)
+        sr_, si_, sv_, _, _ = symsync_scan(branch_bank(pl_c, kern_c), fs_c,
+                                           is_c, **kw)
         return pll_lms(sr_, si_, sv_, pc_c, st.tab_re, st.tab_im,
                        **st.pll_kwargs())
 
     def fused_chunk():
-        return symsync_pll_lms(ma_c, fs_c, is_c, pc_c, st.post, **kw)
+        return symsync_pll_lms(pl_c, kern_c, fs_c, is_c, pc_c, st.post, **kw)
 
     sq1 = time_ms(seq_chunk, iters=5)
     fc1 = time_ms(fused_chunk, iters=5)
     fc2 = time_ms(fused_chunk, iters=5)
     sq2 = time_ms(seq_chunk, iters=5)
+    bb_alone = time_ms(lambda: branch_bank(pl_c, kern_c), iters=5)
+    ma_c = branch_bank(pl_c, kern_c)
     ss_alone = time_ms(lambda: symsync_scan(ma_c, fs_c, is_c, **kw), iters=5)
     sr_c, si_c, sv_c, _, _ = symsync_scan(ma_c, fs_c, is_c, **kw)
     pl_alone = time_ms(lambda: pll_lms(sr_c, si_c, sv_c, pc_c, st.tab_re,
                                        st.tab_im, **st.pll_kwargs()), iters=5)
-    chunk_bound = fused_bound(fused_chunk(), 2, st.L)
+    chunk_bound = fused_bound(fused_chunk(), pl_c, kern_c.shape[1], st.L)
     fc_ms = (fc1 + fc2) / 2
-    del ma_c, sr_c, si_c, sv_c
+    del ma_c, sr_c, si_c, sv_c, pl_c
+    pl_b, kern_b, fs_b, is_b, pc_b = fused_inputs(torch, st, c2,
+                                                  x2[:, 2 * T:])
+    block_ms = {}
+    for win in (win_d, full, full, win_d):
+        block_ms.setdefault(win, []).append(time_ms(
+            lambda: symsync_pll_lms(pl_b, kern_b, fs_b, is_b, pc_b, st.post,
+                                    win=win, **kw), iters=3))
+    block_bound = fused_bound(symsync_pll_lms(pl_b, kern_b, fs_b, is_b,
+                                              pc_b, st.post, **kw), pl_b,
+                              kern_b.shape[1], st.L)
+    del pl_b
     print(f"timing ({card}): symsync_pll_lms {fu_ms:.4f} ms (runs "
           f"{fuk1:.4f}, {fuk2:.4f}) vs plain {fu_plain:.2f} ms (runs "
           f"{fup1:.2f}, {fup2:.2f}) at {B} x {TR_CMP} steps; per "
           f"{T // nch}-step chunk {fc_ms:.4f} ms (runs {fc1:.4f}, {fc2:.4f})"
-          f" against symsync_scan + pll_lms {(sq1 + sq2) / 2:.4f} ms (runs "
-          f"{sq1:.4f}, {sq2:.4f}; alone {ss_alone:.4f} and {pl_alone:.4f});"
-          f" bound {fu_bound['bound_ms']:.5f} / {chunk_bound['bound_ms']:.5f}"
-          f" ms by {chunk_bound['bound_by']}", flush=True)
+          f" against branch_bank + symsync_scan + pll_lms "
+          f"{(sq1 + sq2) / 2:.4f} ms (runs {sq1:.4f}, {sq2:.4f}; alone "
+          f"{bb_alone:.4f}, {ss_alone:.4f} and {pl_alone:.4f}); a whole "
+          f"{B} x {T} block, the route's one launch, by rows a step: "
+          + "; ".join(f"{w_} rows {', '.join(f'{t_:.4f}' for t_ in v_)} ms"
+                      for w_, v_ in block_ms.items())
+          + f"; bound {fu_bound['bound_ms']:.5f} / "
+          f"{chunk_bound['bound_ms']:.5f} / {block_bound['bound_ms']:.5f} "
+          f"ms by {block_bound['bound_by']}", flush=True)
 
     # the two routes' block steps at 32768 samples by channels (the
     # crossover the card's rule rests on): sequential, fused, fused,
@@ -2016,10 +2226,12 @@ def fused_phase(torch, dev, card, ctx):
           + ", ".join(str(Bc) for Bc, (sq, fu, _) in steps.items() if fu < sq),
           flush=True)
 
-    # where the fused step's device time goes
-    with route(True):
-        profile_steps(torch, card, lambda: st(c2, x2[:, 2 * T:]), 3,
-                      f"symtrack_stream step at {B}x{T}, fused route")
+    # where each route's step's device time goes
+    for fused in (True, False):
+        with route(fused):
+            profile_steps(torch, card, lambda: st(c2, x2[:, 2 * T:]), 3,
+                          f"symtrack_stream step at {B}x{T}, "
+                          f"{'fused' if fused else 'sequential'} route")
     return s_n, {
         "name": "symsync_pll_lms", "route": "cuda",
         "source": "liquid_dsp_tpu_torch/csrc/symsync_pll_lms.cu",
@@ -2034,6 +2246,10 @@ def fused_phase(torch, dev, card, ctx):
         "steps": TR_CMP, "full_chunk_ms": fc_ms,
         "full_chunk_bound_ms": chunk_bound["bound_ms"],
         "sequential_chunk_ms": (sq1 + sq2) / 2,
+        "block_ms_by_rows": {str(w_): v_ for w_, v_ in block_ms.items()},
+        "block_bound_ms": block_bound["bound_ms"],
+        "misses_by_rows": {k_: dict(zip((str(win_d), str(full)), v_))
+                           for k_, v_ in misses.items()},
         "tracker_step_ms": {str(Bc): {"sequential": sq, "fused": fu}
                             for Bc, (sq, fu, _) in steps.items()},
         "fused_vs_sequential_max_diff": max(sym_diff, carry_diff)}
@@ -3841,6 +4057,59 @@ def analog_tx_phase(torch, dev, card):
           f"(limit 1 +- {AN_TXPOW}); the rebuild without the shadowing "
           f"reads {pw['unshadowed']:.5f}", flush=True)
     del rec, sh
+    # the size repairs: a cascade of more second-order sections than one
+    # launch takes runs as split launches, a section of more coefficients
+    # than the registers hold on the wide form, each bit-equal to the plain
+    # version (AN_CMP steps from a random state), and timed at AN_B x
+    # AN_IIR_T; a section above MAX_WIDE_N is refused on the card only
+    from liquid_dsp_tpu_torch.ops.kernels.iir_scan import (MAX_WIDE_N,
+                                                           launch_groups)
+    gen = torch.Generator(device=dev).manual_seed(35)
+    ns_, n_ = AN_SPLIT, AN_WIDE + 1
+    b_w = torch.randn(1, n_, generator=gen, device=dev) * 0.1
+    a_w = torch.zeros(1, n_, device=dev)
+    a_w[0, 0], a_w[0, -1] = 1.0, -0.5
+    repairs = {
+        f"{ns_} second-order sections": (
+            torch.tensor([[0.2, 0.4, 0.2]] * ns_, device=dev),
+            torch.tensor([[1.0, -0.5, 0.2]] * ns_, device=dev),
+            torch.float32),
+        f"order {AN_WIDE} ({n_} coefficients), complex": (
+            b_w.to(torch.complex64), a_w.to(torch.complex64),
+            torch.complex64)}
+    rep_ms, rep_txt = {}, []
+    for what, (b_, a_, dt_) in repairs.items():
+        x_ = torch.randn(AN_B, AN_CMP, generator=gen, device=dev).to(dt_)
+        s_ = (torch.randn(AN_B, *b_.shape[:1], b_.shape[1] - 1,
+                          generator=gen, device=dev) * 0.1).to(dt_)
+        n0 = iir_scan.launches
+        y_, s2_ = iir_scan(x_, b_, a_, s_)
+        nl = iir_scan.launches - n0
+        yr_, sr_ = iir_scan_reference(x_, b_, a_, s_)
+        torch.cuda.synchronize()
+        want_nl = len(launch_groups(*b_.shape))
+        check(bits_equal(torch, y_, yr_) and bits_equal(torch, s2_, sr_)
+              and nl == want_nl, f"iir_scan, {what}: {nl} launches (want "
+              f"{want_nl}), max|err| {float((y_ - yr_).abs().max()):.3e} "
+              f"against the plain version (want bit-equal)")
+        xl = torch.randn(AN_B, AN_IIR_T, generator=gen, device=dev).to(dt_)
+        rep_ms[what] = [time_ms(lambda: iir_scan(xl, b_, a_, s_), iters=5)
+                        for _ in range(2)]
+        rep_txt.append(f"{what}: {nl} launches, bit-equal over {AN_B} x "
+                       f"{AN_CMP}; {rep_ms[what][0]:.4f}, "
+                       f"{rep_ms[what][1]:.4f} ms at {AN_B} x {AN_IIR_T}")
+    refused = False
+    try:
+        iir_scan(x_[:, :8], torch.ones(1, MAX_WIDE_N + 1, device=dev),
+                 torch.ones(1, MAX_WIDE_N + 1, device=dev),
+                 torch.zeros(AN_B, 1, MAX_WIDE_N, device=dev))
+    except ValueError:
+        refused = True
+    check(refused, f"iir_scan took a section of {MAX_WIDE_N + 1} "
+          f"coefficients on the card")
+    print(f"iir_scan size repairs ({card}): " + "; ".join(rep_txt)
+          + f"; a section of {MAX_WIDE_N + 1} coefficients refused on the "
+          f"card (ValueError)", flush=True)
     # times: the step, the kernel alone at the path's shape
     gen = torch.Generator(device=dev).manual_seed(34)
     w = torch.randn(AN_B, AN_T, generator=gen, device=dev)
@@ -3886,7 +4155,7 @@ def analog_tx_phase(torch, dev, card):
         "launches": launches, "max_abs_err": max_abs, "ms": ms,
         "plain_ms": plain_ms, "library_ms": None, **bd,
         "plain_steps": AN_CMP, "step_latency_us": step_us,
-        "lone_row_ms": lone_ms}
+        "lone_row_ms": lone_ms, "size_repairs_ms": rep_ms}
     del msgs, w
     return outs, entry
 

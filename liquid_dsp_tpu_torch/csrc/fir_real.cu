@@ -27,7 +27,11 @@
 //     by 4 words per 16), 2 loads per 64 multiply-adds, so the
 //     multiply-add pipe and not the shared-memory pipe sets the pace;
 //   * outputs leave as 16-byte vectors where the row allows it.
-// L <= LMAX = 4096 keeps the shared memory under 48 KB (47,104 bytes).
+// L <= LMAX = 24576 keeps the shared memory within the 227 KB a block may
+// opt in to (231,424 bytes at LMAX; above 48 KB the launch asks for it
+// with cudaFuncSetAttribute).  At such lengths one block fits an SM and
+// each loads a window 13 times its outputs, but the L multiply-adds per
+// output still dwarf the loads.
 //
 // Built by liquid_dsp_tpu_torch/ops/kernels/build.py with nvcc for sm_90a,
 // bound with ctypes; the C entry returns cudaGetLastError().
@@ -44,7 +48,7 @@ using firwin::PAD;
 constexpr int THREADS = 128;
 constexpr int R = 16;               // consecutive outputs per thread
 constexpr int TILE = THREADS * R;   // outputs per block
-constexpr int LMAX = 4096;
+constexpr int LMAX = 24576;
 
 struct Layout {        // shared-memory layout, the same on host and device
   int A4, Ap, K, Ks;
@@ -127,7 +131,7 @@ fir_real_kernel(const float* __restrict__ x, const float* __restrict__ carry,
 }  // namespace
 
 // x: [rows, T] float32, contiguous.  carry: [rows, L-1] float32.  h: [L]
-// float32, 1 <= L <= 4096.  y: [rows, T] float32, 16-byte aligned.
+// float32, 1 <= L <= 24576.  y: [rows, T] float32, 16-byte aligned.
 // rows * ceil(T / 2048) < 2^31.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int fir_real_launch(const void* x, const void* carry,
@@ -137,6 +141,12 @@ extern "C" int fir_real_launch(const void* x, const void* carry,
   const int ntiles = (T + TILE - 1) / TILE;
   const dim3 grid(ntiles * rows);
   const size_t smem = sizeof(float) * Layout(L).floats();
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        fir_real_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
   fir_real_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(carry),
       static_cast<const float*>(h), static_cast<float*>(y), T, L, ntiles);

@@ -15,8 +15,15 @@
 //   s[k][i]   = (b[k][i+1]*v - a[k][i+1]*yk) + s[k][i+1]   (i < N-2)
 //   s[k][N-2] =  b[k][N-1]*v - a[k][N-1]*yk
 //   v         = yk
-// The transfer-function form is NS = 1 with any N in 2..17; a cascade of
-// second-order sections is N = 3 with NS in 1..8.  Real coefficients run
+// The transfer-function form is NS = 1 with any N in 2..17 in registers,
+// and N in 18..4096 in the wide form (N = 0 in the template: n at run time,
+// the coefficients and the rows' states in shared memory, the lanes of
+// the 4 rows alone on the chain; slow, a shared load and store a
+// coefficient, but it takes any order the reference takes); a cascade of
+// second-order sections is N = 3 with NS in 1..8 (the wrapper runs a
+// longer cascade as launches of at most 8 sections, each on its own slice
+// of the state, one launch's output the next one's input: each section's
+// arithmetic is unchanged, so the bits are too).  Real coefficients run
 // on float32 rows (a complex stream is split into its two planes by the
 // caller); complex coefficients on complex64 rows, their products written
 // out on the planes: (ar*br - ai*bi, ar*bi + ai*br).
@@ -88,8 +95,11 @@ constexpr int ROWS = 4;       // rows per block: a chain each
 constexpr int LINE = 32;      // floats of a row per staged tile: 128 bytes
 constexpr int AHEAD = 6;      // tiles staged ahead of the chain
 constexpr int PBUF = 8;       // x tiles in shared memory (more than AHEAD)
-constexpr int MAX_N = 17;     // transfer-function form: order up to 16
-constexpr int MAX_NS = 8;     // second-order sections: order up to 16
+constexpr int MAX_N = 17;     // transfer-function form in registers
+constexpr int MAX_NS = 8;     // second-order sections in one launch
+// the wide form's largest section: its coefficients and 4 row states,
+// (6n - 4) complex values, stay within the 227 KB a block may ask for
+constexpr int MAX_WIDE_N = 4096;
 
 template <bool CPLX>
 struct Arith;
@@ -147,7 +157,7 @@ __global__ void __launch_bounds__(2 * LANES)
                     const typename Arith<CPLX>::T* __restrict__ bg,
                     const typename Arith<CPLX>::T* __restrict__ ag,
                     typename Arith<CPLX>::T* __restrict__ state, int rows,
-                    int T) {
+                    int T, int n) {
   using A = Arith<CPLX>;
   using V = typename A::T;
   constexpr int W = sizeof(V) / sizeof(float);   // floats a sample
@@ -163,6 +173,24 @@ __global__ void __launch_bounds__(2 * LANES)
   if (nch < ROWS) {   // the absent rows of a ragged last block read zeros
     for (int q = threadIdx.x; q < PBUF * ROWS * PITCH; q += 2 * LANES)
       (&sx[0][0])[q] = 0.f;
+    __syncthreads();
+  }
+
+  // the wide form (N = 0: one section of n coefficients, any n): the
+  // coefficients [n] b, [n] a and the block's row states [ROWS][n-1] sit
+  // in dynamic shared memory, loaded here by both warps
+  extern __shared__ __align__(16) float wide[];
+  V* const cb = reinterpret_cast<V*>(wide);
+  V* const ca = cb + n;
+  V* const cs = ca + n;
+  if constexpr (N == 0) {
+    for (int q = threadIdx.x; q < n; q += 2 * LANES) {
+      cb[q] = bg[q];
+      ca[q] = ag[q];
+    }
+    const size_t s0 = static_cast<size_t>(r0) * (n - 1);
+    for (int q = threadIdx.x; q < ROWS * (n - 1); q += 2 * LANES)
+      cs[q] = q < nch * (n - 1) ? state[s0 + q] : V{};
     __syncthreads();
   }
 
@@ -223,52 +251,80 @@ __global__ void __launch_bounds__(2 * LANES)
     return;
   }
 
-  // the chain warp: lane l runs row l % ROWS; the lanes past ROWS mirror
-  // those below (the same state, the same work, the same stores)
+  // the chain warp: lane l runs row l % ROWS
   const int row = lane % ROWS;
-  const bool live = row < nch;
-  V b[NS][N], a[NS][N], s[NS][N - 1];
-#pragma unroll
-  for (int k = 0; k < NS; ++k) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      b[k][i] = bg[k * N + i];
-      a[k][i] = ag[k * N + i];
-    }
-  }
-  V* const st = state + static_cast<size_t>(r0 + row) * NS * (N - 1);
-#pragma unroll
-  for (int k = 0; k < NS; ++k) {
-#pragma unroll
-    for (int i = 0; i < N - 1; ++i)
-      s[k][i] = live ? st[k * (N - 1) + i] : V{};
-  }
-  tile_barrier();
-  for (int nt = 0; nt < ntiles; ++nt) {
-    const V* in = reinterpret_cast<const V*>(sx[nt % PBUF] + row * PITCH);
-    V* out = reinterpret_cast<V*>(sy[nt & 1] + row * PITCH);
-    const int left = T - nt * TILE;
-    if (left >= TILE) {
-      // the whole tile is one basic block: its loads first (one shared
-      // latency a tile), then the chain, each output stored as it forms
-      V v[TILE];
-#pragma unroll
-      for (int u = 0; u < TILE; ++u) v[u] = in[u];
-#pragma unroll
-      for (int u = 0; u < TILE; ++u) {
-        v[u] = step<NS, N, CPLX>(v[u], b, a, s);
-        out[u] = v[u];
-      }
-    } else {
-      for (int u = 0; u < left; ++u) out[u] = step<NS, N, CPLX>(in[u], b, a, s);
-    }
+  if constexpr (N == 0) {
+    // the wide form: lanes 0..ROWS-1 walk their row's state in shared
+    // memory, in place in the order i = 0 .. n-2 (s[i] reads s[i+1]
+    // before it is written); the other lanes only meet the barriers
+    V* const s = cs + row * (n - 1);
+    const bool mine = lane < ROWS;
     tile_barrier();
-  }
-  if (live && lane < ROWS) {
+    for (int nt = 0; nt < ntiles; ++nt) {
+      const V* in = reinterpret_cast<const V*>(sx[nt % PBUF] + row * PITCH);
+      V* out = reinterpret_cast<V*>(sy[nt & 1] + row * PITCH);
+      const int cnt = T - nt * TILE < TILE ? T - nt * TILE : TILE;
+      for (int u = 0; mine && u < cnt; ++u) {
+        const V v = in[u];
+        const V yk = A::add(A::mul(cb[0], v), s[0]);
+        for (int i = 0; i + 2 < n; ++i)
+          s[i] = A::add(A::sub(A::mul(cb[i + 1], v), A::mul(ca[i + 1], yk)),
+                        s[i + 1]);
+        s[n - 2] = A::sub(A::mul(cb[n - 1], v), A::mul(ca[n - 1], yk));
+        out[u] = yk;
+      }
+      tile_barrier();
+    }
+    const size_t s0 = static_cast<size_t>(r0) * (n - 1);
+    for (int q = lane; q < nch * (n - 1); q += LANES) state[s0 + q] = cs[q];
+  } else {
+    // the lanes past ROWS mirror those below (the same state, the same
+    // work, the same stores)
+    const bool live = row < nch;
+    V b[NS][N], a[NS][N], s[NS][N - 1];
 #pragma unroll
     for (int k = 0; k < NS; ++k) {
 #pragma unroll
-      for (int i = 0; i < N - 1; ++i) st[k * (N - 1) + i] = s[k][i];
+      for (int i = 0; i < N; ++i) {
+        b[k][i] = bg[k * N + i];
+        a[k][i] = ag[k * N + i];
+      }
+    }
+    V* const st = state + static_cast<size_t>(r0 + row) * NS * (N - 1);
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {
+#pragma unroll
+      for (int i = 0; i < N - 1; ++i)
+        s[k][i] = live ? st[k * (N - 1) + i] : V{};
+    }
+    tile_barrier();
+    for (int nt = 0; nt < ntiles; ++nt) {
+      const V* in = reinterpret_cast<const V*>(sx[nt % PBUF] + row * PITCH);
+      V* out = reinterpret_cast<V*>(sy[nt & 1] + row * PITCH);
+      const int left = T - nt * TILE;
+      if (left >= TILE) {
+        // the whole tile is one basic block: its loads first (one shared
+        // latency a tile), then the chain, each output stored as it forms
+        V v[TILE];
+#pragma unroll
+        for (int u = 0; u < TILE; ++u) v[u] = in[u];
+#pragma unroll
+        for (int u = 0; u < TILE; ++u) {
+          v[u] = step<NS, N, CPLX>(v[u], b, a, s);
+          out[u] = v[u];
+        }
+      } else {
+        for (int u = 0; u < left; ++u)
+          out[u] = step<NS, N, CPLX>(in[u], b, a, s);
+      }
+      tile_barrier();
+    }
+    if (live && lane < ROWS) {
+#pragma unroll
+      for (int k = 0; k < NS; ++k) {
+#pragma unroll
+        for (int i = 0; i < N - 1; ++i) st[k * (N - 1) + i] = s[k][i];
+      }
     }
   }
 }
@@ -279,7 +335,7 @@ struct Args {
   const void* b;
   const void* a;
   void* state;
-  int rows, T;
+  int rows, T, n;
   cudaStream_t stream;
 };
 
@@ -287,18 +343,28 @@ template <int NS, int N, bool CPLX>
 int go(const Args& g) {
   using V = typename Arith<CPLX>::T;
   const dim3 grid((g.rows + ROWS - 1) / ROWS);
-  iir_scan_kernel<NS, N, CPLX><<<grid, 2 * LANES, 0, g.stream>>>(
+  // the wide form's coefficients and row states (none for the others)
+  const size_t shmem = N == 0 ? sizeof(V) * (2 * g.n + ROWS * (g.n - 1)) : 0;
+  if (shmem > 0) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        iir_scan_kernel<NS, N, CPLX>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shmem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  iir_scan_kernel<NS, N, CPLX><<<grid, 2 * LANES, shmem, g.stream>>>(
       static_cast<const V*>(g.x), static_cast<V*>(g.y),
       static_cast<const V*>(g.b), static_cast<const V*>(g.a),
-      static_cast<V*>(g.state), g.rows, g.T);
+      static_cast<V*>(g.state), g.rows, g.T, g.n);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the transfer-function form: one section of n coefficients
+// the transfer-function form: one section of n coefficients, in
+// registers up to MAX_N, in shared memory (the wide form) above
 template <bool CPLX, int N = 2>
 int by_n(int n, const Args& g) {
   if constexpr (N > MAX_N) {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return n <= MAX_WIDE_N ? go<1, 0, CPLX>(g)
+                           : static_cast<int>(cudaErrorInvalidValue);
   } else {
     return n == N ? go<1, N, CPLX>(g) : by_n<CPLX, N + 1>(n, g);
   }
@@ -326,12 +392,14 @@ int dispatch(int ns, int n, const Args& g) {
 // x, y: [rows, T] float32 (cplx = 0) or complex64 (cplx = 1); b, a:
 // [ns, n] of the same type; state: [rows, ns, n - 1] of the same type, read
 // as the carry and overwritten with the carry after the last sample.
-// Takes ns = 1 with 2 <= n <= 17, or n = 3 with 1 <= ns <= 8.
+// Takes ns = 1 with 2 <= n <= MAX_WIDE_N (4096), or n = 3 with 1 <= ns <= 8
+// (the wrapper runs longer cascades as successive launches).
 extern "C" int iir_scan_launch(const void* x, void* y, const void* b,
                                const void* a, void* state, int rows, int T,
                                int ns, int n, int cplx, void* stream) {
   if (rows < 1 || T < 0 || ns < 1 || n < 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args g{x, y, b, a, state, rows, T, static_cast<cudaStream_t>(stream)};
+  const Args g{x, y, b, a, state, rows, T, n,
+               static_cast<cudaStream_t>(stream)};
   return cplx ? dispatch<true>(ns, n, g) : dispatch<false>(ns, n, g);
 }

@@ -131,7 +131,8 @@ symsync_scan_kernel(const float* __restrict__ ma, float* __restrict__ fstate,
     if (lane == 0) {
       const float* st = stage + (n & 1) * STAGE;
       for (int tl = 0; tl < nt; ++tl)
-        lp.step(st, r0_cur, rw, t0, tl, o_re, o_im, o_v);
+        lp.step(symsync_step::RowRead{rw, st, r0_cur, t0, tl}, P, tl, o_re,
+                o_im, o_v);
     }
     __syncwarp();
 

@@ -1,12 +1,15 @@
 // The symsync timing loop's device code, shared by symsync_scan.cu (the
 // loop alone) and symsync_pll_lms.cu (the loop with symtrack's PLL + LMS
-// after every emit): the staging of branch rows around the current branch
-// and one input step of the chain.  Both kernels run this code, so their
-// slots and loop state are the same bits (see symsync_scan.cu for what it
-// computes, its roundings and why only the active emits run).
+// after every emit): one input step of the chain, whatever gives it the
+// branch values, and symsync_scan's staging of branch rows around the
+// current branch.  Both kernels run this step, so from the same branch
+// values their slots and loop state are the same bits (see
+// symsync_scan.cu for what it computes, its roundings and why only the
+// active emits run).
 //
-// One warp stages and runs the loop: every lane starts the cp.async copies
-// of a tile's rows, lane 0 carries the chain with its state in registers.
+// In symsync_scan one warp stages and runs the loop: every lane starts the
+// cp.async copies of a tile's rows, lane 0 carries the chain with its
+// state in registers.
 
 #pragma once
 
@@ -67,6 +70,41 @@ struct Rows {
   }
 };
 
+// symsync_scan's branch values for step tl of the tile staged in `st` from
+// row r0 (tile start t0): a staged row from shared memory, a row outside
+// the staged window from global memory (a load is a load: the same bits).
+struct RowRead {
+  const Rows& rw;
+  const float* st;
+  int r0, t0, tl;
+
+  __device__ __forceinline__ void operator()(int bc, float& mf_re,
+                                             float& dmf_re, float& mf_im,
+                                             float& dmf_im) const {
+    const int npfb = rw.npfb;
+    int j = bc - r0;
+    if (j < 0) j += npfb;
+    if (j < rw.win) {
+      const float* s = st + j * TILE + tl;
+      mf_re = s[0];
+      dmf_re = s[WIN * TILE];
+      if (rw.P == 2) {
+        mf_im = s[2 * WIN * TILE];
+        dmf_im = s[3 * WIN * TILE];
+      }
+    } else {
+      const size_t t = static_cast<size_t>(t0 + tl);
+      const size_t Tc = static_cast<size_t>(rw.Tc);
+      mf_re = __ldg(rw.mre + static_cast<size_t>(bc) * Tc + t);
+      dmf_re = __ldg(rw.mre + static_cast<size_t>(npfb + bc) * Tc + t);
+      if (rw.P == 2) {
+        mf_im = __ldg(rw.mim + static_cast<size_t>(bc) * Tc + t);
+        dmf_im = __ldg(rw.mim + static_cast<size_t>(npfb + bc) * Tc + t);
+      }
+    }
+  }
+};
+
 // The loop's state and constants, carried by lane 0.
 struct TimingLoop {
   float tau, rate, dl, v0, bf, ran;
@@ -99,11 +137,13 @@ struct TimingLoop {
     istate[B + b] = decim;
   }
 
-  // Input step t = t0 + tl of the tile staged in `st` from row r0: its
-  // active emits into slots tl*max_out + e of the zeroed tile (o_re, o_im,
-  // o_v), then the step decrement.
-  __device__ __forceinline__ void step(const float* st, int r0,
-                                       const Rows& rw, int t0, int tl,
+  // Input step tl of a tile: its active emits into slots tl*max_out + e
+  // of the zeroed tile (o_re, o_im, o_v), then the step decrement.  The
+  // branch values come from fetch(bc, mf_re, dmf_re, mf_im, dmf_im) (the
+  // im plane's left at 0 for P = 1): symsync_scan's staged rows
+  // (RowRead), or the rows the fused kernel filters itself.
+  template <class Fetch>
+  __device__ __forceinline__ void step(const Fetch& fetch, int P, int tl,
                                        float* o_re, float* o_im,
                                        unsigned char* o_v) {
     int e = 0;
@@ -120,28 +160,9 @@ struct TimingLoop {
     // after an inactive one, would only repeat the recompute just made
     for (; e < max_out && bi < npfb; ++e) {
       const int bc = bi < 0 ? 0 : bi;
-      int j = bc - r0;
-      if (j < 0) j += npfb;
       float mf_re, dmf_re, mf_im = 0.f, dmf_im = 0.f;
-      if (j < rw.win) {
-        const float* s = st + j * TILE + tl;
-        mf_re = s[0];
-        dmf_re = s[WIN * TILE];
-        if (rw.P == 2) {
-          mf_im = s[2 * WIN * TILE];
-          dmf_im = s[3 * WIN * TILE];
-        }
-      } else {
-        const size_t t = static_cast<size_t>(t0 + tl);
-        const size_t Tc = static_cast<size_t>(rw.Tc);
-        mf_re = __ldg(rw.mre + static_cast<size_t>(bc) * Tc + t);
-        dmf_re = __ldg(rw.mre + static_cast<size_t>(npfb + bc) * Tc + t);
-        if (rw.P == 2) {
-          mf_im = __ldg(rw.mim + static_cast<size_t>(bc) * Tc + t);
-          dmf_im = __ldg(rw.mim + static_cast<size_t>(npfb + bc) * Tc + t);
-        }
-      }
-      const float q_raw = rw.P == 2
+      fetch(bc, mf_re, dmf_re, mf_im, dmf_im);
+      const float q_raw = P == 2
           ? __fmaf_rn(mf_re, dmf_re, __fmul_rn(mf_im, dmf_im))
           : __fmul_rn(mf_re, dmf_re);
       const bool run = decim == k_out && !locked;

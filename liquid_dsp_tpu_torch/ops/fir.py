@@ -25,7 +25,6 @@ import torch
 from ..core import LTI, Proc, planar_per_plane
 from .dotprod import conv1d
 from .fftfilt import fftfilt_apply
-from .kernels.fir_real import LMAX as fir_real_lmax
 from .kernels.fir_real import fir_apply_pallas
 
 __all__ = ["firfilt", "FIRFilt", "firfilt_rect", "firdecim", "FIRDecim",
@@ -159,9 +158,9 @@ class FIRFilt(Proc):
     package's), 'matmul' (banded-tap matrix, `fir_apply_matmul`), 'fft'
     (overlap-save `fftfilt` with the SAME carry), 'pallas' (the
     hand-written CUDA kernel `ops/kernels/fir_real.py`, the port of the
-    JAX package's Pallas kernel: real taps, L <= 4096; on the CPU its
-    plain version), or 'auto' (the `fir_apply_auto` pick per call: matmul
-    on CUDA, conv on CPU).
+    JAX package's Pallas kernel: real taps, any L on the CPU (its plain
+    version), L <= 24576 on the card), or 'auto' (the `fir_apply_auto`
+    pick per call: matmul on CUDA, conv on CPU).
     """
 
     param_spec = {"h": "h"}
@@ -171,12 +170,8 @@ class FIRFilt(Proc):
         super().__init__(name)
         h_np = _np_taps(h, scale)
         L = int(h_np.shape[-1])
-        if backend == "pallas":
-            if np.iscomplexobj(h_np):
-                raise ValueError("pallas firfilt backend supports real taps")
-            if L > fir_real_lmax:
-                raise ValueError(f"pallas firfilt backend takes up to "
-                                 f"{fir_real_lmax} taps, got {L}")
+        if backend == "pallas" and np.iscomplexobj(h_np):
+            raise ValueError("pallas firfilt backend supports real taps")
         if backend not in ("auto", "xla", "matmul", "fft", "pallas"):
             raise ValueError(f"unknown firfilt backend {backend!r}")
         self.backend = backend

@@ -24,10 +24,13 @@ stacked DF2T state, so a carry moves between them unchanged:
 takes ``block`` for a stable filter of at most 32 states and ``scan``
 otherwise.  An unstable filter (A^L not representable) is ``scan`` under
 every backend.  An explicit ``block`` on a stable filter of more than 32
-states raises ValueError on every device (the state pass's kernel gives
-each state a lane of one warp), where the JAX package's block form takes
-any order.  A Proc keeps both parameter sets as buffers where the JAX
-package keeps both, so one module runs on either device.  The JAX
+states runs on the CPU (the state pass's plain version takes any order)
+and raises ValueError on a CUDA tensor, at the call (the state pass's
+kernel gives each state a lane of one warp), where the JAX package's
+block form takes any order.  The scan takes any order on either device
+(`ops/kernels/iir_scan.py`).  A Proc keeps both parameter sets as
+buffers where the JAX package keeps both, so one module runs on either
+device.  The JAX
 package's ``pscan`` (an associative scan, measured 23 times slower than
 its scan) is not carried over and raises ValueError.
 
@@ -236,20 +239,15 @@ def iir_apply_block(params, carry, x):
 def _resolve_iir_backend(backend: str, A) -> str:
     """'auto' stays unresolved until the call (the input's device picks);
     unstable systems (spectral radius > ~1) take scan under every
-    backend: A^L is not representable.  'block' takes at most BLOCK_MAX_P
-    (32) states, on every device: the state pass's kernel gives each
-    state a lane of one warp."""
+    backend: A^L is not representable.  'block' above BLOCK_MAX_P (32)
+    states is refused at the call, on CUDA tensors only
+    (`IIRFilt.forward`)."""
     if backend == "pscan":
         raise ValueError(PSCAN_NOT_PORTED)
     if backend not in ("auto", "scan", "block"):
         raise ValueError(f"unknown iir backend {backend!r}")
     if not _iir_stable(A):
         return "scan"
-    if backend == "block" and A.shape[0] > BLOCK_MAX_P:
-        raise ValueError(
-            f"iir backend 'block' takes at most {BLOCK_MAX_P} states (the "
-            f"iir_block_state kernel's limit), got {A.shape[0]}; use "
-            f"'auto' or 'scan'")
     return backend
 
 
@@ -307,6 +305,11 @@ class IIRFilt(Proc):
             carry = carry.real
         x, carry = x.to(dt), carry.to(dt)
         if self.uses_block(x):
+            if x.device.type == "cuda" and self.p > BLOCK_MAX_P:
+                raise ValueError(
+                    f"iir backend 'block' takes at most {BLOCK_MAX_P} states "
+                    f"on CUDA tensors (the iir_block_state kernel's limit: a "
+                    f"lane a state), got {self.p}; use 'auto' or 'scan' there")
             return iir_apply_block({k: getattr(self, k) for k in
                                     ("Th", "Obs", "K", "Apow")}, carry, x)
         if self.sos:

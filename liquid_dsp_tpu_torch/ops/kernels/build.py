@@ -41,6 +41,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
+_L = ctypes.c_longlong
 # C signatures of the entry points in csrc/ (argtypes, restype)
 _SIGNATURES = {
     "mix_fir_decim_launch": ([_P] * 10 + [_I] * 7 + [_F, _P], _I),
@@ -49,7 +50,9 @@ _SIGNATURES = {
     "symsync_scan_launch": ([_P] * 6 + [_I] * 7 + [_F] * 4 + [_P], _I),
     "agc_scan_launch": ([_P] * 4 + [_I] * 3 + [_F] * 3 + [_P], _I),
     "pll_lms_launch": ([_P] * 16 + [_I] * 9 + [_F] * 4 + [_P], _I),
-    "symsync_pll_lms_launch": ([_P] * 18 + [_I] * 15 + [_F] * 8 + [_P], _I),
+    "symsync_pll_lms_launch": ([_P, _L, _L, _P, _I, _I] + [_P] * 18
+                               + [_I] * 15 + [_F] * 8 + [_P], _I),
+    "branch_bank_launch": ([_P] * 3 + [_I] * 5 + [_L] * 2 + [_P], _I),
     "viterbi_acs_launch": ([_P] * 4 + [_I] * 5 + [_P], _I),
     "viterbi_acs_dec_smem_max": ([], _I),
     "iir_scan_launch": ([_P] * 5 + [_I] * 5 + [_P], _I),

@@ -7,7 +7,9 @@ and runs `fir_real_reference`, the same filter in plain PyTorch, on a CPU
 tensor; any other device raises.  The kernel takes the carry as its own
 argument and each block loads its halo from it, so the wrapper never
 concatenates [carry | x]; it is bound by the float32 FMAs (see the
-source's note).  It takes taps up to LMAX.
+source's note).  The plain version takes any number of taps; the kernel
+takes up to LMAX (its taps and a tile's window in the 227 KB of shared
+memory a block may have), and a CUDA tensor with more raises ValueError.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from ..dotprod import conv1d_real
 
 __all__ = ["LMAX", "fir_real", "fir_real_reference", "fir_apply_pallas"]
 
-LMAX = 4096    # largest tap count the kernel takes (shared memory < 48 KB)
+LMAX = 24576   # largest tap count the kernel takes (shared memory 226 KB)
 
 
 def fir_real_reference(x: torch.Tensor, carry: torch.Tensor,
@@ -34,8 +36,8 @@ def _check(x, carry, h):
                          f"h [L], got {tuple(x.shape)}, {tuple(carry.shape)} "
                          f"and {tuple(h.shape)}")
     L = h.shape[0]
-    if not 1 <= L <= LMAX:
-        raise ValueError(f"fir_real takes 1 <= L <= {LMAX} taps, got {L}")
+    if L < 1:
+        raise ValueError(f"fir_real takes at least one tap, got {L}")
     if carry.shape != (x.shape[0], L - 1):
         raise ValueError(f"carry must be [{x.shape[0]}, {L - 1}], got "
                          f"{tuple(carry.shape)}")
@@ -56,7 +58,8 @@ def fir_real(x: torch.Tensor, carry: torch.Tensor,
     block's last L-1 inputs), h [L] real taps -> y [rows, T].
 
     A CUDA tensor launches the kernel (and counts the launch in
-    ``fir_real.launches``); a CPU tensor runs the plain version.
+    ``fir_real.launches``; L <= LMAX there, else ValueError); a CPU tensor
+    runs the plain version.
     """
     _check(x, carry, h)
     if x.device.type == "cpu":
@@ -64,6 +67,9 @@ def fir_real(x: torch.Tensor, carry: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"fir_real runs on CUDA (kernel) or CPU (plain "
                          f"version) tensors, got device {x.device}")
+    if h.shape[0] > LMAX:
+        raise ValueError(f"fir_real's kernel takes 1 to {LMAX} taps on CUDA "
+                         f"tensors, got {h.shape[0]}")
     rows, T = x.shape
     y = torch.empty_like(x)
     if rows == 0 or T == 0:

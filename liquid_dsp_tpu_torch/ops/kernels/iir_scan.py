@@ -23,19 +23,27 @@ round every operation once in this order (the kernel writes them out as
 ``__fmul_rn`` / ``__fadd_rn`` / ``__fsub_rn``), so on the card the kernel
 equals the plain version bit for bit.
 
-The kernel takes the transfer-function form (one section of 2 to 17
-coefficients) and second-order-section cascades (1 to 8 sections of 3);
-the wrapper raises on other shapes.
+The plain version takes any [ns, n].  On the card the kernel holds one
+section of 2 to MAX_N (17) coefficients in registers and one of up to
+MAX_WIDE_N (4096) in shared memory (its wide form), and 1 to MAX_NS (8)
+second-order sections in one launch; the wrapper runs a longer cascade
+of second-order sections as launches of at most 8 sections, and a
+cascade of wider sections as a launch a section, each on its own slice
+of the state and each launch's output the next one's input.  Each
+section's arithmetic is unchanged by the split, so the split cascade
+equals the plain version bit for bit too.  A section of more than
+MAX_WIDE_N coefficients raises ValueError on a CUDA tensor only.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["MAX_N", "MAX_NS", "iir_scan", "iir_scan_reference",
-           "plane_ops"]
+__all__ = ["MAX_N", "MAX_NS", "MAX_WIDE_N", "iir_scan",
+           "iir_scan_reference", "launch_groups", "plane_ops"]
 
-MAX_N = 17      # coefficients of a single section: order up to 16
-MAX_NS = 8      # second-order sections: order up to 16
+MAX_N = 17      # coefficients of a section the kernel holds in registers
+MAX_NS = 8      # second-order sections in one launch
+MAX_WIDE_N = 4096   # coefficients of a section in the wide form (shared)
 
 
 def plane_ops(cplx: bool):
@@ -117,11 +125,9 @@ def _check(x, b, a, state):
             t.dtype != x.dtype for t in (b, a, state)):
         raise ValueError(f"iir_scan takes all float32 or all complex64, got "
                          f"{x.dtype}, {b.dtype}, {a.dtype}, {state.dtype}")
-    if not (ns == 1 and 2 <= n <= MAX_N) and not (n == 3
-                                                  and 1 <= ns <= MAX_NS):
-        raise ValueError(f"iir_scan takes one section of 2 to {MAX_N} "
-                         f"coefficients or 1 to {MAX_NS} second-order "
-                         f"sections, got {ns} x {n}")
+    if ns < 1 or n < 2:
+        raise ValueError(f"iir_scan takes at least one section of at least "
+                         f"2 coefficients, got {ns} x {n}")
     if any(t.device != x.device for t in (b, a, state)):
         raise ValueError(f"iir_scan: all tensors must be on one device, got "
                          f"{x.device}, {b.device}, {a.device}, "
@@ -130,12 +136,22 @@ def _check(x, b, a, state):
         raise ValueError("iir_scan takes a contiguous x")
 
 
+def launch_groups(ns: int, n: int):
+    """The kernel launches of an [ns, n] cascade on the card, as (first,
+    end) section ranges: second-order sections by at most MAX_NS, other
+    sections one a launch."""
+    size = MAX_NS if n == 3 else 1
+    return [(k, min(k + size, ns)) for k in range(0, ns, size)]
+
+
 def iir_scan(x, b, a, state):
     """The DF2T cascade over x [R, T] from the carry state [R, ns, n-1]:
     returns (y [R, T], state').
 
-    A CUDA tensor launches the kernel (and counts the launch in
-    ``iir_scan.launches``); a CPU tensor runs the plain version.
+    A CUDA tensor launches the kernel, once per `launch_groups` entry (and
+    counts each launch in ``iir_scan.launches``; a section of more than
+    MAX_WIDE_N coefficients raises ValueError there); a CPU tensor runs
+    the plain version.
     """
     _check(x, b, a, state)
     if x.device.type == "cpu":
@@ -145,22 +161,35 @@ def iir_scan(x, b, a, state):
                          f"version) tensors, got device {x.device}")
     R, T = x.shape
     ns, n = b.shape
-    y = torch.empty_like(x)
+    if n > MAX_WIDE_N:
+        raise ValueError(f"iir_scan's kernel takes sections of up to "
+                         f"{MAX_WIDE_N} coefficients on CUDA tensors, got "
+                         f"{n}")
     st = state.clone(memory_format=torch.contiguous_format)
     if R == 0 or T == 0:
-        return y, st
-    b, a = b.contiguous(), a.contiguous()
+        return torch.empty_like(x), st
+    groups = launch_groups(ns, n)
     from .build import load_library
     lib = load_library()
-    with torch.cuda.device(x.device):
-        rc = lib.iir_scan_launch(
-            x.data_ptr(), y.data_ptr(), b.data_ptr(), a.data_ptr(),
-            st.data_ptr(), R, T, ns, n, int(x.is_complex()),
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"iir_scan kernel launch failed: CUDA error {rc}")
-    iir_scan.launches += 1
-    return y, st
+    v = x
+    for k0, k1 in groups:
+        y = torch.empty_like(x)
+        # one launch's slice of the state, written back after it
+        sk = st if len(groups) == 1 else st[:, k0:k1].contiguous()
+        bk, ak = b[k0:k1].contiguous(), a[k0:k1].contiguous()
+        with torch.cuda.device(x.device):
+            rc = lib.iir_scan_launch(
+                v.data_ptr(), y.data_ptr(), bk.data_ptr(), ak.data_ptr(),
+                sk.data_ptr(), R, T, k1 - k0, n, int(x.is_complex()),
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"iir_scan kernel launch failed: CUDA error "
+                               f"{rc}")
+        iir_scan.launches += 1
+        if sk is not st:
+            st[:, k0:k1] = sk
+        v = y
+    return v, st
 
 
 iir_scan.launches = 0

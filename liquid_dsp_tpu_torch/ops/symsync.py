@@ -12,27 +12,28 @@ Two formulations, as in the JAX package:
   loop that keeps
   the filter window and dots the selected branch's taps each emit;
 * the hoisted form (`_symsync_run_hoisted`, the CUDA default): every
-  branch output is computed up front by one conv1d per chunk, and the
-  timing loop only picks which branch to read.  On CUDA the loop is the
-  hand-written kernel `ops/kernels/symsync_scan` (the port of the TPU
-  kernel `pallas_symsync.symsync_scan_pallas`), and with symtrack's
-  PLL + LMS as its post hook `ops/kernels/symsync_pll_lms`; on the CPU
-  their plain versions.
+  branch output is computed up front per chunk (`ops/kernels/branch_bank`,
+  where the JAX package takes a conv), and the timing loop only picks
+  which branch to read.  On CUDA the loop is the hand-written kernel
+  `ops/kernels/symsync_scan` (the port of the TPU kernel
+  `pallas_symsync.symsync_scan_pallas`); with symtrack's PLL + LMS as its
+  post hook the whole block is one launch of `ops/kernels/symsync_pll_lms`,
+  which filters the branches it reads itself with branch_bank's
+  arithmetic.  On the CPU their plain versions run.
 
 Each input step emits at most ceil(k/k_out)+1 outputs; outputs come
 padded with a validity mask (variable-rate output).
 """
 from __future__ import annotations
 
-import contextlib
 import os
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..core import Proc
 from ..design.firdes import firdes_kaiser, firdes_prototype
+from .kernels.branch_bank import branch_bank
 from .kernels.symsync_pll_lms import PllLmsPost, symsync_pll_lms
 from .kernels.symsync_scan import (fma32, inverse_k, loop_consts,
                                    symsync_scan, symsync_scan_reference)
@@ -152,36 +153,13 @@ def _chunks(T: int, cuda: bool):
     return [(s, min(Tc, T - s)) for s in range(0, T, Tc)]
 
 
-@contextlib.contextmanager
-def _full_f32_conv():
-    """cuDNN convolutions in full float32 inside, whatever a caller left
-    in ``torch.backends.cudnn.allow_tf32``."""
-    cudnn = torch.backends.cudnn
-    old = cudnn.allow_tf32
-    cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        cudnn.allow_tf32 = old
-
-
 def branch_kernel(mf_bank, dmf_bank, device) -> torch.Tensor:
-    """The conv1d weight [2*npfb, 1, Lb] of the hoisted form: the banks
-    flipped (conv1d is a cross-correlation, so out[t] = sum_j xp[t+j] *
-    bank[b, ::-1][j]); rows 0..npfb-1 the MF, the rest the dMF."""
+    """The bank [2*npfb, Lb] of the hoisted form: the banks flipped
+    (out[t] = sum_j xp[t+j] * bank[b, ::-1][j]); rows 0..npfb-1 the MF,
+    the rest the dMF."""
     mf = torch.as_tensor(mf_bank, dtype=torch.float32, device=device)
     dmf = torch.as_tensor(dmf_bank, dtype=torch.float32, device=device)
-    return torch.cat([mf.flip(1), dmf.flip(1)], 0)[:, None, :]
-
-
-def branch_outputs(kern, planes) -> torch.Tensor:
-    """Every branch output of a chunk: planes [P, B, Tc + Lb - 1] float32
-    (the window's last Lb-1 samples, then the chunk) -> ma [P, B, 2*npfb,
-    Tc], the layout `symsync_scan` takes."""
-    P, B, n = planes.shape
-    with _full_f32_conv():
-        ma = F.conv1d(planes.reshape(P * B, 1, n), kern)
-    return ma.reshape(P, B, kern.shape[0], ma.shape[-1])
+    return torch.cat([mf.flip(1), dmf.flip(1)], 0).contiguous()
 
 
 def loop_state(carry, Bf: int):
@@ -197,23 +175,31 @@ def loop_state(carry, Bf: int):
     return fs, is_
 
 
+def _join(parts, empty):
+    """The chunks' [B, n] pieces along time (one piece as it is)."""
+    if not parts:
+        return empty
+    return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
+
+
 def _symsync_run_hoisted(mf_bank, dmf_bank, carry, x, k: int,
                          k_out: int = 1, bw: float = 0.01,
                          locked: bool = False, post=None, post_carry=None):
     """Hoisted-MF formulation: all branch matched-filter outputs of a
-    chunk come from one conv1d of the input (full float32), and the timing
-    loop runs over them (`symsync_scan`: the kernel on CUDA, its plain
-    version on the CPU).  Value-equivalent to the scan body (the same loop
-    arithmetic; the MF dots reassociated by the conv).
+    chunk come from `branch_bank` (the kernel on CUDA, its plain version
+    on the CPU; each output summed tap by tap in one fixed order), and the
+    timing loop runs over them (`symsync_scan`: likewise).
+    Value-equivalent to the scan body (the same loop arithmetic; the MF
+    dots reassociated).
 
     post(pc, y_re, y_im, valid) -> (pc', extras) runs after every emit
     (symtrack's fused PLL + LMS).  On CUDA the post must be a `PllLmsPost`
-    and each chunk is one launch of the fused kernel `symsync_pll_lms`,
-    the states carried from chunk to chunk (`_fused_kernel` decides);
-    on the CPU any post runs in the plain loop.  Returns (y, valid,
-    carry') or, with post, (None, valid, carry', extras, pc'): the fused
-    kernel keeps the timing loop's slots to itself, and the CPU returns
-    what the card returns."""
+    and the block is one launch of the fused kernel `symsync_pll_lms`,
+    which takes the input planes and filters its branches itself
+    (`_fused_kernel` decides); on the CPU any post runs in the plain loop,
+    chunk by chunk.  Returns (y, valid, carry') or, with post, (None,
+    valid, carry', extras, pc'): the fused kernel keeps the timing loop's
+    slots to itself, and the CPU returns what the card returns."""
     cuda = x.device.type == "cuda"
     fused = _fused_kernel(post, x.device)
     dev = x.device
@@ -227,7 +213,7 @@ def _symsync_run_hoisted(mf_bank, dmf_bank, carry, x, k: int,
     prefix = carry["win"][..., 1:].to(x.dtype)
     xp = torch.cat([prefix, x], dim=-1).reshape(Bf, T + Lb - 1)
     planes = torch.stack([xp.real, xp.imag]) if cplx else xp[None]
-    planes = planes.to(torch.float32)
+    planes = planes.to(torch.float32).contiguous()
     fs, is_ = loop_state(carry, Bf)
     use_kernel = _use_scan_kernel(dev, post)
     kw = dict(npfb=npfb, max_out=max_out, k=k, k_out=k_out, bw=bw,
@@ -235,15 +221,18 @@ def _symsync_run_hoisted(mf_bank, dmf_bank, carry, x, k: int,
     v1 = carry["v1"].reshape(Bf)
     ys_re, ys_im, vs, exs = [], [], [], []
     pc = post_carry
-    for s, Tc in _chunks(T, cuda):
-        ma = branch_outputs(kern, planes[..., s:s + Tc + Lb - 1])
+    if fused and T:
+        # one launch for the block: no branch outputs to bound
         fs[5] = 0.0
-        if fused:
-            out = symsync_pll_lms(ma, fs, is_, pc, post, **kw)
-            val, fs, is_ = out.valid, out.fstate, out.istate
-            exs.append((out.y_re, out.y_im, out.dec))
-            pc = out.pll_state          # with the dot for the next chunk
-        elif use_kernel:
+        out = symsync_pll_lms(planes, kern, fs, is_, pc, post, **kw)
+        fs, is_, pc = out.fstate, out.istate, out.pll_state
+        v1 = torch.where(fs[5] > 0.5, torch.zeros_like(v1), v1)
+        vs.append(out.valid)
+        exs.append((out.y_re, out.y_im, out.dec))
+    for s, Tc in [] if fused else _chunks(T, cuda):
+        fs[5] = 0.0
+        ma = branch_bank(planes[..., s:s + Tc + Lb - 1], kern)
+        if use_kernel:
             y_re, y_im, val, fs, is_ = symsync_scan(ma, fs, is_, **kw)
         else:
             out = symsync_scan_reference(ma, fs, is_, **kw, post=post,
@@ -258,8 +247,8 @@ def _symsync_run_hoisted(mf_bank, dmf_bank, carry, x, k: int,
             ys_im.append(y_im)
         vs.append(val)
     shape = batch + (T * max_out,)
-    valid = (torch.cat(vs, -1) if vs else torch.zeros(
-        Bf, 0, dtype=torch.bool, device=dev)).reshape(shape)
+    valid = _join(vs, torch.zeros(Bf, 0, dtype=torch.bool,
+                                  device=dev)).reshape(shape)
     win = (torch.cat([prefix, x], dim=-1)[..., -Lb:] if T >= 1
            else carry["win"])
     new_carry = {
@@ -268,14 +257,14 @@ def _symsync_run_hoisted(mf_bank, dmf_bank, carry, x, k: int,
         "del": fs[2].reshape(batch), "v0": fs[3].reshape(batch),
         "v1": v1.reshape(batch), "decim": is_[1].reshape(batch)}
     if post is None:
-        y_re = torch.cat(ys_re, -1) if ys_re else fs.new_zeros(Bf, 0)
+        y_re = _join(ys_re, fs.new_zeros(Bf, 0))
         if cplx:
-            y_im = torch.cat(ys_im, -1) if ys_im else fs.new_zeros(Bf, 0)
-            y = torch.complex(y_re, y_im).reshape(shape)
+            y = torch.complex(y_re, _join(ys_im, fs.new_zeros(Bf, 0)))
+            y = y.reshape(shape)
         else:
             y = y_re.reshape(shape)
         return y, valid, new_carry
-    ex = tuple(torch.cat([e[j] for e in exs], -1).reshape(shape)
+    ex = tuple(_join([e[j] for e in exs], None).reshape(shape)
                for j in range(len(exs[0]))) if exs else ()
     if fused:
         pc = {key: v for key, v in pc.items() if key != "dot"}

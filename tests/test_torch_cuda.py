@@ -251,7 +251,9 @@ def test_fir_real_matches_plain(dev, L, T):
 @pytest.mark.parametrize("rows,T,L", [
     (3, 5 * 2048 + 77, 144),     # inner tiles, a first and a ragged last one
     (5, 3 * 2048 + 2, 9),        # T off a multiple of 4: scalar stores
-    (700, 4096, 31)])            # many rows
+    (700, 4096, 31),             # many rows
+    (4, 5000, 4200),             # above 48 KB of shared memory
+    (3, 2051, 12001)])           # ragged T, odd taps
 def test_fir_real_tiles(dev, rows, T, L):
     g = torch.Generator(device=dev).manual_seed(L + T)
     x = torch.randn(rows, T, generator=g, device=dev)
@@ -272,6 +274,30 @@ def test_fir_real_largest_taps(dev):
     with pytest.raises(ValueError, match="taps"):
         fr.fir_real(x, torch.zeros(2, L, device=dev),
                     torch.zeros(L + 1, device=dev))
+
+
+def test_firfilt_pallas_long_filter_on_the_card(dev):
+    # firfilt(backend="pallas") above 4096 taps: one fir_real launch a
+    # block, 1e-5 of rms against its plain version, the carry handed on
+    from liquid_dsp_tpu_torch.design.firdes import firdes_kaiser
+    from liquid_dsp_tpu_torch.ops.fir import firfilt
+    h = firdes_kaiser(4200, 0.05, 60.0)
+    card, cpu = firfilt(h, backend="pallas").to(dev), firfilt(
+        h, backend="pallas")
+    g = torch.Generator().manual_seed(42)
+    blocks = [torch.complex(torch.randn(3, 3000, generator=g),
+                            torch.randn(3, 3000, generator=g))
+              for _ in range(2)]
+    cg, cc = card.init((3,), device=dev), cpu.init((3,))
+    n0 = fr.fir_real.launches
+    for xb in blocks:
+        yg, cg = card(cg, xb.to(dev))
+        yc, cc = cpu(cc, xb)
+        err = float((yg.cpu() - yc).abs().max() / yc.abs().square().mean()
+                    .sqrt())
+        assert err < 1e-5
+    assert fr.fir_real.launches == n0 + 2
+    assert torch.equal(cg.cpu(), cc)
 
 
 def test_fir_real_rejects_misplaced_tensors(dev):
@@ -669,9 +695,10 @@ def _tracker_stream(B, n, seed, ms="qpsk"):
 
 
 def test_fused_tracker_route_runs_on_the_card(dev, monkeypatch):
-    # LIQUID_SYMTRACK_FUSED=1 on the card: agc_scan, then per chunk the
-    # conv1d and one symsync_pll_lms launch (two chunks a block here, the
-    # second ragged), against the sequential route on the same blocks
+    # LIQUID_SYMTRACK_FUSED=1 on the card: agc_scan, then one
+    # symsync_pll_lms launch a block on the input planes (the sequential
+    # route: two branch_bank + symsync_scan chunks a block here, the second
+    # ragged), against the sequential route on the same blocks
     from liquid_dsp_tpu_torch.framing.symtrack import symtrack_stream
     from liquid_dsp_tpu_torch.ops.kernels import pll_lms, symsync_scan
     from liquid_dsp_tpu_torch.ops.kernels import symsync_pll_lms as fk
@@ -694,7 +721,7 @@ def test_fused_tracker_route_runs_on_the_card(dev, monkeypatch):
                fk.symsync_pll_lms.launches - n[2])
         nch = len(_chunks(T, True))
         assert got == ((nch * NB, NB, 0) if route == "0"
-                       else (0, 0, nch * NB)), (route, got)
+                       else (0, 0, NB)), (route, got)
     for (ys, ds, vs), (yf, df, vf) in zip(outs["0"], outs["1"]):
         assert torch.equal(vs, vf) and int(vs.sum()) > T // 3
         assert torch.equal(ds, df)
@@ -717,21 +744,99 @@ def test_foreign_post_raises_on_the_card(dev):
                                 post=lambda *a: a, post_carry={})
 
 
+@pytest.mark.parametrize("P,B,Tc,m", [
+    (2, 256, 1024, 7),        # the tracker's bank at its width
+    (2, 33, 4096, 5),         # symsync's, a full chunk
+    (1, 5, 509, 7),           # a real stream, Tc off a multiple of 4
+    (2, 3, 700, 1),           # 4 taps a branch
+    (2, 2, 3, 7)])            # less than a thread's 4 outputs
+def test_branch_bank_bit_equal_to_plain(dev, P, B, Tc, m):
+    # the same sums in the same order (csrc/branch_dot.cuh): bit-equal;
+    # against cuDNN's full-float32 conv1d (another order) within 1e-5 of
+    # rms; a view of wider planes (rows at a stride) gives the same
+    import torch.nn.functional as F
+    from liquid_dsp_tpu_torch.ops import symsync as ss
+    from liquid_dsp_tpu_torch.ops.kernels import branch_bank as bk
+    q = ss.symsync(k=2, m=m).to(dev)
+    kern = ss.branch_kernel(q.mf, q.dmf, dev)
+    Lb = kern.shape[1]
+    g = torch.Generator(device=dev).manual_seed(P * B + Tc)
+    wide = torch.randn(P, B, Tc + Lb + 40, generator=g, device=dev)
+    planes = wide[..., 17:17 + Tc + Lb - 1]
+    n0 = bk.branch_bank.launches
+    ma = bk.branch_bank(planes, kern)
+    ref = bk.branch_bank_reference(planes.contiguous(), kern)
+    conv = F.conv1d(planes.reshape(P * B, 1, -1), kern[:, None].contiguous()
+                    ).reshape(ma.shape)
+    torch.cuda.synchronize()
+    assert bk.branch_bank.launches == n0 + 1
+    assert ma.shape == (P, B, 2 * 32, Tc) and torch.equal(ma, ref)
+    assert float((ma - conv).abs().max() / conv.square().mean().sqrt()) \
+        < 1e-5
+    assert torch.equal(bk.branch_bank(planes.contiguous(), kern), ma)
+
+
+def test_branch_bank_odd_banks_and_refusals(dev):
+    # any row count and tap count up to LB_MAX, bit-equal; above it, and a
+    # bank beyond the kernel's shared memory, refused on the card only
+    from liquid_dsp_tpu_torch.ops.kernels import branch_bank as bk
+    g = torch.Generator(device=dev).manual_seed(5)
+    for R, Lb in ((1, 1), (3, 2), (10, 5), (7, 63), (40, 64)):
+        kern = torch.randn(R, Lb, generator=g, device=dev)
+        planes = torch.randn(2, 3, 600 + Lb - 1, generator=g, device=dev)
+        assert torch.equal(bk.branch_bank(planes, kern),
+                           bk.branch_bank_reference(planes, kern)), (R, Lb)
+    planes = torch.zeros(1, 2, 100, device=dev)
+    with pytest.raises(ValueError, match="taps"):
+        bk.branch_bank(planes, torch.zeros(4, bk.LB_MAX + 1, device=dev))
+    with pytest.raises(ValueError, match="bank"):
+        bk.branch_bank(planes, torch.zeros(
+            bk.BANK_MAX // bk.tap_pitch(8) + 1, 8, device=dev))
+    with pytest.raises(ValueError, match="one device"):
+        bk.branch_bank(planes, torch.zeros(4, 8))
+
+
+def test_symsync_on_the_card_runs_branch_bank(dev):
+    # symsync's hoisted path: per chunk one branch_bank and one
+    # symsync_scan launch, no cuDNN convolution, and the same bits as the
+    # plain versions on the CPU's hoisted path
+    from liquid_dsp_tpu_torch.ops import symsync as ss
+    from liquid_dsp_tpu_torch.ops.kernels import branch_bank as bk
+    from liquid_dsp_tpu_torch.ops.kernels import symsync_scan as sk
+    q = ss.symsync(k=2, m=5)
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((3, 5000)) + 1j * rng.standard_normal(
+        (3, 5000))).astype(np.complex64) * 0.5
+    n0, n1 = bk.branch_bank.launches, sk.symsync_scan.launches
+    yg, vg, _ = ss.symsync_run(q.mf.to(dev), q.dmf.to(dev),
+                               q.init((3,), device=dev),
+                               torch.from_numpy(x).to(dev), 2)
+    torch.cuda.synchronize()
+    nch = len(ss._chunks(5000, True))
+    assert (bk.branch_bank.launches - n0, sk.symsync_scan.launches - n1) == \
+        (nch, nch)
+    # the CPU's chunks differ (2 of 2500): the loop is the same at any
+    yc, vc, _ = ss.symsync_run(q.mf, q.dmf, q.init((3,)),
+                               torch.from_numpy(x), 2, hoist=True)
+    assert torch.equal(vg.cpu(), vc)
+    assert torch.equal(torch.view_as_real(yg.cpu()), torch.view_as_real(yc))
+
+
 def _fused_inputs(dev, st, B, n, seed, warm, ms="qpsk"):
-    """Branch outputs, loop and PLL states of the tracker `st` on a stream:
-    from the zero state, or after `warm` samples (a locked state)."""
-    from liquid_dsp_tpu_torch.ops.symsync import (branch_kernel,
-                                                  branch_outputs, loop_state)
+    """Input planes, the bank, loop and PLL states of the tracker `st` on a
+    stream: from the zero state, or after `warm` samples (a locked
+    state)."""
+    from liquid_dsp_tpu_torch.ops.symsync import branch_kernel, loop_state
     x = torch.from_numpy(_tracker_stream(B, warm + n, seed, ms)).to(dev)
     c = st.init(batch_shape=(B,), device=dev)
     if warm:
         _, c = st(c, x[:, :warm])
     y, _ = st.ag(c["agc"], x[:, warm:])
     xp = torch.cat([c["ss"]["win"][..., 1:], y], -1)
-    ma = branch_outputs(branch_kernel(st.ss.mf, st.ss.dmf, dev),
-                        torch.stack([xp.real, xp.imag]).contiguous())
+    planes = torch.stack([xp.real, xp.imag]).contiguous()
     fs, is_ = loop_state(c["ss"], B)
-    return ma, fs, is_, st.pll_state(c, B)
+    return (planes, branch_kernel(st.ss.mf, st.ss.dmf, dev), fs, is_,
+            st.pll_state(c, B))
 
 
 @pytest.mark.parametrize("ms,L,B,Tc,warm", [
@@ -744,43 +849,56 @@ def test_symsync_pll_lms_matches_plain(dev, ms, L, B, Tc, warm):
     from liquid_dsp_tpu_torch.framing.symtrack import symtrack_stream
     from liquid_dsp_tpu_torch.ops.kernels import symsync_pll_lms as fk
     st = symtrack_stream(ms=ms, eq_len=L).to(dev)
-    ma, fs, is_, pc = _fused_inputs(dev, st, B, Tc, B + Tc, warm, ms)
+    planes, kern, fs, is_, pc = _fused_inputs(dev, st, B, Tc, B + Tc, warm,
+                                              ms)
     kw = dict(npfb=32, max_out=3, k=2, k_out=1, bw=st.sync_bw, locked=False)
-    launches = fk.symsync_pll_lms.launches
-    got = fk.symsync_pll_lms(ma, fs, is_, pc, st.post, **kw)
-    want = fk.symsync_pll_lms_reference(ma, fs, is_, pc, st.post, **kw)
-    torch.cuda.synchronize()
-    assert fk.symsync_pll_lms.launches == launches + 1
-    # the timing loop bit for bit, the PLL + LMS at the stream tolerance
-    for name in ("valid", "fstate", "istate"):
-        assert torch.equal(getattr(got, name), getattr(want, name)), name
-    assert int(want.valid.sum()) > Tc // 3
-    assert float((got.y_re - want.y_re).abs().max()) <= 2e-4
-    assert float((got.y_im - want.y_im).abs().max()) <= 2e-4
-    assert torch.equal(got.dec, want.dec)
-    assert torch.equal(got.pll_state["eq_n"], want.pll_state["eq_n"])
-    for key in want.pll_state:
-        assert float((got.pll_state[key].float()
-                      - want.pll_state[key].float()).abs().max()) <= 2e-4, key
+    want = fk.symsync_pll_lms_reference(planes, kern, fs, is_, pc, st.post,
+                                        **kw)
+    # the filter warp at the full bank (no misses) and at 8 and 3 rows a
+    # step (the chain filters what the window misses): the same bits
+    for win in (None, 8, 3):
+        launches = fk.symsync_pll_lms.launches
+        got = fk.symsync_pll_lms(planes, kern, fs, is_, pc, st.post, win=win,
+                                 **kw)
+        torch.cuda.synchronize()
+        assert fk.symsync_pll_lms.launches == launches + 1
+        assert got.misses.shape == (B,) and (win is not None or int(
+            got.misses.sum()) == 0)
+        # the timing loop bit for bit, the PLL + LMS at the stream tolerance
+        for name in ("valid", "fstate", "istate"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), \
+                (name, win)
+        assert int(want.valid.sum()) > Tc // 3
+        assert float((got.y_re - want.y_re).abs().max()) <= 2e-4
+        assert float((got.y_im - want.y_im).abs().max()) <= 2e-4
+        assert torch.equal(got.dec, want.dec)
+        assert torch.equal(got.pll_state["eq_n"], want.pll_state["eq_n"])
+        for key in want.pll_state:
+            assert float((got.pll_state[key].float()
+                          - want.pll_state[key].float()).abs().max()) \
+                <= 2e-4, key
 
 
 def test_symsync_pll_lms_equals_the_two_kernels(dev):
-    # one chunk through the fused kernel against symsync_scan then pll_lms
-    # on its slots: the same device code, so the same bits; then a second
-    # chunk with the dot handed on against pll_lms over both chunks' slots
+    # one piece through the fused kernel against branch_bank, symsync_scan
+    # then pll_lms on its slots: the same device code, so the same bits;
+    # then a second piece with the dot handed on against pll_lms over both
+    # pieces' slots
     from liquid_dsp_tpu_torch.framing.symtrack import symtrack_stream
     from liquid_dsp_tpu_torch.ops.kernels import pll_lms as pk
     from liquid_dsp_tpu_torch.ops.kernels import symsync_pll_lms as fk
     from liquid_dsp_tpu_torch.ops.kernels import symsync_scan as sk
+    from liquid_dsp_tpu_torch.ops.kernels.branch_bank import branch_bank
     st = symtrack_stream().to(dev)
-    ma, fs, is_, pc = _fused_inputs(dev, st, 64, 1400, 3, 2048)
+    planes, kern, fs, is_, pc = _fused_inputs(dev, st, 64, 1400, 3, 2048)
     kw = dict(npfb=32, max_out=3, k=2, k_out=1, bw=st.sync_bw, locked=False)
-    halves = (ma[..., :700].contiguous(), ma[..., 700:].contiguous())
-    f1 = fk.symsync_pll_lms(halves[0], fs, is_, pc, st.post, **kw)
-    f2 = fk.symsync_pll_lms(halves[1], f1.fstate, f1.istate, f1.pll_state,
-                            st.post, **kw)
-    s1 = sk.symsync_scan(halves[0], fs, is_, **kw)
-    s2 = sk.symsync_scan(halves[1], s1[3], s1[4], **kw)
+    Lb = kern.shape[1]
+    halves = (planes[..., :700 + Lb - 1], planes[..., 700:])
+    f1 = fk.symsync_pll_lms(halves[0], kern, fs, is_, pc, st.post, **kw)
+    f2 = fk.symsync_pll_lms(halves[1], kern, f1.fstate, f1.istate,
+                            f1.pll_state, st.post, **kw)
+    s1 = sk.symsync_scan(branch_bank(halves[0], kern), fs, is_, **kw)
+    s2 = sk.symsync_scan(branch_bank(halves[1], kern), s1[3], s1[4], **kw)
     y_re, y_im, dec, pc2 = pk.pll_lms(
         torch.cat([s1[0], s2[0]], -1), torch.cat([s1[1], s2[1]], -1),
         torch.cat([s1[2], s2[2]], -1), pc, st.tab_re, st.tab_im,
@@ -804,13 +922,19 @@ def test_symsync_pll_lms_refuses(dev):
     from liquid_dsp_tpu_torch.ops.kernels import symsync_pll_lms as fk
     kw = dict(npfb=32, max_out=3, k=2, k_out=1, bw=0.02, locked=False)
     st = symtrack_stream(eq_len=pk.LMAX + 1).to(dev)
-    ma, fs, is_, pc = _fused_inputs(dev, st, 2, 64, 0, 0)
+    planes, kern, fs, is_, pc = _fused_inputs(dev, st, 2, 64, 0, 0)
     with pytest.raises(ValueError, match="equalizer"):
-        fk.symsync_pll_lms(ma, fs, is_, pc, st.post, **kw)
+        fk.symsync_pll_lms(planes, kern, fs, is_, pc, st.post, **kw)
     st = symtrack_stream().to(dev)
-    ma, fs, is_, pc = _fused_inputs(dev, st, 2, 64, 0, 0)
+    planes, kern, fs, is_, pc = _fused_inputs(dev, st, 2, 64, 0, 0)
+    # a branch of more taps than the kernel's register walk takes: on the
+    # card only
+    wide = torch.zeros(64, 65, device=dev)
+    with pytest.raises(ValueError, match="taps"):
+        fk.symsync_pll_lms(torch.zeros(2, 2, 128, device=dev), wide, fs, is_,
+                           pc, st.post, **kw)
     with pytest.raises(ValueError, match="one device"):
-        fk.symsync_pll_lms(ma, fs, is_, pc, st.post.cpu(), **kw)
+        fk.symsync_pll_lms(planes, kern, fs, is_, pc, st.post.cpu(), **kw)
 
 
 def test_per_step_loops_raise_on_the_card(dev):
@@ -1467,15 +1591,21 @@ def _bits(t):
 
 @pytest.mark.parametrize("cplx", [False, True])
 @pytest.mark.parametrize("ns,n", [(1, 2), (1, 3), (1, 5), (1, 9), (1, 17),
-                                  (2, 3), (4, 3), (8, 3)])
+                                  (2, 3), (4, 3), (8, 3),
+                                  # the wide form (the state in shared)
+                                  (1, 18), (1, 25), (1, 33), (1, 200),
+                                  # split cascades, a launch a group
+                                  (9, 3), (12, 3), (17, 3), (2, 4), (3, 20)])
 def test_iir_scan_bit_equal_to_plain(dev, ns, n, cplx):
     # the same roundings in the same order: bit-equal outputs and state,
     # 70 rows (a ragged warp), T = 203 (a ragged last tile), and the carry
     # handed on: two calls equal one (the second's rows start unaligned);
     # then 70 x 1000 and 5 x 31 (rows not a multiple of 32, T not one of
-    # the 32- or 16-sample tile)
+    # the 32- or 16-sample tile).  A cascade the kernel does not take in
+    # one launch runs as launch_groups' launches, each section's
+    # arithmetic unchanged: the same bits
     from liquid_dsp_tpu_torch.ops.kernels.iir_scan import (
-        iir_scan, iir_scan_reference)
+        iir_scan, iir_scan_reference, launch_groups)
     g = torch.Generator(device=dev).manual_seed(ns * 20 + n)
     x = _draw(g, dev, cplx, 70, 203)
     b, a = _draw(g, dev, cplx, ns, n, scale=0.3), _draw(g, dev, cplx, ns, n,
@@ -1487,7 +1617,7 @@ def test_iir_scan_bit_equal_to_plain(dev, ns, n, cplx):
     yb, sb = iir_scan(x[:, 77:].contiguous(), b, a, sa)
     yr, sr = iir_scan_reference(x, b, a, s)
     torch.cuda.synchronize()
-    assert iir_scan.launches == k0 + 3
+    assert iir_scan.launches == k0 + 3 * len(launch_groups(ns, n))
     assert torch.equal(_bits(y), _bits(yr)) and torch.equal(_bits(s2),
                                                             _bits(sr))
     assert torch.equal(_bits(torch.cat([ya, yb], -1)), _bits(y))
@@ -1526,13 +1656,18 @@ def test_iir_block_state_bit_equal_to_plain(dev, p, cplx):
 
 
 def test_iir_kernels_refuse_what_they_do_not_take(dev):
+    # on the card only: a section above the wide form's MAX_WIDE_N
+    # coefficients, a block state pass above 32 states, and tensors on two
+    # devices
     from liquid_dsp_tpu_torch.ops.kernels.iir_block_state import (
         iir_block_state)
-    from liquid_dsp_tpu_torch.ops.kernels.iir_scan import iir_scan
+    from liquid_dsp_tpu_torch.ops.kernels.iir_scan import (MAX_WIDE_N,
+                                                           iir_scan)
     x = torch.zeros(4, 64, device=dev)
-    with pytest.raises(ValueError, match="sections"):
-        iir_scan(x, torch.ones(2, 4, device=dev), torch.ones(2, 4, device=dev),
-                 torch.zeros(4, 2, 3, device=dev))
+    n = MAX_WIDE_N + 1
+    with pytest.raises(ValueError, match="coefficients"):
+        iir_scan(x, torch.ones(1, n, device=dev), torch.ones(1, n, device=dev),
+                 torch.zeros(4, 1, n - 1, device=dev))
     with pytest.raises(ValueError, match="states"):
         iir_block_state(torch.zeros(4, 3, 33, device=dev),
                         torch.eye(33, device=dev),
@@ -1540,6 +1675,30 @@ def test_iir_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="one device"):
         iir_scan(x, torch.ones(1, 2), torch.ones(1, 2),
                  torch.zeros(4, 1, 1, device=dev))
+
+
+def test_block_backend_refuses_more_than_32_states_on_the_card(dev):
+    # an explicit 'block' above the state pass kernel's 32 lanes builds,
+    # runs on the CPU and is refused at the call on a CUDA tensor; 'auto'
+    # takes the scan there, which takes any order
+    from liquid_dsp_tpu_torch.design.iirdes import iirdes_sos
+    from liquid_dsp_tpu_torch.ops import iir as P
+    from liquid_dsp_tpu_torch.ops.kernels.iir_scan import iir_scan
+    B, A = iirdes_sos("butter", 33, 0.2)       # 34 states, stable
+    x = torch.randn(2, 300, dtype=torch.complex64)
+    q = P.iirfilt_sos(B, A, backend="block")
+    y_cpu, _ = q(q.init((2,)), x)
+    assert bool(torch.isfinite(torch.view_as_real(y_cpu)).all())
+    q = q.to(dev)
+    with pytest.raises(ValueError, match="at most 32 states"):
+        q(q.init((2,), device=dev), x.to(dev))
+    auto = P.iirfilt_sos(B, A).to(dev)
+    n0 = iir_scan.launches
+    y, _ = auto(auto.init((2,), device=dev), x.to(dev))
+    assert iir_scan.launches == n0 + 3      # 17 sections: 8 + 8 + 1
+    scan = P.iirfilt_sos(B, A, backend="scan")
+    yr, _ = scan(scan.init((2,)), x)
+    assert torch.equal(torch.view_as_real(y.cpu()), torch.view_as_real(yr))
 
 
 def _iir_cases():

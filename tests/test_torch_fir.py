@@ -83,11 +83,27 @@ def test_firfilt_carry_hands_over_from_jax():
 
 def test_firfilt_pallas_backend_not_ported():
     # the port's pallas backend, like the JAX package's, takes real taps
-    # only (tests/test_pallas.py:45), and up to fir_real.LMAX of them
+    # only (tests/test_pallas.py:45), and any number of them when it is
+    # built: the kernel's limit (fir_real.LMAX) is checked on CUDA tensors
+    # only, at the call
     with pytest.raises(ValueError, match="real taps"):
         fir.firfilt(np.ones(8, np.complex64), backend="pallas")
-    with pytest.raises(ValueError, match="taps"):
-        fir.firfilt(np.ones(fir_real.LMAX + 1, np.float32), backend="pallas")
+    p = fir.firfilt(np.ones(fir_real.LMAX + 1, np.float32), backend="pallas")
+    assert p.backend == "pallas" and p.L == fir_real.LMAX + 1
+
+
+@pytest.mark.parametrize("L", [4097, 4200])
+def test_firfilt_pallas_long_filter_matches_jax(L):
+    # above the 4096 taps the card's kernel once took: the plain version on
+    # the CPU against the JAX package's Pallas backend (interpret mode on
+    # the CPU), 2 carried blocks, 1e-5 of rms as the streaming test
+    rng = np.random.default_rng(L)
+    h = firdes_kaiser(L, 0.05, 60.0).astype(np.float32)
+    blocks = [tp.cnoise(rng, (2, 600)) for _ in range(2)]
+    yj, cj = tp.run_jax(jfir.firfilt(h, backend="pallas"), blocks, (2,))
+    yt, ct = tp.run_torch(fir.firfilt(h, backend="pallas"), blocks, (2,))
+    assert np.isfinite(yt).all() and tp.rel_err(yt, yj) < 1e-5
+    np.testing.assert_array_equal(carry_to_numpy(ct), np.asarray(cj))
 
 
 @pytest.mark.parametrize("L,T,B", [(64, 512, 3), (13, 256, 1), (129, 384, 2),

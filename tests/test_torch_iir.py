@@ -155,10 +155,77 @@ def test_explicit_block_takes_up_to_32_states(form, order):
 
 
 def test_explicit_block_refuses_more_than_32_states():
+    # the block form's 32-state limit is the state pass kernel's, so it is
+    # checked on CUDA tensors only, at the call (tests/test_torch_cuda.py):
+    # the filter builds, and 'auto' still keeps the card on the scan
     B, A = iirdes_sos("butter", 33, 0.2)       # 34 states, stable
-    with pytest.raises(ValueError, match="at most 32 states"):
-        P.iirfilt_sos(B, A, backend="block")
+    q = P.iirfilt_sos(B, A, backend="block")
+    assert q.backend == "block" and q.p == 34
+    assert q.uses_block(types.SimpleNamespace(device=torch.device("cpu")))
     assert P.iirfilt_sos(B, A).backend == "auto"
+    assert not P.iirfilt_sos(B, A).uses_block(types.SimpleNamespace(
+        device=torch.device("cuda")))
+
+
+def _queue3_tf(order):
+    """ROADMAP queue 3's input case: a = [1, 0, ..., 0, -0.5] (poles at
+    radius 0.5 ** (1 / order), stable), b seeded normal x 0.1."""
+    b = np.random.default_rng(order).standard_normal(order + 1) * 0.1
+    a = np.zeros(order + 1)
+    a[0], a[-1] = 1.0, -0.5
+    return b, a
+
+
+def _close_rel(y, ref, rtol, what=""):
+    y, ref = np.asarray(y), np.asarray(ref)
+    assert y.shape == ref.shape and np.isfinite(y).all(), what
+    err = float(np.abs(y - ref).max() / np.abs(ref).max())
+    assert err <= rtol, f"{what}: max|err| / max|ref| {err:.3e} > {rtol:.0e}"
+
+
+@pytest.mark.parametrize("order", [17, 33, 40])
+def test_high_order_tf_matches_jax(order):
+    # above the 16th order the kernel once held in registers: the scan's
+    # plain version on the CPU against the JAX scan, a carried block pair,
+    # 1e-5 of the output's scale (the same float32 recurrence)
+    b, a = _queue3_tf(order)
+    x = tp.cnoise(np.random.default_rng(order + 1), (2, 512))
+    blocks = [x[:, :256], x[:, 256:]]
+    yj, cj = tp.run_jax(J.iirfilt(b, a), blocks, (2,))
+    yt, ct = tp.run_torch(P.iirfilt(b, a), blocks, (2,))
+    _close_rel(yt, yj, 1e-5, "y")
+    _close_rel(ct.numpy(), np.asarray(cj), 1e-5, "carry")
+
+
+@pytest.mark.parametrize("ns", [9, 17, 20])
+def test_long_sos_cascade_matches_jax(ns):
+    # more second-order sections than one launch takes on the card: the
+    # plain version on the CPU against the JAX scan, 1e-5 of the scale
+    B = np.tile([0.2, 0.4, 0.2], (ns, 1))
+    A = np.tile([1.0, -0.5, 0.2], (ns, 1))
+    x = tp.cnoise(np.random.default_rng(ns), (2, 512))
+    blocks = [x[:, :300], x[:, 300:]]
+    yj, cj = tp.run_jax(J.iirfilt_sos(B, A), blocks, (2,))
+    yt, ct = tp.run_torch(P.iirfilt_sos(B, A), blocks, (2,))
+    _close_rel(yt, yj, 1e-5, "y")
+    _close_rel(ct.numpy(), np.asarray(cj), 1e-5, "carry")
+
+
+def test_block_form_of_40_states_on_the_cpu():
+    # an explicit 'block' above the state pass kernel's 32 lanes runs on
+    # the CPU (its plain version takes any order) and matches the JAX
+    # package's block form (1e-5 of the scale) and its scan (1e-4, the JAX
+    # package's own block-versus-scan bound)
+    b, a = _queue3_tf(40)
+    x = tp.cnoise(np.random.default_rng(41), (2, 700))
+    blocks = [x[:, :130], x[:, 130:390], x[:, 390:]]
+    q = P.iirfilt(b, a, backend="block")
+    assert q.backend == "block" and q.p == 40
+    yt, ct = tp.run_torch(q, blocks, (2,))
+    for be, tol in (("block", 1e-5), ("scan", 1e-4)):
+        yj, cj = tp.run_jax(J.iirfilt(b, a, backend=be), blocks, (2,))
+        _close_rel(yt, yj, tol, f"y vs the JAX {be}")
+        _close_rel(ct.numpy(), np.asarray(cj), tol, f"carry vs the JAX {be}")
 
 
 def test_pscan_is_not_carried_over():

@@ -19,6 +19,19 @@ tests hold to the JAX package):
   with two named barriers a buffer never writes a full buffer, never reads
   a stale one, never leaves an arrive unmet and never sticks, under any
   interleaving tried; the PLL warp's groups cover each slot once, in order.
+* branch_bank and symsync_pll_lms's filter warp (csrc/branch_dot.cuh):
+  the register walk of 4 outputs over groups of 4 taps (the first product
+  alone, a partial last group) sums each output in the plain version's
+  order, so it gives `branch_bank_reference`'s bits at every tap count;
+  the fused kernel's chain, reading a branch from the filter warp's
+  window (a tile ahead, placed by the branch of the tile before) or
+  filtering it on the chain when the window misses it, gives
+  `symsync_scan_reference`'s outputs and state over `branch_bank`'s
+  rows bit for bit, at the full bank with no miss; each tile's window
+  cells are written once; and the chain and the filter warp's hand-off
+  (READY and FREE of two stage buffers, four input buffers, the window
+  published a tile ahead) never overwrites what is still to be read and
+  never sticks, under any interleaving tried.
 
 * fir_real and mix_fir_decim (csrc/fir_window.cuh and the two sources):
   the padded shared-memory map is a bijection that keeps every group of R
@@ -68,6 +81,7 @@ import pytest
 import torch
 
 from liquid_dsp_tpu_torch.modem import constellation
+from liquid_dsp_tpu_torch.ops.kernels import branch_bank as bk
 from liquid_dsp_tpu_torch.ops.kernels import mix_fir_decim as mfd
 from liquid_dsp_tpu_torch.ops.kernels import pll_lms as pk
 from liquid_dsp_tpu_torch.ops.kernels import symsync_scan as sk
@@ -425,10 +439,13 @@ def _sync_case(seed, P, B, Tc, npfb, k, stale):
 
 
 def _kernel_emits(ma, fstate, istate, *, npfb, max_out, k, k_out, bw,
-                  locked):
+                  locked, fetch=None, tile_start=None):
     """csrc/symsync_scan.cu's chain, one channel after the other, in the
     plain version's arithmetic (float32 ops rounded one by one, `fma32` at
-    the three contraction points)."""
+    the three contraction points).  fetch(ch, t, bc) -> (mf_re, dmf_re,
+    mf_im, dmf_im) gives an active emit's branch values (ma's by default);
+    tile_start(ch, n, bi) is told the branch index each 32-step tile
+    starts on."""
     P, B, _, Tc = ma.shape
     c_q, c_v, c_r = (np.float32(c) for c in sk.loop_consts(bw))
     inv_k = np.float32(sk.inverse_k(k))
@@ -448,6 +465,8 @@ def _kernel_emits(ma, fstate, istate, *, npfb, max_out, k, k_out, bw,
         tau, rate, dl, v0, bf, ran = (f32(v) for v in fs[:, ch])
         bi, decim = int(is_[0, ch]), int(is_[1, ch])
         for t in range(Tc):
+            if tile_start is not None and t % 32 == 0:
+                tile_start(ch, t // 32, bi)
             e = 0
             if bi >= npfb:
                 tau = f32(tau + f32(0.0))
@@ -457,10 +476,15 @@ def _kernel_emits(ma, fstate, istate, *, npfb, max_out, k, k_out, bw,
                 e = 1
             while e < max_out and bi < npfb:
                 bc = max(bi, 0)
-                mf_re, dmf_re = m[0, ch, bc, t], m[0, ch, npfb + bc, t]
-                mf_im = f32(0.0)
+                if fetch is None:
+                    mf_re, dmf_re = m[0, ch, bc, t], m[0, ch, npfb + bc, t]
+                    mf_im = dmf_im = f32(0.0)
+                    if P == 2:
+                        mf_im, dmf_im = m[1, ch, bc, t], m[1, ch, npfb + bc,
+                                                           t]
+                else:
+                    mf_re, dmf_re, mf_im, dmf_im = fetch(ch, t, bc)
                 if P == 2:
-                    mf_im, dmf_im = m[1, ch, bc, t], m[1, ch, npfb + bc, t]
                     q_raw = fma(mf_re, dmf_re, f32(mf_im * dmf_im))
                 else:
                     q_raw = f32(mf_re * dmf_re)
@@ -524,6 +548,296 @@ def test_symsync_valid_mask_falls_within_a_step(P, k, k_out):
                                       locked=False)[2]
     v = valid.reshape(B, Tc, max_out).to(torch.int8)
     assert bool((v[..., 1:] <= v[..., :-1]).all())
+
+
+# --- branch_bank and symsync_pll_lms's filter warp (csrc/branch_dot.cuh) ---
+
+TILE = 32          # steps a tile (csrc/symsync_step.cuh)
+RCH = 8            # rows a pass of branch_bank.cu
+FUSED_RCH = 4      # rows a pass of symsync_pll_lms.cu's filter warp
+
+
+def _f32(v):
+    return torch.tensor(v, dtype=torch.float32)
+
+
+def _dots4(x, taps, off, Lb):
+    """branch_dot::dots4 walked as the kernels run it: len(off) rows x 4
+    outputs from x (x[0 .. 4 (Lb // 4 + 2)) readable), row r's taps at
+    taps[off[r]:], the window sliding by 4 a group (lo carried, one new
+    16-byte load), the group holding tap 0 taking its product first, a
+    partial last group of Lb % 4 taps.  x, taps float32 tensors; returns
+    acc [RCH, 4] float32."""
+    G, rem = Lb >> 2, Lb & 3
+    kk_rows = torch.stack([taps[o:o + 4 * (G + 1)] for o in off])
+    acc = torch.zeros(len(off), 4)
+
+    def group(first, g, nu):
+        nonlocal acc
+        w = x[4 * g:4 * g + 8]
+        for u in range(nu):
+            xs = torch.stack([w[i + u] for i in range(4)])[None, :]
+            kk = kk_rows[:, 4 * g + u][:, None]
+            acc = (xs * kk if first and u == 0
+                   else sk.fma32(xs.expand_as(acc), kk.expand_as(acc), acc))
+
+    if G > 0:
+        group(True, 0, 4)
+    for g in range(1, G):
+        group(False, g, 4)
+    if rem:
+        group(G == 0, G, rem)
+    return acc
+
+
+@pytest.mark.parametrize("Lb", [1, 2, 3, 4, 5, 7, 20, 28, 31, 64])
+def test_dots4_walk_is_branch_banks_sum(Lb):
+    # the group walk sums each output in the plain version's order, so it
+    # gives branch_bank_reference's bits at every tap count
+    rng = np.random.default_rng(Lb)
+    R, Tc = 2 * RCH, 12
+    kern = torch.from_numpy(rng.standard_normal((R, Lb)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal(Tc + Lb - 1).astype(np.float32))
+    want = bk.branch_bank_reference(x[None, None], kern)[0, 0]
+    kp = bk.tap_pitch(Lb)
+    taps = torch.zeros(R * kp + 4)
+    for r in range(R):
+        taps[r * kp:r * kp + Lb] = kern[r]
+    xs = torch.cat([x, torch.zeros(4 * (Lb // 4 + 3))])
+    for t0 in range(0, Tc, 4):
+        for r0 in range(0, R, RCH):
+            got = _dots4(xs[t0:], taps, [(r0 + r) * kp for r in range(RCH)],
+                         Lb)
+            assert torch.equal(got, want[r0:r0 + RCH, t0:t0 + 4])
+
+
+def _window_start(bi, npfb, win):
+    c = 0 if bi < 0 else bi % npfb
+    r0 = c - win // 2
+    return r0 + npfb if r0 < 0 else r0
+
+
+def _filter_tile(planes_ch, taps, kp, Lb, npfb, win, r0, n):
+    """symsync_pll_lms.cu's filter warp on tile n of one channel: the
+    staged input tile (TILE + kp + 4 samples a plane, zeros past the row),
+    its work items (lane it: a pass of FUSED_RCH rows of one plane and filter
+    at 4 steps), the rows (r0 + jw) mod npfb of the window, written into
+    the stage [2P][win][TILE] as flat floats.  Returns (stage, the staged
+    input [P][XT], the (pg, jw, step) cells written)."""
+    P, n_in = planes_ch.shape
+    XT = TILE + kp + 4
+    t0 = n * TILE
+    xin = torch.zeros(P, XT)
+    m = max(0, min(XT, n_in - t0))
+    xin[:, :m] = planes_ch[:, t0:t0 + m]
+    stage = torch.full((2 * P * win * TILE,), float("nan"))
+    cpp = -(-win // FUSED_RCH)
+    cells = []
+    for it in range(2 * P * cpp * 8):
+        tq, c = it & 7, it >> 3
+        pg = c // cpp
+        jw0 = (c - pg * cpp) * FUSED_RCH
+        off = []
+        for r in range(FUSED_RCH):
+            jw = min(jw0 + r, win - 1)
+            rr = r0 + jw if r0 + jw < npfb else r0 + jw - npfb
+            off.append(((pg & 1) * npfb + rr) * kp)
+        acc = _dots4(xin[pg >> 1, 4 * tq:], taps, off, Lb)
+        for r in range(FUSED_RCH):
+            if jw0 + r < win:
+                o = (pg * win + jw0 + r) * TILE + 4 * tq
+                stage[o:o + 4] = acc[r]
+                cells += [(pg, jw0 + r, 4 * tq + i) for i in range(4)]
+    return stage, xin, cells
+
+
+def _fused_walk(planes, kern, fs, is_, win, **kw):
+    """The fused kernel's timing chain (`_kernel_emits`) reading its branch
+    values as symsync_pll_lms.cu does: tile n's window starts at
+    window_start(the branch tile n - 1 started on) (tile 0's, and tile 1's,
+    at the loop's first branch), a row in the window from the filter
+    warp's stage, any other branch filtered on the chain from the staged
+    input by branch_dot::dot (a miss).  Returns (the chain's outputs, the
+    misses, the cells each tile's filter wrote)."""
+    P, B, n_in = planes.shape
+    npfb, Lb = kw["npfb"], kern.shape[1]
+    kp = bk.tap_pitch(Lb)
+    taps = torch.zeros(2 * npfb * kp + 4)
+    for r in range(2 * npfb):
+        taps[r * kp:r * kp + Lb] = kern[r]
+    starts, tiles, misses, written = {}, {}, [0], []
+
+    def tile_start(ch, n, bi):
+        # tile n + 1's window from where tile n starts (tile 0's from the
+        # first branch too)
+        if n == 0:
+            starts[ch, 0] = _window_start(bi, npfb, win)
+        starts[ch, n + 1] = _window_start(bi, npfb, win)
+
+    def fetch(ch, t, bc):
+        n, tl = divmod(t, TILE)
+        r0 = starts[ch, n]
+        if (ch, n) not in tiles:
+            tiles[ch, n] = _filter_tile(planes[:, ch], taps, kp, Lb, npfb,
+                                        win, r0, n)
+            written.append(tiles[ch, n][2])
+        stage, xin, _ = tiles[ch, n]
+        j = (bc - r0) % npfb
+        if j < win:
+            idx = [(pg * win + j) * TILE + tl for pg in range(2 * P)]
+            v = [stage[i] for i in idx]
+        else:
+            misses[0] += 1
+            v = []
+            for pl in range(P):
+                for row in (bc, npfb + bc):
+                    x = xin[pl, tl:tl + Lb]
+                    k_ = taps[row * kp:row * kp + Lb]
+                    acc = x[:1] * k_[:1]
+                    for jj in range(1, Lb):
+                        acc = sk.fma32(x[jj:jj + 1], k_[jj:jj + 1], acc)
+                    v.append(acc[0])
+        v = [np.float32(float(a)) for a in v] + [np.float32(0.0)] * (4 - len(v))
+        if P == 1:
+            return v[0], v[1], np.float32(0.0), np.float32(0.0)
+        return tuple(v)
+
+    out = _kernel_emits(bk.branch_bank_reference(planes, kern), fs, is_,
+                        **kw, fetch=fetch, tile_start=tile_start)
+    return out, misses[0], written
+
+
+@pytest.mark.parametrize("P,win,warm", [(2, 32, True), (2, 8, False),
+                                        (1, 8, False), (2, 3, False)])
+def test_fused_window_and_misses_give_branch_banks_values(P, win, warm):
+    # the filter warp's window (a tile ahead, from the branch of the tile
+    # before) and the chain's miss path read every active emit's branch
+    # values with branch_bank's bits: the chain's outputs and state equal
+    # symsync_scan_reference's; the full bank (win = npfb) never misses;
+    # every stage cell of a window is written once
+    from liquid_dsp_tpu_torch.ops.symsync import (branch_kernel,
+                                                  symsync_banks)
+    npfb, Lb_m, B, Tc = 32, 7, 2, 100
+    mf, dmf = symsync_banks("arkaiser", 2, Lb_m, 0.3, npfb)
+    kern = branch_kernel(mf, dmf, "cpu")
+    rng = np.random.default_rng(P * win)
+    planes = torch.from_numpy((rng.standard_normal((P, B, Tc + 27))
+                               * 0.6).astype(np.float32))
+    _, fs, is_ = _sync_case(5 + win, P, B, Tc, npfb, 2, not warm)
+    fs[2, 1] += 0.07        # channel 1 drifts 2.2 branches a step
+    kw = dict(npfb=npfb, max_out=3, k=2, k_out=1, bw=0.3 if not warm
+              else 0.02, locked=False)
+    want = sk.symsync_scan_reference(bk.branch_bank_reference(planes, kern),
+                                     fs, is_, **kw)
+    got, misses, written = _fused_walk(planes, kern, fs, is_, win, **kw)
+    assert int(want[2].sum()) > Tc // 3
+    for a, b in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(a, b.numpy())
+    np.testing.assert_array_equal(got[3].view(np.int32),
+                                  want[3].numpy().view(np.int32))
+    np.testing.assert_array_equal(got[4], want[4].numpy())
+    if win == npfb:
+        assert misses == 0
+    else:
+        assert misses > 0
+    for cells in written:
+        assert sorted(cells) == [(pg, jw, t) for pg in range(2 * P)
+                                 for jw in range(win) for t in range(TILE)]
+
+
+def _filter_hand_off_walk(ntiles, rng):
+    """symsync_pll_lms.cu's hand-off between the timing chain (warp 0) and
+    the filter warp (warp 2) under a random interleaving.  The chain
+    publishes tile 0's window and arrives on FREE(0); at tile n it
+    publishes tile n + 1's window into r0s[(n + 1) & 1] and arrives on
+    FREE((n + 1) & 1) (n + 1 < ntiles), waits on READY(n & 1), reads stage
+    buffer n & 1 and input buffer n % 4.  The filter warp stages input
+    tiles 0 and 1, then at tile n waits on FREE(n & 1), reads r0s[n & 1],
+    stages input tile n + 2 into buffer (n + 2) % 4, filters tile n from
+    input buffer n % 4 into stage buffer n & 1 and arrives on READY(n & 1).
+    A named barrier of the two warps completes on one arrive and one
+    wait: the walk asserts no second arrive before the wait, that nothing
+    is written while a tile still to be read holds it, that each read
+    finds its own tile and window, and that neither warp sticks."""
+    pending = {}
+    r0s, stage, xbuf = [None] * 2, [None] * 2, [None] * 4
+    chain, filt = [0, "publish0"], [0, "stage01"]
+    done = []
+
+    def arrive(bar):
+        assert not pending.get(bar), f"second arrive on {bar}"
+        pending[bar] = True
+
+    def met(bar):
+        if pending.get(bar):
+            pending[bar] = False
+            return True
+        return False
+
+    def step_chain():
+        n, st = chain
+        if st == "publish0":
+            r0s[0] = ("window", 0)
+            arrive(("free", 0))
+            chain[1] = "publish"
+        elif st == "publish":
+            if n + 1 < ntiles:
+                assert r0s[(n + 1) & 1] in (None, ("read", n - 1))
+                r0s[(n + 1) & 1] = ("window", n + 1)
+                arrive(("free", (n + 1) & 1))
+            chain[1] = "wait"
+        elif st == "wait":
+            if not met(("ready", n & 1)):
+                return False
+            chain[1] = "read"
+        else:
+            assert stage[n & 1] == ("rows", n), (n, stage)
+            assert xbuf[n % 4] == ("input", n), (n, xbuf)
+            done.append(n)
+            chain[:] = [n + 1, "publish"]
+        return True
+
+    def step_filt():
+        n, st = filt
+        if st == "stage01":
+            xbuf[0], xbuf[1] = ("input", 0), ("input", 1)
+            filt[1] = "wait"
+        elif st == "wait":
+            if not met(("free", n & 1)):
+                return False
+            assert r0s[n & 1] == ("window", n)
+            r0s[n & 1] = ("read", n)
+            filt[1] = "stage"
+        elif st == "stage":
+            if n + 2 < ntiles:
+                # the chain has left tile n - 2, whose buffer this is
+                assert not chain[0] < n - 1, (n, chain)
+                xbuf[(n + 2) % 4] = ("input", n + 2)
+            filt[1] = "filter"
+        elif st == "filter":
+            assert xbuf[n % 4] == ("input", n)
+            assert chain[0] >= n - 1, (n, chain)
+            stage[n & 1] = ("rows", n)
+            filt[1] = "arrive"
+        else:
+            arrive(("ready", n & 1))
+            filt[:] = [n + 1, "wait"]
+        return True
+
+    while chain[0] < ntiles or filt[0] < ntiles:
+        movers = [f for f, w in ((step_chain, chain), (step_filt, filt))
+                  if w[0] < ntiles]
+        rng.shuffle(movers)
+        assert any(f() for f in movers), f"stuck at {chain}, {filt}"
+    assert not any(pending.values()), pending
+    return done
+
+
+@pytest.mark.parametrize("ntiles", [1, 2, 3, 4, 5, 9, 64])
+def test_symsync_pll_lms_filter_hand_off(ntiles):
+    for seed in range(20):
+        assert _filter_hand_off_walk(ntiles, np.random.default_rng(seed)) \
+            == list(range(ntiles))
 
 
 # --- fir_real and mix_fir_decim: the shared window loop and its layouts ---

@@ -9,9 +9,10 @@ Tolerance: the reference's own stream tolerance, symbols within 2e-4 with
 decisions equal (tests/test_framing_extras.py:56-58); valid masks, the
 timing loop's integer state and eq_n equal, the other carries within 2e-4.
 Both sides compute the PLL's cos/sin/atan2 and the LMS dots in float32 with
-their own libraries and summation orders, and the branch outputs by their
-own convolutions.  The port's fused and sequential plain routes run the
-same step on the same slots, so they are bit-equal.
+their own libraries and summation orders, and the branch outputs in their
+own orders (the JAX package's conv, the port's `branch_bank` sums).  The
+port's fused and sequential plain routes run the same step on the same
+slots, so they are bit-equal.
 """
 import importlib
 
@@ -26,6 +27,7 @@ from liquid_dsp_tpu.modem import constellation, modulate
 from liquid_dsp_tpu.ops.fir import firinterp
 from liquid_dsp_tpu_torch.convert import carry_from_numpy, carry_to_numpy
 from liquid_dsp_tpu_torch.ops import symsync as pss
+from liquid_dsp_tpu_torch.ops.kernels import branch_bank as bk
 from liquid_dsp_tpu_torch.ops.kernels import pll_lms as pk
 from liquid_dsp_tpu_torch.ops.kernels import symsync_pll_lms as fk
 from liquid_dsp_tpu_torch.ops.kernels import symsync_scan as sk
@@ -127,23 +129,26 @@ def test_fused_and_sequential_plain_routes_are_bit_equal(monkeypatch, ms):
 
 
 def _case(B=3, Tc=40, L=13, ms="qpsk", seed=0):
-    """A chunk of random branch outputs with a loop state (the loop drifts,
-    branches wrap) and the tracker's PLL state."""
+    """A chunk of random input planes with the tracker's bank, a loop state
+    (the loop drifts, branches wrap) and the tracker's PLL state."""
     g = torch.Generator().manual_seed(seed)
-    ma = torch.randn(2, B, 64, Tc, generator=g) * 0.5
+    st = pst.symtrack_stream(ms=ms, eq_len=L)
+    kern = pss.branch_kernel(st.ss.mf, st.ss.dmf, "cpu")
+    planes = torch.randn(2, B, Tc + kern.shape[1] - 1, generator=g) * 0.5
     fs = torch.zeros(6, B)
     fs[0] = torch.rand(B, generator=g)
     fs[1] = fs[2] = 2.0
     fs[4] = fs[0] * 32
     is_ = torch.stack([torch.round(fs[4]).int(),
                        torch.ones(B, dtype=torch.int32)])
-    st = pst.symtrack_stream(ms=ms, eq_len=L)
-    return ma, fs, is_, st.pll_state(st.init(batch_shape=(B,)), B), st.post
+    return (planes, kern, fs, is_,
+            st.pll_state(st.init(batch_shape=(B,)), B), st.post)
 
 
 def test_plain_version_is_the_scan_reference_with_its_post():
-    ma, fs, is_, pc, post = _case()
-    got = fk.symsync_pll_lms(ma, fs, is_, pc, post, **KW)
+    planes, kern, fs, is_, pc, post = _case()
+    got = fk.symsync_pll_lms(planes, kern, fs, is_, pc, post, **KW)
+    ma = bk.branch_bank_reference(planes, kern)
     ref = sk.symsync_scan_reference(ma, fs, is_, **KW, post=post,
                                     post_carry=pc)
     for a, b in zip((got.valid, got.fstate, got.istate), ref[2:5]):
@@ -155,15 +160,15 @@ def test_plain_version_is_the_scan_reference_with_its_post():
     for key in pk.STATE_KEYS:
         assert torch.equal(got.pll_state[key], ref[6][key])
     # a carried dot is the kernel's own: the plain version sums it anew
-    again = fk.symsync_pll_lms(ma, fs, is_, dict(pc, dot=torch.ones(2, 3)),
-                               post, **KW)
+    again = fk.symsync_pll_lms(planes, kern, fs, is_,
+                               dict(pc, dot=torch.ones(2, 3)), post, **KW)
     assert torch.equal(again.y_re, got.y_re)
     assert torch.equal(again.dec, got.dec)
 
 
 def test_plain_version_takes_an_empty_chunk():
-    ma, fs, is_, pc, post = _case(Tc=0)
-    out = fk.symsync_pll_lms(ma, fs, is_, pc, post, **KW)
+    planes, kern, fs, is_, pc, post = _case(Tc=0)
+    out = fk.symsync_pll_lms(planes, kern, fs, is_, pc, post, **KW)
     assert out.y_re.shape == out.dec.shape == out.valid.shape == (3, 0)
     assert out.dec.dtype == torch.int32 and torch.equal(out.fstate, fs)
 
@@ -171,8 +176,10 @@ def test_plain_version_takes_an_empty_chunk():
 def test_plain_version_equals_the_two_plain_kernels():
     # the timing loop's slots, then the PLL + LMS over them: the same step
     # on the same slots, bit for bit (what the card's fused kernel rests on)
-    ma, fs, is_, pc, post = _case(B=2, Tc=60, L=5, ms="qam16", seed=3)
-    got = fk.symsync_pll_lms(ma, fs, is_, pc, post, **KW)
+    planes, kern, fs, is_, pc, post = _case(B=2, Tc=60, L=5, ms="qam16",
+                                            seed=3)
+    got = fk.symsync_pll_lms(planes, kern, fs, is_, pc, post, **KW)
+    ma = bk.branch_bank(planes, kern)
     y_re, y_im, valid, fs2, is2 = sk.symsync_scan_reference(ma, fs, is_,
                                                             **KW)
     r_re, r_im, dec, pc2 = pk.pll_lms_reference(y_re, y_im, valid, pc,
@@ -186,9 +193,11 @@ def test_plain_version_equals_the_two_plain_kernels():
 
 
 def _bad(case):
-    ma, fs, is_, pc, post = _case()
-    if case == "ma shape":
-        ma = ma[:, :, :60]
+    planes, kern, fs, is_, pc, post = _case()
+    if case == "planes shape":
+        planes = planes[None]
+    elif case == "kern shape":
+        kern = kern[:60]
     elif case == "state shape":
         fs = fs[:5]
     elif case == "pll key":
@@ -198,22 +207,24 @@ def _bad(case):
     elif case == "dot shape":
         pc = dict(pc, dot=torch.zeros(3, 2))
     elif case == "dtype":
-        ma = ma.double()
+        planes = planes.double()
     elif case == "istate dtype":
         is_ = is_.long()
     elif case == "contiguous":
-        ma = ma.transpose(0, 1).contiguous().transpose(0, 1)
+        planes = planes.mT.contiguous().mT
     elif case == "device":
         post = pst.symtrack_stream().post.to("meta")
     elif case == "npfb":
-        return (ma, fs, is_, pc, post), dict(KW, max_out=0)
-    return (ma, fs, is_, pc, post), KW
+        return (planes, kern, fs, is_, pc, post), dict(KW, max_out=0)
+    elif case == "win":
+        return (planes, kern, fs, is_, pc, post), dict(KW, win=33)
+    return (planes, kern, fs, is_, pc, post), KW
 
 
-@pytest.mark.parametrize("case", ["ma shape", "state shape", "pll key",
-                                  "pll shape", "dot shape", "dtype",
-                                  "istate dtype", "contiguous", "device",
-                                  "npfb"])
+@pytest.mark.parametrize("case", ["planes shape", "kern shape",
+                                  "state shape", "pll key", "pll shape",
+                                  "dot shape", "dtype", "istate dtype",
+                                  "contiguous", "device", "npfb", "win"])
 def test_wrapper_checks(case):
     args, kw = _bad(case)
     with pytest.raises(ValueError):
@@ -221,15 +232,15 @@ def test_wrapper_checks(case):
 
 
 def test_wrapper_takes_its_post_as_pll_lms_post():
-    ma, fs, is_, pc, post = _case()
+    planes, kern, fs, is_, pc, post = _case()
     with pytest.raises(TypeError, match="PllLmsPost"):
-        fk.symsync_pll_lms(ma, fs, is_, pc, lambda *a: a, **KW)
+        fk.symsync_pll_lms(planes, kern, fs, is_, pc, lambda *a: a, **KW)
 
 
 def test_wrapper_refuses_other_devices():
     # neither the CPU (plain version) nor CUDA (the kernel): refused
-    ma, fs, is_, pc, post = _case()
-    meta = [t.to("meta") for t in (ma, fs, is_)]
+    planes, kern, fs, is_, pc, post = _case()
+    meta = [t.to("meta") for t in (planes, kern, fs, is_)]
     pcm = {k: v.to("meta") for k, v in pc.items()}
     with pytest.raises(ValueError, match="runs on CUDA"):
         fk.symsync_pll_lms(*meta, pcm, post.to("meta"), **KW)
