@@ -12,6 +12,7 @@ by --root:
     python3 chip_kernel_bench.py --cvsd [--root DIR] [--tag NAME] [--sass DIR]
     python3 chip_kernel_bench.py --eq [--root DIR] [--tag NAME] [--vs DIR]
     python3 chip_kernel_bench.py --fused [--root DIR] [--tag NAME] [--vs DIR]
+    python3 chip_kernel_bench.py --fold [--root DIR] [--tag NAME] [--vs DIR]
 
 With two checkouts (this one and, say, `git archive` of its parent unpacked
 into a directory that .gitignore lists) run it in turns, one after the other,
@@ -131,6 +132,18 @@ difference of y, decisions and every state leaf equal or not) and their
 times side by side:
 
     python3 chip_kernel_bench.py --fused --vs build/parent
+
+With --fold it times, for the checkout given by --root, the paths of the
+suppression fold and of LDPC belief propagation: the frame64 receiver's
+step at 128 x 32768 and the OFDM flexframe receiver's (chip_smoke.py's
+streams, block 1 from the carry after block 0), and one
+ldpc_decoder_device decode of 4096 rows of n = 648 at 50 iterations in
+each mode; each twice by CUDA events and under torch.profiler (device
+ms, operations, busy share).  The last line is `FOLD_RESULT {json}`.
+With --vs DIR it runs that for DIR and for this checkout in turns (DIR,
+this, this, DIR), each in its own process, and prints both side by side:
+
+    python3 chip_kernel_bench.py --fold --vs build/parent
 
 Every line names the card and its power limit.
 """
@@ -1091,6 +1104,93 @@ def eq_turns(args):
               flush=True)
 
 
+def fold_bench(torch, cs, tag, name):
+    """--fold for one checkout (see the module's docstring)."""
+    import json
+    from liquid_dsp_tpu_torch.fec.ldpc import (ldpc_decoder_device,
+                                               make_regular_ldpc)
+    from liquid_dsp_tpu_torch.framing.frame64 import framesync64_stream_full
+    from liquid_dsp_tpu_torch.framing.ofdmflex_stream import (
+        ofdmflex_rx_stream)
+    dev = torch.device("cuda")
+    result = {"tag": name}
+
+    def measure(key, step, iters, what):
+        ms = [cs.time_ms(step, iters=iters) for _ in range(2)]
+        by, wall = cs.device_profile(torch, step, 3, what)
+        dev_ms = sum(t for t, _ in by.values()) / 3
+        ops = sum(c for _, c in by.values()) / 3
+        busy = dev_ms * 3 / wall
+        result[key] = {"ms": ms, "device_ms": dev_ms, "ops": ops,
+                       "busy": busy}
+        print(f"{tag} {what}: {ms[0]:.4f}, {ms[1]:.4f} ms ({iters} calls "
+              f"each, CUDA events); device {dev_ms:.3f} ms in {ops:.0f} "
+              f"operations, busy {busy:.3f} (torch.profiler, 3 calls)",
+              flush=True)
+
+    # the frame64 receiver's block 1 and the OFDM receiver's, from their
+    # carries after block 0
+    x, _ = cs.make_rx_stream(np.random.default_rng(7))
+    x = torch.from_numpy(x).to(dev)
+    rx = framesync64_stream_full(cs.RX_T).to(dev)
+    _, c1 = rx(rx.init(batch_shape=(cs.RX_B,), device=dev), x[:, :cs.RX_T])
+    blk = x[:, cs.RX_T:2 * cs.RX_T]
+    measure("frame64", lambda: rx(c1, blk), 10,
+            f"framesync64_stream_full step at {cs.RX_B}x{cs.RX_T}")
+    x = cs.make_ofdm_stream(torch, dev, np.random.default_rng(28))[0]
+    of = ofdmflex_rx_stream(cs.OF_T, cs.OF_PL, max_frames=cs.OF_MAX).to(dev)
+    _, c2 = of(of.init(batch_shape=(cs.OF_B,), device=dev), x[:, :cs.OF_T])
+    oblk = x[:, cs.OF_T:2 * cs.OF_T]
+    measure("ofdm", lambda: of(c2, oblk), 10,
+            f"ofdmflex_rx_stream step at {cs.OF_B}x{cs.OF_T}")
+    del x, blk, oblk
+    # LDPC: the all-zero codeword (a codeword of any H) through BPSK and
+    # AWGN at chip_smoke.py's sigma
+    H = make_regular_ldpc(cs.LD_N, cs.LD_N // 2, col_weight=3,
+                          seed=cs.LD_SEED)
+    rng = np.random.default_rng(37)
+    llr = torch.from_numpy((2 * (1.0 + cs.LD_SIGMA * rng.standard_normal(
+        (cs.LD_ROWS, cs.LD_N))) / cs.LD_SIGMA ** 2).astype(np.float32)).to(dev)
+    for min_sum in (False, True):
+        mode = "min_sum" if min_sum else "sum_product"
+        dec = ldpc_decoder_device(H, cs.LD_ITERS, min_sum=min_sum, device=dev)
+        ok = int(dec(llr)[1].sum())
+        measure(f"ldpc_{mode}", lambda: dec(llr), 3,
+                f"ldpc_decoder_device({mode}) at {cs.LD_ROWS} x {cs.LD_N}, "
+                f"{cs.LD_ITERS} iterations ({ok} rows ok)")
+        result[f"ldpc_{mode}"]["ok"] = ok
+    print("FOLD_RESULT " + json.dumps(result), flush=True)
+
+
+def fold_turns(args):
+    """--fold --vs DIR: this script's --fold for DIR and for this checkout
+    in turns (DIR, this, this, DIR), each in its own process; then both
+    checkouts' figures side by side."""
+    import json
+    here = os.path.dirname(os.path.abspath(__file__))
+    me = os.path.abspath(__file__)
+    turns = [(args.vs, "parent"), (args.root, args.tag),
+             (args.root, args.tag), (args.vs, "parent")]
+    got = []
+    for root, tag in turns:
+        cmd = [sys.executable, me, "--fold", "--root", root, "--tag", tag]
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=here)
+        sys.stdout.write(proc.stdout)
+        sys.stderr.write(proc.stderr[-4000:])
+        if proc.returncode != 0:
+            sys.exit(f"chip_kernel_bench --fold for {root} failed "
+                     f"({proc.returncode})")
+        got += [json.loads(ln.split(" ", 1)[1])
+                for ln in proc.stdout.splitlines()
+                if ln.startswith("FOLD_RESULT ")]
+    for key in ("frame64", "ofdm", "ldpc_sum_product", "ldpc_min_sum"):
+        print(f"{key}, turns in order: " + "; ".join(
+            f"{r['tag']} {r[key]['ms'][0]:.4f}, {r[key]['ms'][1]:.4f} ms, "
+            f"device {r[key]['device_ms']:.3f} ms in {r[key]['ops']:.0f} "
+            f"operations, busy {r[key]['busy']:.3f}" for r in got),
+            flush=True)
+
+
 FUSED_PLL = (("qpsk", 13), ("qam16", 32))   # pll_lms's cases in --fused
 
 
@@ -1324,6 +1424,7 @@ def main():
     ap.add_argument("--vs", metavar="DIR")
     ap.add_argument("--no-variants", action="store_true")
     ap.add_argument("--fused", action="store_true")
+    ap.add_argument("--fold", action="store_true")
     ap.add_argument("--save", metavar="FILE", default="build/fused.pt")
     args = ap.parse_args()
     if args.eq and args.vs:
@@ -1331,6 +1432,9 @@ def main():
         return
     if args.fused and args.vs:
         fused_turns(args)
+        return
+    if args.fold and args.vs:
+        fold_turns(args)
         return
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -1379,6 +1483,9 @@ def main():
         return
     if args.fused:
         fused_bench(torch, cs, build, tag, args.tag, args.save)
+        return
+    if args.fold:
+        fold_bench(torch, cs, tag, args.tag)
         return
     t0 = time.perf_counter()
     lib = build.build()

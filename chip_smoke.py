@@ -39,7 +39,8 @@ Then the frame64 streaming receiver with in-stream Golay decode,
      channels, noise everywhere; 3 carried blocks plus a flush block.
      Every frame decodes exactly once, in order, with crc_ok, the bytes
      sent and sample_index within 2 of the true start; nothing decodes
-     on a noise-only channel; the codebook_argmax kernel ran;
+     on a noise-only channel; the codebook_argmax kernel ran, and the
+     suppress_scan kernel once a block (the greedy suppression fold);
   9. codebook_argmax: the kernel against its plain version on that run's
      slot soft bits (153,600 rows x 24 x 4096): bit-equal indices, and
      the first index on constant rows; then bit-equal indices for
@@ -58,7 +59,11 @@ Then the frame64 streaming receiver with in-stream Golay decode,
      refused on the card;
  11. times (CUDA events): the receiver step, and each kernel against its
      plain version (plain, kernel, kernel, plain); torch.profiler over 3
-     receiver steps (device time by kernel; a measurement, no check).
+     receiver steps (device time by kernel; a measurement, no check);
+     suppress_scan's keep masks bit-equal to its plain version on block
+     1's own detections, its device time a launch there (torch.profiler
+     over 50 launches), the wrapper's time a call and the plain
+     version's.
 
 Then the timing-recovery family at 256 channels x 32768-sample blocks
 (QPSK at 2 samples/symbol, arkaiser pulses with a fractional delay per
@@ -149,9 +154,10 @@ flexframe receiver on block codes:
      bytes sent and sample_index within 2 of its start plus the bank's
      delay (15 channel samples); nothing on an odd channel;
      codebook_argmax launched once per block and bit-equal to its plain
-     version on block 1's slot soft bits;
+     version on block 1's slot soft bits; suppress_scan once per block;
  21. times (CUDA events) of the analyzer, receiver and whole scanner
-     steps; torch.profiler over 3 scanner steps;
+     steps; torch.profiler over 3 scanner steps; suppress_scan's keep
+     masks bit-equal to its plain version on block 1's detections;
  22. flexframe_rx_stream(32768, 64) (crc32 / none / golay2412 / qpsk) at
      128 channels, 3 carried blocks + a flush: frames from the port's
      flexframegen at random offsets (some across block boundaries), the
@@ -161,6 +167,8 @@ flexframe receiver on block codes:
      the header and payload bytes and sample_index within 2;
      codebook_argmax launched once per block and bit-equal to its plain
      version on the payload soft bits; the step's time and profile;
+     suppress_scan once per block, its keep masks bit-equal to its plain
+     version on block 1's detections;
  23. FlexFrameSync and flexframesync on the card (their default) decode
      the reference frames ffg_a, ffg_b and ffg_c; ffg_b and ffg_c take
      the host decode.
@@ -191,7 +199,9 @@ Then the convolutional codes and the GMSK frame family:
      frame decodes once, in order, hdr_ok and pay_ok, header and payload
      bytes equal, sample_index within 2; codebook_argmax launched once per
      block and bit-equal to its plain version on the path's own soft
-     metrics; the step's time and profile;
+     metrics; suppress_scan once per block, its keep masks bit-equal to
+     its plain version on block 1's detections (also in phase 26); the
+     step's time and profile;
  26. the same receiver with fec0="v27", fec1="none" (138 encoded payload
      bytes, as the Golay one): the same checks, viterbi_acs launched once
      per block and bit-equal to its plain version on the path's LLRs;
@@ -215,7 +225,9 @@ Then OFDM (64 subcarriers, cyclic prefix 16):
      of its start and the coarse sample_index on its S0 plateau;
      codebook_argmax launched twice per block (header and payload) and
      bit-equal to its plain version on the path's own soft bits, timed
-     there against its bound; the step's time (CUDA events) and profile;
+     there against its bound; suppress_scan once per block (the S0
+     chunks' fold), its keep masks bit-equal to its plain version on
+     block 1's detections; the step's time (CUDA events) and profile;
  29. OFDMFlexFrameSync on the card over six frames of six configs
      (golay2412 on codebook_argmax, v27 on viterbi_acs, hamming74 on the
      device einsum, uncoded on the host): every frame with the bytes
@@ -317,7 +329,11 @@ Then the support slice (FEC, IO, the streaming runtime, the CVSD codec):
      is its sent codeword, the first 256 rows equal the CPU's wherever
      the CPU converged (ok counts within 0.5%), rows 0-7 equal the host
      float64 decoder; ms per decode, operations per call and busy share
-     (torch.profiler);
+     (torch.profiler); the iterations are one ldpc_bp launch a decode in
+     both modes, and ldpc_bp on each decode's LLRs against its plain
+     version on the card: the messages bit-equal, so the same decisions
+     and parity on every row the plain version decodes (>= 99% of them in
+     sum-product); both timed (CUDA events) beside the bound;
  38. cvsd: cvsd_encode/cvsd_decode on the card against the compiled
      reference's golden (bits equal, audio within 1e-4); cvsd_scan bit-
      equal to its plain version on the path's own [1, 400] rows and at
@@ -364,7 +380,9 @@ card (the cards in turn where there are several):
      emit window or across a block boundary, 8 noise-only channels;
      every frame decoded once through qpacket_soft_decoder on the card
      (codebook_argmax, once a block, bit-equal to its plain version on
-     block 1's rows) with its CRC and bytes, no shard over its slots, the
+     block 1's rows) with its CRC and bytes, one suppress_scan a block
+     over every shard's segments (its keep masks bit-equal to its plain
+     version on block 1's), no shard over its slots, the
      same sample_index as framesync64_stream on one device, symbols
      within 2e-5 (tests/test_rx_timeshard.py) and the carry equal;
      StagePipeline of multirate_rx's two stages at 64 x 262144, 3 blocks,
@@ -379,7 +397,7 @@ card (the cards in turn where there are several):
      card synchronized), and torch.profiler over the sharded chain's and
      receiver's steps.
 
-The JSON line before the card's name lists all fourteen kernels, each
+The JSON line before the card's name lists all sixteen kernels, each
 with its launches on its main path (symsync_scan and branch_bank on
 symsync and, in "launches_by_path", the tracker's sequential route;
 pll_lms on that route; symsync_pll_lms on the fused route; mix_fir_decim also per path, in
@@ -392,9 +410,12 @@ receiver with v27 payloads, on the flexframe receiver and on
 OFDMFlexFrameSync; iir_scan and iir_block_state on analog_tx and
 analog_rx, with the lax.scan each replaces under "recurrence"; cvsd_scan
 on cvsd_encode/cvsd_decode; eqlms_scan and eqrls_scan on the equalizer
-path; each counted from 0 over its own run), its error
-against the plain version (for viterbi_acs the count of decoded bits that
-differ), its time,
+path; suppress_scan per path, in "launches_by_path": frame64 receiver,
+scanner, flexframe receiver, GMSK receiver, OFDM receiver, the
+time-sharded receiver; ldpc_bp on ldpc_decoder_device, per mode; each
+counted from 0 over its own run), its error against the plain version
+(for viterbi_acs the count of decoded bits that differ, for ldpc_bp of
+the final messages), its time,
 the plain version's, the time of one PyTorch call for the same function
 where there is one (F.conv1d for fir_real and branch_bank), and its bound: the larger of
 the bytes it must move over 3.35 TB/s and its float32 operations over
@@ -934,17 +955,18 @@ def main():
     took("phase 41")
     channelizer_phases(torch, dev, card)
     took("phases 18-19")
-    sc_launches, sc_err = scanner_phases(torch, dev, card)
+    sc_launches, sc_err, sc_ss = scanner_phases(torch, dev, card)
     took("phases 20-21")
-    ff_launches, ff_err = flexframe_phases(torch, dev, card)
+    ff_launches, ff_err, ff_ss = flexframe_phases(torch, dev, card)
     took("phases 22-23")
     vt = viterbi_phase(torch, dev, card)
     took("phase 24")
-    gm_cb, gm_cb_err, gm_vt, gm_vt_err = gmsk_phases(torch, dev, card)
+    gm_cb, gm_cb_err, gm_vt, gm_vt_err, gm_ss = gmsk_phases(torch, dev,
+                                                            card)
     took("phases 25-26")
     cv_launches = conv_phases(torch, dev, card)
     took("phase 27")
-    of_cb, of_cb_err = ofdm_stream_phase(torch, dev, card)
+    of_cb, of_cb_err, of_ss = ofdm_stream_phase(torch, dev, card)
     took("phase 28")
     fs_cb, fs_vt, fs_vt_err = ofdm_sync_phases(torch, dev, card)
     took("phases 29-30")
@@ -961,7 +983,7 @@ def main():
     took("phase 35")
     sr_launches, sr_err = stream_runner_phase(torch, dev, card)
     took("phase 36")
-    ldpc_phase(torch, dev, card)
+    ldpc_entry = ldpc_phase(torch, dev, card)
     took("phase 37")
     cvsd_entry = cvsd_phase(torch, dev, card)
     took("phase 38")
@@ -1003,9 +1025,17 @@ def main():
                               "flexframe_rx_stream": cv_launches,
                               "OFDMFlexFrameSync": fs_vt}
     vt["max_abs_err"] = max(vt["max_abs_err"], gm_vt_err, fs_vt_err)
+    ss = next(k for k in kernels if k["name"] == "suppress_scan")
+    ss["launches_by_path"] = {"framesync64_stream_full": ss["launches"],
+                              "wideband_scanner": sc_ss,
+                              "flexframe_rx_stream": ff_ss,
+                              "gmskframe_rx_stream": gm_ss,
+                              "ofdmflex_rx_stream": of_ss,
+                              "framesync64_time_sharded":
+                                  pa["suppress_scan"][0]}
     kernels += [vt, scan_entry, block_entry, cvsd_entry] + eq_entries
-    kernels.append(fused_entry)
-    check(len(kernels) == 14, f"{len(kernels)} kernels listed, want 14")
+    kernels += [fused_entry, ldpc_entry]
+    check(len(kernels) == 16, f"{len(kernels)} kernels listed, want 16")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1015,7 +1045,8 @@ def main():
 
 def receiver_phases(torch, dev, card):
     """Phases 8-11: the frame64 receiver with in-stream Golay decode, the
-    codebook_argmax and fir_real kernels.  Returns their kernel entries."""
+    codebook_argmax, fir_real and suppress_scan kernels.  Returns their
+    kernel entries."""
     from liquid_dsp_tpu_torch.design.firdes import firdes_kaiser
     from liquid_dsp_tpu_torch.fec.device import block_codebook
     from liquid_dsp_tpu_torch.framing.frame64 import framesync64_stream_full
@@ -1024,6 +1055,7 @@ def receiver_phases(torch, dev, card):
         codebook_argmax, codebook_argmax_reference, pack_codebook)
     from liquid_dsp_tpu_torch.ops.kernels.fir_real import (
         fir_real, fir_real_reference)
+    from liquid_dsp_tpu_torch.ops.kernels.suppress_scan import suppress_scan
 
     # 8. the receiver at full width
     t0 = time.perf_counter()
@@ -1036,6 +1068,7 @@ def receiver_phases(torch, dev, card):
     carry = proc.init(batch_shape=(RX_B,), device=dev)
     carries, outs = [carry], []
     codebook_argmax.launches = 0
+    suppress_scan.launches = 0
     t0 = time.perf_counter()
     for b in range(RX_NBLK + 1):
         out, carry = proc(carry, x[:, b * RX_T:(b + 1) * RX_T])
@@ -1044,6 +1077,7 @@ def receiver_phases(torch, dev, card):
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     cb_launches = codebook_argmax.launches
+    ss_launches = suppress_scan.launches
     got = [[] for _ in range(RX_B)]
     for out in outs:
         o = {k: v.cpu().numpy() for k, v in out._asdict().items()}
@@ -1057,12 +1091,15 @@ def receiver_phases(torch, dev, card):
           "a frame decoded on a noise-only channel")
     check(cb_launches == RX_NBLK + 1, f"codebook_argmax launched "
           f"{cb_launches} times in {RX_NBLK + 1} receiver blocks")
+    check(ss_launches == RX_NBLK + 1, f"suppress_scan launched "
+          f"{ss_launches} times in {RX_NBLK + 1} receiver blocks")
     print(f"receiver: framesync64_stream_full at {RX_B}x{RX_T}, "
           f"{RX_NBLK} carried blocks + 1 flush; {n_ok} of {n_frames} frames "
           f"decoded once, in order, crc_ok, bytes equal, sample_index "
           f"within 2 (incl. the reference C frame and the CFO 0.008 / gain "
           f"0.2 / 15 dB channel); {RX_QUIET} noise-only channels: 0 frames; "
-          f"codebook_argmax launches {cb_launches}; stream made in "
+          f"codebook_argmax launches {cb_launches}, suppress_scan launches "
+          f"{ss_launches} (one fold a block); stream made in "
           f"{t_gen:.1f} s, first pass {t_run:.2f} s", flush=True)
 
     # 9. codebook_argmax on the slot soft bits of block 1
@@ -1232,6 +1269,11 @@ def receiver_phases(torch, dev, card):
           f"complex ({2 * B} rows), {FIR_L} taps", flush=True)
     profile_steps(torch, card, lambda: proc(c1, x1), 3,
                   f"framesync64_stream_full step at {RX_B}x{RX_T}")
+    folds, _ = hold_folds(torch, lambda: proc(c1, x1),
+                          "framesync64_stream_full block 1")
+    ss_entry = fold_entry(torch, card, folds[0][:4],
+                          "framesync64_stream_full")
+    ss_entry["launches"] = ss_launches
     N, n, K = cw.shape[0], cw.shape[1], bip.shape[1]
     # soft bits in, indices out, the codebook once; one multiply-add per
     # (row, bit, codeword)
@@ -1257,7 +1299,7 @@ def receiver_phases(torch, dev, card):
         "ms": fr_ms, "plain_ms": fr_plain, "library_ms": fr_lib,
         **fr_bound, "long_filters_ms": {
             str(L_): {"ms": k_, "library_ms": c_, "bound_ms": b_["bound_ms"]}
-            for L_, (k_, c_, b_) in long_ms.items()}}]
+            for L_, (k_, c_, b_) in long_ms.items()}}, ss_entry]
 
 
 def time_once(fn):
@@ -2461,6 +2503,100 @@ def check_decodes(got, sent, what):
     return n
 
 
+@contextlib.contextmanager
+def recorded_folds():
+    """Records every suppression fold the receivers run inside the block:
+    [(last_end, cand, pos, span, keep)], the inputs cloned before the
+    call.  The recorder stands in for `suppress_scan` in the two modules
+    that call it and calls the wrapper itself, so the kernel runs (and
+    counts its launch) as on the path."""
+    from liquid_dsp_tpu_torch.framing import stream_rx
+    from liquid_dsp_tpu_torch.multichannel import ofdm
+    from liquid_dsp_tpu_torch.ops.kernels.suppress_scan import suppress_scan
+    calls = []
+
+    def record(last_end, cand, pos, span):
+        args = (last_end.clone(), cand.clone(), pos.clone(), span)
+        keep = suppress_scan(last_end, cand, pos, span)
+        calls.append(args + (keep,))
+        return keep
+
+    mods = (stream_rx, ofdm)
+    for m in mods:
+        m.suppress_scan = record
+    try:
+        yield calls
+    finally:
+        for m in mods:
+            m.suppress_scan = suppress_scan
+
+
+def hold_folds(torch, step, what):
+    """Runs `step()` with its folds recorded and holds each keep mask of
+    the kernel against the plain version on the same inputs, bit for bit.
+    Returns (the folds as recorded, the max |keep - plain| (0))."""
+    from liquid_dsp_tpu_torch.ops.kernels.suppress_scan import (
+        suppress_scan_reference)
+    with recorded_folds() as calls:
+        step()
+    torch.cuda.synchronize()
+    check(calls, f"suppress_scan: {what} ran no fold")
+    cells = kept = cands = 0
+    for le, cand, pos, span, keep in calls:
+        want = suppress_scan_reference(le, cand, pos, span)
+        check(torch.equal(keep, want), f"suppress_scan on {what}: "
+              f"{int((keep != want).sum())} of {keep.numel()} keep bits "
+              f"differ from the plain version")
+        cells += keep.numel()
+        kept += int(keep.sum())
+        cands += int(cand.sum())
+    print(f"suppress_scan: kernel = plain on {what}: {len(calls)} fold(s) "
+          f"over {cells} segments ({tuple(calls[0][1].shape)} a fold), "
+          f"{kept} of {cands} candidates kept", flush=True)
+    return calls, 0.0
+
+
+def fold_entry(torch, card, args, what):
+    """suppress_scan's kernel entry from one fold's inputs `args` (last_end,
+    cand, pos, span): the kernel's device time a launch (torch.profiler
+    over 50 launches: the wrapper's host work is longer than the kernel),
+    the wrapper's time a call (CUDA events over 100 calls), the plain
+    version's (plain, kernel, kernel, plain) and the bound."""
+    from liquid_dsp_tpu_torch.ops.kernels.suppress_scan import (
+        suppress_scan, suppress_scan_reference)
+    le, cand, pos, span = args
+    p1 = time_ms(lambda: suppress_scan_reference(*args), iters=5)
+    w1 = time_ms(lambda: suppress_scan(*args), iters=100)
+    w2 = time_ms(lambda: suppress_scan(*args), iters=100)
+    p2 = time_ms(lambda: suppress_scan_reference(*args), iters=5)
+    by, _ = device_profile(torch, lambda: suppress_scan(*args), 50,
+                           "suppress_scan")
+    dk = [(t, c) for k, (t, c) in by.items() if "suppress_scan" in k]
+    check(dk and dk[0][1] == 50, f"suppress_scan: the profiler saw {dk}")
+    ms = dk[0][0] / 50
+    B, S = cand.shape
+    # the watermarks, candidates and positions in once, the mask out once;
+    # a compare, a select and an add a segment
+    b = bound(le.numel() * le.element_size() + B * S
+              + B * S * pos.element_size() + B * S, 3 * B * S)
+    print(f"timing ({card}): suppress_scan at {what}'s fold ({B} rows x {S} "
+          f"segments, {pos.dtype}): kernel {ms * 1e3:.2f} us a launch "
+          f"(device time, 50 launches), the wrapper {w1:.4f}, {w2:.4f} ms a "
+          f"call; plain version {p1:.3f}, {p2:.3f} ms ({S} steps of a "
+          f"compare and a select); bound {b['bound_ms'] * 1e3:.4f} us by "
+          f"{b['bound_by']}", flush=True)
+    return {"name": "suppress_scan", "route": "cuda",
+            "source": "liquid_dsp_tpu_torch/csrc/suppress_scan.cu",
+            "replaces": "liquid_dsp_tpu/framing/stream_rx.py:323",
+            "recurrence": "lax.scan of the greedy suppression fold "
+                          "(liquid_dsp_tpu/framing/stream_rx.py:311-324, "
+                          "multichannel/ofdm.py:497-502, parallel/rx.py:"
+                          "127-135)",
+            "launches": 0, "max_abs_err": 0.0, "ms": ms,
+            "wrapper_ms": (w1 + w2) / 2, "plain_ms": (p1 + p2) / 2,
+            "library_ms": None, **b}
+
+
 def hold_payload_codebook(torch, cw, bip):
     """codebook_argmax against its plain version on a path's soft bits;
     returns the max index difference (0: bit-equal)."""
@@ -2476,12 +2612,14 @@ def hold_payload_codebook(torch, cw, bip):
 
 def scanner_phases(torch, dev, card):
     """Phases 20-21: the 64-channel wideband scanner.  Returns
-    codebook_argmax's launches on its run."""
+    codebook_argmax's launches on its run, its max error, and
+    suppress_scan's launches."""
     from liquid_dsp_tpu_torch.framing.frame64 import framesync64_stream_full
     from liquid_dsp_tpu_torch.multichannel import (firpfbch2_analyzer,
                                                    firpfbch2_synthesizer)
     from liquid_dsp_tpu_torch.ops.kernels.codebook_argmax import (
         codebook_argmax)
+    from liquid_dsp_tpu_torch.ops.kernels.suppress_scan import suppress_scan
 
     # 20. the capture, synthesized on the card, then the scanner over it
     t0 = time.perf_counter()
@@ -2511,6 +2649,7 @@ def scanner_phases(torch, dev, card):
     cr = rx.init(batch_shape=(SC_S * SC_M,), device=dev)
     states, outs = [], []
     codebook_argmax.launches = 0
+    suppress_scan.launches = 0
     t0 = time.perf_counter()
     for w in wide:
         states.append((ca, cr))
@@ -2521,6 +2660,7 @@ def scanner_phases(torch, dev, card):
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     launches = codebook_argmax.launches
+    ss_launches = suppress_scan.launches
     got = {}
     for out in outs:
         o = {k: v.cpu().numpy() for k, v in out._asdict().items()}
@@ -2535,6 +2675,8 @@ def scanner_phases(torch, dev, card):
     n_ok = check_decodes(got, sent, "scanner (stream, channel)")
     check(launches == SC_NBLK + 1, f"codebook_argmax launched {launches} "
           f"times in {SC_NBLK + 1} scanner blocks")
+    check(ss_launches == SC_NBLK + 1, f"suppress_scan launched "
+          f"{ss_launches} times in {SC_NBLK + 1} scanner blocks")
     print(f"scanner: firpfbch2_synthesizer({SC_M}) made {SC_S} wideband "
           f"streams of {SC_NBLK} blocks + 1 flush x {Tw} samples on the card "
           f"(frame64 on the even channels, noise 0.002, a tone on channel "
@@ -2543,7 +2685,8 @@ def scanner_phases(torch, dev, card):
           f"streams, carried: {n_ok} of {n_frames} frames decoded once on "
           f"their own channel, in order, crc_ok, bytes equal, sample_index "
           f"within 2 of the start + {SC_DELAY} (the bank's delay); 0 on the "
-          f"odd channels; codebook_argmax launches {launches}; capture made "
+          f"odd channels; codebook_argmax launches {launches}, "
+          f"suppress_scan launches {ss_launches}; capture made "
           f"in {t_gen:.1f} s, first pass {t_run:.2f} s", flush=True)
 
     # the kernel against its plain version on block 1's slot soft bits
@@ -2567,7 +2710,8 @@ def scanner_phases(torch, dev, card):
           flush=True)
     profile_steps(torch, card, lambda: scan(ca1, cr1, w1), 3,
                   f"wideband scanner step at {SC_S}x{Tw}")
-    return launches, err
+    hold_folds(torch, lambda: rx(cr1, st1), "the scanner's block 1")
+    return launches, err, ss_launches
 
 
 def make_flex_stream(rng):
@@ -2633,11 +2777,13 @@ def golden_frames():
 
 def flexframe_phases(torch, dev, card):
     """Phases 22-23: the flexframe full receiver and the host-loop entry
-    points.  Returns codebook_argmax's launches on the receiver's run."""
+    points.  Returns codebook_argmax's launches on the receiver's run, its
+    max error, and suppress_scan's launches."""
     from liquid_dsp_tpu_torch.framing.flexframe import (
         FLEXFRAME_H_USER, FlexFrameSync, flexframe_rx_stream, flexframesync)
     from liquid_dsp_tpu_torch.ops.kernels.codebook_argmax import (
         codebook_argmax)
+    from liquid_dsp_tpu_torch.ops.kernels.suppress_scan import suppress_scan
 
     # 22. flexframe_rx_stream at full width
     t0 = time.perf_counter()
@@ -2650,6 +2796,7 @@ def flexframe_phases(torch, dev, card):
     carry = proc.init(batch_shape=(FF_B,), device=dev)
     carries, outs = [], []
     codebook_argmax.launches = 0
+    suppress_scan.launches = 0
     t0 = time.perf_counter()
     for b in range(FF_NBLK + 1):
         carries.append(carry)
@@ -2658,6 +2805,7 @@ def flexframe_phases(torch, dev, card):
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     launches = codebook_argmax.launches
+    ss_launches = suppress_scan.launches
     got, foreign = {}, []
     for out in outs:
         o = {k: v.cpu().numpy() for k, v in out._asdict().items()}
@@ -2679,6 +2827,8 @@ def flexframe_phases(torch, dev, card):
     n_ok = check_decodes(got, sent, "flexframe channel")
     check(launches == FF_NBLK + 1, f"codebook_argmax launched {launches} "
           f"times in {FF_NBLK + 1} flexframe blocks")
+    check(ss_launches == FF_NBLK + 1, f"suppress_scan launched "
+          f"{ss_launches} times in {FF_NBLK + 1} flexframe blocks")
     print(f"flexframe: flexframe_rx_stream({FF_T}, {FF_PL}) crc32/none/"
           f"golay2412/qpsk at {FF_B}x{FF_T}, {FF_NBLK} carried blocks + 1 "
           f"flush, {FF_MAX} slots: {n_ok} of {n_frames} frames decoded once, "
@@ -2686,8 +2836,9 @@ def flexframe_phases(torch, dev, card):
           f"sample_index within 2 (incl. the reference C frame ffg_a and the "
           f"CFO 0.002 / 20 dB channel); the qam16 frame hdr_ok False; "
           f"{FF_QUIET} noise-only channels: 0 frames; codebook_argmax "
-          f"launches {launches}; stream made in {t_gen:.1f} s, first pass "
-          f"{t_run:.2f} s", flush=True)
+          f"launches {launches}, suppress_scan launches {ss_launches}; "
+          f"stream made in {t_gen:.1f} s, first pass {t_run:.2f} s",
+          flush=True)
 
     o1 = proc.core(carries[1], x[:, FF_T:2 * FF_T])[0]
     cw = proc.pay_dec.soft_bits(o1.region_syms[..., proc.h_sym_len:])
@@ -2703,6 +2854,7 @@ def flexframe_phases(torch, dev, card):
           f"Msamples/s (20 calls)", flush=True)
     profile_steps(torch, card, lambda: proc(c1, x1), 3,
                   f"flexframe_rx_stream step at {FF_B}x{FF_T}")
+    hold_folds(torch, lambda: proc(c1, x1), "flexframe_rx_stream block 1")
     del x, outs, carries, o1, cw
     torch.cuda.empty_cache()
 
@@ -2734,7 +2886,7 @@ def flexframe_phases(torch, dev, card):
     print(f"flexframe: FlexFrameSync and flexframesync on the card decode "
           f"ffg_a (device decoder), ffg_b and ffg_c (host decode after the "
           f"conv decoders' ValueError) with the golden's bytes", flush=True)
-    return launches, err
+    return launches, err, ss_launches
 
 
 def viterbi_case(torch, dev, scheme, N, dec_len, sigma, seed):
@@ -2970,11 +3122,13 @@ def make_gmsk_stream(torch, dev, rng, cfg):
 def gmsk_run(torch, dev, card, cfg, tag):
     """Phases 25 and 26: the GMSK stream receiver at GM_B x GM_T for one
     payload configuration.  Returns (the payload kernel's launches on the
-    run, the receiver, a carry and block for the hold and the times)."""
+    run, suppress_scan's, the receiver, a carry and block for the hold and
+    the times)."""
     from liquid_dsp_tpu_torch.framing.gmskframe import (GMSKFRAME_H_USER,
                                                         gmskframe_rx_stream)
     from liquid_dsp_tpu_torch.ops.kernels.codebook_argmax import (
         codebook_argmax)
+    from liquid_dsp_tpu_torch.ops.kernels.suppress_scan import suppress_scan
     from liquid_dsp_tpu_torch.ops.kernels.viterbi_acs import viterbi_acs
     t0 = time.perf_counter()
     x, sent, foreign_at, (fh, fd) = make_gmsk_stream(
@@ -2989,6 +3143,7 @@ def gmsk_run(torch, dev, card, cfg, tag):
     counter = viterbi_acs if "fec0" in cfg else codebook_argmax
     carries, outs = [], []
     counter.launches = 0
+    suppress_scan.launches = 0
     t0 = time.perf_counter()
     for b in range(GM_NBLK + 1):
         carries.append(carry)
@@ -2997,6 +3152,7 @@ def gmsk_run(torch, dev, card, cfg, tag):
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     launches = counter.launches
+    ss_launches = suppress_scan.launches
     got, foreign = {}, []
     for out in outs:
         o = {k: v.cpu().numpy() for k, v in out._asdict().items()}
@@ -3017,18 +3173,23 @@ def gmsk_run(torch, dev, card, cfg, tag):
     n_ok = check_decodes(got, sent, f"gmsk {tag} channel")
     check(launches == GM_NBLK + 1, f"gmsk {tag}: {counter.__name__} "
           f"launched {launches} times in {GM_NBLK + 1} blocks")
+    check(ss_launches == GM_NBLK + 1, f"gmsk {tag}: suppress_scan "
+          f"launched {ss_launches} times in {GM_NBLK + 1} blocks")
     print(f"gmsk: gmskframe_rx_stream({GM_T}, {GM_PL}) crc32/{tag} at "
           f"{GM_B}x{GM_T}, {GM_NBLK} carried blocks + 1 flush: {n_ok} of "
           f"{n_frames} frames decoded once, in order, hdr_ok and pay_ok, "
           f"header and payload bytes equal, sample_index within 2 (incl. "
           f"{len(GM_CFO)} channels at CFO 0.0015 rad/sample); the foreign "
           f"frame hdr_ok False; {GM_QUIET} noise-only channels: 0 frames; "
-          f"{counter.__name__} launches {launches}; the frames modulated "
+          f"{counter.__name__} launches {launches}, suppress_scan launches "
+          f"{ss_launches}; the frames modulated "
           f"in one call on the card (= gmskframegen within 1e-4), stream "
           f"made in {t_gen:.1f} s, first pass {t_run:.2f} s", flush=True)
     c1, x1 = carries[1], x[:, GM_T:2 * GM_T]
     del outs, carries, x
-    return launches, proc, c1, x1
+    hold_folds(torch, lambda: proc(c1, x1), f"gmskframe_rx_stream ({tag}) "
+               f"block 1")
+    return launches, ss_launches, proc, c1, x1
 
 
 def gmsk_times(torch, card, proc, c1, x1, tag):
@@ -3043,13 +3204,13 @@ def gmsk_times(torch, card, proc, c1, x1, tag):
 def gmsk_phases(torch, dev, card):
     """Phases 25-26: the GMSK stream receiver on golay2412 payloads
     (codebook_argmax) and on v27 payloads (viterbi_acs), each kernel held
-    to its plain version on the path's own soft metrics.  Returns
-    (codebook_argmax launches, its max error, viterbi_acs launches, its
-    max error)."""
+    to its plain version on the path's own soft metrics, and
+    suppress_scan on each run's detections.  Returns (codebook_argmax
+    launches, its max error, viterbi_acs launches, its max error,
+    suppress_scan's launches on the golay2412 run)."""
     # 25. golay2412: the JAX tool's configuration
-    cb_launches, proc, c1, x1 = gmsk_run(torch, dev, card,
-                                         {"fec1": "golay2412"},
-                                         "none/golay2412")
+    cb_launches, ss_launches, proc, c1, x1 = gmsk_run(
+        torch, dev, card, {"fec1": "golay2412"}, "none/golay2412")
     soft = proc.soft_metrics(c1, x1)[1]
     cw = proc.pay_dec.soft_bits(soft[..., 63 + proc.h_bits:])
     cw = cw.reshape(-1, 24).contiguous()
@@ -3062,9 +3223,8 @@ def gmsk_phases(torch, dev, card):
     torch.cuda.empty_cache()
 
     # 26. v27 with the same frame size (138 encoded payload bytes)
-    vt_launches, proc, c1, x1 = gmsk_run(torch, dev, card,
-                                         {"fec0": "v27", "fec1": "none"},
-                                         "v27/none")
+    vt_launches, _, proc, c1, x1 = gmsk_run(
+        torch, dev, card, {"fec0": "v27", "fec1": "none"}, "v27/none")
     soft = proc.soft_metrics(c1, x1)[1]
     vit = proc.pay_dec.vit
     obs = vit.obs(proc.pay_dec.llr(soft[..., 63 + proc.h_bits:]))
@@ -3075,7 +3235,7 @@ def gmsk_phases(torch, dev, card):
     gmsk_times(torch, card, proc, c1, x1, "v27")
     del proc, c1, x1, soft, obs
     torch.cuda.empty_cache()
-    return cb_launches, cb_err, vt_launches, float(vt_err)
+    return cb_launches, cb_err, vt_launches, float(vt_err), ss_launches
 
 
 def conv_phases(torch, dev, card):
@@ -3243,12 +3403,14 @@ def make_ofdm_stream(torch, dev, rng):
 
 def ofdm_stream_phase(torch, dev, card):
     """Phase 28: ofdmflex_rx_stream at full width.  Returns
-    codebook_argmax's launches on its run and its max index difference
-    against the plain version on the path's soft bits."""
+    codebook_argmax's launches on its run, its max index difference
+    against the plain version on the path's soft bits, and suppress_scan's
+    launches."""
     from liquid_dsp_tpu_torch.framing.ofdmflex_stream import (
         ofdmflex_rx_stream)
     from liquid_dsp_tpu_torch.ops.kernels.codebook_argmax import (
         codebook_argmax)
+    from liquid_dsp_tpu_torch.ops.kernels.suppress_scan import suppress_scan
     t0 = time.perf_counter()
     x, sent, foreign_at, straddle = make_ofdm_stream(
         torch, dev, np.random.default_rng(28))
@@ -3260,6 +3422,7 @@ def ofdm_stream_phase(torch, dev, card):
     carry = proc.init(batch_shape=(OF_B,), device=dev)
     carries, outs = [], []
     codebook_argmax.launches = 0
+    suppress_scan.launches = 0
     t0 = time.perf_counter()
     for b in range(OF_NBLK + 1):
         carries.append(carry)
@@ -3268,6 +3431,7 @@ def ofdm_stream_phase(torch, dev, card):
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     launches = codebook_argmax.launches
+    ss_launches = suppress_scan.launches
     # the S1 timing of every valid slot, from the same blocks' demod half:
     # the frame starts OF_S1 samples before S1's body
     starts = []
@@ -3304,6 +3468,8 @@ def ofdm_stream_phase(torch, dev, card):
     check(launches == 2 * (OF_NBLK + 1), f"codebook_argmax launched "
           f"{launches} times in {OF_NBLK + 1} OFDM blocks (header and "
           f"payload: 2 each)")
+    check(ss_launches == OF_NBLK + 1, f"suppress_scan launched "
+          f"{ss_launches} times in {OF_NBLK + 1} OFDM blocks")
     print(f"ofdm: ofdmflex_rx_stream({OF_T}, {OF_PL}) crc32/none/golay2412/"
           f"qpsk, M=64 cp=16, {OF_MAX} slots, at {OF_B}x{OF_T}, {OF_NBLK} "
           f"carried blocks + 1 flush: {n_ok} of {n_frames} frames decoded "
@@ -3312,7 +3478,8 @@ def ofdm_stream_phase(torch, dev, card):
           f"S0 plateau (incl. {len(OF_CFO)} channels at CFO 0.002 "
           f"rad/sample, {straddle} frames across a block boundary); the "
           f"qam16 frame hdr_ok False; {OF_QUIET} noise-only channels: 0 "
-          f"frames; codebook_argmax launches {launches}; the frames "
+          f"frames; codebook_argmax launches {launches}, suppress_scan "
+          f"launches {ss_launches}; the frames "
           f"modulated in one inverse FFT on the card (= ofdmflexframegen "
           f"within 1e-5), stream made in {t_gen:.1f} s, first pass "
           f"{t_run:.2f} s", flush=True)
@@ -3355,9 +3522,10 @@ def ofdm_stream_phase(torch, dev, card):
         print(f"profile ({card}): codebook_argmax inside the OFDM step "
               f"{sum(t for t, _ in cbk) / 3:.4f} ms per step in "
               f"{sum(c for _, c in cbk) / 3:.0f} launches", flush=True)
+    hold_folds(torch, lambda: proc(c1, x1), "ofdmflex_rx_stream block 1")
     del x, outs, carries, data, cws
     torch.cuda.empty_cache()
-    return launches, max(errs)
+    return launches, max(errs), ss_launches
 
 
 def ofdm_sync_phases(torch, dev, card):
@@ -4545,11 +4713,15 @@ def stream_runner_phase(torch, dev, card):
 
 def ldpc_phase(torch, dev, card):
     """Phase 37: batched LDPC belief propagation on the card at LD_ROWS
-    codewords of the n = 648 code, sum-product and min-sum."""
+    codewords of the n = 648 code, sum-product and min-sum, its iterations
+    on the ldpc_bp kernel, held to the plain version on each decode's own
+    LLRs.  Returns ldpc_bp's kernel entry."""
     from liquid_dsp_tpu_torch.fec.ldpc import (ldpc_decoder_device,
                                                ldpc_encode_systematic,
                                                ldpc_sumproduct_decode,
                                                make_regular_ldpc)
+    from liquid_dsp_tpu_torch.ops.kernels.ldpc_bp import (ldpc_bp,
+                                                          ldpc_bp_reference)
     n, k = LD_N, LD_N // 2
     H = make_regular_ldpc(n, k, col_weight=3, seed=LD_SEED)
     rng = np.random.default_rng(37)
@@ -4562,12 +4734,26 @@ def ldpc_phase(torch, dev, card):
     y = 1.0 - 2.0 * sent + LD_SIGMA * rng.standard_normal(sent.shape)
     llr_h = (2 * y / LD_SIGMA ** 2).astype(np.float32)
     llr = torch.from_numpy(llr_h).to(dev)
-    res, times = {}, {}
+    Ht = torch.from_numpy(H.T.astype(np.float32)).to(dev)
+
+    def decide(x, rv, wc):
+        """(hard [R, n] numpy, parity ok [R]) from the messages."""
+        post = x + rv[:, :n * wc].reshape(x.shape[0], n, wc).sum(-1)
+        hard = (post < 0).to(torch.float32)
+        syn = torch.remainder(hard @ Ht, 2.0)     # exact: TF32 is off
+        return hard.cpu().numpy().astype(np.int32), \
+            (syn == 0).all(-1).cpu().numpy()
+
+    res, times, bp = {}, {}, {}
     for mode in ("sum-product", "min-sum"):
         ms_ = mode == "min-sum"
         dec = ldpc_decoder_device(H, LD_ITERS, min_sum=ms_, device=dev)
+        ldpc_bp.launches = 0
         hard, ok = dec(llr)
         torch.cuda.synchronize()
+        n_bp = ldpc_bp.launches
+        check(n_bp == 1, f"ldpc {mode}: ldpc_bp launched {n_bp} times in "
+              f"one decode")
         check(tuple(hard.shape) == (LD_ROWS, n) and hard.dtype == torch.int32
               and ok.dtype == torch.bool and hard.device.type == dev.type,
               f"ldpc {mode}: {tuple(hard.shape)} {hard.dtype} {ok.dtype}")
@@ -4600,6 +4786,31 @@ def ldpc_phase(torch, dev, card):
         by = profile_steps(torch, card, lambda: dec(llr), 2,
                            f"ldpc_decoder_device({mode}) at {LD_ROWS} rows")
         times[mode] += (sum(c for _, c in by.values()) / 2,)
+        # ldpc_bp against its plain version on this decode's inputs: the
+        # messages bit-equal (sums in slot order in both, the same float32
+        # functions), so the same decisions and parity on every row
+        c2v, v2c, cvar, _ = dec._on(dev)
+        args = (llr, c2v, v2c, cvar, dec.m, n, dec.wr, dec.wc, LD_ITERS, ms_)
+        rk, rp = ldpc_bp(*args), ldpc_bp_reference(*args)
+        hk, okk = decide(llr, rk, dec.wc)
+        hp, okp = decide(llr, rp, dec.wc)
+        check(np.array_equal(hk, hard) and np.array_equal(okk, ok),
+              f"ldpc {mode}: ldpc_bp alone differs from the decoder")
+        n_diff = int((hk[okp] != hp[okp]).sum())
+        rv_err = float((rk - rp).abs().max())
+        check(okp.mean() >= (0.99 if not ms_ else 0.5) and n_diff == 0
+              and okk[okp].all() and torch.equal(rk, rp),
+              f"ldpc {mode}: ldpc_bp against its plain version: messages "
+              f"max|diff| {rv_err:.3e}, {n_diff} decisions differ on the "
+              f"{int(okp.sum())} rows the plain version decoded, "
+              f"{int((~okk[okp]).sum())} of them fail their parity")
+        p1 = time_ms(lambda: ldpc_bp_reference(*args), iters=2)
+        k1 = time_ms(lambda: ldpc_bp(*args), iters=5)
+        k2 = time_ms(lambda: ldpc_bp(*args), iters=5)
+        p2 = time_ms(lambda: ldpc_bp_reference(*args), iters=2)
+        bp[mode] = {"launches": n_bp, "diff": n_diff, "rv_err": rv_err,
+                    "ok": (int(okk.sum()), int(okp.sum())),
+                    "ms": (k1, k2), "plain_ms": (p1, p2)}
     print(f"ldpc_bp: make_regular_ldpc({n}, {k}, col_weight=3, seed="
           f"{LD_SEED}) (the first full-rank seed from 0), {LD_MSGS} "
           f"messages (encoded on the host in {t_enc:.1f} s) x "
@@ -4617,6 +4828,43 @@ def ldpc_phase(torch, dev, card):
                                    f"operations a call)"
                                    for m, (a, b, c) in times.items()),
           flush=True)
+    print(f"ldpc_bp: one launch a decode in both modes; against its plain "
+          f"version on the card on the decodes' LLRs: " + "; ".join(
+              f"{m} rows ok {v['ok'][0]} (plain {v['ok'][1]}) of {LD_ROWS}, "
+              f"messages bit-equal (max|diff| {v['rv_err']:.3e}), "
+              f"{v['diff']} decisions differ where the plain version "
+              f"converged"
+              for m, v in bp.items()), flush=True)
+    print(f"timing ({card}): ldpc_bp at {LD_ROWS} x {n}, {LD_ITERS} "
+          f"iterations (CUDA events): " + "; ".join(
+              f"{m} kernel {v['ms'][0]:.3f}, {v['ms'][1]:.3f} ms (5 calls "
+              f"each), plain version {v['plain_ms'][0]:.3f}, "
+              f"{v['plain_ms'][1]:.3f} ms (2 calls each)"
+              for m, v in bp.items()), flush=True)
+    # a check slot of H (an edge) takes 16 float operations an iteration
+    # in sum-product (tanh, log, exp and atanh counted as one each) and an
+    # add on its variable's side; the LLRs in and the messages out once
+    E = int(H.sum())
+    sp, mn = bp["sum-product"], bp["min-sum"]
+    b = bound(LD_ROWS * n * 4 + LD_ROWS * rk.shape[1] * 4,
+              LD_ROWS * LD_ITERS * (17 * E + n))
+    print(f"bound: ldpc_bp (sum-product) {b['bound_ms']:.4f} ms by "
+          f"{b['bound_by']} ({E} edges)", flush=True)
+    return {"name": "ldpc_bp", "route": "cuda",
+            "source": "liquid_dsp_tpu_torch/csrc/ldpc_bp.cu",
+            "replaces": "liquid_dsp_tpu/fec/ldpc.py:241",
+            "recurrence": "lax.scan of the belief-propagation iterations "
+                          "(liquid_dsp_tpu/fec/ldpc.py:225-241)",
+            "launches": sp["launches"] + mn["launches"],
+            "launches_by_path": {
+                "ldpc_decoder_device(sum-product)": sp["launches"],
+                "ldpc_decoder_device(min-sum)": mn["launches"]},
+            # the messages' largest difference from the plain version
+            "max_abs_err": max(sp["rv_err"], mn["rv_err"]),
+            "ms": sum(sp["ms"]) / 2, "plain_ms": sum(sp["plain_ms"]) / 2,
+            "min_sum_ms": sum(mn["ms"]) / 2,
+            "min_sum_plain_ms": sum(mn["plain_ms"]) / 2,
+            "library_ms": None, **b}
 
 
 def cvsd_phase(torch, dev, card):
@@ -5040,6 +5288,7 @@ def parallel_phase(torch, dev, card):
         fir_real, fir_real_reference)
     from liquid_dsp_tpu_torch.ops.kernels.mix_fir_decim import (
         mix_fir_decim, mix_fir_decim_reference)
+    from liquid_dsp_tpu_torch.ops.kernels.suppress_scan import suppress_scan
     from liquid_dsp_tpu_torch.ops.nco import nco
     from liquid_dsp_tpu_torch.ops.resample import msresamp
     from liquid_dsp_tpu_torch.parallel import (
@@ -5162,6 +5411,7 @@ def parallel_phase(torch, dev, card):
     c = init(batch_shape=(PA_RX_B,))
     rcarries, outs, decs = [c], [], []
     codebook_argmax.launches = 0
+    suppress_scan.launches = 0
     for b in range(NBLK):
         out, c = rstep(c, xr[:, b * T:(b + 1) * T])
         decs.append(finish(decode(out.symbols)))
@@ -5169,9 +5419,13 @@ def parallel_phase(torch, dev, card):
         rcarries.append(c)
     torch.cuda.synchronize()
     got["codebook_argmax"] = codebook_argmax.launches
+    got["suppress_scan"] = suppress_scan.launches
     check(got["codebook_argmax"] == NBLK, f"time-sharded receiver: "
           f"codebook_argmax launched {got['codebook_argmax']} times in "
           f"{NBLK} blocks")
+    check(got["suppress_scan"] == NBLK, f"time-sharded receiver: "
+          f"suppress_scan launched {got['suppress_scan']} times in {NBLK} "
+          f"blocks (one fold over every shard's segments)")
     frames = [[] for _ in range(PA_RX_B)]
     most = 0
     for out, (buf, ok) in zip(outs, decs):
@@ -5225,6 +5479,8 @@ def parallel_phase(torch, dev, card):
     t_r1 = step_ms(torch, lambda: rx1(c10, xr[:, :T]), iters=5)
     profile_steps(torch, card, lambda: rstep(rcarries[0], xr[:, :T]), 3,
                   f"time-sharded receiver step at {PA_RX_B}x{T}")
+    hold_folds(torch, lambda: rstep(rcarries[1], xr[:, T:2 * T]),
+               "the time-sharded receiver's block 1")
     print(f"time-sharded receiver: framesync64_time_sharded at "
           f"{PA_RX_B}x{T} on {PA_NT} shards of {T // PA_NT}, P "
           f"{PA_RX_P} a shard, {NBLK} carried blocks: {n_ok} of "
@@ -5235,7 +5491,8 @@ def parallel_phase(torch, dev, card):
           f"channels: 0; at most {most} kept a shard (< {PA_RX_P}); against "
           f"framesync64_stream on one device: the same {n_same} "
           f"sample_index, symbols max|err| {sym_err:.3e} (<= "
-          f"{TOL_SHARD_SYM}), the carry equal; codebook_argmax launches "
+          f"{TOL_SHARD_SYM}), the carry equal; suppress_scan launches "
+          f"{got['suppress_scan']}; codebook_argmax launches "
           f"{got['codebook_argmax']}, bit-equal to plain on block 1's "
           f"{cw.shape[0]} rows; ms a block ({card}, {distinct} card(s)): "
           f"sharded {t_rsh:.3f}, one device {t_r1:.3f} (the decode not "
@@ -5333,6 +5590,7 @@ def parallel_phase(torch, dev, card):
           f"mesh {t_r:.4f}, no mesh {t_n:.4f}", flush=True)
     return {"fir_real": (got["fir_real"], fr_err),
             "codebook_argmax": (got["codebook_argmax"], 0.0),
+            "suppress_scan": (got["suppress_scan"], 0.0),
             "mix_fir_decim": (got["mix_fir_decim"], mfd_err)}
 
 

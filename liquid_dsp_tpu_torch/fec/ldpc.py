@@ -10,7 +10,7 @@ exposed as a fec scheme).
 
 Implementation: log-domain min-sum/sum-product over a dense or sparse
 H, vectorized with numpy; returns hard decisions and a parity-satisfied
-flag.
+flag.  The batched decoder's iterations run in `ops/kernels/ldpc_bp.py`.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..core import entry_device
+from ..ops.kernels.ldpc_bp import ldpc_bp, posterior
 
 __all__ = ["ldpc_sumproduct_decode", "ldpc_encode_systematic",
            "make_regular_ldpc", "ldpc_decoder_device"]
@@ -126,12 +127,6 @@ def ldpc_sumproduct_decode(H: np.ndarray, llr: np.ndarray,
     return hard, False, max_iters
 
 
-_SAT = float(np.float32(1.0 - 1e-7))   # the largest float32 below 1
-_TINY = float(np.float32(1e-30))
-_CAP = 1e6                             # a weight-1 check's min-sum message
-_NEUTRAL_SP = 38.0                     # tanh(19) is 1 in float32
-
-
 def _slot_maps(H: np.ndarray):
     """The JAX decoder's slot layout (`liquid_dsp_tpu/fec/ldpc.py:
     150-173`): edge e is check slot (rows[e], cslot[e]) and variable slot
@@ -163,40 +158,6 @@ def _slot_maps(H: np.ndarray):
     return m, n, wr, wc, c2v, v2c, cvar, cw
 
 
-def _excl_sign(neg):
-    # the sign of the product over the other slots, from the parity of
-    # negative counts (the JAX decoder's adds-only form, kept so that both
-    # round alike)
-    tot = neg.sum(dim=-1, keepdim=True)
-    return 1.0 - 2.0 * torch.remainder(tot - neg, 2.0)
-
-
-def _check_update(Q, min_sum: bool):
-    """Check-node messages from the incoming Q [..., m, wr] (pads neutral):
-    `liquid_dsp_tpu/fec/ldpc.py:176-216` on torch."""
-    if min_sum:
-        neg = (Q < 0).to(Q.dtype)
-        mag = Q.abs()
-        m1 = mag.amin(dim=-1, keepdim=True)
-        # the first slot holding the minimum (the JAX decoder's cumsum of
-        # the ties; argmin returns the first, and a scan over a short
-        # innermost axis is slow on the card)
-        only_first = torch.arange(Q.shape[-1], device=Q.device) == \
-            mag.argmin(dim=-1, keepdim=True)
-        m2 = torch.where(only_first, torch.inf, mag).amin(dim=-1,
-                                                          keepdim=True)
-        # a weight-1 check sends a large finite certainty, never inf
-        return _excl_sign(neg) * torch.clamp(
-            torch.where(only_first, m2, m1), max=_CAP)
-    # saturated BP in the log domain: the sum of log|tanh| and the sign
-    # parity; |messages| stay below 2 atanh(SAT) ~ 17.3
-    t = torch.clamp(torch.tanh(Q / 2), -_SAT, _SAT)
-    neg = (t < 0).to(Q.dtype)
-    lt = torch.log(torch.clamp(t.abs(), min=_TINY))
-    mag = torch.exp(lt.sum(dim=-1, keepdim=True) - lt)
-    return 2 * torch.atanh(torch.clamp(_excl_sign(neg) * mag, -_SAT, _SAT))
-
-
 class _LDPCDecoder:
     """decode_fn of `ldpc_decoder_device`: the slot maps live on each
     device they are used on, made once (the first call on a device other
@@ -204,8 +165,11 @@ class _LDPCDecoder:
 
     def __init__(self, H, max_iters: int, min_sum: bool, device):
         H = np.asarray(H, np.uint8)
-        (self.m, self.n, self.wr, self.wc, *maps) = _slot_maps(H)
-        self._host = [torch.from_numpy(a) for a in maps]
+        (self.m, self.n, self.wr, self.wc, c2v, v2c, cvar,
+         cw) = _slot_maps(H)
+        # the kernel's index maps are int32; the syndrome's weights int64
+        self._host = [torch.from_numpy(a.astype(np.int32))
+                      for a in (c2v, v2c, cvar)] + [torch.from_numpy(cw)]
         self.max_iters = int(max_iters)
         self.min_sum = bool(min_sum)
         self.device = entry_device(device)
@@ -233,26 +197,13 @@ class _LDPCDecoder:
         c2v, v2c, cvar, cw = self._on(llr.device)
         batch = llr.shape[:-1]
         x = llr.reshape(-1, n)
-        neutral = torch.inf if self.min_sum else _NEUTRAL_SP
-        c2v_pad = (c2v == n * wc)
-        v2c_pad = (v2c == m * wr)
-        pad1 = torch.nn.functional.pad
-
-        def posterior(Rv):
-            return x + Rv[:, :n * wc].reshape(-1, n, wc).sum(dim=-1)
-
-        Rv = x.new_zeros(x.shape[0], n * wc + 1)
-        for _ in range(self.max_iters):
-            postp = pad1(posterior(Rv), (0, 1))
-            Qv = postp.index_select(1, cvar) - Rv.index_select(1, c2v)
-            Qv = torch.where(c2v_pad, neutral, Qv)
-            R = _check_update(Qv.reshape(-1, m, wr), self.min_sum)
-            Rflat = pad1(R.reshape(-1, m * wr), (0, 1))
-            Rv2 = torch.where(v2c_pad, 0.0, Rflat.index_select(1, v2c))
-            Rv = pad1(Rv2, (0, 1))
-        hard = (posterior(Rv) < 0).to(torch.int32)
+        Rv = ldpc_bp(x, c2v, v2c, cvar, m, n, wr, wc, self.max_iters,
+                     self.min_sum)
+        post = posterior(x, Rv, n, wc)
+        hard = (post < 0).to(torch.int32)
         # the syndrome as an exact integer sum over each check's slots
-        syn = (pad1(hard, (0, 1)).index_select(1, cvar).to(torch.int64)
+        hard_p = torch.nn.functional.pad(hard, (0, 1))
+        syn = (hard_p.index_select(1, cvar).to(torch.int64)
                * cw).reshape(-1, m, wr).sum(dim=-1)
         ok = (syn % 2 == 0).all(dim=-1)
         return hard.reshape(*batch, n), ok.reshape(batch)
@@ -277,7 +228,8 @@ def ldpc_decoder_device(H, max_iters: int = 50, min_sum: bool = False,
     tanh product runs in the log domain with the sign from the parity of
     negative counts and SAT = 1 - 1e-7 in float32.  The final syndrome is
     an exact integer sum, so no matmul precision setting can reach it.
-    This is plain PyTorch: the JAX decoder is XLA code with no Pallas
-    kernel.
+    The iterations (the JAX decoder's ``lax.scan``) are one launch of the
+    `ops/kernels/ldpc_bp.py` kernel on the card and its plain version on
+    the CPU; the posterior, the decisions and the syndrome stay PyTorch.
     """
     return _LDPCDecoder(H, max_iters, min_sum, device)

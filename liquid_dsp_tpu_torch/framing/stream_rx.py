@@ -30,8 +30,9 @@ a sample history plus a re-arm watermark.
 Batching is native: every step works on [B, ...] with the leading axes
 flattened into B (`batched_apply`).  Two steps depend on the data and
 stay sequential or fixed-size:
-  * the greedy in-order suppression is a loop over the T/256+1 segments
-    on [B] tensors (two small kernels a segment);
+  * the greedy in-order suppression walks the T/256+1 segments in turn:
+    one `suppress_scan` launch on the card (a warp a row), a loop on [B]
+    tensors on the CPU;
   * the first P candidates of each row are ranked with a cumsum and
     scattered into [B, P] slots, with no host sync; invalid slots take
     index 0 and zero windows, as the JAX package leaves them.
@@ -54,6 +55,7 @@ import torch.nn.functional as F
 
 from .. import debug
 from ..core import Proc
+from ..ops.kernels.suppress_scan import suppress_scan
 
 __all__ = ["StreamRxBlock", "StreamRxConfig", "DetStreamBlock",
            "preamble_stream", "detector_stream", "quad_peak", "cexp_ramp",
@@ -278,16 +280,9 @@ def _suppress(last_end, cand, n0_seg, span: int):
     batched over rows; a non-candidate segment carries a position below
     any watermark.  last_end [B]; cand, n0_seg [B, S] in order (a
     time-sharded receiver passes every shard's segments, in shard order,
-    in one buffer's coordinates).  Returns the [B, S] keep mask."""
-    n0_cand = torch.where(cand, n0_seg, torch.full_like(n0_seg, -(1 << 40)))
-    n0_span = n0_seg + span
-    le = last_end.to(torch.int64)
-    keep_cols = []
-    for i in range(cand.shape[1]):
-        keep = n0_cand[:, i] >= le
-        le = torch.where(keep, n0_span[:, i], le)
-        keep_cols.append(keep)
-    return torch.stack(keep_cols, dim=1)
+    in one buffer's coordinates).  Returns the [B, S] keep mask: one
+    `suppress_scan` launch on the card."""
+    return suppress_scan(last_end, cand, n0_seg, span)
 
 
 def _detect_refine(buf, last_end, dc: dict, threshold: float, P: int,

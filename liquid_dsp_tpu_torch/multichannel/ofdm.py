@@ -45,6 +45,7 @@ from torch import nn
 from .. import debug
 from ..core import Proc, entry_device
 from ..ops.fir import fir_apply_matmul
+from ..ops.kernels.suppress_scan import suppress_scan
 from ..utils.sequence import MSequence
 
 __all__ = ["OFDMParams", "ofdm_params", "ofdm_generate_frame",
@@ -559,9 +560,10 @@ def s0_detect_block(buf, last_end, M: int, threshold: float, span: int,
     n_chunk], n_cand [B]), the detection half shared by
     `ofdm_detector_stream` and the full ofdmflex receiver.
 
-    The greedy suppression is a loop over the chunks on [B] tensors (a
-    compare and a select each); the first P candidates of each row are
-    ranked by a cumsum and scattered into slots with no host sync.
+    The greedy suppression is one `suppress_scan` (a launch on the card,
+    a loop over the chunks on the CPU); the first P candidates of each
+    row are ranked by a cumsum and scattered into slots with no host
+    sync.
     Invalid slots take chunk 0, as the JAX package's
     ``jnp.nonzero(..., fill_value=0)`` leaves them."""
     dev = buf.device
@@ -577,16 +579,7 @@ def s0_detect_block(buf, last_end, M: int, threshold: float, span: int,
     local = (pk > torch.cat([neg, pk[:, :-1]], dim=1)) & \
         (pk >= torch.cat([pk[:, 1:], neg], dim=1))
     cand = (pk > threshold) & (pos < T) & local
-    # a non-candidate chunk carries a position below any watermark
-    pos_cand = torch.where(cand, pos, torch.full_like(pos, -(1 << 40)))
-    pos_span = pos + span
-    le = last_end.to(torch.int64)
-    keeps = []
-    for i in range(n_chunk):
-        keep = pos_cand[:, i] >= le
-        le = torch.where(keep, pos_span[:, i], le)
-        keeps.append(keep)
-    cand = torch.stack(keeps, dim=1)
+    cand = suppress_scan(last_end, cand, pos, span)
     n_cand = cand.sum(dim=1)
     rank = torch.cumsum(cand, dim=1) - 1
     slot = torch.where(cand & (rank < P_), rank, torch.full_like(rank, P_))

@@ -26,7 +26,10 @@ eqlms_scan and eqrls_scan: bit-equal outputs and carries (the same
 roundings in the same order, the lanes' butterflies as the plain version's
 trees, one FMA in both).
 The LDPC decoder: hard and ok equal to the CPU's wherever the CPU converged
-(reductions in another order can flip a borderline row that did not).
+(the CPU's tanh, log, exp and atanh differ in the last bits and can flip a
+borderline row that did not); ldpc_bp bit-equal to its plain version on
+the card (both add in slot order, with the card's float32 functions).
+suppress_scan: bit-equal keep masks (integer compares and selects).
 StreamRunner: bit-equal to its proc on the card, 1e-4 of rms against the
 CPU (the mixer's float32 phase from another libm).
 The mesh (parallel/, the card repeated): the time-sharded FIRs bit-equal
@@ -2416,3 +2419,131 @@ def test_stage_pipeline_of_the_card_and_the_cpu(dev):
         z, c0 = s0(c0, b)
         z, c1 = s1(c1, z.cpu())
         assert y.device == cpu and torch.equal(y, z)
+
+
+# --- the receivers' suppression fold and LDPC belief propagation -----------
+
+def _fold_case(dev, B, S, le_dtype, pos_dtype, seed, share=0.3):
+    """Segments as the receivers give them: positions a segment of 256
+    apart with a lag inside, candidates at `share`, watermarks around the
+    block head (some past it), span 1000 (about four segments)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pos = (torch.arange(S, device=dev) * 256
+           + torch.randint(0, 256, (B, S), generator=g, device=dev))
+    cand = torch.rand(B, S, generator=g, device=dev) < share
+    last_end = torch.randint(-600, 2400, (B,), generator=g, device=dev)
+    return last_end.to(le_dtype), cand, pos.to(pos_dtype), 1000
+
+
+@pytest.mark.parametrize("B", [1, 128, 257])
+@pytest.mark.parametrize("S", [1, 129, 516])
+@pytest.mark.parametrize("dtypes", [(torch.int32, torch.int32),
+                                    (torch.int64, torch.int64),
+                                    (torch.int32, torch.int64)])
+def test_suppress_scan_bit_equal_to_plain(dev, B, S, dtypes):
+    # a warp a row, 32 segments a turn: S at one, 4 turns + 1 and a
+    # multiple of 4 turns; B at one, a multiple of the 4 rows a block and
+    # one past; the watermarks and positions as int32, int64 and the
+    # receivers' mix (int32 watermarks, int64 positions)
+    from liquid_dsp_tpu_torch.ops.kernels.suppress_scan import (
+        suppress_scan, suppress_scan_reference)
+    for share in (0.0, 0.3, 1.0):
+        args = _fold_case(dev, B, S, *dtypes, seed=B * 7 + S, share=share)
+        n0 = suppress_scan.launches
+        keep = suppress_scan(*args)
+        torch.cuda.synchronize()
+        assert suppress_scan.launches == n0 + 1
+        assert keep.dtype == torch.bool and keep.shape == (B, S)
+        assert torch.equal(keep, suppress_scan_reference(*args))
+        if share == 0.0:
+            assert not bool(keep.any())
+
+
+def test_suppress_scan_takes_views_and_refuses(dev):
+    from liquid_dsp_tpu_torch.ops.kernels.suppress_scan import (
+        suppress_scan, suppress_scan_reference)
+    le, cand, pos, span = _fold_case(dev, 6, 200, torch.int64, torch.int64, 3)
+    # a column slice (not contiguous) and a span of 0
+    args = (le, cand[:, 50:], pos[:, 50:], 0)
+    assert torch.equal(suppress_scan(*args), suppress_scan_reference(*args))
+    with pytest.raises(ValueError):
+        suppress_scan(le, cand, pos.float(), span)
+    with pytest.raises(ValueError):
+        suppress_scan(le, cand.to(torch.uint8), pos, span)
+    with pytest.raises(ValueError):
+        suppress_scan(le.cpu(), cand, pos, span)
+
+
+def _irregular_h(m, n, seed):
+    """A parity-check matrix whose rows and columns differ in weight
+    (pads on both sides), columns of weight 1 to 5, no empty row."""
+    rng = np.random.default_rng(seed)
+    H = np.zeros((m, n), np.uint8)
+    for j in range(n):
+        w = int(rng.choice([1, 2, 3, 3, 3, 4, 5]))
+        H[rng.choice(m, size=w, replace=False), j] = 1
+    for i in np.nonzero(H.sum(axis=1) == 0)[0]:
+        H[i, rng.integers(0, n)] = 1
+    return H
+
+
+@pytest.mark.parametrize("code", ["regular", "irregular", "long"])
+@pytest.mark.parametrize("min_sum", [False, True])
+def test_ldpc_bp_on_the_card_matches_its_plain_version(dev, code, min_sum):
+    # the messages bit-equal to the plain version on the card (both add in
+    # slot order), so decisions and parity equal wherever it converged;
+    # the long code's messages (745 KB a codeword) do not fit in shared
+    # memory
+    from liquid_dsp_tpu_torch.fec.ldpc import _slot_maps, make_regular_ldpc
+    from liquid_dsp_tpu_torch.ops.kernels.ldpc_bp import (
+        ldpc_bp, ldpc_bp_reference)
+    H, R, sigma, iters = {
+        "regular": (make_regular_ldpc(648, 324, 3, seed=0), 256, 0.7, 50),
+        "irregular": (_irregular_h(60, 120, 5), 256, 0.55, 30),
+        "long": (make_regular_ldpc(16200, 8100, 3, seed=0), 12, 0.75, 30),
+    }[code]
+    m, n, wr, wc, c2v, v2c, cvar, cw = _slot_maps(H)
+    maps = [torch.from_numpy(a.astype(np.int32)).to(dev)
+            for a in (c2v, v2c, cvar)]
+    # the all-zero codeword (a codeword of any H) through BPSK and AWGN
+    rng = np.random.default_rng(R + n)
+    llr = torch.from_numpy((2 * (1.0 + sigma * rng.standard_normal((R, n)))
+                            / sigma ** 2).astype(np.float32)).to(dev)
+    n0 = ldpc_bp.launches
+    rk = ldpc_bp(llr, *maps, m, n, wr, wc, iters, min_sum)
+    torch.cuda.synchronize()
+    assert ldpc_bp.launches == n0 + 1
+    rp = ldpc_bp_reference(llr, *maps, m, n, wr, wc, iters, min_sum)
+    assert rk.shape == rp.shape == (R, n * wc + 1)
+    assert bool(torch.isfinite(rk).all()) and float(rk[:, -1].abs().max()) == 0
+    assert torch.equal(rk, rp)
+
+    def decide(rv):
+        post = llr + rv[:, :n * wc].reshape(R, n, wc).sum(-1)
+        hard = (post < 0).cpu().numpy().astype(np.int64)
+        return hard, ~((hard @ H.T.astype(np.int64)) % 2).any(axis=1)
+
+    hk, okk = decide(rk)
+    hp, okp = decide(rp)
+    assert okp.sum() >= R // 2, (code, okp.sum())
+    assert (hk[okp] == hp[okp]).all() and okk[okp].all()
+    if code != "irregular":   # its weight-1 columns make light codewords
+        assert (hk[okk] == 0).all()      # every parity-passing row is sent
+
+
+def test_ldpc_bp_refuses_what_it_does_not_take(dev):
+    from liquid_dsp_tpu_torch.fec.ldpc import _slot_maps, make_regular_ldpc
+    from liquid_dsp_tpu_torch.ops.kernels.ldpc_bp import ldpc_bp
+    m, n, wr, wc, c2v, v2c, cvar, _ = _slot_maps(
+        make_regular_ldpc(40, 20, 2, seed=0))
+    m32 = [torch.from_numpy(a.astype(np.int32)).to(dev)
+           for a in (c2v, v2c, cvar)]
+    llr = torch.randn(3, n, device=dev)
+    with pytest.raises(ValueError):       # int64 maps on the card
+        ldpc_bp(llr, *(a.long() for a in m32), m, n, wr, wc, 5, False)
+    with pytest.raises(ValueError):       # another n
+        ldpc_bp(llr[:, 1:], *m32, m, n, wr, wc, 5, False)
+    with pytest.raises(ValueError):       # maps on the CPU
+        ldpc_bp(llr, *(a.cpu() for a in m32), m, n, wr, wc, 5, False)
+    # zero iterations: the messages' start
+    assert float(ldpc_bp(llr, *m32, m, n, wr, wc, 0, True).abs().max()) == 0

@@ -74,6 +74,14 @@ tests hold to the JAX package):
   same bits and packed decisions as the plain version, on +-0 metrics
   too.
 
+* suppress_scan (csrc/suppress_scan.cu): a warp a row, 32 segments a
+  turn, each lane loading one (a non-candidate as -2^40, its end pos +
+  span), every lane walking the 32 broadcast values with the watermark
+  in int64 and lane i keeping step i's verdict; the tail turn's lanes
+  past S never keep and never move the watermark: the plain version's
+  keep mask on no candidate, all candidates, S = 1 and S around the
+  turns, with int32 and int64 inputs.
+
 Inputs are seeded numpy; T <= 1024.
 """
 import numpy as np
@@ -1311,3 +1319,53 @@ def test_redux_pair_gives_the_float_max(seed):
         for part in (v, v[v <= 0], v[v >= 0], v[v < 0]):
             if part.size:
                 assert _redux_max(part) == part.max()
+
+
+def _suppress_warp_walk(last_end, cand, pos, span):
+    """csrc/suppress_scan.cu in numpy: a row a warp, turns of 32 segments;
+    the lanes' loads, then the 32 broadcast steps every lane takes."""
+    B, S = cand.shape
+    keep = np.zeros((B, S), bool)
+    for b in range(B):
+        le = np.int64(last_end[b])
+        for s0 in range(0, S, 32):
+            n = min(32, S - s0)
+            pc = np.full(32, -(1 << 40), np.int64)   # lanes' registers
+            pe = np.zeros(32, np.int64)
+            for lane in range(n):
+                p = np.int64(pos[b, s0 + lane])
+                pc[lane] = p if cand[b, s0 + lane] else -(1 << 40)
+                pe[lane] = p + span
+            mine = np.zeros(32, bool)
+            for i in range(32):                      # __shfl_sync from i
+                ki = (i < n) and pc[i] >= le
+                le = pe[i] if ki else le
+                mine[i] = ki                         # lane i's verdict
+            keep[b, s0:s0 + n] = mine[:n]
+    return keep
+
+
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 64, 65, 129])
+@pytest.mark.parametrize("share", [0.0, 0.35, 1.0])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_suppress_scan_walk_equals_plain(S, share, dtype):
+    from liquid_dsp_tpu_torch.ops.kernels.suppress_scan import (
+        suppress_scan_reference)
+    rng = np.random.default_rng(S * 10 + int(share * 10))
+    B = 5
+    pos = (np.arange(S) * 256 + rng.integers(0, 256, (B, S))).astype(dtype)
+    cand = rng.random((B, S)) < share
+    # never, before the head, past the head, past the whole block
+    last_end = np.array([-(1 << 30), -50, 400, 1300, 256 * S + 999], dtype)
+    for span in (0, 700, 1432):
+        want = suppress_scan_reference(
+            torch.from_numpy(last_end), torch.from_numpy(cand),
+            torch.from_numpy(pos), span).numpy()
+        np.testing.assert_array_equal(
+            _suppress_warp_walk(last_end, cand, pos, span), want)
+        if share == 0.0:
+            assert not want.any()
+        if share == 1.0 and span == 0:
+            # every candidate at or past the watermark fires
+            assert (want == (pos >= last_end[:, None])).all()
+    assert not want[-1].any()       # a watermark past the block keeps none
