@@ -13,6 +13,7 @@ by --root:
     python3 chip_kernel_bench.py --eq [--root DIR] [--tag NAME] [--vs DIR]
     python3 chip_kernel_bench.py --fused [--root DIR] [--tag NAME] [--vs DIR]
     python3 chip_kernel_bench.py --fold [--root DIR] [--tag NAME] [--vs DIR]
+                                 [--sass DIR]
 
 With two checkouts (this one and, say, `git archive` of its parent unpacked
 into a directory that .gitignore lists) run it in turns, one after the other,
@@ -139,11 +140,19 @@ step at 128 x 32768 and the OFDM flexframe receiver's (chip_smoke.py's
 streams, block 1 from the carry after block 0), and one
 ldpc_decoder_device decode of 4096 rows of n = 648 at 50 iterations in
 each mode; each twice by CUDA events and under torch.profiler (device
-ms, operations, busy share).  The last line is `FOLD_RESULT {json}`.
-With --vs DIR it runs that for DIR and for this checkout in turns (DIR,
-this, this, DIR), each in its own process, and prints both side by side:
+ms, operations, busy share).  Then the two kernels alone: suppress_scan
+on each step's own fold (device us a launch, the keep mask alone and,
+where the checkout ranks in the launch, with the ranking of the first
+P), ldpc_bp with its messages out and, where the checkout has it, in the
+decoder's form (decisions and parity out).  With --sass DIR their SASS
+goes there, with the floor that tanhf, logf, expf and atanhf set on
+ldpc_bp (their instructions counted in probe kernels' SASS).  The last
+line is `FOLD_RESULT {json}`.  With --vs DIR it runs that for DIR and
+for this checkout in turns (DIR, this, this, DIR), each in its own
+process (--sass on the first turn of each), and prints both side by
+side:
 
-    python3 chip_kernel_bench.py --fold --vs build/parent
+    python3 chip_kernel_bench.py --fold --vs build/parent [--sass DIR]
 
 Every line names the card and its power limit.
 """
@@ -1104,7 +1113,95 @@ def eq_turns(args):
               flush=True)
 
 
-def fold_bench(torch, cs, tag, name):
+FLOOR_PROBE_SRC = r"""
+// one library call a kernel, for counting its SASS instructions
+#include <cuda_runtime.h>
+extern "C" __global__ void probe_base(float* x) {
+  const int i = threadIdx.x; x[i] = __fmul_rn(x[i], 0.5f); }
+extern "C" __global__ void probe_tanhf(float* x) {
+  const int i = threadIdx.x; x[i] = tanhf(x[i]); }
+extern "C" __global__ void probe_logf(float* x) {
+  const int i = threadIdx.x; x[i] = logf(x[i]); }
+extern "C" __global__ void probe_expf(float* x) {
+  const int i = threadIdx.x; x[i] = expf(x[i]); }
+extern "C" __global__ void probe_atanhf(float* x) {
+  const int i = threadIdx.x; x[i] = atanhf(x[i]); }
+"""
+SM_MUFU_PER_CLOCK = 16   # special-function results a clock and SM (sm_90)
+
+
+def sass_counts(sass):
+    """{function: (instructions, MUFU instructions)} of cuobjdump -sass
+    text, NOPs left out."""
+    import re
+    out, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            out[name] = [0, 0]
+            continue
+        mt = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)", ln)
+        if name is None or not mt or mt.group(1).startswith("NOP"):
+            continue
+        out[name][0] += 1
+        out[name][1] += mt.group(1).startswith("MUFU")
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def transcendental_floor(build, sass_dir, card, R, iters, E):
+    """The floor that tanhf, logf, expf and atanhf set on ldpc_bp's
+    sum-product form: their SASS instructions (each probe kernel's count
+    less the base probe's), four calls an edge and iteration, over the
+    card's issue rate (a warp instruction a clock on each of 132 x 4
+    sub-partitions at 1.98 GHz) and over its special-function rate (16
+    MUFU a clock and SM); the larger.  Writes the SASS to sass_dir."""
+    nvcc = build._nvcc()
+    out = os.path.abspath(sass_dir)
+    os.makedirs(out, exist_ok=True)
+    src = os.path.join(out, "floor_probe.cu")
+    cubin = os.path.join(out, "floor_probe.cubin")
+    with open(src, "w") as f:
+        f.write(FLOOR_PROBE_SRC)
+    subprocess.run([nvcc, *build.ARCH, "-O3", "-cubin", "-o", cubin, src],
+                   check=True, capture_output=True, timeout=300)
+    sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"),
+                           "-sass", cubin], capture_output=True, text=True,
+                          timeout=300).stdout
+    with open(os.path.join(out, "floor_probe.sass"), "w") as f:
+        f.write(sass)
+    cnt = sass_counts(sass)
+    base = cnt["probe_base"]
+    per = {k: (cnt[f"probe_{k}"][0] - base[0], cnt[f"probe_{k}"][1] - base[1])
+           for k in ("tanhf", "logf", "expf", "atanhf")}
+    ins = sum(v[0] for v in per.values())
+    mufu = sum(v[1] for v in per.values())
+    work = R * iters * E
+    issue_ms = work * ins / (SUBPARTITIONS * 32 * SM_CLOCK_HZ) * 1e3
+    mufu_ms = work * mufu / (132 * SM_MUFU_PER_CLOCK * SM_CLOCK_HZ) * 1e3
+    print(f"[floor] ({card}) ldpc_bp sum-product's library functions, "
+          f"static SASS instructions a call less the base probe's (MUFU "
+          f"among them): " + ", ".join(f"{k} {v[0]} ({v[1]})"
+                                       for k, v in per.items())
+          + f"; {ins} instructions ({mufu} MUFU) an edge and iteration x "
+          f"{R} x {iters} x {E} edges: issue floor {issue_ms:.4f} ms, "
+          f"special-function floor {mufu_ms:.4f} ms, so "
+          f"{max(issue_ms, mufu_ms):.4f} ms", flush=True)
+    return {"per_call": per, "issue_ms": issue_ms, "mufu_ms": mufu_ms,
+            "floor_ms": max(issue_ms, mufu_ms)}
+
+
+def kernel_sass_counts(build, sass_dir, names):
+    """The built library's SASS of the kernels whose name holds one of
+    `names`, into sass_dir; {function: (instructions, MUFU)}."""
+    lib = build.build()
+    path, _ = write_sass(build, lib, sass_dir, "fold_kernels.sass",
+                         lambda ln: any(k in ln for k in names))
+    with open(path) as f:
+        return sass_counts(f.read())
+
+
+def fold_bench(torch, cs, tag, name, sass_dir=None):
     """--fold for one checkout (see the module's docstring)."""
     import json
     from liquid_dsp_tpu_torch.fec.ldpc import (ldpc_decoder_device,
@@ -1112,6 +1209,8 @@ def fold_bench(torch, cs, tag, name):
     from liquid_dsp_tpu_torch.framing.frame64 import framesync64_stream_full
     from liquid_dsp_tpu_torch.framing.ofdmflex_stream import (
         ofdmflex_rx_stream)
+    from liquid_dsp_tpu_torch.ops.kernels import ldpc_bp as lb
+    from liquid_dsp_tpu_torch.ops.kernels.suppress_scan import suppress_scan
     dev = torch.device("cuda")
     result = {"tag": name}
 
@@ -1128,6 +1227,37 @@ def fold_bench(torch, cs, tag, name):
               f"operations, busy {busy:.3f} (torch.profiler, 3 calls)",
               flush=True)
 
+    def kernel_us(fn, key, n):
+        """A kernel's device us a launch over n calls of fn (profiler)."""
+        for _ in range(3):      # a trace that lost events, taken again
+            by, _ = cs.device_profile(torch, fn, n, key)
+            dk = [(t, c) for k, (t, c) in by.items() if key in k]
+            if dk and dk[0][1] == n:
+                return dk[0][0] / n * 1e3
+        sys.exit(f"chip_kernel_bench: the profiler saw {dk} for {key}")
+
+    def fold_kernel(key, step, what):
+        """suppress_scan on the step's own fold: device us a launch, the
+        keep mask alone and, where the checkout ranks in the launch, with
+        the ranking of the first P."""
+        calls, _ = cs.hold_folds(torch, step, what)
+        le, cand, pos, span = calls[0][:4]
+        P = calls[0][4] if len(calls[0]) == 6 else None
+        r = {"shape": list(cand.shape), "P": P,
+             "keep_us": [kernel_us(lambda: suppress_scan(le, cand, pos, span),
+                                   "suppress_scan", 200) for _ in range(2)]}
+        if P is not None:
+            r["rank_us"] = [kernel_us(
+                lambda: suppress_scan(le, cand, pos, span, P=P),
+                "suppress_scan", 200) for _ in range(2)]
+        result[key]["fold"] = r
+        print(f"{tag} suppress_scan on {what}'s fold {tuple(cand.shape)}: "
+              f"keep alone {r['keep_us'][0]:.3f}, {r['keep_us'][1]:.3f} us a "
+              f"launch" + (f", with the ranking of the first {P} "
+                           f"{r['rank_us'][0]:.3f}, {r['rank_us'][1]:.3f} us"
+                           if P is not None else "")
+              + " (device time, 200 launches each)", flush=True)
+
     # the frame64 receiver's block 1 and the OFDM receiver's, from their
     # carries after block 0
     x, _ = cs.make_rx_stream(np.random.default_rng(7))
@@ -1137,12 +1267,14 @@ def fold_bench(torch, cs, tag, name):
     blk = x[:, cs.RX_T:2 * cs.RX_T]
     measure("frame64", lambda: rx(c1, blk), 10,
             f"framesync64_stream_full step at {cs.RX_B}x{cs.RX_T}")
+    fold_kernel("frame64", lambda: rx(c1, blk), "the frame64 step")
     x = cs.make_ofdm_stream(torch, dev, np.random.default_rng(28))[0]
     of = ofdmflex_rx_stream(cs.OF_T, cs.OF_PL, max_frames=cs.OF_MAX).to(dev)
     _, c2 = of(of.init(batch_shape=(cs.OF_B,), device=dev), x[:, :cs.OF_T])
     oblk = x[:, cs.OF_T:2 * cs.OF_T]
     measure("ofdm", lambda: of(c2, oblk), 10,
             f"ofdmflex_rx_stream step at {cs.OF_B}x{cs.OF_T}")
+    fold_kernel("ofdm", lambda: of(c2, oblk), "the OFDM step")
     del x, blk, oblk
     # LDPC: the all-zero codeword (a codeword of any H) through BPSK and
     # AWGN at chip_smoke.py's sigma
@@ -1159,21 +1291,54 @@ def fold_bench(torch, cs, tag, name):
                 f"ldpc_decoder_device({mode}) at {cs.LD_ROWS} x {cs.LD_N}, "
                 f"{cs.LD_ITERS} iterations ({ok} rows ok)")
         result[f"ldpc_{mode}"]["ok"] = ok
+        # the kernel alone: the messages out (the only form a checkout
+        # without the decisions in the launch has), and where it has them
+        # the decoder's form
+        maps = dec._on(dev)
+        args = (llr, *maps[:3], dec.m, cs.LD_N, dec.wr, dec.wc,
+                cs.LD_ITERS, min_sum)
+        forms = {"messages": lambda: lb.ldpc_bp(*args)}
+        if len(maps) == 5:
+            forms = {"messages": lambda: lb.ldpc_bp(*args, None, maps[4]),
+                     "decisions": lambda: lb.ldpc_bp(*args, *maps[3:])}
+        kr = {}
+        for form, fn in forms.items():
+            kr[form] = [cs.time_ms(fn, iters=5) for _ in range(2)]
+            kr[form].append(kernel_us(fn, "ldpc_bp", 3) / 1e3)
+        result[f"ldpc_{mode}"]["kernel"] = kr
+        print(f"{tag} ldpc_bp({mode}) alone at {cs.LD_ROWS} x {cs.LD_N}, "
+              f"{cs.LD_ITERS} iterations, ms a launch (CUDA events, 5 "
+              f"launches, twice; device time, 3): " + "; ".join(
+                  f"{k} {v[0]:.4f}, {v[1]:.4f} (device {v[2]:.4f})"
+                  for k, v in kr.items()), flush=True)
+    if sass_dir:
+        from liquid_dsp_tpu_torch.ops.kernels import build
+        result["floor"] = transcendental_floor(
+            build, sass_dir, tag, cs.LD_ROWS, cs.LD_ITERS, int(H.sum()))
+        result["sass"] = kernel_sass_counts(
+            build, os.path.join(sass_dir, name), ("ldpc_bp", "suppress_scan"))
+        print(f"{tag} SASS instructions (MUFU) of the kernels: " + "; ".join(
+            f"{k} {v[0]} ({v[1]})" for k, v in result["sass"].items()),
+            flush=True)
     print("FOLD_RESULT " + json.dumps(result), flush=True)
 
 
 def fold_turns(args):
     """--fold --vs DIR: this script's --fold for DIR and for this checkout
     in turns (DIR, this, this, DIR), each in its own process; then both
-    checkouts' figures side by side."""
+    checkouts' figures side by side (with --sass DIR, the first turn of
+    each checkout writes its kernels' SASS there, and the change's the
+    library functions' floor)."""
     import json
     here = os.path.dirname(os.path.abspath(__file__))
     me = os.path.abspath(__file__)
     turns = [(args.vs, "parent"), (args.root, args.tag),
              (args.root, args.tag), (args.vs, "parent")]
     got = []
-    for root, tag in turns:
+    for k, (root, tag) in enumerate(turns):
         cmd = [sys.executable, me, "--fold", "--root", root, "--tag", tag]
+        if args.sass and k < 2:
+            cmd += ["--sass", args.sass]
         proc = subprocess.run(cmd, capture_output=True, text=True, cwd=here)
         sys.stdout.write(proc.stdout)
         sys.stderr.write(proc.stderr[-4000:])
@@ -1189,6 +1354,19 @@ def fold_turns(args):
             f"device {r[key]['device_ms']:.3f} ms in {r[key]['ops']:.0f} "
             f"operations, busy {r[key]['busy']:.3f}" for r in got),
             flush=True)
+    for key in ("frame64", "ofdm"):
+        print(f"suppress_scan on the {key} fold, us a launch, turns in "
+              f"order: " + "; ".join(
+                  f"{r['tag']} keep {'/'.join(f'{v:.3f}' for v in r[key]['fold']['keep_us'])}"
+                  + (f", ranked {'/'.join(f'{v:.3f}' for v in r[key]['fold']['rank_us'])}"
+                     if "rank_us" in r[key]["fold"] else "")
+                  for r in got), flush=True)
+    for key in ("ldpc_sum_product", "ldpc_min_sum"):
+        print(f"ldpc_bp alone ({key[5:]}), ms a launch, turns in order: "
+              + "; ".join(f"{r['tag']} " + ", ".join(
+                  f"{k} {v[0]:.4f}/{v[1]:.4f}"
+                  for k, v in r[key]["kernel"].items()) for r in got),
+              flush=True)
 
 
 FUSED_PLL = (("qpsk", 13), ("qam16", 32))   # pll_lms's cases in --fused
@@ -1485,7 +1663,7 @@ def main():
         fused_bench(torch, cs, build, tag, args.tag, args.save)
         return
     if args.fold:
-        fold_bench(torch, cs, tag, args.tag)
+        fold_bench(torch, cs, tag, args.tag, args.sass)
         return
     t0 = time.perf_counter()
     lib = build.build()

@@ -40,7 +40,8 @@ Then the frame64 streaming receiver with in-stream Golay decode,
      Every frame decodes exactly once, in order, with crc_ok, the bytes
      sent and sample_index within 2 of the true start; nothing decodes
      on a noise-only channel; the codebook_argmax kernel ran, and the
-     suppress_scan kernel once a block (the greedy suppression fold);
+     suppress_scan kernel once a block (the greedy suppression fold and
+     the ranking of the first P kept segments);
   9. codebook_argmax: the kernel against its plain version on that run's
      slot soft bits (153,600 rows x 24 x 4096): bit-equal indices, and
      the first index on constant rows; then bit-equal indices for
@@ -60,10 +61,10 @@ Then the frame64 streaming receiver with in-stream Golay decode,
  11. times (CUDA events): the receiver step, and each kernel against its
      plain version (plain, kernel, kernel, plain); torch.profiler over 3
      receiver steps (device time by kernel; a measurement, no check);
-     suppress_scan's keep masks bit-equal to its plain version on block
-     1's own detections, its device time a launch there (torch.profiler
-     over 50 launches), the wrapper's time a call and the plain
-     version's.
+     suppress_scan's keep masks and ranking (sel, n_cand) bit-equal to
+     its plain version on block 1's own detections, its device time a
+     launch there (torch.profiler over 50 launches), the wrapper's time a
+     call and the plain version's.
 
 Then the timing-recovery family at 256 channels x 32768-sample blocks
 (QPSK at 2 samples/symbol, arkaiser pulses with a fractional delay per
@@ -157,7 +158,8 @@ flexframe receiver on block codes:
      version on block 1's slot soft bits; suppress_scan once per block;
  21. times (CUDA events) of the analyzer, receiver and whole scanner
      steps; torch.profiler over 3 scanner steps; suppress_scan's keep
-     masks bit-equal to its plain version on block 1's detections;
+     masks and ranking bit-equal to its plain version on block 1's
+     detections;
  22. flexframe_rx_stream(32768, 64) (crc32 / none / golay2412 / qpsk) at
      128 channels, 3 carried blocks + a flush: frames from the port's
      flexframegen at random offsets (some across block boundaries), the
@@ -167,8 +169,8 @@ flexframe receiver on block codes:
      the header and payload bytes and sample_index within 2;
      codebook_argmax launched once per block and bit-equal to its plain
      version on the payload soft bits; the step's time and profile;
-     suppress_scan once per block, its keep masks bit-equal to its plain
-     version on block 1's detections;
+     suppress_scan once per block, its keep masks and ranking bit-equal
+     to its plain version on block 1's detections;
  23. FlexFrameSync and flexframesync on the card (their default) decode
      the reference frames ffg_a, ffg_b and ffg_c; ffg_b and ffg_c take
      the host decode.
@@ -199,8 +201,9 @@ Then the convolutional codes and the GMSK frame family:
      frame decodes once, in order, hdr_ok and pay_ok, header and payload
      bytes equal, sample_index within 2; codebook_argmax launched once per
      block and bit-equal to its plain version on the path's own soft
-     metrics; suppress_scan once per block, its keep masks bit-equal to
-     its plain version on block 1's detections (also in phase 26); the
+     metrics; suppress_scan once per block, its keep masks and ranking
+     bit-equal to its plain version on block 1's detections (also in
+     phase 26); the
      step's time and profile;
  26. the same receiver with fec0="v27", fec1="none" (138 encoded payload
      bytes, as the Golay one): the same checks, viterbi_acs launched once
@@ -226,8 +229,9 @@ Then OFDM (64 subcarriers, cyclic prefix 16):
      codebook_argmax launched twice per block (header and payload) and
      bit-equal to its plain version on the path's own soft bits, timed
      there against its bound; suppress_scan once per block (the S0
-     chunks' fold), its keep masks bit-equal to its plain version on
-     block 1's detections; the step's time (CUDA events) and profile;
+     chunks' fold and its ranking), its keep masks and ranking bit-equal
+     to its plain version on block 1's detections; the step's time (CUDA
+     events) and profile;
  29. OFDMFlexFrameSync on the card over six frames of six configs
      (golay2412 on codebook_argmax, v27 on viterbi_acs, hamming74 on the
      device einsum, uncoded on the host): every frame with the bytes
@@ -329,11 +333,12 @@ Then the support slice (FEC, IO, the streaming runtime, the CVSD codec):
      is its sent codeword, the first 256 rows equal the CPU's wherever
      the CPU converged (ok counts within 0.5%), rows 0-7 equal the host
      float64 decoder; ms per decode, operations per call and busy share
-     (torch.profiler); the iterations are one ldpc_bp launch a decode in
-     both modes, and ldpc_bp on each decode's LLRs against its plain
-     version on the card: the messages bit-equal, so the same decisions
-     and parity on every row the plain version decodes (>= 99% of them in
-     sum-product); both timed (CUDA events) beside the bound;
+     (torch.profiler, at most 4 a decode); the iterations, decisions and
+     parity are one ldpc_bp launch a decode in both modes, and ldpc_bp
+     on each decode's LLRs against its plain version on the card: the
+     messages, hard and ok bit-equal, and by a matmul syndrome the same
+     decisions and parity on every row the plain version decodes (>= 99%
+     of them in sum-product); both timed (CUDA events) beside the bound;
  38. cvsd: cvsd_encode/cvsd_decode on the card against the compiled
      reference's golden (bits equal, audio within 1e-4); cvsd_scan bit-
      equal to its plain version on the path's own [1, 400] rows and at
@@ -1271,7 +1276,7 @@ def receiver_phases(torch, dev, card):
                   f"framesync64_stream_full step at {RX_B}x{RX_T}")
     folds, _ = hold_folds(torch, lambda: proc(c1, x1),
                           "framesync64_stream_full block 1")
-    ss_entry = fold_entry(torch, card, folds[0][:4],
+    ss_entry = fold_entry(torch, card, folds[0][:5],
                           "framesync64_stream_full")
     ss_entry["launches"] = ss_launches
     N, n, K = cw.shape[0], cw.shape[1], bip.shape[1]
@@ -1401,16 +1406,31 @@ def profile_steps(torch, card, step, n, what):
     return by_name
 
 
+# idle host time at each end of a trace, one a take: wider each time a
+# trace is taken again, so that the takes span a spell of ~20 s
+PROFILE_MARGINS_S = (0.02, 0.25, 1.0, 3.0, 3.0, 3.0)
+
+
 def device_profile(torch, step, n, what):
     """({kernel name: (device ms, launches)} over n calls of `step`,
     host ms of the n calls), torch.profiler after its warm-up cycle (see
-    `profile_steps`)."""
+    `profile_steps`).  The n calls sit a margin of PROFILE_MARGINS_S
+    inside each end of the traced cycle.  A trace with no device event,
+    or with a count of device events that is no multiple of n (every call
+    launches the same work), is taken again with the next margin, up to
+    len(PROFILE_MARGINS_S) traces in all, and each retake is printed; the
+    last is returned (`profile_steps` marks it incomplete).
+
+    The card's profiler loses device events now and then, in spells of a
+    few seconds late in a long process: a few of a trace's, or all of a
+    short one's.  In phase 37, traces of six `ldpc_bp` launches came back
+    empty at margins of 0.02, 0.25 and 1 s in a row and whole at 3 s;
+    three takes at 0.02 s, this function's earlier form, all failed
+    there once."""
     from torch.profiler import ProfilerActivity, profile, schedule
     step()
     torch.cuda.synchronize()
-    # a trace whose device events were all lost is taken again (seen on
-    # the card once in a run of short traces)
-    for _ in range(3):
+    for margin in PROFILE_MARGINS_S:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
@@ -1418,11 +1438,13 @@ def device_profile(torch, step, n, what):
             step()
             torch.cuda.synchronize()
             prof.step()
+            time.sleep(margin)
             t0 = time.perf_counter()
             for _ in range(n):
                 step()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
+            time.sleep(margin)
         by_name = {}
         for ev in prof.events():
             # the profiler mirrors its cycle on the device as an annotation
@@ -1432,9 +1454,14 @@ def device_profile(torch, step, n, what):
                 tot, cnt = by_name.get(ev.name, (0.0, 0))
                 by_name[ev.name] = (tot + ev.time_range.elapsed_us() / 1e3,
                                     cnt + 1)
-        if by_name:
+        events = sum(c for _, c in by_name.values())
+        if events and events % n == 0:
             return by_name, wall
-    fail(f"profile: {what}: the profiler recorded no device event")
+        print(f"profile: {what}: {events} device events in a trace of {n} "
+              f"calls at a margin of {margin} s", flush=True)
+    if not by_name:
+        fail(f"profile: {what}: the profiler recorded no device event")
+    return by_name, wall
 
 
 def synth_slots(torch, dev, st, B, S, share, seed):
@@ -2506,20 +2533,22 @@ def check_decodes(got, sent, what):
 @contextlib.contextmanager
 def recorded_folds():
     """Records every suppression fold the receivers run inside the block:
-    [(last_end, cand, pos, span, keep)], the inputs cloned before the
-    call.  The recorder stands in for `suppress_scan` in the two modules
-    that call it and calls the wrapper itself, so the kernel runs (and
-    counts its launch) as on the path."""
+    [(last_end, cand, pos, span, P, out)], the inputs cloned before the
+    call, `out` the wrapper's return (keep, or (keep, sel, n_cand) where
+    the caller asked for the ranking of the first P kept segments).  The
+    recorder stands in for `suppress_scan` in the two modules that call
+    it and calls the wrapper itself, so the kernel runs (and counts its
+    launch) as on the path."""
     from liquid_dsp_tpu_torch.framing import stream_rx
     from liquid_dsp_tpu_torch.multichannel import ofdm
     from liquid_dsp_tpu_torch.ops.kernels.suppress_scan import suppress_scan
     calls = []
 
-    def record(last_end, cand, pos, span):
-        args = (last_end.clone(), cand.clone(), pos.clone(), span)
-        keep = suppress_scan(last_end, cand, pos, span)
-        calls.append(args + (keep,))
-        return keep
+    def record(last_end, cand, pos, span, P=None):
+        args = (last_end.clone(), cand.clone(), pos.clone(), span, P)
+        out = suppress_scan(last_end, cand, pos, span, P=P)
+        calls.append(args + (out,))
+        return out
 
     mods = (stream_rx, ofdm)
     for m in mods:
@@ -2533,57 +2562,79 @@ def recorded_folds():
 
 def hold_folds(torch, step, what):
     """Runs `step()` with its folds recorded and holds each keep mask of
-    the kernel against the plain version on the same inputs, bit for bit.
+    the kernel, and where the caller asked for it the ranking (sel,
+    n_cand), against the plain version on the same inputs, bit for bit.
     Returns (the folds as recorded, the max |keep - plain| (0))."""
     from liquid_dsp_tpu_torch.ops.kernels.suppress_scan import (
-        suppress_scan_reference)
+        rank_reference, suppress_scan_reference)
     with recorded_folds() as calls:
         step()
     torch.cuda.synchronize()
     check(calls, f"suppress_scan: {what} ran no fold")
-    cells = kept = cands = 0
-    for le, cand, pos, span, keep in calls:
+    cells = kept = cands = ranked = 0
+    for le, cand, pos, span, P, out in calls:
+        keep = out if P is None else out[0]
         want = suppress_scan_reference(le, cand, pos, span)
         check(torch.equal(keep, want), f"suppress_scan on {what}: "
               f"{int((keep != want).sum())} of {keep.numel()} keep bits "
               f"differ from the plain version")
+        if P is not None:
+            sel, n_cand = rank_reference(want, P)
+            check(torch.equal(out[1], sel) and torch.equal(out[2], n_cand),
+                  f"suppress_scan on {what}: the ranking of the first {P} "
+                  f"kept segments differs from the plain version "
+                  f"({int((out[1] != sel).sum())} slots, "
+                  f"{int((out[2] != n_cand).sum())} counts)")
+            ranked += 1
         cells += keep.numel()
         kept += int(keep.sum())
         cands += int(cand.sum())
     print(f"suppress_scan: kernel = plain on {what}: {len(calls)} fold(s) "
           f"over {cells} segments ({tuple(calls[0][1].shape)} a fold), "
-          f"{kept} of {cands} candidates kept", flush=True)
+          f"{kept} of {cands} candidates kept; {ranked} fold(s) with the "
+          f"ranking of the first P (P = {calls[0][4]}), sel and n_cand "
+          f"equal", flush=True)
     return calls, 0.0
 
 
 def fold_entry(torch, card, args, what):
     """suppress_scan's kernel entry from one fold's inputs `args` (last_end,
-    cand, pos, span): the kernel's device time a launch (torch.profiler
+    cand, pos, span, P): the kernel's device time a launch (torch.profiler
     over 50 launches: the wrapper's host work is longer than the kernel),
     the wrapper's time a call (CUDA events over 100 calls), the plain
     version's (plain, kernel, kernel, plain) and the bound."""
     from liquid_dsp_tpu_torch.ops.kernels.suppress_scan import (
-        suppress_scan, suppress_scan_reference)
-    le, cand, pos, span = args
-    p1 = time_ms(lambda: suppress_scan_reference(*args), iters=5)
-    w1 = time_ms(lambda: suppress_scan(*args), iters=100)
-    w2 = time_ms(lambda: suppress_scan(*args), iters=100)
-    p2 = time_ms(lambda: suppress_scan_reference(*args), iters=5)
-    by, _ = device_profile(torch, lambda: suppress_scan(*args), 50,
-                           "suppress_scan")
+        rank_reference, suppress_scan, suppress_scan_reference)
+    le, cand, pos, span, P = args
+
+    def kernel():
+        return suppress_scan(le, cand, pos, span, P=P)
+
+    def plain():
+        keep = suppress_scan_reference(le, cand, pos, span)
+        return keep if P is None else rank_reference(keep, P)
+
+    p1 = time_ms(plain, iters=5)
+    w1 = time_ms(kernel, iters=100)
+    w2 = time_ms(kernel, iters=100)
+    p2 = time_ms(plain, iters=5)
+    by, _ = device_profile(torch, kernel, 50, "suppress_scan")
     dk = [(t, c) for k, (t, c) in by.items() if "suppress_scan" in k]
     check(dk and dk[0][1] == 50, f"suppress_scan: the profiler saw {dk}")
     ms = dk[0][0] / 50
     B, S = cand.shape
-    # the watermarks, candidates and positions in once, the mask out once;
-    # a compare, a select and an add a segment
+    # the watermarks, candidates and positions in once, the mask out once,
+    # the ranking's slots and counts out once; a compare, a select and an
+    # add a segment
     b = bound(le.numel() * le.element_size() + B * S
-              + B * S * pos.element_size() + B * S, 3 * B * S)
+              + B * S * pos.element_size() + B * S
+              + (0 if P is None else 8 * B * (P + 1)), 3 * B * S)
     print(f"timing ({card}): suppress_scan at {what}'s fold ({B} rows x {S} "
-          f"segments, {pos.dtype}): kernel {ms * 1e3:.2f} us a launch "
-          f"(device time, 50 launches), the wrapper {w1:.4f}, {w2:.4f} ms a "
-          f"call; plain version {p1:.3f}, {p2:.3f} ms ({S} steps of a "
-          f"compare and a select); bound {b['bound_ms'] * 1e3:.4f} us by "
+          f"segments, {pos.dtype}, ranking the first {P}): kernel "
+          f"{ms * 1e3:.2f} us a launch (device time, 50 launches), the "
+          f"wrapper {w1:.4f}, {w2:.4f} ms a call; plain version {p1:.3f}, "
+          f"{p2:.3f} ms ({S} steps of a compare and a select, then a cumsum "
+          f"and a scatter); bound {b['bound_ms'] * 1e3:.4f} us by "
           f"{b['bound_by']}", flush=True)
     return {"name": "suppress_scan", "route": "cuda",
             "source": "liquid_dsp_tpu_torch/csrc/suppress_scan.cu",
@@ -2591,7 +2642,7 @@ def fold_entry(torch, card, args, what):
             "recurrence": "lax.scan of the greedy suppression fold "
                           "(liquid_dsp_tpu/framing/stream_rx.py:311-324, "
                           "multichannel/ofdm.py:497-502, parallel/rx.py:"
-                          "127-135)",
+                          "127-135) and the jnp.nonzero ranking after it",
             "launches": 0, "max_abs_err": 0.0, "ms": ms,
             "wrapper_ms": (w1 + w2) / 2, "plain_ms": (p1 + p2) / 2,
             "library_ms": None, **b}
@@ -4713,15 +4764,16 @@ def stream_runner_phase(torch, dev, card):
 
 def ldpc_phase(torch, dev, card):
     """Phase 37: batched LDPC belief propagation on the card at LD_ROWS
-    codewords of the n = 648 code, sum-product and min-sum, its iterations
-    on the ldpc_bp kernel, held to the plain version on each decode's own
+    codewords of the n = 648 code, sum-product and min-sum, its iterations,
+    decisions and parity in one launch of the ldpc_bp kernel a decode,
+    held to the plain version (messages, hard, ok) on each decode's own
     LLRs.  Returns ldpc_bp's kernel entry."""
     from liquid_dsp_tpu_torch.fec.ldpc import (ldpc_decoder_device,
                                                ldpc_encode_systematic,
                                                ldpc_sumproduct_decode,
                                                make_regular_ldpc)
-    from liquid_dsp_tpu_torch.ops.kernels.ldpc_bp import (ldpc_bp,
-                                                          ldpc_bp_reference)
+    from liquid_dsp_tpu_torch.ops.kernels.ldpc_bp import (
+        ldpc_bp, ldpc_bp_reference, ldpc_decide_reference)
     n, k = LD_N, LD_N // 2
     H = make_regular_ldpc(n, k, col_weight=3, seed=LD_SEED)
     rng = np.random.default_rng(37)
@@ -4783,18 +4835,37 @@ def ldpc_phase(torch, dev, card):
                       f"ldpc: row {r} differs from the host decoder")
         times[mode] = (time_ms(lambda: dec(llr), iters=5),
                        time_ms(lambda: dec(llr), iters=5))
-        by = profile_steps(torch, card, lambda: dec(llr), 2,
+        # six decodes: a decode is one launch now, and a trace of two
+        # (two events) came back empty three times in a row on the card
+        by = profile_steps(torch, card, lambda: dec(llr), 6,
                            f"ldpc_decoder_device({mode}) at {LD_ROWS} rows")
-        times[mode] += (sum(c for _, c in by.values()) / 2,)
-        # ldpc_bp against its plain version on this decode's inputs: the
-        # messages bit-equal (sums in slot order in both, the same float32
-        # functions), so the same decisions and parity on every row
-        c2v, v2c, cvar, _ = dec._on(dev)
+        events = sum(c for _, c in by.values())
+        times[mode] += (events / 6,)
+        check(events % 6 == 0 and times[mode][2] <= 4,
+              f"ldpc {mode}: {events} device operations in 6 decodes, want "
+              f"a whole trace (a multiple of 6) and <= 4 a decode (one "
+              f"ldpc_bp launch)")
+        # ldpc_bp against its plain version on this decode's inputs, in
+        # the decoder's form (the real edges' maps, the decisions and the
+        # parity from the same launch): the messages, hard and ok
+        # bit-equal (sums in slot order in both, the pads' part added as
+        # the plain version adds it, the same float32 functions)
+        c2v, v2c, cvar, cw, cmaps = dec._on(dev)
         args = (llr, c2v, v2c, cvar, dec.m, n, dec.wr, dec.wc, LD_ITERS, ms_)
-        rk, rp = ldpc_bp(*args), ldpc_bp_reference(*args)
+        rk, hk_t, okk_t = ldpc_bp(*args, cw, cmaps, messages=True)
+        rp = ldpc_bp_reference(*args)
+        hp_t, okp_t = ldpc_decide_reference(llr, rp, cvar, cw, dec.m, n,
+                                            dec.wr, dec.wc)
+        check(torch.equal(hk_t, hp_t) and torch.equal(okk_t, okp_t),
+              f"ldpc {mode}: the kernel's decisions or parity differ from "
+              f"the plain version's: {int((hk_t != hp_t).sum())} bits, "
+              f"{int((okk_t != okp_t).sum())} verdicts")
+        # the matmul syndrome: a second, independent check of the verdicts
         hk, okk = decide(llr, rk, dec.wc)
         hp, okp = decide(llr, rp, dec.wc)
-        check(np.array_equal(hk, hard) and np.array_equal(okk, ok),
+        check(np.array_equal(hk, hard) and np.array_equal(okk, ok)
+              and np.array_equal(hk_t.cpu().numpy(), hard)
+              and np.array_equal(okk_t.cpu().numpy(), ok),
               f"ldpc {mode}: ldpc_bp alone differs from the decoder")
         n_diff = int((hk[okp] != hp[okp]).sum())
         rv_err = float((rk - rp).abs().max())
@@ -4804,10 +4875,16 @@ def ldpc_phase(torch, dev, card):
               f"max|diff| {rv_err:.3e}, {n_diff} decisions differ on the "
               f"{int(okp.sum())} rows the plain version decoded, "
               f"{int((~okk[okp]).sum())} of them fail their parity")
-        p1 = time_ms(lambda: ldpc_bp_reference(*args), iters=2)
-        k1 = time_ms(lambda: ldpc_bp(*args), iters=5)
-        k2 = time_ms(lambda: ldpc_bp(*args), iters=5)
-        p2 = time_ms(lambda: ldpc_bp_reference(*args), iters=2)
+
+        def plain():
+            rv = ldpc_bp_reference(*args)
+            return ldpc_decide_reference(llr, rv, cvar, cw, dec.m, n, dec.wr,
+                                         dec.wc)
+
+        p1 = time_ms(plain, iters=2)
+        k1 = time_ms(lambda: ldpc_bp(*args, cw, cmaps), iters=5)
+        k2 = time_ms(lambda: ldpc_bp(*args, cw, cmaps), iters=5)
+        p2 = time_ms(plain, iters=2)
         bp[mode] = {"launches": n_bp, "diff": n_diff, "rv_err": rv_err,
                     "ok": (int(okk.sum()), int(okp.sum())),
                     "ms": (k1, k2), "plain_ms": (p1, p2)}
@@ -4831,22 +4908,24 @@ def ldpc_phase(torch, dev, card):
     print(f"ldpc_bp: one launch a decode in both modes; against its plain "
           f"version on the card on the decodes' LLRs: " + "; ".join(
               f"{m} rows ok {v['ok'][0]} (plain {v['ok'][1]}) of {LD_ROWS}, "
-              f"messages bit-equal (max|diff| {v['rv_err']:.3e}), "
+              f"messages, hard and ok bit-equal (max|diff| "
+              f"{v['rv_err']:.3e}), "
               f"{v['diff']} decisions differ where the plain version "
               f"converged"
               for m, v in bp.items()), flush=True)
     print(f"timing ({card}): ldpc_bp at {LD_ROWS} x {n}, {LD_ITERS} "
-          f"iterations (CUDA events): " + "; ".join(
+          f"iterations, the decoder's launch (decisions and parity out; "
+          f"CUDA events): " + "; ".join(
               f"{m} kernel {v['ms'][0]:.3f}, {v['ms'][1]:.3f} ms (5 calls "
               f"each), plain version {v['plain_ms'][0]:.3f}, "
               f"{v['plain_ms'][1]:.3f} ms (2 calls each)"
               for m, v in bp.items()), flush=True)
-    # a check slot of H (an edge) takes 16 float operations an iteration
-    # in sum-product (tanh, log, exp and atanh counted as one each) and an
-    # add on its variable's side; the LLRs in and the messages out once
+    # an edge of H takes 16 float operations an iteration in sum-product
+    # (tanh, log, exp and atanh counted as one each) and an add on its
+    # variable's side; the LLRs in and the decisions and verdicts out once
     E = int(H.sum())
     sp, mn = bp["sum-product"], bp["min-sum"]
-    b = bound(LD_ROWS * n * 4 + LD_ROWS * rk.shape[1] * 4,
+    b = bound(LD_ROWS * n * 4 + LD_ROWS * n * 4 + LD_ROWS,
               LD_ROWS * LD_ITERS * (17 * E + n))
     print(f"bound: ldpc_bp (sum-product) {b['bound_ms']:.4f} ms by "
           f"{b['bound_by']} ({E} edges)", flush=True)

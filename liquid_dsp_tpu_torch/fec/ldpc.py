@@ -10,7 +10,8 @@ exposed as a fec scheme).
 
 Implementation: log-domain min-sum/sum-product over a dense or sparse
 H, vectorized with numpy; returns hard decisions and a parity-satisfied
-flag.  The batched decoder's iterations run in `ops/kernels/ldpc_bp.py`.
+flag.  The batched decoder's iterations and its decisions run in
+`ops/kernels/ldpc_bp.py`.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from ..core import entry_device
-from ..ops.kernels.ldpc_bp import ldpc_bp, posterior
+from ..ops.kernels.ldpc_bp import compact_maps, ldpc_bp
 
 __all__ = ["ldpc_sumproduct_decode", "ldpc_encode_systematic",
            "make_regular_ldpc", "ldpc_decoder_device"]
@@ -159,9 +160,10 @@ def _slot_maps(H: np.ndarray):
 
 
 class _LDPCDecoder:
-    """decode_fn of `ldpc_decoder_device`: the slot maps live on each
-    device they are used on, made once (the first call on a device other
-    than the decoder's own copies them there once, never per call)."""
+    """decode_fn of `ldpc_decoder_device`: the slot maps and the kernel's
+    maps of the real edges (`compact_maps`) live on each device they are
+    used on, made once (the first call on a device other than the
+    decoder's own copies them there once, never per call)."""
 
     def __init__(self, H, max_iters: int, min_sum: bool, device):
         H = np.asarray(H, np.uint8)
@@ -170,6 +172,8 @@ class _LDPCDecoder:
         # the kernel's index maps are int32; the syndrome's weights int64
         self._host = [torch.from_numpy(a.astype(np.int32))
                       for a in (c2v, v2c, cvar)] + [torch.from_numpy(cw)]
+        self._compact = tuple(torch.from_numpy(a) for a in compact_maps(
+            c2v, v2c, cvar, self.m, self.n, self.wr, self.wc))
         self.max_iters = int(max_iters)
         self.min_sum = bool(min_sum)
         self.device = entry_device(device)
@@ -177,9 +181,11 @@ class _LDPCDecoder:
         self._on(self.device)
 
     def _on(self, dev):
+        """[c2v, v2c, cvar, cw, compact maps] on `dev`."""
         key = str(dev)
         if key not in self._maps:
-            self._maps[key] = [a.to(dev) for a in self._host]
+            self._maps[key] = [a.to(dev) for a in self._host] + [
+                tuple(a.to(dev) for a in self._compact)]
         return self._maps[key]
 
     def __call__(self, llr):
@@ -194,18 +200,12 @@ class _LDPCDecoder:
         if llr.shape[-1] != n:
             raise ValueError(f"ldpc decoder takes llr [..., {n}], got "
                              f"{tuple(llr.shape)}")
-        c2v, v2c, cvar, cw = self._on(llr.device)
+        c2v, v2c, cvar, cw, cmaps = self._on(llr.device)
         batch = llr.shape[:-1]
-        x = llr.reshape(-1, n)
-        Rv = ldpc_bp(x, c2v, v2c, cvar, m, n, wr, wc, self.max_iters,
-                     self.min_sum)
-        post = posterior(x, Rv, n, wc)
-        hard = (post < 0).to(torch.int32)
-        # the syndrome as an exact integer sum over each check's slots
-        hard_p = torch.nn.functional.pad(hard, (0, 1))
-        syn = (hard_p.index_select(1, cvar).to(torch.int64)
-               * cw).reshape(-1, m, wr).sum(dim=-1)
-        ok = (syn % 2 == 0).all(dim=-1)
+        # the iterations, the decisions and the exact integer syndrome:
+        # one kernel launch on the card
+        hard, ok = ldpc_bp(llr.reshape(-1, n), c2v, v2c, cvar, m, n, wr, wc,
+                           self.max_iters, self.min_sum, cw, cmaps)
         return hard.reshape(*batch, n), ok.reshape(batch)
 
 
@@ -228,8 +228,9 @@ def ldpc_decoder_device(H, max_iters: int = 50, min_sum: bool = False,
     tanh product runs in the log domain with the sign from the parity of
     negative counts and SAT = 1 - 1e-7 in float32.  The final syndrome is
     an exact integer sum, so no matmul precision setting can reach it.
-    The iterations (the JAX decoder's ``lax.scan``) are one launch of the
-    `ops/kernels/ldpc_bp.py` kernel on the card and its plain version on
-    the CPU; the posterior, the decisions and the syndrome stay PyTorch.
+    The iterations (the JAX decoder's ``lax.scan``), the posterior, the
+    decisions and the syndrome are one launch of the `ops/kernels/
+    ldpc_bp.py` kernel on the card (over the real edges only, the maps of
+    `compact_maps` made here once), and its plain version on the CPU.
     """
     return _LDPCDecoder(H, max_iters, min_sum, device)

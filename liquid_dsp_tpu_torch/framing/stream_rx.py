@@ -30,12 +30,12 @@ a sample history plus a re-arm watermark.
 Batching is native: every step works on [B, ...] with the leading axes
 flattened into B (`batched_apply`).  Two steps depend on the data and
 stay sequential or fixed-size:
-  * the greedy in-order suppression walks the T/256+1 segments in turn:
-    one `suppress_scan` launch on the card (a warp a row), a loop on [B]
-    tensors on the CPU;
-  * the first P candidates of each row are ranked with a cumsum and
-    scattered into [B, P] slots, with no host sync; invalid slots take
-    index 0 and zero windows, as the JAX package leaves them.
+  * the greedy in-order suppression walks the T/256+1 segments in turn,
+    and the first P kept segments of each row are ranked into [B, P]
+    slots with no host sync (invalid slots take index 0 and zero windows,
+    as the JAX package leaves them): one `suppress_scan` launch on the
+    card (a warp a row, the ranking by ballots), a loop on [B] tensors
+    and a cumsum and scatter on the CPU.
 
 A time-sharded receiver (`parallel/rx.py`) runs the three steps of
 `_detect_refine` itself: every shard's segment detection (with its left
@@ -55,7 +55,7 @@ import torch.nn.functional as F
 
 from .. import debug
 from ..core import Proc
-from ..ops.kernels.suppress_scan import suppress_scan
+from ..ops.kernels.suppress_scan import rank_reference, suppress_scan
 
 __all__ = ["StreamRxBlock", "StreamRxConfig", "DetStreamBlock",
            "preamble_stream", "detector_stream", "quad_peak", "cexp_ramp",
@@ -273,16 +273,17 @@ def _seg_peak_at(buf, dc: dict, start: int):
     return _seg_peaks(buf[:, None, start:start + _DET_NFFT], dc)[0][:, 0]
 
 
-def _suppress(last_end, cand, n0_seg, span: int):
+def _suppress(last_end, cand, n0_seg, span: int, P: int | None = None):
     """The greedy in-order fold, the second step of `_detect_refine`: once
     a frame is detected nothing fires again until `span` samples have
     passed (the reference's re-arm).  Sequential over the segments,
     batched over rows; a non-candidate segment carries a position below
     any watermark.  last_end [B]; cand, n0_seg [B, S] in order (a
     time-sharded receiver passes every shard's segments, in shard order,
-    in one buffer's coordinates).  Returns the [B, S] keep mask: one
-    `suppress_scan` launch on the card."""
-    return suppress_scan(last_end, cand, n0_seg, span)
+    in one buffer's coordinates).  Returns the [B, S] keep mask, and with
+    `P` also the first P kept segments' ranking (sel [B, P], n_cand
+    [B]): one `suppress_scan` launch on the card."""
+    return suppress_scan(last_end, cand, n0_seg, span, P=P)
 
 
 def _detect_refine(buf, last_end, dc: dict, threshold: float, P: int,
@@ -302,20 +303,26 @@ def _detect_refine(buf, last_end, dc: dict, threshold: float, P: int,
     its hooks (`parallel/rx.py`).
     """
     seg = _detect_segments(buf, dc, threshold, T, starts)
-    keep = _suppress(last_end, seg["cand"], seg["n0_seg"], span)
-    return _refine(buf, seg, keep, dc, P, T, front_pad, win_len)
+    keep, sel, n_cand = _suppress(last_end, seg["cand"], seg["n0_seg"],
+                                  span, P)
+    return _refine(buf, seg, keep, dc, P, T, front_pad, win_len,
+                   rank=(sel, n_cand))
 
 
 def _refine(buf, seg: dict, keep, dc: dict, P: int, T: int,
-            front_pad: int = 0, win_len: int | None = None, left_ext=None):
+            front_pad: int = 0, win_len: int | None = None, left_ext=None,
+            rank=None):
     """Per-candidate refinement, the third step of `_detect_refine`: the
     first P kept segments of each row (qdetector align, batched).
 
     seg: `_detect_segments`'s dict; keep [B, n_seg]: the fold's mask.
     left_ext [B, 2, front_pad] float planes (a time shard's hook) stand
     for the zero front pad: REAL neighbour samples before the buffer head
-    (shard 0 keeps zeros, the stream head).  "cand" and "n0_seg" of the
-    result are what the watermark folds: the keep mask and positions."""
+    (shard 0 keeps zeros, the stream head).  rank: (sel [B, P], n_cand
+    [B]), the first P kept segments as the fold's launch ranked them;
+    without it they are ranked here (`rank_reference`).  "cand" and
+    "n0_seg" of the result are what the watermark folds: the keep mask
+    and positions."""
     dev = buf.device
     B = buf.shape[0]
     n_seg = keep.shape[1]
@@ -324,12 +331,8 @@ def _refine(buf, seg: dict, keep, dc: dict, P: int, T: int,
     cand = keep
 
     # the first P candidates of each row, in order, without a host sync
-    n_cand = cand.sum(dim=1)
-    rank = torch.cumsum(cand, dim=1) - 1
-    slot = torch.where(cand & (rank < P), rank, torch.full_like(rank, P))
-    sel = torch.zeros(B, P + 1, dtype=torch.int64, device=dev)
-    sel.scatter_(1, slot, torch.arange(n_seg, device=dev).expand(B, n_seg))
-    sel = sel[:, :P]                                     # invalid slots: 0
+    # (invalid slots: 0)
+    sel, n_cand = rank_reference(cand, P) if rank is None else rank
     valid = torch.arange(P, device=dev) < n_cand[:, None]
     n0 = _take(n0_seg, sel)                              # [B, P]
     off_i = _take(seg_off, sel)

@@ -560,10 +560,10 @@ def s0_detect_block(buf, last_end, M: int, threshold: float, span: int,
     n_chunk], n_cand [B]), the detection half shared by
     `ofdm_detector_stream` and the full ofdmflex receiver.
 
-    The greedy suppression is one `suppress_scan` (a launch on the card,
-    a loop over the chunks on the CPU); the first P candidates of each
-    row are ranked by a cumsum and scattered into slots with no host
-    sync.
+    The greedy suppression and the ranking of the first P candidates of
+    each row into slots, with no host sync, are one `suppress_scan` (a
+    launch on the card; a loop over the chunks, a cumsum and a scatter on
+    the CPU).
     Invalid slots take chunk 0, as the JAX package's
     ``jnp.nonzero(..., fill_value=0)`` leaves them."""
     dev = buf.device
@@ -579,13 +579,7 @@ def s0_detect_block(buf, last_end, M: int, threshold: float, span: int,
     local = (pk > torch.cat([neg, pk[:, :-1]], dim=1)) & \
         (pk >= torch.cat([pk[:, 1:], neg], dim=1))
     cand = (pk > threshold) & (pos < T) & local
-    cand = suppress_scan(last_end, cand, pos, span)
-    n_cand = cand.sum(dim=1)
-    rank = torch.cumsum(cand, dim=1) - 1
-    slot = torch.where(cand & (rank < P_), rank, torch.full_like(rank, P_))
-    sel = torch.zeros(B, P_ + 1, dtype=torch.int64, device=dev)
-    sel.scatter_(1, slot, torch.arange(n_chunk, device=dev).expand(B, n_chunk))
-    sel = sel[:, :P_]
+    cand, sel, n_cand = suppress_scan(last_end, cand, pos, span, P=P_)
     valid = torch.arange(P_, device=dev) < n_cand[:, None]
     d0 = torch.gather(pos, 1, sel)
     peak = torch.gather(pk, 1, sel)

@@ -60,9 +60,10 @@ _SIGNATURES = {
     "cvsd_scan_launch": ([_P] * 2 + [_I] * 3 + [_U] + [_F] * 4 + [_P], _I),
     "eqlms_scan_launch": ([_P] * 7 + [_I] * 5 + [_F] * 2 + [_P], _I),
     "eqrls_scan_launch": ([_P] * 6 + [_I] * 4 + [_F] * 2 + [_P], _I),
-    "suppress_scan_launch": ([_P] * 4 + [_I] * 4 + [_L, _P], _I),
-    "ldpc_bp_launch": ([_P] * 6 + [_I] * 8 + [_F] * 4 + [_P], _I),
-    "ldpc_bp_smem_bytes": ([_I] * 4, _L),
+    "suppress_scan_launch": ([_P] * 6 + [_I] * 6 + [_L, _P], _I),
+    "ldpc_bp_launch": ([_P] * 11 + [_I] * 10 + [_F] * 4 + [_P], _I),
+    "ldpc_bp_smem_bytes": ([_I] * 3, _L),
+    "ldpc_bp_blocks": ([_I] * 5, _I),
     "ldpc_bp_smem_max": ([], _L),
 }
 

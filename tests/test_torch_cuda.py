@@ -28,8 +28,11 @@ trees, one FMA in both).
 The LDPC decoder: hard and ok equal to the CPU's wherever the CPU converged
 (the CPU's tanh, log, exp and atanh differ in the last bits and can flip a
 borderline row that did not); ldpc_bp bit-equal to its plain version on
-the card (both add in slot order, with the card's float32 functions).
-suppress_scan: bit-equal keep masks (integer compares and selects).
+the card, messages, decisions and parity (both add in slot order, the
+pads' part as the plain version adds it, with the card's float32
+functions).
+suppress_scan: bit-equal keep masks and rankings (integer compares,
+selects and counts).
 StreamRunner: bit-equal to its proc on the card, 1e-4 of rms against the
 CPU (the mixer's float32 phase from another libm).
 The mesh (parallel/, the card repeated): the time-sharded FIRs bit-equal
@@ -2547,3 +2550,113 @@ def test_ldpc_bp_refuses_what_it_does_not_take(dev):
         ldpc_bp(llr, *(a.cpu() for a in m32), m, n, wr, wc, 5, False)
     # zero iterations: the messages' start
     assert float(ldpc_bp(llr, *m32, m, n, wr, wc, 0, True).abs().max()) == 0
+
+
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 129, 132, 516])
+@pytest.mark.parametrize("P", ["none", "1", "8", "S+1"])
+@pytest.mark.parametrize("dtypes", [(torch.int32, torch.int32),
+                                    (torch.int64, torch.int64),
+                                    (torch.int32, torch.int64)])
+def test_suppress_scan_ranking_bit_equal_to_plain(dev, S, P, dtypes):
+    # keep, and with P the ranking (sel, n_cand) from the same launch,
+    # against the plain fold and its cumsum ranking: S around the turns of
+    # 32 and a long row (516: 17 turns, each turn's loads a turn ahead)
+    from liquid_dsp_tpu_torch.ops.kernels.suppress_scan import (
+        rank_reference, suppress_scan, suppress_scan_reference)
+    P = {"none": None, "1": 1, "8": 8, "S+1": S + 1}[P]
+    for share in (0.0, 0.3, 1.0):
+        args = _fold_case(dev, 129, S, *dtypes, seed=S * 5 + (P or 0),
+                          share=share)
+        n0 = suppress_scan.launches
+        out = suppress_scan(*args, P=P)
+        torch.cuda.synchronize()
+        assert suppress_scan.launches == n0 + 1
+        keep = suppress_scan_reference(*args)
+        if P is None:
+            assert torch.equal(out, keep)
+            continue
+        sel, n_cand = rank_reference(keep, P)
+        assert torch.equal(out[0], keep)
+        assert out[1].shape == (129, P) and out[1].dtype == torch.int64
+        assert torch.equal(out[1], sel) and torch.equal(out[2], n_cand)
+
+
+_LDPC_CODES = {}
+
+
+def _ldpc_case(dev, n):
+    """(H's maps on the card, the LLRs): make_regular_ldpc(n, n / 2), the
+    all-zero codeword (a codeword of any H) through BPSK and AWGN."""
+    from liquid_dsp_tpu_torch.fec.ldpc import _slot_maps, make_regular_ldpc
+    from liquid_dsp_tpu_torch.ops.kernels.ldpc_bp import compact_maps
+    if n not in _LDPC_CODES:
+        _LDPC_CODES[n] = _slot_maps(make_regular_ldpc(n, n // 2, 3, seed=0))
+    m, n, wr, wc, c2v, v2c, cvar, cw = _LDPC_CODES[n]
+    R, sigma = (256, 0.7) if n == 648 else (12, 0.75)
+    rng = np.random.default_rng(R + n + 1)
+    llr = torch.from_numpy((2 * (1.0 + sigma * rng.standard_normal((R, n)))
+                            / sigma ** 2).astype(np.float32)).to(dev)
+    maps = [torch.from_numpy(a.astype(np.int32)).to(dev)
+            for a in (c2v, v2c, cvar)] + [torch.from_numpy(cw).to(dev)]
+    cm = tuple(torch.from_numpy(a).to(dev)
+               for a in compact_maps(c2v, v2c, cvar, m, n, wr, wc))
+    return (m, n, wr, wc), maps, cm, llr
+
+
+@pytest.mark.parametrize("n", [648, 16200])
+@pytest.mark.parametrize("min_sum", [False, True])
+@pytest.mark.parametrize("iters", [0, 1, 2, 5, 50])
+def test_ldpc_bp_decisions_bit_equal_to_plain(dev, n, min_sum, iters):
+    # the messages, hard and ok of one launch against the plain version's
+    # iterations and epilogue: n = 648 with a codeword's arrays in shared
+    # memory, n = 16200 in the global scratch
+    from liquid_dsp_tpu_torch.ops.kernels import ldpc_bp as lb
+    (m, n, wr, wc), (c2v, v2c, cvar, cw), cm, llr = _ldpc_case(dev, n)
+    args = (llr, c2v, v2c, cvar, m, n, wr, wc, iters, min_sum)
+    n0 = lb.ldpc_bp.launches
+    rk, hk, okk = lb.ldpc_bp(*args, cw, cm, messages=True)
+    torch.cuda.synchronize()
+    assert lb.ldpc_bp.launches == n0 + 1
+    hard, ok = lb.ldpc_bp(*args, cw, cm)            # the decoder's form
+    rp = lb.ldpc_bp_reference(*args)
+    hp, okp = lb.ldpc_decide_reference(llr, rp, cvar, cw, m, n, wr, wc)
+    assert torch.equal(rk, rp)
+    assert hk.dtype == torch.int32 and okk.dtype == torch.bool
+    assert torch.equal(hk, hp) and torch.equal(okk, okp)
+    assert torch.equal(hard, hp) and torch.equal(ok, okp)
+    if iters == 50:
+        assert int(okp.sum()) >= llr.shape[0] // 2
+
+
+@pytest.mark.parametrize("min_sum", [False, True])
+def test_ldpc_bp_parity_follows_h_weights(dev, min_sum):
+    # the kernel's ok reads H's weights `cw` as the plain version does: an
+    # irregular H with weights 1, 2 and 3 (an even weight drops the edge
+    # from the syndrome) and the same H with every weight 2 (every row
+    # passes); at a high noise, so that the two verdicts differ
+    from liquid_dsp_tpu_torch.fec.ldpc import _slot_maps
+    from liquid_dsp_tpu_torch.ops.kernels import ldpc_bp as lb
+    H = _irregular_h(60, 120, 5)
+    rng = np.random.default_rng(11)
+    nz = np.nonzero(H)
+    H[nz] = rng.choice([1, 2, 3], size=len(nz[0]))
+    m, n, wr, wc, c2v, v2c, cvar, cw = _slot_maps(H)
+    maps = [torch.from_numpy(a.astype(np.int32)).to(dev)
+            for a in (c2v, v2c, cvar)]
+    cm = tuple(torch.from_numpy(a).to(dev)
+               for a in lb.compact_maps(c2v, v2c, cvar, m, n, wr, wc))
+    llr = torch.from_numpy((2 * (1.0 + 1.2 * rng.standard_normal((64, n)))
+                            / 1.2 ** 2).astype(np.float32)).to(dev)
+    args = (llr, *maps, m, n, wr, wc, 5, min_sum)
+    rp = lb.ldpc_bp_reference(*args)
+    oks = []
+    for w in (cw, np.where(cw != 0, 2, 0)):
+        wt = torch.from_numpy(w).to(dev)
+        hard, ok = lb.ldpc_bp(*args, wt, cm)
+        hp, okp = lb.ldpc_decide_reference(llr, rp, maps[2], wt, m, n, wr,
+                                           wc)
+        assert torch.equal(hard, hp) and torch.equal(ok, okp)
+        oks.append(ok)
+    assert bool(oks[1].all()) and not bool(oks[0].all())
+    with pytest.raises(ValueError):       # H's weights as int32
+        lb.ldpc_bp(*args, wt.int(), cm)

@@ -75,12 +75,24 @@ tests hold to the JAX package):
   too.
 
 * suppress_scan (csrc/suppress_scan.cu): a warp a row, 32 segments a
-  turn, each lane loading one (a non-candidate as -2^40, its end pos +
-  span), every lane walking the 32 broadcast values with the watermark
-  in int64 and lane i keeping step i's verdict; the tail turn's lanes
-  past S never keep and never move the watermark: the plain version's
-  keep mask on no candidate, all candidates, S = 1 and S around the
-  turns, with int32 and int64 inputs.
+  turn, each turn's loads issued a turn ahead (indices past the row read
+  its last segment again), each lane holding one segment a turn (a
+  non-candidate as -2^40, its end pos + span), every lane walking the 32
+  broadcast values with the watermark in int64 and lane i keeping step
+  i's verdict; the tail turn's lanes past S never keep and never move the
+  watermark: the plain version's keep mask on no candidate, all
+  candidates, S = 1 and S around the turns, with int32 and int64
+  inputs.  The ranking after each turn (a ballot of the verdicts, a
+  popc of the lanes below plus a running count; rank < P writes its
+  segment; zeros from the count to P) equals `rank_reference`'s cumsum
+  and scatter.
+* ldpc_bp (csrc/ldpc_bp.cu): over the real edges of `compact_maps` only,
+  per edge (Q, tanh, one log kept with t's sign), per check (the slot-
+  order sum of the edges' logs, then wr - deg adds of the pad's constant,
+  the negatives counted; min-sum's m1, m2 and first over real edges),
+  per edge (the message from the stored log), per variable (the sum over
+  its edges in vslot order, one add of +0 for its pads): the plain
+  version's messages bit for bit, and its decisions and parity.
 
 Inputs are seeded numpy; T <= 1024.
 """
@@ -1321,31 +1333,46 @@ def test_redux_pair_gives_the_float_max(seed):
                 assert _redux_max(part) == part.max()
 
 
-def _suppress_warp_walk(last_end, cand, pos, span):
+def _suppress_warp_walk(last_end, cand, pos, span, P=0):
     """csrc/suppress_scan.cu in numpy: a row a warp, turns of 32 segments;
-    the lanes' loads, then the 32 broadcast steps every lane takes."""
+    each turn's loads issued a turn ahead (indices clamped to the row),
+    then the 32 broadcast steps every lane takes and the ranking by a
+    ballot of the verdicts.  -> (keep, sel [B, P], n_cand)."""
     B, S = cand.shape
     keep = np.zeros((B, S), bool)
+    sel = np.full((B, P), -7, np.int64)              # unwritten: -7
+    n_cand = np.zeros(B, np.int64)
+    lanes = np.arange(32)
     for b in range(B):
         le = np.int64(last_end[b])
-        for s0 in range(0, S, 32):
-            n = min(32, S - s0)
-            pc = np.full(32, -(1 << 40), np.int64)   # lanes' registers
-            pe = np.zeros(32, np.int64)
-            for lane in range(n):
-                p = np.int64(pos[b, s0 + lane])
-                pc[lane] = p if cand[b, s0 + lane] else -(1 << 40)
-                pe[lane] = p + span
+        cnt = 0
+        idx = np.minimum(lanes, S - 1)
+        p, c = pos[b, idx].astype(np.int64), cand[b, idx]
+        for st in range(0, S, 32):
+            nxt = np.minimum(st + 32 + lanes, S - 1)   # the next turn's
+            pn, cn = pos[b, nxt].astype(np.int64), cand[b, nxt]
+            n = min(32, S - st)
+            pc = np.where((lanes < n) & c, p, -(1 << 40))
+            pe = p + span
             mine = np.zeros(32, bool)
             for i in range(32):                      # __shfl_sync from i
                 ki = (i < n) and pc[i] >= le
                 le = pe[i] if ki else le
                 mine[i] = ki                         # lane i's verdict
-            keep[b, s0:s0 + n] = mine[:n]
-    return keep
+            keep[b, st:st + n] = mine[:n]
+            bal = sum(1 << int(i) for i in np.flatnonzero(mine))
+            for lane in np.flatnonzero(mine):
+                r = cnt + bin(bal & ((1 << int(lane)) - 1)).count("1")
+                if r < P:
+                    sel[b, r] = st + lane
+            cnt += bin(bal).count("1")
+            p, c = pn, cn
+        sel[b, cnt:] = 0
+        n_cand[b] = cnt
+    return keep, sel, n_cand
 
 
-@pytest.mark.parametrize("S", [1, 31, 32, 33, 64, 65, 129])
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 64, 65, 129, 161, 330])
 @pytest.mark.parametrize("share", [0.0, 0.35, 1.0])
 @pytest.mark.parametrize("dtype", [np.int32, np.int64])
 def test_suppress_scan_walk_equals_plain(S, share, dtype):
@@ -1362,10 +1389,158 @@ def test_suppress_scan_walk_equals_plain(S, share, dtype):
             torch.from_numpy(last_end), torch.from_numpy(cand),
             torch.from_numpy(pos), span).numpy()
         np.testing.assert_array_equal(
-            _suppress_warp_walk(last_end, cand, pos, span), want)
+            _suppress_warp_walk(last_end, cand, pos, span)[0], want)
         if share == 0.0:
             assert not want.any()
         if share == 1.0 and span == 0:
             # every candidate at or past the watermark fires
             assert (want == (pos >= last_end[:, None])).all()
     assert not want[-1].any()       # a watermark past the block keeps none
+
+
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 129, 132])
+@pytest.mark.parametrize("P", ["1", "8", "S+1"])
+def test_suppress_scan_ballot_ranking_equals_cumsum(S, P):
+    # the kernel's ranking a turn at a time (ballot, popc below, running
+    # count) against the plain version's cumsum and scatter, on the keep
+    # masks of the plain fold
+    from liquid_dsp_tpu_torch.ops.kernels.suppress_scan import (
+        rank_reference, suppress_scan_reference)
+    P = {"1": 1, "8": 8, "S+1": S + 1}[P]
+    rng = np.random.default_rng(S * 3 + P)
+    B = 6
+    pos = (np.arange(S) * 256 + rng.integers(0, 256, (B, S))).astype(np.int64)
+    share = np.array([0.0, 0.2, 0.5, 0.8, 1.0, 1.0])[:, None]
+    cand = rng.random((B, S)) < share
+    last_end = np.array([-(1 << 30), -50, 400, 1300, -(1 << 30),
+                         256 * S + 999], np.int64)
+    for span in (0, 300):
+        keep, sel, n_cand = _suppress_warp_walk(last_end, cand, pos, span, P)
+        want = suppress_scan_reference(
+            torch.from_numpy(last_end), torch.from_numpy(cand),
+            torch.from_numpy(pos), span)
+        wsel, wn = rank_reference(want, P)
+        np.testing.assert_array_equal(keep, want.numpy())
+        np.testing.assert_array_equal(sel, wsel.numpy())
+        np.testing.assert_array_equal(n_cand, wn.numpy())
+    assert n_cand[0] == 0 and (sel[0] == 0).all()
+    if span == 0:
+        assert n_cand[4] == S       # all candidates, no watermark: all kept
+
+
+# --- ldpc_bp over the real edges ---------------------------------------
+
+def _ldpc_edge_walk(llr, cm, m, n, wr, wc, iters, min_sum, cw):
+    """csrc/ldpc_bp.cu's iteration in numpy float32 over `compact_maps`'s
+    real edges (torch's float32 tanh, log, exp and atanh, the plain
+    version's functions on the CPU): per edge, per check over its edges
+    in slot order and its pads' constant, per edge, per variable; the
+    parity from H's weights `cw` at each edge's check slot.
+    -> (Rv [R, n*wc + 1] in the padded layout, hard, ok)."""
+    from liquid_dsp_tpu_torch.ops.kernels.ldpc_bp import (CAP, NEUTRAL_SP,
+                                                          SAT, TINY)
+    f32 = np.float32
+    fn = {k: (lambda v, g=getattr(torch, k): g(torch.from_numpy(
+        np.ascontiguousarray(v, f32))).numpy())
+        for k in ("tanh", "log", "exp", "atanh")}
+    cstart, evar, echk, vstart, vedge = cm
+    E = len(evar)
+    R = llr.shape[0]
+    deg_c, deg_v = np.diff(cstart), np.diff(vstart)
+    kc = np.arange(E) - cstart[echk]               # an edge's check slot
+    sat, tiny = f32(SAT), f32(TINY)
+    # the pad's constant from its own expression
+    tp = np.clip(fn["tanh"](np.array([NEUTRAL_SP * 0.5], f32)), -sat, sat)
+    padc = fn["log"](np.maximum(np.abs(tp), tiny))[0]
+    padneg = int(tp[0] < 0)
+    msg = np.zeros((R, E), f32)
+    post = llr.astype(f32).copy()
+    for _ in range(iters):
+        q = (post[:, evar] - msg).astype(f32)                    # 1.
+        if min_sum:
+            a = np.abs(q)
+            m1 = np.full((R, m), np.inf, f32)
+            m2 = m1.copy()
+            first = np.zeros((R, m), np.int64)
+            tot = np.zeros((R, m), np.int64)
+            for k in range(wr):                                  # 2.
+                on = deg_c > k
+                e = cstart[:-1][on] + k
+                ak = a[:, e]
+                lo = ak < m1[:, on]
+                nxt2 = np.where(lo, m1[:, on],
+                                np.where(ak < m2[:, on], ak, m2[:, on]))
+                m1[:, on] = np.where(lo, ak, m1[:, on])
+                m2[:, on] = nxt2
+                first[:, on] = np.where(lo, k, first[:, on])
+                tot[:, on] += q[:, e] < 0
+            other = (tot[:, echk] - (q < 0)) & 1                 # 3.
+            pick = np.where(kc == first[:, echk], m2[:, echk], m1[:, echk])
+            msg = (np.where(other == 1, f32(-1), f32(1))
+                   * np.minimum(pick, f32(CAP))).astype(f32)
+        else:
+            t = np.clip(fn["tanh"](q * f32(0.5)), -sat, sat)
+            lt = fn["log"](np.maximum(np.abs(t), tiny))
+            sv = np.where(t < 0, -lt, lt)                       # kept
+            lsum = np.zeros((R, m), f32)
+            tot = np.zeros((R, m), np.int64)
+            for k in range(wr):                                  # 2.
+                on = deg_c > k
+                e = cstart[:-1][on] + k
+                ltk = -np.abs(sv[:, e])
+                lsum[:, on] = ltk if k == 0 else lsum[:, on] + ltk
+                tot[:, on] += sv[:, e] > 0
+            for k in range(wr):                                  # the pads
+                on = deg_c <= k
+                lsum[:, on] = padc if k == 0 else lsum[:, on] + padc
+                tot[:, on] += padneg
+            other = (tot[:, echk] - (sv > 0)) & 1                # 3.
+            r = (np.where(other == 1, f32(-1), f32(1))
+                 * fn["exp"](lsum[:, echk] - (-np.abs(sv)))).astype(f32)
+            msg = (f32(2) * fn["atanh"](np.clip(r, -sat, sat))).astype(f32)
+        s = np.zeros((R, n), f32)                                # 4.
+        for j in range(wc):
+            on = deg_v > j
+            rj = msg[:, vedge[vstart[:-1][on] + j]]
+            s[:, on] = rj if j == 0 else s[:, on] + rj
+        pads = (deg_v > 0) & (deg_v < wc)
+        s[:, pads] = s[:, pads] + f32(0)
+        post = (llr + s).astype(f32)
+    hard = (post < 0).astype(np.int32)
+    par = np.zeros((R, m), np.int64)
+    odd = np.asarray(cw, np.int64)[echk * wr + kc] & 1    # the kernel's read
+    np.add.at(par.T, echk, (hard[:, evar] & odd).T)
+    rv = np.zeros((R, n * wc + 1), f32)
+    slot = np.repeat(np.arange(n) * wc, deg_v) + (
+        np.arange(E) - np.repeat(vstart[:-1], deg_v))
+    rv[:, slot] = msg[:, vedge]
+    return rv, hard, ~(par & 1).any(axis=1)
+
+
+@pytest.mark.parametrize("code", ["96", "648"])
+@pytest.mark.parametrize("min_sum", [False, True])
+@pytest.mark.parametrize("iters", [1, 2, 5])
+def test_ldpc_edge_walk_equals_plain(code, min_sum, iters):
+    from liquid_dsp_tpu_torch.fec.ldpc import _slot_maps, make_regular_ldpc
+    from liquid_dsp_tpu_torch.ops.kernels.ldpc_bp import (
+        compact_maps, ldpc_bp_reference, ldpc_decide_reference)
+    H, R, sigma = {"96": (make_regular_ldpc(96, 48, 3, seed=1), 12, 0.8),
+                   "648": (make_regular_ldpc(648, 324, 3, seed=0), 64,
+                           0.7)}[code]
+    m, n, wr, wc, c2v, v2c, cvar, cw = _slot_maps(H)
+    cm = compact_maps(c2v, v2c, cvar, m, n, wr, wc)
+    if code == "648":                  # a heavy check: many pads elsewhere
+        assert wr >= 12 and np.diff(cm[0]).min() < wr
+    rng = np.random.default_rng(R + iters)
+    llr = (2 * (1.0 + sigma * rng.standard_normal((R, n))) / sigma ** 2
+           ).astype(np.float32)
+    rv, hard, ok = _ldpc_edge_walk(llr, cm, m, n, wr, wc, iters, min_sum,
+                                   cw)
+    maps = [torch.from_numpy(a) for a in (c2v, v2c, cvar)]
+    x = torch.from_numpy(llr)
+    want = ldpc_bp_reference(x, *maps, m, n, wr, wc, iters, min_sum)
+    wh, wok = ldpc_decide_reference(x, want, maps[2], torch.from_numpy(cw),
+                                    m, n, wr, wc)
+    assert rv.tobytes() == want.numpy().tobytes()
+    np.testing.assert_array_equal(hard, wh.numpy())
+    np.testing.assert_array_equal(ok, wok.numpy())

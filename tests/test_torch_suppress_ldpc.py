@@ -26,10 +26,11 @@ from liquid_dsp_tpu_torch.framing.frame64 import (FRAME64_LEN, framegen64,
                                                   framesync64_stream)
 from liquid_dsp_tpu_torch.modem import constellation
 from liquid_dsp_tpu_torch.multichannel import ofdm
-from liquid_dsp_tpu_torch.ops.kernels.ldpc_bp import (ldpc_bp,
-                                                      ldpc_bp_reference)
+from liquid_dsp_tpu_torch.ops.kernels.ldpc_bp import (compact_maps, ldpc_bp,
+                                                      ldpc_bp_reference,
+                                                      posterior)
 from liquid_dsp_tpu_torch.ops.kernels.suppress_scan import (
-    suppress_scan, suppress_scan_reference)
+    rank_reference, suppress_scan, suppress_scan_reference)
 
 T = 4096
 HIST = 1536
@@ -208,3 +209,108 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_raise_elsewhere():
                 5, False)
     with pytest.raises(ValueError):
         ldpc_bp(llr[:, 1:], *maps, m, n, wr, wc, 5, False)
+
+
+@pytest.mark.parametrize("P", [1, 4, 40])
+def test_fold_ranking_matches_jax_nonzero(P):
+    # suppress_scan(..., P=)'s plain ranking against the JAX package's
+    # jnp.nonzero(keep, size=P, fill_value=0) on the same keep masks
+    rng = np.random.default_rng(P)
+    S = 33
+    le = torch.tensor([NEVER, 300, 5000, NEVER])
+    cand = torch.from_numpy(rng.random((4, S)) < np.array(
+        [0.3, 0.6, 0.5, 0.0])[:, None])
+    pos = torch.arange(S) * 256 + torch.from_numpy(rng.integers(0, 256,
+                                                               (4, S)))
+    keep, sel, n_cand = suppress_scan(le, cand, pos, 700, P=P)
+    assert torch.equal(keep, suppress_scan(le, cand, pos, 700))
+    assert sel.shape == (4, P) and sel.dtype == n_cand.dtype == torch.int64
+    for r in range(4):
+        want = np.asarray(jnp.nonzero(jnp.asarray(keep[r].numpy()), size=P,
+                                      fill_value=0)[0])
+        np.testing.assert_array_equal(sel[r].numpy(), want)
+        assert int(n_cand[r]) == int(keep[r].sum())
+    assert int(n_cand[3]) == 0 and not bool(sel[3].any())
+    assert torch.equal(sel, rank_reference(keep, P)[0])
+
+
+@pytest.mark.parametrize("code", ["regular", "irregular", "648"])
+def test_compact_maps_follow_h(code):
+    # the real edges' maps against H: each check's edges are its row's
+    # columns in slot order (ascending), each variable's edges its column's
+    # rows in vslot order (ascending), degrees as H's; the kernel reads H's
+    # weight of edge e at cw[echk*wr + e - cstart[echk]]
+    H = {"regular": jldpc.make_regular_ldpc(96, 48, col_weight=3, seed=1),
+         "irregular": _irregular_h(40, 80, 2),
+         "648": ldpc.make_regular_ldpc(648, 324, 3, seed=0)}[code].copy()
+    if code == "irregular":
+        H[0, np.nonzero(H[0])[0][0]] = 3       # an odd weight other than 1
+        H[1, np.nonzero(H[1])[0][0]] = 2       # an even one: no parity
+    m, n, wr, wc, c2v, v2c, cvar, cw = ldpc._slot_maps(H)
+    cstart, evar, echk, vstart, vedge = compact_maps(
+        c2v, v2c, cvar, m, n, wr, wc)
+    E = int((H != 0).sum())
+    assert all(a.dtype == np.int32 for a in (cstart, evar, echk, vstart,
+                                             vedge))
+    assert len(evar) == len(echk) == len(vedge) == E
+    np.testing.assert_array_equal(np.diff(cstart), (H != 0).sum(1))
+    np.testing.assert_array_equal(np.diff(vstart), (H != 0).sum(0))
+    assert cstart[0] == vstart[0] == 0 and cstart[-1] == vstart[-1] == E
+    for c in range(m):
+        e = np.arange(cstart[c], cstart[c + 1])
+        np.testing.assert_array_equal(evar[e], np.nonzero(H[c])[0])
+        assert (echk[e] == c).all()
+        # the edge is the check's slot k: cvar holds its variable there
+        np.testing.assert_array_equal(cvar[c * wr + np.arange(len(e))],
+                                      evar[e])
+    for v in range(n):
+        e = vedge[vstart[v]:vstart[v + 1]]
+        assert (evar[e] == v).all()
+        np.testing.assert_array_equal(echk[e], np.nonzero(H[:, v])[0])
+        # vslot j of v points at edge e's check slot
+        np.testing.assert_array_equal(
+            v2c[v * wc + np.arange(len(e))], echk[e] * wr + e - cstart[echk[e]])
+    e = np.arange(E)
+    np.testing.assert_array_equal(cw[echk * wr + e - cstart[echk]],
+                                  H[echk, evar])
+    with pytest.raises(ValueError, match="pad slot before"):
+        bad = cvar.copy()
+        bad[0] = n                              # a pad before a real slot
+        compact_maps(c2v, v2c, bad, m, n, wr, wc)
+
+
+def _decode_as_before(H, iters, min_sum, llr):
+    """The decoder's steps as they were: the plain iterations, then the
+    posterior, the decisions and the exact syndrome as separate steps."""
+    m, n, wr, wc, c2v, v2c, cvar, cw = ldpc._slot_maps(H)
+    maps = [torch.from_numpy(a.astype(np.int32)) for a in (c2v, v2c, cvar)]
+    x = torch.from_numpy(llr)
+    Rv = ldpc_bp_reference(x, *maps, m, n, wr, wc, iters, min_sum)
+    hard = (posterior(x, Rv, n, wc) < 0).to(torch.int32)
+    hard_p = torch.nn.functional.pad(hard, (0, 1))
+    syn = (hard_p.index_select(1, maps[2]).to(torch.int64)
+           * torch.from_numpy(cw)).reshape(-1, m, wr).sum(dim=-1)
+    return hard, (syn % 2 == 0).all(dim=-1), Rv
+
+
+@pytest.mark.parametrize("code", ["regular", "irregular"])
+@pytest.mark.parametrize("min_sum", [False, True])
+def test_ldpc_decisions_from_the_launch_match_before(code, min_sum):
+    # the decoder's (hard, ok), now from ldpc_bp's one call with the
+    # decisions, equal to the steps it took before, on the CPU; and the
+    # wrapper's three outputs with `messages`
+    H = (jldpc.make_regular_ldpc(96, 48, col_weight=3, seed=1)
+         if code == "regular" else _irregular_h(40, 80, 2))
+    m, n, wr, wc, c2v, v2c, cvar, cw = ldpc._slot_maps(H)
+    rng = np.random.default_rng(3)
+    llr = (2 * (1.0 + 0.7 * rng.standard_normal((16, n))) / 0.7 ** 2
+           ).astype(np.float32)
+    hb, okb, Rvb = _decode_as_before(H, 5, min_sum, llr)
+    hard, ok = ldpc.ldpc_decoder_device(H, 5, min_sum, device="cpu")(llr)
+    assert torch.equal(hard, hb) and torch.equal(ok, okb)
+    assert 0 < int(ok.sum()) or code == "irregular"
+    maps = [torch.from_numpy(a.astype(np.int32)) for a in (c2v, v2c, cvar)]
+    out = ldpc_bp(torch.from_numpy(llr), *maps, m, n, wr, wc, 5, min_sum,
+                  torch.from_numpy(cw), messages=True)
+    assert len(out) == 3 and torch.equal(out[0], Rvb)
+    assert torch.equal(out[1], hb) and torch.equal(out[2], okb)
