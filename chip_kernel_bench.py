@@ -14,6 +14,8 @@ by --root:
     python3 chip_kernel_bench.py --fused [--root DIR] [--tag NAME] [--vs DIR]
     python3 chip_kernel_bench.py --fold [--root DIR] [--tag NAME] [--vs DIR]
                                  [--sass DIR]
+    python3 chip_kernel_bench.py --pscan [--root DIR] [--tag NAME] [--vs DIR]
+                                 [--sass DIR]
 
 With two checkouts (this one and, say, `git archive` of its parent unpacked
 into a directory that .gitignore lists) run it in turns, one after the other,
@@ -153,6 +155,27 @@ process (--sass on the first turn of each), and prints both side by
 side:
 
     python3 chip_kernel_bench.py --fold --vs build/parent [--sass DIR]
+
+With --pscan it times, for the checkout given by --root, the three ways
+the port filters a cascade of second-order sections on the card, on the
+same filter and rows: `iir_pscan` (where the checkout has it), `iir_scan`
+and the block form, at 128 plane rows x 262144 samples (a 64 x 262144
+complex block's planes) for butter 7 at 0.2 (4 sections, analog_rx's
+first stage) and butter 16 (8 sections), and on 64 complex rows for a
+complex-coefficient cascade (butter 5 at 0.1 shifted by 0.6 rad/sample,
+pscan and scan); each kernel over 100 launches (iir_scan 20) and twice,
+with iir_pscan's device time a launch (torch.profiler) and a lone row's;
+then a 64 x 262144 complex block through iirfilt_sos(butter 7) under each
+backend the checkout takes (20 calls, twice); ptxas's registers and
+spills of iir_pscan's instances first; with --sass DIR, cuobjdump's SASS
+of both instances into DIR/sass_pscan_<tag>.txt and each instance's
+count of instructions by kind (barriers, shared loads and stores, float
+multiplies and adds, branches).  The last line is `PSCAN_RESULT
+{json}`.  With --vs DIR it runs that for DIR and for this checkout in
+turns (DIR, this, this, DIR), each in its own process, and prints both
+side by side:
+
+    python3 chip_kernel_bench.py --pscan --vs build/parent
 
 Every line names the card and its power limit.
 """
@@ -1369,6 +1392,161 @@ def fold_turns(args):
               flush=True)
 
 
+def pscan_bench(torch, cs, build, tag, name, sass_dir):
+    """--pscan: iir_pscan, iir_scan and the block form on the same filters
+    and rows for this checkout (see the module docstring); a checkout
+    without iir_pscan times the other two."""
+    import json
+    from liquid_dsp_tpu_torch.design.iirdes import iirdes_sos
+    from liquid_dsp_tpu_torch.ops.iir import iirfilt_sos
+    from liquid_dsp_tpu_torch.ops.kernels.iir_scan import iir_scan
+    try:
+        from liquid_dsp_tpu_torch.ops.kernels.iir_pscan import iir_pscan
+    except ImportError:
+        iir_pscan = None
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    lib = build.build()
+    build.load_library()
+    print(f"{tag} built in {time.perf_counter() - t0:.1f} s", flush=True)
+    print_ptxas(lib, tag, ("iir_pscan",))
+    gen = torch.Generator(device=dev).manual_seed(24)
+    B, T = 64, 1 << 18
+    result = {"tag": name}
+
+    def twice(fn, iters):
+        return [cs.time_ms(fn, iters=iters) for _ in range(2)]
+
+    def device_ms(fn, kernel):
+        by_name, _ = cs.device_profile(torch, fn, 20, kernel)
+        tot, cnt = map(sum, zip(*[v for k, v in by_name.items()
+                                  if kernel in k]))
+        return tot / cnt
+
+    rot = np.exp(0.6j * np.arange(3))
+    B5, A5 = iirdes_sos("butter", 5, 0.1)
+    cases = {"butter7": iirdes_sos("butter", 7, 0.2),
+             "butter16": iirdes_sos("butter", 16, 0.2),
+             "butter5_shifted": ((B5 * rot).astype(np.complex64),
+                                 (A5 * rot).astype(np.complex64))}
+    for what, (Bc, Ac) in cases.items():
+        cplx = np.iscomplexobj(Bc)
+        dt = torch.complex64 if cplx else torch.float32
+        rows = B if cplx else 2 * B
+        b = torch.from_numpy(np.asarray(Bc, np.complex64 if cplx
+                                        else np.float32)).to(dev)
+        a = torch.from_numpy(np.asarray(Ac, np.complex64 if cplx
+                                        else np.float32)).to(dev)
+        x = torch.randn(rows, T, dtype=dt, generator=gen, device=dev)
+        st = torch.zeros(rows, b.shape[0], 2, dtype=dt, device=dev)
+        r = {"rows": rows, "sections": int(b.shape[0])}
+        r["iir_scan_ms"] = twice(lambda: iir_scan(x, b, a, st), 20)
+        line = (f"{tag} {what} ({b.shape[0]} sections) at {rows} "
+                f"{'complex' if cplx else 'plane'} rows x {T}: iir_scan "
+                f"{r['iir_scan_ms'][0]:.4f}, {r['iir_scan_ms'][1]:.4f} ms")
+        if iir_pscan is not None:
+            r["iir_pscan_ms"] = twice(lambda: iir_pscan(x, b, a, st), 100)
+            r["iir_pscan_device_ms"] = device_ms(
+                lambda: iir_pscan(x, b, a, st), "iir_pscan")
+            x1, s1 = x[:1].contiguous(), st[:1]
+            r["iir_pscan_lone_row_ms"] = min(twice(
+                lambda: iir_pscan(x1, b, a, s1), 100))
+            line += (f"; iir_pscan {r['iir_pscan_ms'][0]:.4f}, "
+                     f"{r['iir_pscan_ms'][1]:.4f} ms (100 launches each; "
+                     f"device {r['iir_pscan_device_ms']:.4f} ms a launch), "
+                     f"a lone row {r['iir_pscan_lone_row_ms']:.4f} ms; "
+                     f"iir_scan / iir_pscan "
+                     f"{sum(r['iir_scan_ms']) / sum(r['iir_pscan_ms']):.1f}")
+        if not cplx:
+            q = iirfilt_sos(Bc, Ac, backend="block").to(dev)
+            xc = torch.complex(x[:B], x[B:])
+            c0 = q.init(batch_shape=(B,), device=dev)
+            r["block_ms"] = twice(lambda: q(c0, xc), 20)
+            line += (f"; the block form (a {B}x{T} complex block, the same "
+                     f"rows) {r['block_ms'][0]:.4f}, {r['block_ms'][1]:.4f} "
+                     f"ms")
+        print(line, flush=True)
+        result[what] = r
+        del x
+    # a block through the Proc under each backend the checkout takes
+    xc = torch.randn(B, T, dtype=torch.complex64, generator=gen, device=dev)
+    steps = {}
+    for be in ("pscan", "block", "scan"):
+        try:
+            q = iirfilt_sos(*cases["butter7"], backend=be).to(dev)
+        except ValueError:
+            continue
+        c0 = q.init(batch_shape=(B,), device=dev)
+        steps[be] = twice(lambda: q(c0, xc), 20)
+    result["steps"] = steps
+    print(f"{tag} a {B}x{T} complex block through iirfilt_sos(butter 7): "
+          + ", ".join(f"{be} {v[0]:.4f}, {v[1]:.4f} ms"
+                      for be, v in steps.items()), flush=True)
+    if sass_dir and iir_pscan is not None:
+        path, n = write_sass(build, lib, sass_dir, f"sass_pscan_{name}.txt",
+                             lambda ln: "iir_pscan_kernel" in ln)
+        print(f"{tag} SASS of iir_pscan's instances: {path} ({n} lines)",
+              flush=True)
+        kinds = ("BAR", "LDS", "STS", "LDG", "STG", "FMUL", "FADD", "FFMA",
+                 "BRA", "ISETP")
+        insts, counts = None, {}
+        for ln in open(path).read().splitlines():
+            if "Function :" in ln:
+                insts = "real" if "ILb0E" in ln else "complex"
+                counts[insts] = dict.fromkeys(kinds + ("all",), 0)
+            elif insts and "/*" in ln and ";" in ln:
+                op = ln.split("*/", 1)[1].strip().split()[0]
+                if op.startswith("@"):
+                    op = ln.split("*/", 1)[1].strip().split()[1]
+                counts[insts]["all"] += 1
+                base = op.split(".")[0]
+                if base in counts[insts]:
+                    counts[insts][base] += 1
+        result["sass_counts"] = counts
+        for k, v in counts.items():
+            print(f"{tag} iir_pscan {k} SASS: " + ", ".join(
+                f"{op} {c}" for op, c in v.items()), flush=True)
+    print("PSCAN_RESULT " + json.dumps(result), flush=True)
+
+
+def pscan_turns(args):
+    """--pscan --vs DIR: this script's --pscan for DIR and for this
+    checkout in turns (DIR, this, this, DIR), each in its own process;
+    then both checkouts' figures side by side."""
+    import json
+    here = os.path.dirname(os.path.abspath(__file__))
+    me = os.path.abspath(__file__)
+    turns = [(args.vs, "parent"), (args.root, args.tag),
+             (args.root, args.tag), (args.vs, "parent")]
+    got = []
+    for k, (root, tag) in enumerate(turns):
+        cmd = [sys.executable, me, "--pscan", "--root", root, "--tag", tag]
+        if args.sass and k == 1:
+            cmd += ["--sass", args.sass]
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=here)
+        sys.stdout.write(proc.stdout)
+        sys.stderr.write(proc.stderr[-4000:])
+        if proc.returncode != 0:
+            sys.exit(f"chip_kernel_bench --pscan for {root} failed "
+                     f"({proc.returncode})")
+        got += [json.loads(ln.split(" ", 1)[1])
+                for ln in proc.stdout.splitlines()
+                if ln.startswith("PSCAN_RESULT ")]
+    for what in ("butter7", "butter16", "butter5_shifted"):
+        for key in ("iir_pscan_ms", "iir_scan_ms", "block_ms"):
+            vals = [f"{r['tag']} {r[what][key][0]:.4f}/{r[what][key][1]:.4f}"
+                    for r in got if key in r[what]]
+            if vals:
+                print(f"{what} {key[:-3]}, ms, turns in order: "
+                      + "; ".join(vals), flush=True)
+    for be in ("pscan", "block", "scan"):
+        vals = [f"{r['tag']} {r['steps'][be][0]:.4f}/{r['steps'][be][1]:.4f}"
+                for r in got if be in r["steps"]]
+        if vals:
+            print(f"a block through iirfilt_sos(butter 7, backend={be!r}), "
+                  f"ms, turns in order: " + "; ".join(vals), flush=True)
+
+
 FUSED_PLL = (("qpsk", 13), ("qam16", 32))   # pll_lms's cases in --fused
 
 
@@ -1603,6 +1781,7 @@ def main():
     ap.add_argument("--no-variants", action="store_true")
     ap.add_argument("--fused", action="store_true")
     ap.add_argument("--fold", action="store_true")
+    ap.add_argument("--pscan", action="store_true")
     ap.add_argument("--save", metavar="FILE", default="build/fused.pt")
     args = ap.parse_args()
     if args.eq and args.vs:
@@ -1613,6 +1792,9 @@ def main():
         return
     if args.fold and args.vs:
         fold_turns(args)
+        return
+    if args.pscan and args.vs:
+        pscan_turns(args)
         return
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -1664,6 +1846,9 @@ def main():
         return
     if args.fold:
         fold_bench(torch, cs, tag, args.tag, args.sass)
+        return
+    if args.pscan:
+        pscan_bench(torch, cs, build, tag, args.tag, args.sass)
         return
     t0 = time.perf_counter()
     lib = build.build()

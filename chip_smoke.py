@@ -310,6 +310,23 @@ at 64 channels x 262144 samples per block:
      the step's time, iir_block_state at the order-7 filter's shape over
      100 launches beside its bound, a lone row's time at two lengths, its
      plain version; torch.profiler.
+ 42. (right after phase 35, on analog_tx's blocks) analog_rx's first
+     stage on the third backend, iirfilt_sos(butter 7, 0.2,
+     backend="pscan"): 3 carried blocks of 64 x 262144 complex samples,
+     the iir_pscan kernel once a block on the 128 plane rows (no iir_scan,
+     no iir_block_state) and bit-equal to its plain version on block 1's
+     own rows and carry; y and the carries within 1e-4 of rms of the scan
+     and of the block form on the card, channels 0-3 against float64
+     scipy (beside the scan's figure, < 1e-4), the 3 carried blocks
+     within 1e-4 of rms of one call over the whole stream; iir_pscan
+     bit-equal to its plain version from a random carry on butter 16 (8
+     sections) and butter 2 (one) at 128 plane rows x 32768 and on a
+     complex-coefficient cascade (butter 5 at 0.1 shifted by 0.6
+     rad/sample) at 64 complex rows x 32768; times: the kernel at the
+     path's shape over 100 launches, twice, beside iir_scan on the same
+     rows and filter, its bound by bytes and by operations, its plain
+     version, and a block through each backend's Proc (pscan, scan,
+     block).
 
 Then the support slice (FEC, IO, the streaming runtime, the CVSD codec):
 
@@ -402,7 +419,7 @@ card (the cards in turn where there are several):
      card synchronized), and torch.profiler over the sharded chain's and
      receiver's steps.
 
-The JSON line before the card's name lists all sixteen kernels, each
+The JSON line before the card's name lists all seventeen kernels, each
 with its launches on its main path (symsync_scan and branch_bank on
 symsync and, in "launches_by_path", the tracker's sequential route;
 pll_lms on that route; symsync_pll_lms on the fused route; mix_fir_decim also per path, in
@@ -413,7 +430,9 @@ time-sharded chain; codebook_argmax also per path, in
 receiver, OFDM receiver, OFDMFlexFrameSync, the time-sharded receiver; viterbi_acs on the GMSK
 receiver with v27 payloads, on the flexframe receiver and on
 OFDMFlexFrameSync; iir_scan and iir_block_state on analog_tx and
-analog_rx, with the lax.scan each replaces under "recurrence"; cvsd_scan
+analog_rx, with the lax.scan each replaces under "recurrence";
+iir_pscan on iirfilt_sos(backend="pscan") (phase 42), with the
+lax.associative_scan it replaces under "recurrence"; cvsd_scan
 on cvsd_encode/cvsd_decode; eqlms_scan and eqrls_scan on the equalizer
 path; suppress_scan per path, in "launches_by_path": frame64 receiver,
 scanner, flexframe receiver, GMSK receiver, OFDM receiver, the
@@ -984,8 +1003,10 @@ def main():
     an_x, scan_entry = analog_tx_phase(torch, dev, card)
     took("phase 34")
     block_entry = analog_rx_phase(torch, dev, card, an_x)
-    del an_x
     took("phase 35")
+    pscan_entry = pscan_phase(torch, dev, card, an_x)
+    del an_x
+    took("phase 42")
     sr_launches, sr_err = stream_runner_phase(torch, dev, card)
     took("phase 36")
     ldpc_entry = ldpc_phase(torch, dev, card)
@@ -1039,8 +1060,10 @@ def main():
                               "framesync64_time_sharded":
                                   pa["suppress_scan"][0]}
     kernels += [vt, scan_entry, block_entry, cvsd_entry] + eq_entries
-    kernels += [fused_entry, ldpc_entry]
-    check(len(kernels) == 16, f"{len(kernels)} kernels listed, want 16")
+    pscan_entry["launches_by_path"] = {"iirfilt_sos_pscan":
+                                       pscan_entry["launches"]}
+    kernels += [fused_entry, ldpc_entry, pscan_entry]
+    check(len(kernels) == 17, f"{len(kernels)} kernels listed, want 17")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -4588,6 +4611,191 @@ def analog_rx_phase(torch, dev, card, xs):
         "launches": launches, "max_abs_err": max_abs, "ms": ms,
         "plain_ms": plain_ms, "library_ms": None, **bd,
         "step_latency_us": step_us, "lone_row_ms": lone_ms}
+
+
+def pscan_phase(torch, dev, card, xs):
+    """Phase 42: iirfilt_sos(butter 7, 0.2, backend="pscan"), analog_rx's
+    first stage, on analog_tx's blocks, on the iir_pscan kernel.  Returns
+    its kernel entry."""
+    import liquid_dsp_tpu_torch.ops.iir as iirmod
+    from liquid_dsp_tpu_torch.design.iirdes import iirdes_sos
+    from liquid_dsp_tpu_torch.ops.iir import iirfilt_sos
+    from liquid_dsp_tpu_torch.ops.kernels.iir_block_state import (
+        iir_block_state)
+    from liquid_dsp_tpu_torch.ops.kernels.iir_pscan import (
+        iir_pscan, iir_pscan_reference)
+    from liquid_dsp_tpu_torch.ops.kernels.iir_scan import iir_scan
+    B7, A7 = iirdes_sos("butter", 7, 0.2)
+    procs = {be: iirfilt_sos(B7, A7, backend=be).to(dev)
+             for be in ("pscan", "scan", "block")}
+    q = procs["pscan"]
+    check(q.backend == "pscan" and not q.uses_block(xs[0]),
+          "pscan: iirfilt_sos(backend='pscan') does not take the pscan form")
+    c0 = q.init(batch_shape=(AN_B,), device=dev)
+    iir_pscan.launches = iir_scan.launches = iir_block_state.launches = 0
+    with Recorder(iirmod, "iir_pscan") as rec:
+        outs, carries = [], []
+        c = c0
+        for x in xs:
+            y, c = q(c, x)
+            outs.append(y)
+            carries.append(c)
+        torch.cuda.synchronize()
+    launches = iir_pscan.launches
+    check(launches == NBLK and iir_scan.launches == 0
+          and iir_block_state.launches == 0,
+          f"pscan: {launches} iir_pscan, {iir_scan.launches} iir_scan, "
+          f"{iir_block_state.launches} iir_block_state launches for {NBLK} "
+          f"blocks (want one iir_pscan launch a block, nothing else)")
+    for k, y in enumerate(outs):
+        check(tuple(y.shape) == (AN_B, AN_T) and y.dtype == torch.complex64
+              and bool(torch.isfinite(torch.view_as_real(y)).all()),
+              f"pscan block {k}: {tuple(y.shape)} {y.dtype}, want "
+              f"({AN_B}, {AN_T}) complex64 finite")
+    # the kernel against its plain version on block 1's own inputs: the
+    # stream's 128 plane rows from the carry of block 0
+    (xp, b, a, s), (yk, sk) = rec.calls[1]
+    check(tuple(xp.shape) == (2 * AN_B, AN_T) and xp.dtype == torch.float32,
+          f"pscan: the kernel took {tuple(xp.shape)} {xp.dtype}, want the "
+          f"{2 * AN_B} plane rows")
+    p1, (y_ref, s_ref) = time_once(lambda: iir_pscan_reference(xp, b, a, s))
+    max_abs = max(float((yk - y_ref).abs().max()),
+                  float((sk - s_ref).abs().max()))
+    check(bits_equal(torch, yk, y_ref) and bits_equal(torch, sk, s_ref),
+          f"pscan: iir_pscan vs plain on block 1: not bit-equal, max|err| "
+          f"{max_abs:.3e}")
+    del rec
+
+    def rel_err(a, b):
+        return float((a - b).abs().max() / b.abs().square().mean().sqrt())
+
+    # the scan and the block form on the card over the same blocks
+    held = {}
+    for be in ("scan", "block"):
+        qb, cb, worst = procs[be], c0, (0.0, 0.0)
+        for k, x in enumerate(xs):
+            y, cb = qb(cb, x)
+            worst = (max(worst[0], rel_err(outs[k], y)),
+                     max(worst[1], rel_err(carries[k], cb)))
+        check(max(worst) < TOL_BACKENDS, f"pscan vs {be} on the card: "
+              f"{worst[0]:.3e}, carry {worst[1]:.3e}")
+        held[be] = worst
+    # against float64 scipy on channels 0..AN_CHECK-1, beside the scan
+    x64 = torch.cat(xs, dim=-1)[:AN_CHECK].cpu().numpy().astype(np.complex128)
+    ref = iir_reference64(q, x64)
+    r64 = {}
+    for be in ("pscan", "scan"):
+        qb, cb, ys = procs[be], c0[:AN_CHECK], []
+        for x in xs:
+            y, cb = qb(cb, x[:AN_CHECK])
+            ys.append(y)
+        y4 = torch.cat(ys, dim=-1).cpu().numpy()
+        r64[be] = float(np.abs(y4 - ref).max()
+                        / np.sqrt(np.mean(np.abs(ref) ** 2)))
+    check(r64["pscan"] < TOL_AN64, f"pscan vs float64 scipy: "
+          f"{r64['pscan']:.3e}")
+    # three carried blocks against one call over the whole stream
+    y1, c1 = q(c0, torch.cat(xs, dim=-1))
+    rel1 = (rel_err(torch.cat(outs, dim=-1), y1), rel_err(carries[-1], c1))
+    check(max(rel1) < TOL_BACKENDS, f"pscan: {NBLK} carried blocks vs one "
+          f"call: {rel1[0]:.3e}, carry {rel1[1]:.3e}")
+    del y1
+    print(f"pscan: iirfilt_sos(butter 7, 0.2, backend='pscan') on {AN_B} "
+          f"channels x {AN_T} complex samples a block ({2 * AN_B} plane "
+          f"rows), {NBLK} blocks carried; iir_pscan launches {launches} (one "
+          f"a block), bit-equal to its plain version on block 1 (y and "
+          f"carry); max|err|/rms against the scan on the card "
+          f"{held['scan'][0]:.3e} (carry {held['scan'][1]:.3e}), the block "
+          f"form {held['block'][0]:.3e} (carry {held['block'][1]:.3e}) (< "
+          f"{TOL_BACKENDS}); channels 0-{AN_CHECK - 1} vs float64 scipy "
+          f"pscan {r64['pscan']:.3e}, scan {r64['scan']:.3e} (< {TOL_AN64}); "
+          f"{NBLK} carried blocks vs one call {rel1[0]:.3e} (carry "
+          f"{rel1[1]:.3e})", flush=True)
+
+    # other cascades, each bit-equal to the plain version from a random
+    # carry: 8 sections (butter 16) and one (butter 2) on plane rows, a
+    # complex-coefficient cascade (butter 5 at 0.1, shifted by 0.6
+    # rad/sample: section k's B and A times e^{j 0.6 [0, 1, 2]}) on
+    # complex rows
+    gen = torch.Generator(device=dev).manual_seed(42)
+    rot = np.exp(0.6j * np.arange(3))
+    B5, A5 = iirdes_sos("butter", 5, 0.1)
+    cases = {"butter16": iirdes_sos("butter", 16, 0.2),
+             "butter2": iirdes_sos("butter", 2, 0.2),
+             "butter5_shifted": ((B5 * rot).astype(np.complex64),
+                                 (A5 * rot).astype(np.complex64))}
+    others = []
+    for name, (Bc, Ac) in cases.items():
+        cplx = np.iscomplexobj(Bc)
+        dt = torch.complex64 if cplx else torch.float32
+        rows = AN_BACKENDS[0] * (1 if cplx else 2)
+        bc = torch.from_numpy(np.asarray(Bc, np.complex64 if cplx
+                                         else np.float32)).to(dev)
+        ac = torch.from_numpy(np.asarray(Ac, np.complex64 if cplx
+                                         else np.float32)).to(dev)
+        xc = torch.randn(rows, AN_BACKENDS[1], dtype=dt, generator=gen,
+                         device=dev)
+        sc = 0.1 * torch.randn(rows, bc.shape[0], 2, dtype=dt,
+                               generator=gen, device=dev)
+        n0 = iir_pscan.launches
+        yc, s2 = iir_pscan(xc, bc, ac, sc)
+        yr, sr = iir_pscan_reference(xc, bc, ac, sc)
+        torch.cuda.synchronize()
+        check(iir_pscan.launches == n0 + 1, f"pscan {name}: "
+              f"{iir_pscan.launches - n0} launches, want 1")
+        err = max(float((yc - yr).abs().max()), float((s2 - sr).abs().max()))
+        check(bits_equal(torch, yc, yr) and bits_equal(torch, s2, sr),
+              f"pscan {name}: iir_pscan vs plain not bit-equal, max|err| "
+              f"{err:.3e}")
+        max_abs = max(max_abs, err)
+        others.append(f"{name} ({bc.shape[0]} sections, {rows} "
+                      f"{'complex' if cplx else 'plane'} rows)")
+    print(f"pscan: iir_pscan bit-equal to its plain version at "
+          f"{AN_BACKENDS[1]} samples from a random carry: "
+          + ", ".join(others), flush=True)
+
+    # times: the kernel at the path's shape (the plane rows of a block)
+    # beside iir_scan on the same rows and filter, then the three
+    # backends' Proc calls on a block
+    s0 = torch.zeros_like(s)
+    k1 = time_ms(lambda: iir_pscan(xp, b, a, s0), iters=100)
+    sc1 = time_ms(lambda: iir_scan(xp, b, a, s0), iters=100)
+    k2 = time_ms(lambda: iir_pscan(xp, b, a, s0), iters=100)
+    sc2 = time_ms(lambda: iir_scan(xp, b, a, s0), iters=100)
+    p2 = time_once(lambda: iir_pscan_reference(xp, b, a, s0))[0]
+    step = {be: [time_ms(lambda qb=qb: qb(c0, xs[0])) for _ in range(2)]
+            for be, qb in procs.items()}
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    R, T = xp.shape
+    ns = b.shape[0]
+    # x in and y out once; per sample and section the kernel's two walks
+    # (7 and 9 operations) and its share of the 10 combines a chunk (8
+    # each, a chunk of 16)
+    n_ops = R * T * ns * (7 + 9 + 10 * 8 / 16)
+    bd = bound(2 * R * T * 4 + (2 * ns * 3 + 2 * R * ns * 2) * 4, n_ops)
+    t_bytes = (2 * R * T * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    print(f"timing ({card}): iir_pscan at the path's shape ({R} plane rows "
+          f"x {T} samples, {ns} sections): {k1:.4f}, {k2:.4f} ms (100 "
+          f"launches each), bound {bd['bound_ms']:.5f} ms by "
+          f"{bd['bound_by']} (bytes {t_bytes:.5f} ms, operations "
+          f"{n_ops / 1e9:.2f} G = {t_ops:.5f} ms), so {bd['bound_ms'] / ms:.1%}"
+          f" of it; iir_scan on the same rows and filter {sc1:.4f}, "
+          f"{sc2:.4f} ms, {(sc1 + sc2) / (k1 + k2):.1f} times iir_pscan; "
+          f"plain version {p1:.1f}, {p2:.1f} ms; a {AN_B}x{AN_T} complex "
+          f"block through iirfilt_sos(butter 7) by backend: "
+          + ", ".join(f"{be} {v[0]:.4f}, {v[1]:.4f} ms"
+                      for be, v in step.items()), flush=True)
+    return {
+        "name": "iir_pscan", "route": "cuda",
+        "source": "liquid_dsp_tpu_torch/csrc/iir_pscan.cu",
+        "replaces": None,
+        "recurrence": "liquid_dsp_tpu/ops/iir.py:266-305 "
+                      "(lax.associative_scan)",
+        "launches": launches, "max_abs_err": max_abs, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": None, **bd,
+        "iir_scan_ms": (sc1 + sc2) / 2,
+        "backend_step_ms": {be: sum(v) / 2 for be, v in step.items()}}
 
 
 def sr_captures(tmpdir):

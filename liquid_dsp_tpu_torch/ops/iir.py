@@ -7,7 +7,7 @@ Reference analogs:
   * iirfiltsos — src/filter/src/iirfiltsos.c (one biquad, the PLL loop
                  filter).
 
-Two backends compute the same filter, and their carries are the same
+Three backends compute the same filter, and their carries are the same
 stacked DF2T state, so a carry moves between them unchanged:
 
   * ``scan``: the per-sample recurrence, `ops/kernels/iir_scan.py` (the
@@ -17,22 +17,29 @@ stacked DF2T state, so a carry moves between them unchanged:
     the impulse response, the zero-input response) and the state moves
     on as ``s' = A^L s + K u``; the products are matmuls with TF32 off
     (the JAX package pins HIGHEST), the state pass from block to block is
-    `ops/kernels/iir_block_state.py`.
+    `ops/kernels/iir_block_state.py`;
+  * ``pscan`` (second-order sections only): each section's update as an
+    affine map evaluated parallel in time, chunks walked, their end states
+    combined by a scan over the chunks, then walked again from their true
+    starts, `ops/kernels/iir_pscan.py` (the CUDA kernel on the card, its
+    plain version on the CPU).
 
 ``auto`` picks per call by the input tensor's device: a CPU tensor takes
 ``scan`` (as the JAX package's ``auto`` does on the CPU); a CUDA tensor
 takes ``block`` for a stable filter of at most 32 states and ``scan``
-otherwise.  An unstable filter (A^L not representable) is ``scan`` under
-every backend.  An explicit ``block`` on a stable filter of more than 32
-states runs on the CPU (the state pass's plain version takes any order)
-and raises ValueError on a CUDA tensor, at the call (the state pass's
-kernel gives each state a lane of one warp), where the JAX package's
-block form takes any order.  The scan takes any order on either device
-(`ops/kernels/iir_scan.py`).  A Proc keeps both parameter sets as
+otherwise.  An unstable filter (A^L not representable) takes ``scan``
+under ``auto`` and ``block``; ``pscan`` stays ``pscan`` there, as in the
+JAX package (its powers of the section's matrix may overflow).  An
+explicit ``block`` on a stable filter of more than 32 states runs on the
+CPU (the state pass's plain version takes any order) and raises
+ValueError on a CUDA tensor, at the call (the state pass's kernel gives
+each state a lane of one warp), where the JAX package's block form takes
+any order.  The scan takes any order on either device
+(`ops/kernels/iir_scan.py`), ``pscan`` any cascade
+(`ops/kernels/iir_pscan.py`); `iirfilt` refuses ``pscan`` (ValueError,
+SOS-only), as the JAX package does.  A Proc keeps both parameter sets as
 buffers where the JAX package keeps both, so one module runs on either
-device.  The JAX
-package's ``pscan`` (an associative scan, measured 23 times slower than
-its scan) is not carried over and raises ValueError.
+device.
 
 Real coefficients filter each float plane of a complex stream on its own
 (`planar_per_plane`); complex coefficients run on complex64.
@@ -47,6 +54,7 @@ import torch
 from ..core import Proc, planar_per_plane
 from .kernels.iir_block_state import MAX_P as BLOCK_MAX_P
 from .kernels.iir_block_state import iir_block_state
+from .kernels.iir_pscan import iir_pscan
 from .kernels.iir_scan import iir_scan
 
 __all__ = ["iirfilt", "iirfilt_sos", "IIRFilt", "iir_apply_tf",
@@ -54,10 +62,6 @@ __all__ = ["iirfilt", "iirfilt_sos", "IIRFilt", "iir_apply_tf",
            "iir_freqresponse", "iir_group_delay", "iirfilt_integrator",
            "iirfilt_differentiator", "iirfilt_dc_blocker", "iirfilt_pll"]
 
-PSCAN_NOT_PORTED = (
-    "iir backend 'pscan' (the associative scan) is not carried over to "
-    "the port: the JAX package measured it 23x slower than its scan; use "
-    "'scan', 'block' or 'auto'")
 BLOCK_SIZE = 128
 
 
@@ -87,22 +91,22 @@ def _work_dtype(*ts):
             else torch.float32)
 
 
-def _scan(bs, as_, state, x):
+def _scan(bs, as_, state, x, kernel=iir_scan):
     """The DF2T cascade bs/as_ [ns, n] over x [..., T] from state
-    [..., ns, n-1] on `iir_scan`; real coefficients on a complex stream
-    run on its two planes."""
+    [..., ns, n-1] on `iir_scan` (or `iir_pscan`, n = 3); real
+    coefficients on a complex stream run on its two planes."""
     batch, T = x.shape[:-1], x.shape[-1]
     ns, n = bs.shape
     if x.is_complex() and not bs.is_complex():
         xp = torch.stack([x.real, x.imag]).reshape(-1, T)
         sp = torch.stack([state.real, state.imag]).reshape(-1, ns, n - 1)
-        y, s = iir_scan(xp.contiguous(), bs, as_, sp)
+        y, s = kernel(xp.contiguous(), bs, as_, sp)
         R = y.shape[0] // 2
         y = torch.complex(y[:R], y[R:])
         s = torch.complex(s[:R], s[R:])
     else:
-        y, s = iir_scan(x.reshape(-1, T).contiguous(), bs, as_,
-                        state.reshape(-1, ns, n - 1))
+        y, s = kernel(x.reshape(-1, T).contiguous(), bs, as_,
+                      state.reshape(-1, ns, n - 1))
     return y.reshape(batch + (T,)), s.reshape(batch + (ns, n - 1))
 
 
@@ -238,15 +242,14 @@ def iir_apply_block(params, carry, x):
 
 def _resolve_iir_backend(backend: str, A) -> str:
     """'auto' stays unresolved until the call (the input's device picks);
-    unstable systems (spectral radius > ~1) take scan under every
-    backend: A^L is not representable.  'block' above BLOCK_MAX_P (32)
+    unstable systems (spectral radius > ~1) take scan under 'auto' and
+    'block': A^L is not representable.  'block' above BLOCK_MAX_P (32)
     states is refused at the call, on CUDA tensors only
-    (`IIRFilt.forward`)."""
-    if backend == "pscan":
-        raise ValueError(PSCAN_NOT_PORTED)
-    if backend not in ("auto", "scan", "block"):
+    (`IIRFilt.forward`).  'pscan' stays 'pscan' for an unstable filter,
+    as in the JAX package."""
+    if backend not in ("auto", "scan", "block", "pscan"):
         raise ValueError(f"unknown iir backend {backend!r}")
-    if not _iir_stable(A):
+    if backend != "pscan" and not _iir_stable(A):
         return "scan"
     return backend
 
@@ -261,8 +264,8 @@ class IIRFilt(Proc):
     function form (`iirfilt`, buffers "b", "a", carry [..., n-1]) or a
     cascade of second-order sections (`iirfilt_sos`, buffers "B", "A",
     carry [..., ns, 2]), with the block form's "Th", "Obs", "K", "Apow"
-    where the backend may take it.  The buffers are the JAX package's
-    params under the same names."""
+    where the backend may take it ("B" and "A" alone under 'pscan').  The
+    buffers are the JAX package's params under the same names."""
 
     def __init__(self, coef, ss, sos: bool, name: str, backend: str,
                  block_size: int):
@@ -271,7 +274,7 @@ class IIRFilt(Proc):
         self.backend = _resolve_iir_backend(backend, ss[0])
         keys = ("B", "A") if sos else ("b", "a")
         names = []
-        if self.backend in ("auto", "scan"):
+        if self.backend in ("auto", "scan", "pscan"):
             for k, c in zip(keys, coef):
                 self._buffer(k, c)
             names += keys
@@ -312,6 +315,8 @@ class IIRFilt(Proc):
                     f"lane a state), got {self.p}; use 'auto' or 'scan' there")
             return iir_apply_block({k: getattr(self, k) for k in
                                     ("Th", "Obs", "K", "Apow")}, carry, x)
+        if self.backend == "pscan":
+            return iir_apply_sos_pscan(self.B, self.A, carry, x)
         if self.sos:
             return iir_apply_sos(self.B, self.A, carry, x)
         return iir_apply_tf(self.b, self.a, carry, x)
@@ -322,6 +327,8 @@ def iirfilt(b, a, name: str = "iirfilt", backend: str = "auto",
     """IIR filter from transfer-function coefficients (reference
     iirfilt_crcf_create); backend 'scan', 'block' or 'auto' (module
     docstring)."""
+    if backend == "pscan":
+        raise ValueError("pscan backend is SOS-only (iirfilt_sos)")
     b, a = _norm_ba(b, a)
     cplx = np.iscomplexobj(b) or np.iscomplexobj(a)
     dt = np.complex64 if cplx else np.float32
@@ -330,9 +337,13 @@ def iirfilt(b, a, name: str = "iirfilt", backend: str = "auto",
 
 
 def iir_apply_sos_pscan(B, A, carry, x):
-    """The JAX package's associative-scan cascade: not carried over
-    (ValueError, see the module docstring)."""
-    raise ValueError(PSCAN_NOT_PORTED)
+    """Cascade of biquads evaluated parallel in time (`iir_pscan`: the
+    kernel on the card, its plain version on the CPU); B, A: [n_sections,
+    3]; carry: [..., ns, 2], the scan's convention.  Real coefficients stay
+    real, so a complex stream runs as its two float planes."""
+    dt, cf = _work_dtype(B, A, x), _work_dtype(B, A)
+    return _scan(B.to(cf), A.to(cf), carry.to(dt), x.to(dt),
+                 kernel=iir_pscan)
 
 
 def iirfilt_sos(B, A, name: str = "iirfilt_sos", backend: str = "auto",
@@ -340,7 +351,8 @@ def iirfilt_sos(B, A, name: str = "iirfilt_sos", backend: str = "auto",
     """IIR filter as a second-order-section cascade (reference
     iirfilt_crcf_create_sos); B, A: [n_sections, 3] with A[:,0] = 1.  The
     block form composes the cascade; its carry stays the stacked
-    per-section DF2T states."""
+    per-section DF2T states.  backend 'scan', 'block', 'pscan' or 'auto'
+    (module docstring)."""
     B = np.atleast_2d(np.asarray(B, np.float32))
     A = np.atleast_2d(np.asarray(A, np.float32))
     A0 = A[:, :1]

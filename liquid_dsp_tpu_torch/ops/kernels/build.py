@@ -57,6 +57,7 @@ _SIGNATURES = {
     "viterbi_acs_dec_smem_max": ([], _I),
     "iir_scan_launch": ([_P] * 5 + [_I] * 5 + [_P], _I),
     "iir_block_state_launch": ([_P] * 4 + [_I] * 4 + [_P], _I),
+    "iir_pscan_launch": ([_P] * 5 + [_I] * 4 + [_P], _I),
     "cvsd_scan_launch": ([_P] * 2 + [_I] * 3 + [_U] + [_F] * 4 + [_P], _I),
     "eqlms_scan_launch": ([_P] * 7 + [_I] * 5 + [_F] * 2 + [_P], _I),
     "eqrls_scan_launch": ([_P] * 6 + [_I] * 4 + [_F] * 2 + [_P], _I),

@@ -1757,6 +1757,112 @@ def test_unstable_filter_runs_the_scan_kernel_on_the_card(dev):
     assert float((y.cpu() - y_cpu).abs().max() / y_cpu.abs().max()) < 1e-5
 
 
+def _pscan_case(g, dev, cplx, rows, T, ns):
+    """x, b, a and a carry for iir_pscan: stable biquads (poles inside
+    0.95; complex ones rotated; b scaled by 1 - r, so that 65 sections
+    stay finite), unit input, a random carry."""
+    dt = torch.complex64 if cplx else torch.float32
+    r = 0.3 + 0.65 * torch.rand(ns, generator=g, device=dev)
+    th = 0.1 + 2.9 * torch.rand(ns, generator=g, device=dev)
+    a = torch.stack([torch.ones_like(r), -2 * r * torch.cos(th), r * r],
+                    1).to(dt)
+    if cplx:
+        w = (0.6 * torch.rand(ns, 1, generator=g, device=dev) - 0.3) \
+            * torch.tensor([1.0, 2.0], device=dev)
+        a[:, 1:] = a[:, 1:] * torch.polar(torch.ones_like(w), w)
+    b = _draw(g, dev, cplx, ns, 3) * (1 - r)[:, None]
+    return (_draw(g, dev, cplx, rows, T), b, a.contiguous(),
+            _draw(g, dev, cplx, rows, ns, 2))
+
+
+# (rows, whole tiles, extra samples, sections); a tile is CHUNK * THREADS
+_PSCAN_CASES = [(1, 0, 1, 1), (3, 0, 31, 4), (128, 1, 0, 4), (3, 2, 37, 8),
+                (1, 3, -1, 20), (128, 1, 5, 1), (3, 0, 1000, 65)]
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+@pytest.mark.parametrize("rows,tiles,extra,ns", _PSCAN_CASES)
+def test_iir_pscan_bit_equal_to_plain(dev, rows, tiles, extra, ns, cplx):
+    # one sample, less than a chunk's warp, one whole tile, ragged
+    # multiples of the tile, 1 to 20 sections in one launch and 65 in two
+    # (launch_groups); from a random carry, then the carry handed on to a
+    # second call: outputs and carries bit-equal to the plain version
+    from liquid_dsp_tpu_torch.ops.kernels.iir_pscan import (
+        CHUNK, THREADS, iir_pscan, iir_pscan_reference, launch_groups)
+    T = tiles * CHUNK[cplx] * THREADS + extra
+    g = torch.Generator(device=dev).manual_seed(rows * 1000 + T + ns)
+    x, b, a, s = _pscan_case(g, dev, cplx, rows, T, ns)
+    x2 = _draw(g, dev, cplx, rows, 333)
+    k0 = iir_pscan.launches
+    y, s2 = iir_pscan(x, b, a, s)
+    y2, s3 = iir_pscan(x2, b, a, s2)
+    torch.cuda.synchronize()
+    assert iir_pscan.launches == k0 + 2 * len(launch_groups(ns))
+    yr, sr = iir_pscan_reference(x, b, a, s)
+    y2r, s3r = iir_pscan_reference(x2, b, a, sr)
+    assert bool(torch.isfinite(_bits(y)).all())
+    assert torch.equal(_bits(y), _bits(yr)) and torch.equal(_bits(s2),
+                                                            _bits(sr))
+    assert torch.equal(_bits(y2), _bits(y2r))
+    assert torch.equal(_bits(s3), _bits(s3r))
+
+
+def test_iir_pscan_on_the_cpu_and_without_a_library(dev, monkeypatch,
+                                                    tmp_path):
+    # a CPU tensor never launches the kernel; a CUDA tensor with no kernel
+    # library raises (no plain version on the card), and a source nvcc
+    # refuses fails the build
+    from liquid_dsp_tpu_torch.ops.kernels import build
+    from liquid_dsp_tpu_torch.ops.kernels import iir_pscan as ip
+    g = torch.Generator(device=dev).manual_seed(5)
+    x, b, a, s = _pscan_case(g, dev, False, 2, 100, 2)
+    k0 = ip.iir_pscan.launches
+    y, _ = ip.iir_pscan(*(t.cpu() for t in (x, b, a, s)))
+    assert ip.iir_pscan.launches == k0 and y.device.type == "cpu"
+
+    def no_library():
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(build, "load_library", no_library)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ip.iir_pscan(x, b, a, s)
+    assert ip.iir_pscan.launches == k0
+    monkeypatch.undo()
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "csrc" / "broken.cu").write_text("this is not C++\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path / "csrc")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        build.build()
+
+
+@pytest.mark.parametrize("design", [("butter", 7, 0.2), ("butter", 16, 0.2),
+                                    ("ellip", 6, 0.3)])
+def test_pscan_backend_on_the_card_equals_the_cpu(dev, design):
+    # iirfilt_sos(backend="pscan") on a complex stream: the card launches
+    # iir_pscan once a block on the stream's planes, and equals the CPU's
+    # plain version bit for bit (the same chunks, tiles and roundings),
+    # over blocks of 20000 and 333 samples, carried; and it stays within
+    # 1e-4 of rms of the scan on the card
+    from liquid_dsp_tpu_torch.design.iirdes import iirdes_sos
+    from liquid_dsp_tpu_torch.ops import iir
+    from liquid_dsp_tpu_torch.ops.kernels.iir_pscan import iir_pscan
+    B, A = iirdes_sos(*design)
+    g = torch.Generator().manual_seed(design[1])
+    blocks = [torch.randn(4, n, dtype=torch.complex64, generator=g)
+              for n in (20000, 333)]
+    y_cpu = _stream(iir.iirfilt_sos(B, A, backend="pscan"), blocks,
+                    torch.device("cpu"))
+    k0 = iir_pscan.launches
+    y = _stream(iir.iirfilt_sos(B, A, backend="pscan").to(dev), blocks, dev)
+    assert iir_pscan.launches == k0 + 2
+    assert torch.equal(_bits(y), _bits(y_cpu))
+    y_scan = _stream(iir.iirfilt_sos(B, A, backend="scan").to(dev), blocks,
+                     dev)
+    rms = y_scan.abs().square().mean().sqrt()
+    assert float((y - y_scan).abs().max() / rms) < 1e-4
+
+
 def _analog(kind, noise):
     from liquid_dsp_tpu_torch import chain
     from liquid_dsp_tpu_torch.design.iirdes import iirdes_sos

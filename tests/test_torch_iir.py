@@ -228,14 +228,17 @@ def test_block_form_of_40_states_on_the_cpu():
         _close_rel(ct.numpy(), np.asarray(cj), tol, f"carry vs the JAX {be}")
 
 
-def test_pscan_is_not_carried_over():
+def test_remaining_backend_refusals():
+    # 'pscan' is SOS-only, as in the JAX package (iirfilt raises), and an
+    # unknown backend raises in both constructors; iirfilt_sos takes pscan
     B, A = iirdes_sos("butter", 3, 0.2)
-    for make in (lambda: P.iirfilt_sos(B, A, backend="pscan"),
-                 lambda: P.iirfilt([1.0, 0.5], [1.0, -0.5], backend="pscan"),
+    for make in (lambda: P.iirfilt([1.0, 0.5], [1.0, -0.5], backend="pscan"),
+                 lambda: J.iirfilt([1.0, 0.5], [1.0, -0.5], backend="pscan"),
                  lambda: P.iirfilt_sos(B, A, backend="fast"),
-                 lambda: P.iir_apply_sos_pscan(None, None, None, None)):
+                 lambda: P.iirfilt([1.0, 0.5], [1.0, -0.5], backend="fast")):
         with pytest.raises(ValueError):
             make()
+    assert P.iirfilt_sos(B, A, backend="pscan").backend == "pscan"
 
 
 @pytest.mark.parametrize("backend", ["auto", "scan", "block"])

@@ -17,6 +17,14 @@
   them and forms its p-term dot in order and + w; lanes q >= p idle, and
   read the w of lane p-1) in float32 numpy equals
   `iir_block_state_reference` bit for bit.
+* `csrc/iir_pscan.cu`'s block on a row (a tile of C * NT samples loaded
+  by coalesced loads into a padded shared tile, a chunk of C a thread;
+  per section the walk from zero, thread 0 from the carry; the
+  Kogge-Stone combine with the squared powers of M, all writes of a phase
+  before its reads; the re-walk from each chunk's true start; the carry
+  from the thread with the tile's last sample) in float32 numpy equals
+  `iir_pscan_reference` bit for bit at several chunks and tiles, and the
+  padded tile's reads and writes of a warp fall in distinct banks.
 
 Change a kernel's loop only together with its walk here."""
 import numpy as np
@@ -28,6 +36,8 @@ from liquid_dsp_tpu_torch.design.iirdes import iirdes, iirdes_sos
 from liquid_dsp_tpu_torch.ops import iir
 from liquid_dsp_tpu_torch.ops.kernels.iir_block_state import (
     iir_block_state_reference)
+from liquid_dsp_tpu_torch.ops.kernels.iir_pscan import (CHUNK, THREADS,
+                                                        iir_pscan_reference)
 from liquid_dsp_tpu_torch.ops.kernels.iir_scan import iir_scan_reference
 
 F32 = np.float32
@@ -229,3 +239,169 @@ def test_block_state_kernel_walk_equals_plain_version(p, nb, cplx):
         pre, sv = block_state_walk(w[r], m, s[r], cplx)
         np.testing.assert_array_equal(pre, pre_ref[r].numpy())
         np.testing.assert_array_equal(sv, s_ref[r].numpy())
+
+
+def pscan_walk(x, b, a, s, cplx, C, NT):
+    """csrc/iir_pscan.cu's block on one row, in float32 numpy, thread by
+    thread: the sections' constants and squared powers (thread k for
+    section k, one squaring past the last kept), per tile the coalesced
+    loads into the padded tile and each thread's chunk out of it, per
+    section the walk, the combine (each phase's writes before its reads:
+    the barrier), the re-walk and the carry, then the outputs through the
+    tile."""
+    mul, add, sub = _ops(cplx)
+    neg = (lambda v: (-v[0], -v[1])) if cplx else (lambda v: -v)
+    zero, one = _val(0, cplx), _val(1, cplx)
+    lc, lt = C.bit_length() - 1, NT.bit_length() - 1
+    pad = 16 if cplx else 32
+
+    def padded(g):
+        return g + g // pad
+
+    sec = []
+    for k in range(b.shape[0]):
+        b0, b1, b2 = (_val(b[k, i], cplx) for i in range(3))
+        a1, a2 = _val(a[k, 1], cplx), _val(a[k, 2], cplx)
+        m, pw = (neg(a1), one, neg(a2), zero), []
+        for i in range(lc + lt):
+            if i >= lc:
+                pw.append(m)
+            m00, m01, m10, m11 = m
+            m = (add(mul(m00, m00), mul(m01, m10)),
+                 add(mul(m00, m01), mul(m01, m11)),
+                 add(mul(m10, m00), mul(m11, m10)),
+                 add(mul(m10, m01), mul(m11, m11)))
+        sec.append((b0, sub(b1, mul(a1, b0)), sub(b2, mul(a2, b0)),
+                    neg(a1), neg(a2), pw))
+    car = [(_val(s[k, 0], cplx), _val(s[k, 1], cplx))
+           for k in range(b.shape[0])]
+    T, tile_n = len(x), C * NT
+    tile = [zero] * (tile_n + tile_n // pad)
+    y = [None] * T
+    for t0 in range(0, T, tile_n):
+        n = min(tile_n, T - t0)
+        for tid in range(NT):
+            for i in range(C):
+                g = tid + NT * i
+                if g < n:
+                    tile[padded(g)] = _val(x[t0 + g], cplx)
+        v = [[tile[padded(tid * C + i)] for i in range(C)]
+             for tid in range(NT)]
+        cnt = [max(0, min(C, n - tid * C)) for tid in range(NT)]
+        for k, (b0, c1, c2, na1, na2, pw) in enumerate(sec):
+            def step(e, u):
+                return (add(mul(na1, e[0]), add(e[1], mul(c1, u))),
+                        add(mul(na2, e[0]), mul(c2, u)))
+
+            cin = [car[k] if tid == 0 else (zero, zero) for tid in range(NT)]
+            e = list(cin)
+            for tid in range(NT):
+                for i in range(cnt[tid]):
+                    e[tid] = step(e[tid], v[tid][i])
+            for d in range(lt):
+                buf = list(e)                      # the phase's writes
+                o, p = 1 << d, pw[d]
+                for tid in range(o, NT):           # then its reads
+                    f0, f1 = buf[tid - o]
+                    e[tid] = (add(add(mul(p[0], f0), mul(p[1], f1)),
+                                  e[tid][0]),
+                              add(add(mul(p[2], f0), mul(p[3], f1)),
+                                  e[tid][1]))
+            cin = [cin[0]] + e[:-1]
+            for tid in range(NT):
+                st = cin[tid]
+                for i in range(cnt[tid]):
+                    u = v[tid][i]
+                    v[tid][i] = add(mul(b0, u), st[0])
+                    st = step(st, u)
+                if cnt[tid] > 0 and tid * C + cnt[tid] == n:
+                    car[k] = st
+        for tid in range(NT):
+            for i in range(C):
+                tile[padded(tid * C + i)] = v[tid][i]
+        for g in range(n):
+            y[t0 + g] = tile[padded(g)]
+    if cplx:
+        return (np.array([complex(*u) for u in y], np.complex64),
+                np.array([[complex(*u) for u in c] for c in car],
+                         np.complex64))
+    return np.array(y, F32), np.array(car, F32)
+
+
+def _pscan_case(rng, cplx, R, T, ns):
+    """Stable biquads (poles inside 0.95; complex ones rotated by e^{jw}),
+    unit input, a random carry."""
+    dt = np.complex64 if cplx else F32
+
+    def draw(*shape, scale=1.0):
+        z = rng.standard_normal(shape) * scale
+        if cplx:
+            z = z + 1j * rng.standard_normal(shape) * scale
+        return z.astype(dt)
+
+    r = rng.uniform(0.3, 0.95, ns)
+    th = rng.uniform(0.1, 3.0, ns)
+    a = np.stack([np.ones(ns), -2 * r * np.cos(th), r * r], 1).astype(dt)
+    if cplx:
+        a[:, 1:] *= np.exp(1j * rng.uniform(-0.3, 0.3, (ns, 1))
+                           * np.array([1.0, 2.0]))
+    return draw(R, T), draw(ns, 3, scale=0.5), a, draw(R, ns, 2)
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+@pytest.mark.parametrize("C,NT,T,ns", [(4, 8, 70, 1), (4, 8, 64, 3),
+                                       (2, 4, 19, 2), (1, 2, 9, 1),
+                                       (8, 1, 21, 2), (1, 1, 5, 1),
+                                       (2, 16, 5, 2)])
+def test_pscan_kernel_walk_equals_plain_version(C, NT, T, ns, cplx):
+    # several tiles with a ragged last one (70 = 2 x 32 + 6), whole tiles
+    # only (64), chunks of one sample, a tile of one chunk, a tile mostly
+    # empty (5 of 32): bit-equal outputs and carries
+    x, b, a, s = _pscan_case(np.random.default_rng(C * 100 + NT + T), cplx,
+                             2, T, ns)
+    y_ref, s_ref = iir_pscan_reference(
+        *(torch.from_numpy(v) for v in (x, b, a, s)), chunk=C, threads=NT)
+    for r in range(2):
+        y, st = pscan_walk(x[r], b, a, s[r], cplx, C, NT)
+        np.testing.assert_array_equal(y, y_ref[r].numpy())
+        np.testing.assert_array_equal(st, s_ref[r].numpy())
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+def test_pscan_walk_at_the_kernels_chunk_and_threads(cplx):
+    # the kernel's own C and NT, one whole tile and a ragged second one
+    C = CHUNK[cplx]
+    x, b, a, s = _pscan_case(np.random.default_rng(7), cplx, 1,
+                             C * THREADS + 37, 1)
+    y_ref, s_ref = iir_pscan_reference(
+        *(torch.from_numpy(v) for v in (x, b, a, s)))
+    y, st = pscan_walk(x[0], b, a, s[0], cplx, C, THREADS)
+    np.testing.assert_array_equal(y, y_ref[0].numpy())
+    np.testing.assert_array_equal(st, s_ref[0].numpy())
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+def test_pscan_tile_layout_is_conflict_free(cplx):
+    # the kernel's padded tile (one pad a 32 floats, a 16 float2): a warp's
+    # coalesced writes and its 32 chunk reads at each i fall in distinct
+    # banks (4-byte words) or, for float2, distinct bank pairs in each
+    # half warp; the padded index is one-to-one
+    C, pad = CHUNK[cplx], 16 if cplx else 32
+    words = 2 if cplx else 1
+
+    def padded(g):
+        return g + g // pad
+
+    tile = C * THREADS
+    assert len({padded(g) for g in range(tile)}) == tile
+
+    def distinct(idx):
+        groups = [idx[:16], idx[16:]] if cplx else [idx]
+        return all(len({(words * p) % 32 for p in grp}) == len(grp)
+                   for grp in groups)
+
+    for w in range(THREADS // 32):
+        lanes = range(32 * w, 32 * w + 32)
+        for i in range(C):
+            assert distinct([padded(j * C + i) for j in lanes]), (w, i)
+            assert distinct([padded(j + THREADS * i) for j in lanes]), (w, i)

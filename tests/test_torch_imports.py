@@ -60,7 +60,7 @@ def test_port_never_imports_jax_or_the_reference():
                 "ops.kernels.cvsd_scan", "ops.kernels.eqlms_scan",
                 "ops.kernels.eqrls_scan", "ops.kernels.symsync_pll_lms",
                 "ops.kernels.branch_bank", "ops.kernels.suppress_scan",
-                "ops.kernels.ldpc_bp",
+                "ops.kernels.ldpc_bp", "ops.kernels.iir_pscan",
                 "parallel", "parallel.mesh",
                 "parallel.stream", "parallel.rx", "parallel.pipeline"):
         assert "liquid_dsp_tpu_torch." + mod in got["modules"], mod
