@@ -164,13 +164,16 @@ complex block's planes) for butter 7 at 0.2 (4 sections, analog_rx's
 first stage) and butter 16 (8 sections), and on 64 complex rows for a
 complex-coefficient cascade (butter 5 at 0.1 shifted by 0.6 rad/sample,
 pscan and scan); each kernel over 100 launches (iir_scan 20) and twice,
-with iir_pscan's device time a launch (torch.profiler) and a lone row's;
-then a 64 x 262144 complex block through iirfilt_sos(butter 7) under each
-backend the checkout takes (20 calls, twice); ptxas's registers and
-spills of iir_pscan's instances first; with --sass DIR, cuobjdump's SASS
+with iir_pscan's device time a launch (torch.profiler) and a lone row's,
+and iir_pscan held bit for bit to the checkout's plain version (3 rows
+of 40000 from a random carry); then a 64 x 262144 complex block through
+iirfilt_sos(butter 7) under each backend the checkout takes (20 calls,
+twice); ptxas's registers and spills of iir_pscan's instances first;
+with --sass DIR, cuobjdump's SASS
 of both instances into DIR/sass_pscan_<tag>.txt and each instance's
-count of instructions by kind (barriers, shared loads and stores, float
-multiplies and adds, branches).  The last line is `PSCAN_RESULT
+count of instructions by kind (barriers, shared loads and stores, cp.async
+copies, shuffles, float multiplies, adds, fused multiply-adds and selects,
+branches).  The last line is `PSCAN_RESULT
 {json}`.  With --vs DIR it runs that for DIR and for this checkout in
 turns (DIR, this, this, DIR), each in its own process, and prints both
 side by side:
@@ -1401,7 +1404,8 @@ def pscan_bench(torch, cs, build, tag, name, sass_dir):
     from liquid_dsp_tpu_torch.ops.iir import iirfilt_sos
     from liquid_dsp_tpu_torch.ops.kernels.iir_scan import iir_scan
     try:
-        from liquid_dsp_tpu_torch.ops.kernels.iir_pscan import iir_pscan
+        from liquid_dsp_tpu_torch.ops.kernels.iir_pscan import (
+            iir_pscan, iir_pscan_reference)
     except ImportError:
         iir_pscan = None
     dev = torch.device("cuda")
@@ -1451,12 +1455,21 @@ def pscan_bench(torch, cs, build, tag, name, sass_dir):
             x1, s1 = x[:1].contiguous(), st[:1]
             r["iir_pscan_lone_row_ms"] = min(twice(
                 lambda: iir_pscan(x1, b, a, s1), 100))
+            xs = torch.randn(3, 40000, dtype=dt, generator=gen, device=dev)
+            s0 = 0.1 * torch.randn(3, b.shape[0], 2, dtype=dt, generator=gen,
+                                   device=dev)
+            ys, s2 = iir_pscan(xs, b, a, s0)
+            yr, sr = iir_pscan_reference(xs, b, a, s0)
+            r["bit_equal"] = (cs.bits_equal(torch, ys, yr)
+                              and cs.bits_equal(torch, s2, sr))
             line += (f"; iir_pscan {r['iir_pscan_ms'][0]:.4f}, "
                      f"{r['iir_pscan_ms'][1]:.4f} ms (100 launches each; "
                      f"device {r['iir_pscan_device_ms']:.4f} ms a launch), "
                      f"a lone row {r['iir_pscan_lone_row_ms']:.4f} ms; "
                      f"iir_scan / iir_pscan "
-                     f"{sum(r['iir_scan_ms']) / sum(r['iir_pscan_ms']):.1f}")
+                     f"{sum(r['iir_scan_ms']) / sum(r['iir_pscan_ms']):.1f}; "
+                     f"{'' if r['bit_equal'] else 'NOT '}bit-equal to its "
+                     f"plain version")
         if not cplx:
             q = iirfilt_sos(Bc, Ac, backend="block").to(dev)
             xc = torch.complex(x[:B], x[B:])
@@ -1487,8 +1500,8 @@ def pscan_bench(torch, cs, build, tag, name, sass_dir):
                              lambda ln: "iir_pscan_kernel" in ln)
         print(f"{tag} SASS of iir_pscan's instances: {path} ({n} lines)",
               flush=True)
-        kinds = ("BAR", "LDS", "STS", "LDG", "STG", "FMUL", "FADD", "FFMA",
-                 "BRA", "ISETP")
+        kinds = ("BAR", "LDS", "STS", "LDG", "STG", "LDGSTS", "SHFL", "FMUL",
+                 "FADD", "FFMA", "FSEL", "BRA", "ISETP")
         insts, counts = None, {}
         for ln in open(path).read().splitlines():
             if "Function :" in ln:

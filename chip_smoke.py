@@ -326,7 +326,8 @@ at 64 channels x 262144 samples per block:
      path's shape over 100 launches, twice, beside iir_scan on the same
      rows and filter, its bound by bytes and by operations, its plain
      version, and a block through each backend's Proc (pscan, scan,
-     block).
+     block); the scan backend's iir_scan calls on the stream's 128
+     float32 plane rows (real coefficients kept real).
 
 Then the support slice (FEC, IO, the streaming runtime, the CVSD codec):
 
@@ -4623,7 +4624,7 @@ def pscan_phase(torch, dev, card, xs):
     from liquid_dsp_tpu_torch.ops.kernels.iir_block_state import (
         iir_block_state)
     from liquid_dsp_tpu_torch.ops.kernels.iir_pscan import (
-        iir_pscan, iir_pscan_reference)
+        CHUNK, THREADS, iir_pscan, iir_pscan_reference)
     from liquid_dsp_tpu_torch.ops.kernels.iir_scan import iir_scan
     B7, A7 = iirdes_sos("butter", 7, 0.2)
     procs = {be: iirfilt_sos(B7, A7, backend=be).to(dev)
@@ -4669,17 +4670,27 @@ def pscan_phase(torch, dev, card, xs):
     def rel_err(a, b):
         return float((a - b).abs().max() / b.abs().square().mean().sqrt())
 
-    # the scan and the block form on the card over the same blocks
+    # the scan and the block form on the card over the same blocks; the
+    # scan's real coefficients run on the stream's float32 plane rows
     held = {}
     for be in ("scan", "block"):
         qb, cb, worst = procs[be], c0, (0.0, 0.0)
-        for k, x in enumerate(xs):
-            y, cb = qb(cb, x)
-            worst = (max(worst[0], rel_err(outs[k], y)),
-                     max(worst[1], rel_err(carries[k], cb)))
+        with Recorder(iirmod, "iir_scan") as srec:
+            for k, x in enumerate(xs):
+                y, cb = qb(cb, x)
+                worst = (max(worst[0], rel_err(outs[k], y)),
+                         max(worst[1], rel_err(carries[k], cb)))
         check(max(worst) < TOL_BACKENDS, f"pscan vs {be} on the card: "
               f"{worst[0]:.3e}, carry {worst[1]:.3e}")
         held[be] = worst
+        if be == "scan":
+            taken = [(tuple(a[0].shape), a[0].dtype, a[1].dtype)
+                     for a, _ in srec.calls]
+            check(taken == [((2 * AN_B, AN_T), torch.float32,
+                             torch.float32)] * NBLK,
+                  f"pscan: the scan backend gave iir_scan {taken}, want "
+                  f"{NBLK} calls on the {2 * AN_B} float32 plane rows")
+        del srec
     # against float64 scipy on channels 0..AN_CHECK-1, beside the scan
     x64 = torch.cat(xs, dim=-1)[:AN_CHECK].cpu().numpy().astype(np.complex128)
     ref = iir_reference64(q, x64)
@@ -4769,9 +4780,12 @@ def pscan_phase(torch, dev, card, xs):
     R, T = xp.shape
     ns = b.shape[0]
     # x in and y out once; per sample and section the kernel's two walks
-    # (7 and 9 operations) and its share of the 10 combines a chunk (8
-    # each, a chunk of 16)
-    n_ops = R * T * ns * (7 + 9 + 10 * 8 / 16)
+    # (7 and 9 operations) and its share of the 6 combines a chunk (8
+    # each: 5 in the warp, the lane power's), and warp 0's log2(warps)
+    # over the warps' totals a tile (on its 32 lanes)
+    C = CHUNK[False]
+    n_ops = R * ns * (T * (7 + 9 + 6 * 8 / C) + T / (C * THREADS)
+                      * ((THREADS // 32).bit_length() - 1) * 8 * 32)
     bd = bound(2 * R * T * 4 + (2 * ns * 3 + 2 * R * ns * 2) * 4, n_ops)
     t_bytes = (2 * R * T * 4) / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
@@ -4783,7 +4797,8 @@ def pscan_phase(torch, dev, card, xs):
           f" of it; iir_scan on the same rows and filter {sc1:.4f}, "
           f"{sc2:.4f} ms, {(sc1 + sc2) / (k1 + k2):.1f} times iir_pscan; "
           f"plain version {p1:.1f}, {p2:.1f} ms; a {AN_B}x{AN_T} complex "
-          f"block through iirfilt_sos(butter 7) by backend: "
+          f"block through iirfilt_sos(butter 7) by backend (the scan on "
+          f"the {2 * AN_B} plane rows): "
           + ", ".join(f"{be} {v[0]:.4f}, {v[1]:.4f} ms"
                       for be, v in step.items()), flush=True)
     return {

@@ -91,10 +91,11 @@ def _work_dtype(*ts):
             else torch.float32)
 
 
-def _scan(bs, as_, state, x, kernel=iir_scan):
+def _scan(bs, as_, state, x, kernel=None):
     """The DF2T cascade bs/as_ [ns, n] over x [..., T] from state
     [..., ns, n-1] on `iir_scan` (or `iir_pscan`, n = 3); real
     coefficients on a complex stream run on its two planes."""
+    kernel = iir_scan if kernel is None else kernel
     batch, T = x.shape[:-1], x.shape[-1]
     ns, n = bs.shape
     if x.is_complex() and not bs.is_complex():
@@ -110,23 +111,28 @@ def _scan(bs, as_, state, x, kernel=iir_scan):
     return y.reshape(batch + (T,)), s.reshape(batch + (ns, n - 1))
 
 
+def _cascade(B, A, carry, x, kernel=None):
+    """`_scan` with the stream and carry in the working type and real
+    coefficients kept real, so that a complex stream runs as its planes."""
+    dt, cf = _work_dtype(B, A, x), _work_dtype(B, A)
+    return _scan(B.to(cf), A.to(cf), carry.to(dt), x.to(dt), kernel=kernel)
+
+
 def iir_apply_tf(b, a, carry, x):
     """One block of DF2T IIR filtering; carry = internal state [..., n-1].
 
     y[t] = b0*x[t] + s0;  s_i = b_{i+1} x - a_{i+1} y + s_{i+1}
     (transposed direct form II, reference iirfilt.c)."""
     n = max(b.shape[-1], a.shape[-1])
-    dt = _work_dtype(b, a, x)
-    bp = torch.nn.functional.pad(b.to(dt), (0, n - b.shape[-1]))
-    ap = torch.nn.functional.pad(a.to(dt), (0, n - a.shape[-1]))
-    y, s = _scan(bp[None], ap[None], carry.to(dt)[..., None, :], x.to(dt))
+    bp = torch.nn.functional.pad(b, (0, n - b.shape[-1]))
+    ap = torch.nn.functional.pad(a, (0, n - a.shape[-1]))
+    y, s = _cascade(bp[None], ap[None], carry[..., None, :], x)
     return y, s[..., 0, :]
 
 
 def iir_apply_sos(B, A, carry, x):
     """Cascade of biquads; B, A: [n_sections, 3]; carry: [..., ns, 2]."""
-    dt = _work_dtype(B, A, x)
-    return _scan(B.to(dt), A.to(dt), carry.to(dt), x.to(dt))
+    return _cascade(B, A, carry, x)
 
 
 def _df2t_ss(b, a):
@@ -341,9 +347,7 @@ def iir_apply_sos_pscan(B, A, carry, x):
     kernel on the card, its plain version on the CPU); B, A: [n_sections,
     3]; carry: [..., ns, 2], the scan's convention.  Real coefficients stay
     real, so a complex stream runs as its two float planes."""
-    dt, cf = _work_dtype(B, A, x), _work_dtype(B, A)
-    return _scan(B.to(cf), A.to(cf), carry.to(dt), x.to(dt),
-                 kernel=iir_pscan)
+    return _cascade(B, A, carry, x, kernel=iir_pscan)
 
 
 def iirfilt_sos(B, A, name: str = "iirfilt_sos", backend: str = "auto",

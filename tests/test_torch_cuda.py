@@ -1775,9 +1775,12 @@ def _pscan_case(g, dev, cplx, rows, T, ns):
             _draw(g, dev, cplx, rows, ns, 2))
 
 
-# (rows, whole tiles, extra samples, sections); a tile is CHUNK * THREADS
+# (rows, whole tiles, extra samples, sections); a tile is CHUNK * THREADS;
+# the last two: the ring of two tiles wraps (3 whole tiles and a ragged
+# fourth, 16-byte copies), and 65 sections in two launches across it
 _PSCAN_CASES = [(1, 0, 1, 1), (3, 0, 31, 4), (128, 1, 0, 4), (3, 2, 37, 8),
-                (1, 3, -1, 20), (128, 1, 5, 1), (3, 0, 1000, 65)]
+                (1, 3, -1, 20), (128, 1, 5, 1), (3, 0, 1000, 65),
+                (128, 3, 8, 4), (2, 3, 4, 65)]
 
 
 @pytest.mark.parametrize("cplx", [False, True])
@@ -1805,6 +1808,27 @@ def test_iir_pscan_bit_equal_to_plain(dev, rows, tiles, extra, ns, cplx):
                                                             _bits(sr))
     assert torch.equal(_bits(y2), _bits(y2r))
     assert torch.equal(_bits(s3), _bits(s3r))
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+def test_iir_pscan_rows_not_on_16_bytes(dev, cplx):
+    # x and y one float past a 16-byte boundary, and a T whose rows are not
+    # 16-byte multiples: the float-by-float copies, bit-equal to the plain
+    # version
+    from liquid_dsp_tpu_torch.ops.kernels.iir_pscan import (
+        CHUNK, THREADS, iir_pscan, iir_pscan_reference)
+    g = torch.Generator(device=dev).manual_seed(11)
+    for rows, T, off in ((3, 2 * CHUNK[cplx] * THREADS + 6, 1),
+                         (2, CHUNK[cplx] * THREADS + 1, 0)):
+        x, b, a, s = _pscan_case(g, dev, cplx, rows, T, 3)
+        buf = torch.empty(rows * T + off, dtype=x.dtype, device=dev)
+        xo = buf[off:].view(rows, T)
+        xo.copy_(x)
+        y, s2 = iir_pscan(xo, b, a, s)
+        yr, sr = iir_pscan_reference(x, b, a, s)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(y), _bits(yr)) and torch.equal(_bits(s2),
+                                                                _bits(sr))
 
 
 def test_iir_pscan_on_the_cpu_and_without_a_library(dev, monkeypatch,
@@ -1861,6 +1885,43 @@ def test_pscan_backend_on_the_card_equals_the_cpu(dev, design):
                      dev)
     rms = y_scan.abs().square().mean().sqrt()
     assert float((y - y_scan).abs().max() / rms) < 1e-4
+
+
+@pytest.mark.parametrize("design", [("butter", 7, 0.2), ("butter", 24, 0.2)])
+def test_scan_on_the_planes_equals_the_complex_rows_on_the_card(
+        dev, design, monkeypatch):
+    # iirfilt_sos(backend="scan") on a complex block runs iir_scan on the
+    # stream's float32 plane rows, and its outputs and carries equal those
+    # of iir_scan over complex64 rows with the coefficients cast to
+    # complex64 (the route before the planes), over two carried blocks;
+    # butter 24 is 12 sections, two launches a call
+    from liquid_dsp_tpu_torch.design.iirdes import iirdes_sos
+    from liquid_dsp_tpu_torch.ops import iir
+    from liquid_dsp_tpu_torch.ops.kernels.iir_scan import (iir_scan,
+                                                           launch_groups)
+    B, A = iirdes_sos(*design)
+    ns = B.shape[0]
+    q = iir.iirfilt_sos(B, A, backend="scan").to(dev)
+    g = torch.Generator().manual_seed(ns)
+    blocks = [torch.randn(8, n, dtype=torch.complex64, generator=g).to(dev)
+              for n in (20000, 333)]
+    rows = []
+
+    def rec(x, b, a, s):
+        rows.append((tuple(x.shape), x.dtype, b.dtype))
+        return iir_scan(x, b, a, s)
+
+    monkeypatch.setattr(iir, "iir_scan", rec)
+    c = cc = q.init(batch_shape=(8,), device=dev)
+    bc, ac = q.B.to(torch.complex64), q.A.to(torch.complex64)
+    for x in blocks:
+        k0 = iir_scan.launches
+        y, c = q(c, x)
+        assert iir_scan.launches == k0 + len(launch_groups(ns, 3))
+        yc, cc = iir._scan(bc, ac, cc, x, kernel=iir_scan)
+        assert torch.equal(y, yc) and torch.equal(c, cc)
+    assert rows == [((16, n), torch.float32, torch.float32)
+                    for n in (20000, 333)]
 
 
 def _analog(kind, noise):

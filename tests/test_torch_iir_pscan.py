@@ -229,11 +229,16 @@ def _scipy_case(cplx, seed):
 
 @pytest.mark.parametrize("cplx", [False, True])
 @pytest.mark.parametrize("chunk,threads", [(1, 1), (1, 64), (2, 8), (4, 4),
-                                           (16, 2), (32, 16), (None, 1024)])
+                                           (16, 2), (32, 16), (None, 1024),
+                                           (2, 32), (4, 64), (1, 128),
+                                           (1, 1024), (1, 512), (1, 256)])
 def test_plain_version_at_chunks_and_tiles_vs_float64(chunk, threads, cplx):
     # 333 samples: many tiles at small ones, a ragged last tile, a tile
-    # longer than the row at the kernel's own; from a random carry, y and
-    # the carry against float64 scipy (sosfilt's zi is the same DF2T state)
+    # longer than the row at the kernel's own; at the two-level combine's
+    # edges: one warp of 32 chunks (tiles of 64, 5 and a ragged sixth), two
+    # warps (tiles of 256), four, 32, 16 and the kernel's 8 with a single
+    # ragged tile of one-sample chunks; from a random carry, y and the
+    # carry against float64 scipy (sosfilt's zi is the same DF2T state)
     x, B, A, s = _scipy_case(cplx, 17)
     y, st = iir_pscan_reference(*(torch.from_numpy(v) for v in (x, B, A, s)),
                                 chunk=chunk, threads=threads)
