@@ -420,12 +420,24 @@ card (the cards in turn where there are several):
      card synchronized), and torch.profiler over the sharded chain's and
      receiver's steps.
 
+Then Proc.scan_blocks, the JAX package's run over [N_blocks, ..., T]:
+
+ 43. the headline chain (phase 3's proc, on mix_fir_decim) through
+     scan_blocks over 3 blocks of 64 x 262144 planes with device=cuda:
+     the stacked output and the carry torch.equal to 3 forward calls,
+     mix_fir_decim launched 3 times in the scan and block 0 held to its
+     plain version (< 2e-4 of rms), the scan's ms beside the 3 calls';
+     the frame64 stream receiver (framesync64_stream) over 2 blocks of
+     128 x 32768: every leaf of its NamedTuple output, stacked on axis
+     0, and its carry equal bit for bit to 2 forward calls,
+     suppress_scan launched once a block.
+
 The JSON line before the card's name lists all seventeen kernels, each
 with its launches on its main path (symsync_scan and branch_bank on
 symsync and, in "launches_by_path", the tracker's sequential route;
 pll_lms on that route; symsync_pll_lms on the fused route; mix_fir_decim also per path, in
-"launches_by_path": the headline chain, multirate_rx, stream_runner and
-the StagePipeline; fir_real on firfilt(backend="pallas") and the
+"launches_by_path": the headline chain, multirate_rx, stream_runner,
+the StagePipeline and the headline chain's scan_blocks; fir_real on firfilt(backend="pallas") and the
 time-sharded chain; codebook_argmax also per path, in
 "launches_by_path": frame64 receiver, scanner, flexframe receiver, GMSK
 receiver, OFDM receiver, OFDMFlexFrameSync, the time-sharded receiver; viterbi_acs on the GMSK
@@ -437,7 +449,7 @@ lax.associative_scan it replaces under "recurrence"; cvsd_scan
 on cvsd_encode/cvsd_decode; eqlms_scan and eqrls_scan on the equalizer
 path; suppress_scan per path, in "launches_by_path": frame64 receiver,
 scanner, flexframe receiver, GMSK receiver, OFDM receiver, the
-time-sharded receiver; ldpc_bp on ldpc_decoder_device, per mode; each
+time-sharded receiver, framesync64_stream's scan_blocks; ldpc_bp on ldpc_decoder_device, per mode; each
 counted from 0 over its own run), its error against the plain version
 (for viterbi_acs the count of decoded bits that differ, for ldpc_bp of
 the final messages), its time,
@@ -1018,6 +1030,8 @@ def main():
     took("phase 39")
     pa = parallel_phase(torch, dev, card)
     took("phase 40")
+    sb = scan_blocks_phase(torch, dev, card)
+    took("phase 43")
     # each path's run counted from 0; the other kernel's count was checked
     # to be 0 there
     scan_entry["launches_by_path"] = {"analog_tx": scan_entry["launches"],
@@ -1028,9 +1042,10 @@ def main():
     mfd["launches_by_path"] = {"headline": mfd["launches"],
                                "multirate_rx": mr_launches,
                                "stream_runner": sr_launches,
-                               "stage_pipeline": pa["mix_fir_decim"][0]}
+                               "stage_pipeline": pa["mix_fir_decim"][0],
+                               "scan_blocks": sb["mix_fir_decim"][0]}
     mfd["max_abs_err"] = max(mfd["max_abs_err"], mr_err, sr_err,
-                             pa["mix_fir_decim"][1])
+                             pa["mix_fir_decim"][1], sb["mix_fir_decim"][1])
     fr = next(k for k in kernels if k["name"] == "fir_real")
     fr["launches_by_path"] = {"firfilt_pallas": fr["launches"],
                               "time_sharded_chain": pa["fir_real"][0]}
@@ -1059,7 +1074,9 @@ def main():
                               "gmskframe_rx_stream": gm_ss,
                               "ofdmflex_rx_stream": of_ss,
                               "framesync64_time_sharded":
-                                  pa["suppress_scan"][0]}
+                                  pa["suppress_scan"][0],
+                              "framesync64_stream.scan_blocks":
+                                  sb["suppress_scan"]}
     kernels += [vt, scan_entry, block_entry, cvsd_entry] + eq_entries
     pscan_entry["launches_by_path"] = {"iirfilt_sos_pscan":
                                        pscan_entry["launches"]}
@@ -5894,6 +5911,122 @@ def parallel_phase(torch, dev, card):
             "codebook_argmax": (got["codebook_argmax"], 0.0),
             "suppress_scan": (got["suppress_scan"], 0.0),
             "mix_fir_decim": (got["mix_fir_decim"], mfd_err)}
+
+
+def same_bits(torch, a, b):
+    """Trees of tensors (dicts, tuples, NamedTuples) equal bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_bits(torch, a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (tuple, list)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(same_bits(torch, u, v) for u, v in zip(a, b)))
+    return a.dtype == b.dtype and bits_equal(torch, a, b)
+
+
+def scan_blocks_phase(torch, dev, card):
+    """Phase 43: Proc.scan_blocks on the card, the headline chain and the
+    frame64 stream receiver, each against as many forward calls.  Returns
+    {"mix_fir_decim": (launches in the chain's scan, max|err| against the
+    plain version), "suppress_scan": launches in the receiver's scan}."""
+    from liquid_dsp_tpu_torch import chain, fuse, kernel_fuse, planar
+    from liquid_dsp_tpu_torch.design.firdes import firdes_kaiser
+    from liquid_dsp_tpu_torch.framing.frame64 import (FRAME64_LEN,
+                                                      framesync64_stream)
+    from liquid_dsp_tpu_torch.ops.fir import firfilt
+    from liquid_dsp_tpu_torch.ops.kernels.mix_fir_decim import (
+        mix_fir_decim, mix_fir_decim_reference)
+    from liquid_dsp_tpu_torch.ops.kernels.suppress_scan import suppress_scan
+    from liquid_dsp_tpu_torch.ops.nco import nco
+    from liquid_dsp_tpu_torch.ops.resample import msresamp
+
+    # 43. the headline chain, as phase 3 builds it, over NBLK blocks
+    proc = planar(kernel_fuse(fuse(chain(
+        nco(dphi=DPHI, direction="down"),
+        firfilt(firdes_kaiser(64, 0.2, 60.0)),
+        firfilt(firdes_kaiser(57, 0.3, 60.0)),
+        msresamp(0.5, 60.0))))).to(dev)
+    kern = proc.inner
+    gen = torch.Generator(device=dev).manual_seed(43)
+    xs = (torch.randn(NBLK, B, T, generator=gen, device=dev),
+          torch.randn(NBLK, B, T, generator=gen, device=dev))
+    mix_fir_decim.launches = 0
+    y, carry = proc.scan_blocks(xs, batch_shape=(B,), device=dev)
+    torch.cuda.synchronize()
+    launches = mix_fir_decim.launches
+    check(isinstance(y, tuple) and all(
+        p.shape == (NBLK, B, T // 2) and p.dtype == torch.float32
+        and bool(torch.isfinite(p).all()) for p in y),
+        f"scan_blocks: output {[tuple(p.shape) for p in y]}")
+    check(launches == NBLK, f"scan_blocks: mix_fir_decim launched "
+          f"{launches} times over {NBLK} blocks")
+    c0 = proc.init(batch_shape=(B,), device=dev)
+
+    def forwards():
+        c, ys = c0, []
+        for n in range(NBLK):
+            yn, c = proc(c, (xs[0][n], xs[1][n]))
+            ys.append(yn)
+        return ys, c
+
+    ys, c = forwards()
+    check(all(torch.equal(y[p], torch.stack([o[p] for o in ys]))
+              for p in (0, 1)), "scan_blocks: the headline chain's output "
+          "differs from its forward calls")
+    check(carry.keys() == c.keys() and all(torch.equal(carry[k], c[k])
+                                           for k in c),
+          "scan_blocks: the headline chain's carry differs from its "
+          "forward calls'")
+    err, rel = complex_err((y[0][0], y[1][0]), mix_fir_decim_reference(
+        xs[0][0], xs[1][0], c0["tr"], c0["ti"], c0["theta"], kern.ramp_c,
+        kern.ramp_s, kern.taps, down=kern.down, sgn=kern.sgn,
+        dphi=kern.dphi))
+    check(rel < TOL_F32, f"scan_blocks: block 0 vs plain {rel:.3e}")
+    del ys, c
+    scan_ms = time_ms(lambda: proc.scan_blocks(xs, carry=c0), iters=10)
+    fwd_ms = time_ms(forwards, iters=10)
+    del xs, y, carry
+
+    # the frame64 stream receiver over 2 blocks: a NamedTuple output
+    x_np, sent = make_rx_stream(np.random.default_rng(43))
+    xb = torch.from_numpy(np.ascontiguousarray(
+        x_np[:, :2 * RX_T].reshape(RX_B, 2, RX_T).transpose(1, 0, 2))
+    ).to(dev)
+    del x_np
+    rx = framesync64_stream(RX_T).to(dev)
+    suppress_scan.launches = 0
+    out, rc = rx.scan_blocks(xb, batch_shape=(RX_B,), device=dev)
+    torch.cuda.synchronize()
+    ss_launches = suppress_scan.launches
+    check(ss_launches == 2, f"scan_blocks: suppress_scan launched "
+          f"{ss_launches} times over 2 receiver blocks")
+    outs, c = [], rx.init(batch_shape=(RX_B,), device=dev)
+    for n in range(2):
+        o, c = rx(c, xb[n])
+        outs.append(o)
+    check(type(out) is type(outs[0]) and all(
+        same_bits(torch, leaf, torch.stack([o[k] for o in outs]))
+        for k, leaf in enumerate(out)), "scan_blocks: the receiver's "
+          "stacked output differs from its forward calls'")
+    check(same_bits(torch, rc, c), "scan_blocks: the receiver's carry "
+          "differs from its forward calls'")
+    n_valid = int(out.valid.sum())
+    n_sent = sum(s0 + FRAME64_LEN <= 2 * RX_T
+                 for per in sent for s0, _, _ in per)
+    check(0 < n_valid <= n_sent, f"scan_blocks: {n_valid} frames valid, "
+          f"{n_sent} sent whole in 2 blocks")
+    print(f"scan_blocks ({card}): the headline chain over {NBLK} blocks of "
+          f"{B}x{T} planes, y {(NBLK, B, T // 2)} x 2 planes and carry "
+          f"torch.equal to {NBLK} forward calls; mix_fir_decim "
+          f"launches {launches}; block 0 vs plain max|err| {err:.3e}, "
+          f"max|err|/rms {rel:.3e} (< {TOL_F32}); scan {scan_ms:.4f} ms, "
+          f"{NBLK} forward calls {fwd_ms:.4f} ms (CUDA events, 10 runs "
+          f"after 3); framesync64_stream over 2 blocks of {RX_B}x{RX_T}: "
+          f"{type(out).__name__}'s {len(out)} leaves stacked on axis 0 and "
+          f"the carry equal bit for bit to 2 forward calls, {n_valid} "
+          f"frames valid ({n_sent} sent whole in the 2 blocks), "
+          f"suppress_scan launches {ss_launches}", flush=True)
+    return {"mix_fir_decim": (launches, err), "suppress_scan": ss_launches}
 
 
 def iir_reference64(q, x):

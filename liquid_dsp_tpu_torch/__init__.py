@@ -19,6 +19,8 @@ Package layout:
   compat — the reference C library's names
 """
 
+__version__ = "0.1.0"   # the JAX package's
+
 from .core import LTI, Chain, Proc, chain  # noqa: F401
 from .fuse import fuse, fused_fir, kernel_fuse  # noqa: F401
 from .planar import planar, to_planes, from_planes  # noqa: F401

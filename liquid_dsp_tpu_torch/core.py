@@ -22,6 +22,7 @@ its input tensor lies.  The entry points that take host arrays
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Optional, Tuple
 
@@ -31,6 +32,34 @@ from torch import nn
 
 __all__ = ["LTI", "Proc", "Chain", "chain", "planar_per_plane",
            "entry_device", "entry_tensor"]
+
+
+@contextlib.contextmanager
+def full_f32():
+    """cuBLAS matmuls in full float32 inside the block, whatever the
+    global TF32 switch says: where a product feeds a tolerance (the JAX
+    package pins HIGHEST precision there)."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def tree_map(fn, tree, *rest):
+    """fn over the tensor leaves of trees of one structure (dicts, lists,
+    tuples; a NamedTuple keeps its type), as `jax.tree.map` walks a
+    pytree; a leaf that is no tensor (None, a number) is kept as it is in
+    ``tree``."""
+    if isinstance(tree, dict):
+        return type(tree)((k, tree_map(fn, v, *(r[k] for r in rest)))
+                          for k, v in tree.items())
+    if isinstance(tree, (tuple, list)):
+        kids = [tree_map(fn, *z) for z in zip(tree, *rest)]
+        return type(tree)(*kids) if hasattr(tree, "_fields") \
+            else type(tree)(kids)
+    return fn(tree, *rest) if torch.is_tensor(tree) else tree
 
 
 def entry_device(device="cuda") -> torch.device:
@@ -115,6 +144,31 @@ class Proc(nn.Module):
 
     def forward(self, carry, x):
         raise NotImplementedError
+
+    def scan_blocks(self, x_blocks, carry=None, **init_kw):
+        """Run over ``[N_blocks, ..., T]`` block after block, the carry
+        handed on (the JAX package's `lax.scan` over axis 0).
+
+        ``x_blocks`` is a tensor or a tuple/dict of them (a planar stage's
+        ``(re, im)``), each leaf sliced on axis 0.  With no carry the run
+        starts from ``self.init(**init_kw)``: pass ``device=`` there as to
+        `init`.  Returns ``(y, carry)``: the blocks' outputs stacked on a
+        new axis 0 leaf by leaf (tuples, NamedTuples and dicts keep their
+        type), and the carry the last block left.
+        """
+        sizes = set()
+        tree_map(lambda t: sizes.add(t.shape[0]), x_blocks)
+        if len(sizes) != 1 or not min(sizes):
+            raise ValueError(f"scan_blocks: the leaves of x_blocks have "
+                             f"{sorted(sizes)} blocks on axis 0; they must "
+                             "agree, and be at least 1")
+        if carry is None:
+            carry = self.init(**init_kw)
+        ys = []
+        for n in range(sizes.pop()):
+            y, carry = self(carry, tree_map(lambda t: t[n], x_blocks))
+            ys.append(y)
+        return tree_map(lambda *leaves: torch.stack(leaves), *ys), carry
 
     def _buffer(self, name: str, value) -> None:
         """Register a host array as a buffer (copied: a buffer never

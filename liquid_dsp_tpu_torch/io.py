@@ -12,11 +12,15 @@ format      wire layout                            scale
 ``cf32``    float32 I,Q interleaved                1
 ==========  =====================================  ==================
 
-The port takes the JAX package's numpy paths (`liquid_dsp_tpu/io.py`),
-which equal its native C helper bit for bit; everything here is host
-numpy.  `iq_to_complex` / `complex_to_iq` convert whole buffers;
-`iq_stream` yields fixed-size blocks shaped for the streaming Proc
-pipeline (`runtime.StreamRunner` moves them to the device).
+The port takes the JAX package's numpy paths (`liquid_dsp_tpu/io.py`)
+and equals them bit for bit; it has no native helper.  The JAX
+package's native C helper (`liquid_dsp_tpu/native/iokit.c`) multiplies
+by a float32 reciprocal where numpy divides, so the planes it reads
+differ from these by up to 1 ulp (tests/test_torch_io_runtime.py).
+Everything here is host numpy.  `iq_to_complex` / `complex_to_iq`
+convert whole buffers; `iq_stream` yields fixed-size blocks shaped for
+the streaming Proc pipeline (`runtime.StreamRunner` moves them to the
+device).
 """
 from __future__ import annotations
 

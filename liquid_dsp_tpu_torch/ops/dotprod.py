@@ -82,13 +82,22 @@ def vec_normalize(x):
     return x / torch.clamp(vec_norm(x), min=1e-30)[..., None]
 
 
-def conv1d_real(x, h, stride: int = 1):
+def conv1d_real(x, h, stride: int = 1, lhs_dilation: int = 1):
     """Valid-mode real 1-D convolution over the last axis.
 
     x: [..., T] float; h: [L] float (convolution kernel, flipped here so
     y[t] = sum_j h[j] * x[t*stride - j + L - 1]).
     Returns [..., (T - L)//stride + 1].
+
+    ``lhs_dilation`` is the JAX package's parameter; 1 is the only value
+    it runs (its VALID padding has no transposed form), so any other
+    value raises ValueError here too.
     """
+    if lhs_dilation != 1:
+        raise ValueError(
+            f"lhs_dilation={lhs_dilation!r}: only 1 is supported; the JAX "
+            "package refuses any other value too (lax.conv_general_dilated "
+            "has no VALID padding for a transposed convolution)")
     batch_shape = x.shape[:-1]
     lhs = x.reshape(-1, 1, x.shape[-1])
     rhs = torch.flip(h, (-1,)).reshape(1, 1, -1).to(lhs.dtype)
@@ -96,20 +105,20 @@ def conv1d_real(x, h, stride: int = 1):
     return out.reshape(batch_shape + (out.shape[-1],))
 
 
-def conv1d(x, h, stride: int = 1):
+def conv1d(x, h, stride: int = 1, lhs_dilation: int = 1):
     """Valid-mode 1-D convolution supporting any real/complex combination
     of input x and taps h, decomposed into real convolutions."""
     xc, hc = x.is_complex(), h.is_complex()
     if not xc and not hc:
-        return conv1d_real(x, h, stride)
+        return conv1d_real(x, h, stride, lhs_dilation)
     if xc and not hc:
-        return torch.complex(conv1d_real(x.real, h, stride),
-                             conv1d_real(x.imag, h, stride))
+        return torch.complex(conv1d_real(x.real, h, stride, lhs_dilation),
+                             conv1d_real(x.imag, h, stride, lhs_dilation))
     if not xc and hc:
-        return torch.complex(conv1d_real(x, h.real, stride),
-                             conv1d_real(x, h.imag, stride))
+        return torch.complex(conv1d_real(x, h.real, stride, lhs_dilation),
+                             conv1d_real(x, h.imag, stride, lhs_dilation))
     # complex * complex: Karatsuba — 3 real convolutions instead of 4
-    k1 = conv1d_real(x.real + x.imag, h.real, stride)
-    k2 = conv1d_real(x.real, h.imag - h.real, stride)
-    k3 = conv1d_real(x.imag, h.imag + h.real, stride)
+    k1 = conv1d_real(x.real + x.imag, h.real, stride, lhs_dilation)
+    k2 = conv1d_real(x.real, h.imag - h.real, stride, lhs_dilation)
+    k3 = conv1d_real(x.imag, h.imag + h.real, stride, lhs_dilation)
     return torch.complex(k1 - k3, k1 + k2)

@@ -46,12 +46,12 @@ Real coefficients filter each float plane of a complex stream on its own
 """
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
 from ..core import Proc, planar_per_plane
+# a module name of its own: chip_smoke.py's TF32 control swaps it
+from ..core import full_f32 as _full_f32
 from .kernels.iir_block_state import MAX_P as BLOCK_MAX_P
 from .kernels.iir_block_state import iir_block_state
 from .kernels.iir_pscan import iir_pscan
@@ -71,19 +71,6 @@ def _norm_ba(b, a):
     b = b / a[0]
     a = a / a[0]
     return b, a
-
-
-@contextlib.contextmanager
-def _full_f32():
-    """cuBLAS in full float32 for the block matmuls, whatever the global
-    TF32 switch says (the JAX package pins HIGHEST: the outputs feed the
-    goldens' tolerances)."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _work_dtype(*ts):

@@ -26,19 +26,10 @@ from typing import Optional
 
 import torch
 
-from ..core import Chain, Proc, entry_tensor
+from ..core import Chain, Proc, entry_tensor, tree_map
 from .mesh import Mesh, move
 
 __all__ = ["time_shard_apply", "run_time_sharded", "stream_jit"]
-
-
-def tree_map(fn, tree):
-    """fn over the tensor leaves of a carry (dicts, tuples, lists)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree) if torch.is_tensor(tree) else tree
 
 
 def replicas(proc: Proc, devices) -> dict:

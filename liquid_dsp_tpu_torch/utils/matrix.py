@@ -16,12 +16,10 @@ package.
 """
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
-from ..core import entry_tensor
+from ..core import entry_tensor, full_f32 as _full_f32
 
 __all__ = [
     "matrix_add", "matrix_sub", "matrix_mul", "matrix_aug",
@@ -30,16 +28,6 @@ __all__ = [
     "matrix_ludecomp", "matrix_qrdecomp", "matrix_chol",
     "matrix_gramschmidt", "SMatrix",
 ]
-
-
-@contextlib.contextmanager
-def _full_f32():
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def _mm(a, b):

@@ -14,9 +14,10 @@ import pytest
 import _torch_port  # noqa: F401  (torch thread cap)
 from liquid_dsp_tpu.design import firdes as jfirdes
 from liquid_dsp_tpu.design import special as jspecial
-from liquid_dsp_tpu_torch.design import firdes, firdespm, special
+from liquid_dsp_tpu_torch.design import firdes, special
 
-# the JAX package's design/__init__ binds the name firdespm to the function
+# both packages' design/__init__ bind the name firdespm to the function
+firdespm = importlib.import_module("liquid_dsp_tpu_torch.design.firdespm")
 jfirdespm = importlib.import_module("liquid_dsp_tpu.design.firdespm")
 
 NYQUIST = ["rcos", "fexp", "fsech", "farcsech", "rfexp", "rfsech",
