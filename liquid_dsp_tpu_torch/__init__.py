@@ -16,6 +16,7 @@ Package layout:
   fuse, planar — chain transforms; convert — state to and from JAX
   fec/, framing/, modem/, multichannel/, utils/ — as in liquid_dsp_tpu
   io — IQ capture formats; runtime — StreamRunner, the production loop
+  trace — the block step's spans, recorded while torch.profiler records
   compat — the reference C library's names
 """
 

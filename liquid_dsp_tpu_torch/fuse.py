@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import trace
 from .core import LTI, Chain, Proc, chain, planar_per_plane
 from .ops.dotprod import conv1d
 from .ops.fir import _coerce, _np_taps, fir_apply_matmul
@@ -143,15 +144,19 @@ class MixFIRDecim(Proc):
         od = (r.dtype if self.out_dtype == "input"
               else torch.float32 if self.out_dtype is None
               else self.out_dtype)
-        yr, yi = mix_fir_decim(
-            r, i, carry["tr"], carry["ti"], carry["theta"],
-            self.ramp_c, self.ramp_s, self.taps, down=self.down,
-            sgn=self.sgn, dphi=self.dphi, out_dtype=od)
-        step = float(np.float32(np.mod(self.dphi * r.shape[-1], 2 * np.pi)))
-        theta = torch.remainder(carry["theta"] + step + np.pi,
-                                2 * np.pi) - np.pi
-        new_carry = {"tr": r[:, -SUB:].float().contiguous(),
-                     "ti": i[:, -SUB:].float().contiguous(), "theta": theta}
+        with trace.span("mix_fir_decim.launch"):
+            yr, yi = mix_fir_decim(
+                r, i, carry["tr"], carry["ti"], carry["theta"],
+                self.ramp_c, self.ramp_s, self.taps, down=self.down,
+                sgn=self.sgn, dphi=self.dphi, out_dtype=od)
+        with trace.span("mix_fir_decim.carry"):
+            step = float(np.float32(np.mod(self.dphi * r.shape[-1],
+                                           2 * np.pi)))
+            theta = torch.remainder(carry["theta"] + step + np.pi,
+                                    2 * np.pi) - np.pi
+            new_carry = {"tr": r[:, -SUB:].float().contiguous(),
+                         "ti": i[:, -SUB:].float().contiguous(),
+                         "theta": theta}
         if flat:
             yr, yi = yr[0], yi[0]
         return (yr, yi), new_carry

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import trace
 from .core import Proc, entry_device
 from .utils.checkpoint import load_carry, save_carry
 
@@ -38,6 +39,13 @@ class StreamRunner:
     one block, numpy or a tensor, as one contiguous tensor on the device
     (numpy in ``dtype``), runs the step under ``torch.inference_mode``
     and returns the output tensor on the device.
+
+    ``blocks_processed`` counts the calls; ``h2d_bytes`` counts the bytes
+    the calls copied from host memory to a card (numpy blocks and CPU
+    tensors; a block already on the device copies nothing), for a capture
+    loop whose host copy sets its pace.  Both restart at `reset`.  Under
+    `torch.profiler` each call records the spans `runtime.call`,
+    `runtime.h2d` (around such a copy) and `runtime.step` (`trace`).
     """
 
     def __init__(self, proc: Proc, batch_shape=(), dtype=torch.complex64,
@@ -58,6 +66,7 @@ class StreamRunner:
         self.batch_shape = tuple(batch_shape)
         self.dtype = dtype
         self.blocks_processed = 0
+        self.h2d_bytes = 0
         self.carry = self._init(dtype)
 
     def _init(self, dtype):
@@ -66,15 +75,23 @@ class StreamRunner:
                                   device=self.device)
 
     def _block(self, x) -> torch.Tensor:
-        if torch.is_tensor(x):
+        if not torch.is_tensor(x):
+            x = torch.from_numpy(np.ascontiguousarray(
+                x, _NP_DTYPES.get(self.dtype)))
+        if x.device.type != "cpu" or self.device.type == "cpu":
             return x.to(self.device).contiguous()
-        return torch.from_numpy(np.ascontiguousarray(
-            x, _NP_DTYPES.get(self.dtype))).to(self.device)
+        with trace.span("runtime.h2d"):
+            y = x.to(self.device).contiguous()
+        self.h2d_bytes += x.numel() * x.element_size()
+        return y
 
     def __call__(self, x):
-        with torch.inference_mode():
-            y, self.carry = self._step(self.carry, self._block(x))
-        self.blocks_processed += 1
+        with trace.span("runtime.call", self.blocks_processed):
+            with torch.inference_mode():
+                x = self._block(x)
+                with trace.span("runtime.step"):
+                    y, self.carry = self._step(self.carry, x)
+            self.blocks_processed += 1
         return y
 
     def run(self, blocks):
@@ -86,6 +103,7 @@ class StreamRunner:
         self.dtype = dtype
         self.carry = self._init(dtype)
         self.blocks_processed = 0
+        self.h2d_bytes = 0
 
     def save(self, path) -> None:
         """Checkpoint the stream state (carry + block counter)."""

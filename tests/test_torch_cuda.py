@@ -2110,6 +2110,37 @@ def test_stream_runner_on_the_card_equals_the_proc(dev, tmp_path):
     assert float(err / yc.abs().square().mean().sqrt()) < 1e-4
 
 
+def test_stream_runner_counts_its_host_copies(dev):
+    # numpy and CPU-tensor blocks are copied to the card and counted, in
+    # the span runtime.h2d under the profiler; a block on the card is not
+    from torch.profiler import ProfilerActivity, profile
+
+    from liquid_dsp_tpu_torch import chain, trace
+    from liquid_dsp_tpu_torch.design.firdes import firdes_kaiser
+    from liquid_dsp_tpu_torch.ops.fir import firfilt
+    from liquid_dsp_tpu_torch.ops.nco import nco
+    from liquid_dsp_tpu_torch.runtime import StreamRunner
+
+    r = StreamRunner(chain(nco(dphi=0.1), firfilt(firdes_kaiser(32, 0.2,
+                                                                60.0))),
+                     batch_shape=(4,))
+    x = np.ones((4, 4096), np.complex64)
+    r(x)
+    assert r.h2d_bytes == x.nbytes
+    r(torch.from_numpy(x).to(dev))
+    assert r.h2d_bytes == x.nbytes
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        r(torch.from_numpy(x))
+    assert r.h2d_bytes == 2 * x.nbytes
+    got = {s.name: s for s in trace.spans()}
+    assert got["runtime.h2d"].parent == got["runtime.call"].id
+    assert got["runtime.h2d"].block == 2
+    trace.clear()
+    r.reset()
+    assert r.h2d_bytes == 0
+
+
 # --- the equalizers ------------------------------------------------------
 
 def _eq_case(dev, B, T, L, real, seed):
